@@ -1,0 +1,398 @@
+"""Local (intra-tile) event processing — the per-quantum core phase.
+
+Counterpart of ``graphite_tpu/engine/core.py`` on this slice's path
+(simple cores, private L2, ``tpu/miss_chain = 0``, no fast-forward):
+
+  * ``_block_retire`` — every round takes the next ``block_events``
+    events of every tile as one [T, K] window (from the resident window
+    cache) and retires the leading run of simple events through the
+    window walk (engine/kernels/window.py: the CUDA kernel on the card,
+    the plain form on the CPU).
+  * ``_complex_slot`` — one event per tile for the event kinds of this
+    slice: COMPUTE / BRANCH / MEM misses park the tile for resolve,
+    BARRIER_WAIT parks on the barrier, DONE retires the stream.
+  * ``local_advance`` — window rounds until they stop retiring, then one
+    general slot, repeated while anything moves.
+
+The JAX package's ``lax.while_loop``/``lax.cond`` become Python loops
+whose conditions read one device scalar each; their trip counts are part
+of the state (``ctr_window``, ``ctr_complex``, ``round_ctr``) and match
+the JAX loops exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphite_tpu_torch.engine import cache as cachemod
+from graphite_tpu_torch.engine import dense
+from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine.kernels import window as kwindow
+from graphite_tpu_torch.engine.ops import scatter
+from graphite_tpu_torch.engine.state import (
+    PEND_BARRIER, PEND_EX_REQ, PEND_IFETCH, PEND_NONE, PEND_SH_REQ, SimState,
+    TraceArrays)
+from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
+from graphite_tpu_torch.events.schema import ICACHE_BYTES_PER_INSTRUCTION
+from graphite_tpu_torch.isa import DVFSModule, EventOp
+from graphite_tpu_torch import params as params_mod
+from graphite_tpu_torch.params import SimParams
+
+I, S, E, M = cachemod.I, cachemod.S, cachemod.E, cachemod.M
+
+# Stamp stride per engine round: block events use offsets 0..K-1, the
+# complex slot STRIDE-2, resolve fills STRIDE-1.
+STAMP_STRIDE = params_mod.STAMP_STRIDE
+
+_lat = kwindow._lat
+
+
+def _period(state: SimState, module: DVFSModule):
+    """[T] int32 ps-per-cycle of a DVFS module's current clock."""
+    return state.period_ps[:, int(module)]
+
+
+def mcp_tile(params: SimParams) -> int:
+    """Sync/control server tile — the highest tile."""
+    return params.num_tiles - 1
+
+
+def _stamp_base(st: SimState):
+    return st.round_ctr * STAMP_STRIDE
+
+
+def _progress(st: SimState) -> int:
+    """Cursor sum — the local loops' progress witness (host int)."""
+    return int(torch.sum(st.cursor.to(torch.int64)).item())
+
+
+# ===================================================== block retirement
+
+def _window_slice_gather(st: SimState, trace: TraceArrays, width: int):
+    """Gather ``width`` events per tile starting at the cursor; indices
+    clamp at the trace end exactly like the JAX gather."""
+    N = trace.num_events
+    dev = st.cursor.device
+    pos = st.cursor[:, None] + torch.arange(width, dtype=torch.int32,
+                                            device=dev)[None, :]
+    idx = torch.clamp(pos, max=N - 1).to(torch.int64)
+    T = idx.shape[0]
+    meta = torch.gather(trace.meta, 2, idx[None].expand(3, T, width))
+    addr = torch.gather(trace.addr, 1, idx)
+    return meta, addr
+
+
+def _window_refresh(params: SimParams, st: SimState, trace: TraceArrays,
+                    tile_active: torch.Tensor) -> SimState:
+    """Re-gather the [T, WC] resident window slice only when some active
+    tile's next K events fall outside its cached span."""
+    K = params.block_events
+    WC = st.win_meta.shape[2]
+    d = st.cursor - st.win_base
+    ok = (d >= 0) & (d + K <= WC)
+    if not bool(torch.any(tile_active & ~ok).item()):
+        return st
+    meta, addr = _window_slice_gather(st, trace, WC)
+    return st._replace(win_meta=meta, win_addr=addr, win_base=st.cursor,
+                       win_seat=torch.full_like(st.win_seat, -1))
+
+
+def window_operands(params: SimParams, st: SimState, trace: TraceArrays):
+    """Assemble the walk's operands for the next window round: refresh the
+    resident window cache if an active tile outran it, then slice each
+    tile's next K events.  Returns the (possibly refreshed) state and the
+    :class:`~graphite_tpu_torch.engine.kernels.window.WindowIn`."""
+    K = params.block_events
+    T = params.num_tiles
+    N = trace.num_events
+    dev = st.clock.device
+
+    tile_active = (~st.done) & (st.pend_kind == PEND_NONE) \
+        & (st.clock < st.boundary) & (st.cursor < N)
+
+    ar = torch.arange(K, dtype=torch.int32, device=dev)
+    pos = st.cursor[:, None] + ar[None, :]
+    valid_ev = (pos < N) & tile_active[:, None]
+    if st.win_meta.shape[2] >= K:
+        st = _window_refresh(params, st, trace, tile_active)
+        WC = st.win_meta.shape[2]
+        # Post-refresh every active tile's offset is in bounds; inactive
+        # tiles clamp and read junk that valid_ev masks.
+        off = torch.clip(st.cursor - st.win_base, 0, WC - K)
+        oidx = (off[:, None] + ar[None, :]).to(torch.int64)
+        meta = torch.gather(st.win_meta, 2, oidx[None].expand(3, T, K))
+        addr = torch.gather(st.win_addr, 1, oidx)
+    else:
+        meta, addr = _window_slice_gather(st, trace, K)
+
+    wi = kwindow.WindowIn(
+        meta=meta.contiguous(), addr=addr.contiguous(), valid_ev=valid_ev,
+        tile_active=tile_active,
+        tile_ids=torch.arange(T, dtype=torch.int32, device=dev),
+        clock=st.clock, period_ps=st.period_ps, bp_table=st.bp_table,
+        l1i_word=st.l1i.word, l1i_rr=st.l1i.rr_ptr,
+        l1d_word=st.l1d.word, l1d_rr=st.l1d.rr_ptr,
+        l2_word=st.l2.word, l2_rr=st.l2.rr_ptr,
+        boundary=st.boundary, models_enabled=st.models_enabled,
+        stamp_base=_stamp_base(st),
+    )
+    return st, wi
+
+
+def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
+                  trace: TraceArrays) -> SimState:
+    """Retire the leading run of simple events in each tile's [K] window:
+    assemble the walk's operands, run the walk, land its effects."""
+    st, wi = window_operands(params, st, trace)
+    S_ids = st.spawned_at.shape[0]
+    out = kwindow.run_window(params, vp, wi, S_ids)
+
+    # SPAWN: the walk's one cross-tile effect, a scatter-max over the
+    # returned (mask, child, landing-time) triples.
+    spawned_at = scatter(st.spawned_at, out.spawn_child, out.spawn_land,
+                         "max", mask=out.spawn_mask)
+
+    c = st.counters
+    c = c._replace(**{
+        name: getattr(c, name) + out.ctr_inc[i]
+        for i, name in enumerate(kwindow.WINDOW_CTRS)})
+
+    return st._replace(
+        clock=out.clock,
+        cursor=st.cursor + out.n_ret,
+        l1i=st.l1i._replace(word=out.l1i_word, rr_ptr=out.l1i_rr),
+        l1d=st.l1d._replace(word=out.l1d_word, rr_ptr=out.l1d_rr),
+        l2=st.l2._replace(word=out.l2_word, rr_ptr=out.l2_rr),
+        bp_table=out.bp_table,
+        spawned_at=spawned_at,
+        round_ctr=st.round_ctr + 1,
+        ctr_window=st.ctr_window + 1,
+        counters=c,
+    )
+
+
+# ======================================================== complex slot
+
+def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
+                  trace: TraceArrays) -> SimState:
+    """One event per tile, for this slice's event kinds (COMPUTE, BRANCH,
+    MEM_READ, MEM_WRITE, BARRIER_WAIT, DONE, NOP — the simulator refuses
+    traces with any other op at construction, so every other kind's mask
+    in the JAX slot is all-false here and its leaves are untouched)."""
+    T = params.num_tiles
+    N = trace.num_events
+    line_bits = params.line_size.bit_length() - 1
+    dev = state.clock.device
+    rows = torch.arange(T, device=dev)
+    num_bars = state.bar_count.shape[0]
+    mcp = mcp_tile(params)
+    st = state
+    c = st.counters
+
+    active = (~st.done) & (st.pend_kind == PEND_NONE) \
+        & (st.clock < st.boundary) & (st.cursor < N)
+    cur = torch.clamp(st.cursor, max=N - 1).to(torch.int64)
+    ev = trace.meta[:, rows, cur]          # [3, T]
+    addr = trace.addr[rows, cur]
+    op = torch.where(active, ev[0], int(EventOp.NOP))
+    arg = ev[1]
+    arg2 = ev[2]
+
+    en = st.models_enabled
+    clk = st.clock
+
+    p_core = _period(st, DVFSModule.CORE)
+    p_l1i = _period(st, DVFSModule.L1_ICACHE)
+    p_l1d = _period(st, DVFSModule.L1_DCACHE)
+    p_l2 = _period(st, DVFSModule.L2_CACHE)
+    p_nu = _period(st, DVFSModule.NETWORK_USER)
+
+    l1i_ps = _lat(vp.l1i_access_cycles, p_l1i)
+    l1d_ps = _lat(vp.l1d_access_cycles, p_l1d)
+    l2_ps = _lat(vp.l2_access_cycles, p_l2)
+    l2_tag_ps = _lat(vp.l2_tags_access_cycles, p_l2)
+    cycle_ps = _lat(1, p_core)
+
+    line = addr >> line_bits
+    pI = cachemod.probe(st.l1i, line, params.l1i.num_sets)
+    pD = cachemod.probe(st.l1d, line, params.l1d.num_sets)
+    pL2 = cachemod.probe(st.l2, line, params.l2.num_sets)
+
+    stamp = _stamp_base(st) + STAMP_STRIDE - 2
+
+    # ---------------------------------------------------- COMPUTE blocks
+    is_comp = op == EventOp.COMPUTE
+    icount_ev = torch.clamp(arg2 & ((1 << 20) - 1), min=0).to(torch.int64)
+    n_lines = torch.clamp(
+        (icount_ev * ICACHE_BYTES_PER_INSTRUCTION + params.line_size - 1)
+        // params.line_size, min=1)
+    cost_ps = _lat(torch.clamp(arg, min=0), p_core)
+    fetch_ps = icount_ev * l1i_ps
+    comp_l2path = is_comp & ~pI.hit & pL2.hit & en
+    comp_block = is_comp & ~pI.hit & ~pL2.hit & en
+    dt_comp = cost_ps + fetch_ps + torch.where(~pI.hit, n_lines * l2_ps, 0)
+    comp_ok = is_comp & ~comp_block
+
+    # ------------------------------------------------------- BRANCH
+    is_br = op == EventOp.BRANCH
+    taken = arg != 0
+    if params.core.bp_type == "none":
+        correct = torch.ones_like(is_br)
+        dt_br = cycle_ps + l1i_ps
+        bp_table = st.bp_table
+    else:
+        bidx = (addr % params.core.bp_size).to(torch.int64)
+        pred = st.bp_table[rows, bidx]
+        correct = pred == taken
+        dt_br = torch.where(
+            correct, cycle_ps,
+            _lat(vp.bp_mispredict_penalty, p_core)) + l1i_ps
+        bp_table = scatter(st.bp_table, (rows, bidx), taken, "set",
+                           mask=is_br & en)
+
+    # ------------------------------------------------- MEMORY OPERANDS
+    is_rd = op == EventOp.MEM_READ
+    is_wr = op == EventOp.MEM_WRITE
+    is_mem = is_rd | is_wr
+    writable = pD.state >= M
+    l1_ok = pD.hit & (is_rd | writable)
+    mem_l1 = is_mem & l1_ok & en
+    l2_ok = pL2.hit & (is_rd | (pL2.state == M))
+    mem_l2 = is_mem & ~l1_ok & l2_ok & en
+    mem_rem = is_mem & ~l1_ok & ~l2_ok & en
+    dt_mem_l1 = l1d_ps
+    dt_mem_l2 = l1d_ps + l2_ps
+
+    # ------------------------------------------------------ SYNC OPS
+    is_bar = op == EventOp.BARRIER_WAIT
+    to_mcp_ps = noc.unicast_ps(
+        params.net_user, rows, torch.full((T,), mcp, device=dev), 8, p_nu,
+        params.mesh_width, vnet=vp.net_user)
+    NEG = -(2**62)
+    bar_id = torch.clip(arg, 0, num_bars - 1)
+    bar_oh = dense.onehot(bar_id, num_bars)
+    bar_count = st.bar_count + dense.binsum(
+        bar_oh, is_bar, 1).to(st.bar_count.dtype)
+    bar_time = torch.maximum(st.bar_time, dense.binmax(
+        bar_oh, is_bar, clk + to_mcp_ps, NEG))
+
+    is_done = op == EventOp.DONE
+
+    # ------------------------------------------------------ combine dt
+    dt = torch.zeros(T, dtype=torch.int64, device=dev)
+    dt = torch.where(comp_ok & en, dt_comp, dt)
+    dt = torch.where(is_br & en, dt_br, dt)
+    dt = torch.where(mem_l1, dt_mem_l1, dt)
+    dt = torch.where(mem_l2, dt_mem_l2, dt)
+    new_clock = clk + dt
+
+    # ------------------------------------------------- blocking events
+    blocked = comp_block | mem_rem | is_bar
+    kind = torch.where(comp_block, PEND_IFETCH, PEND_NONE)
+    kind = torch.where(mem_rem & is_rd, PEND_SH_REQ, kind)
+    kind = torch.where(mem_rem & is_wr, PEND_EX_REQ, kind)
+    kind = torch.where(is_bar, PEND_BARRIER, kind)
+    pend_kind = torch.where(blocked, kind, st.pend_kind)
+    pend_addr = torch.where(
+        is_bar, arg.to(torch.int64),
+        torch.where(blocked, addr, st.pend_addr))
+    miss_tags_ps = l2_tag_ps
+    issue = clk + torch.where(
+        comp_block, l1i_ps + miss_tags_ps,
+        torch.where(mem_rem, l1d_ps + miss_tags_ps, cycle_ps))
+    pend_issue = torch.where(blocked, issue, st.pend_issue)
+    mdreg = torch.where(is_rd, (arg2 >> 8) & 31, 0)
+    pend_aux = torch.where(blocked,
+                           torch.where(mem_rem, mdreg << 8, arg2),
+                           st.pend_aux)
+    extra = torch.where(comp_block, cost_ps + fetch_ps + (n_lines - 1) * l2_ps,
+                        0)
+    pend_extra = torch.where(blocked, extra, st.pend_extra)
+
+    # ------------------------------------------------- cache updates
+    l1i = cachemod.touch(st.l1i, pI.set_idx, pI.way, is_comp & pI.hit & en,
+                         cachemod.row_word(pI.row, pI.way), stamp)
+    fI = cachemod.fill(l1i, line, torch.full((T,), S, dtype=torch.int32,
+                                             device=dev),
+                       comp_l2path, params.l1i.num_sets,
+                       params.l1i.replacement, stamp)
+    l1i = fI.cache
+    l2 = cachemod.touch(st.l2, pL2.set_idx, pL2.way,
+                        (comp_l2path | mem_l2),
+                        cachemod.row_word(pL2.row, pL2.way), stamp)
+    l1d = cachemod.touch(st.l1d, pD.set_idx, pD.way, mem_l1,
+                         cachemod.row_word(pD.row, pD.way), stamp)
+    fD = cachemod.fill(l1d, line, torch.where(is_wr, M, S).to(torch.int32),
+                       mem_l2, params.l1d.num_sets,
+                       params.l1d.replacement, stamp)
+    l1d = fD.cache
+
+    # ------------------------------------------------------- counters
+    def add(x, mask, val=1):
+        return x + torch.where(mask & en, val, 0)
+
+    c = c._replace(
+        icount=c.icount
+        + torch.where(is_comp & en, icount_ev, 0)
+        + torch.where(((is_mem & ((arg2 & 0xFF) == 0)) | is_br) & en, 1, 0),
+        l1i_access=c.l1i_access + torch.where(is_comp & en, icount_ev, 0)
+        + torch.where(is_br & en, 1, 0),
+        l1i_miss=c.l1i_miss + torch.where(is_comp & ~pI.hit & active & en,
+                                          n_lines, 0),
+        l1d_read=add(c.l1d_read, is_rd),
+        l1d_read_miss=add(c.l1d_read_miss, is_rd & ~l1_ok),
+        l1d_write=add(c.l1d_write, is_wr),
+        l1d_write_miss=add(c.l1d_write_miss, is_wr & ~l1_ok),
+        l2_access=add(c.l2_access, mem_l2 | mem_rem | comp_l2path
+                      | comp_block),
+        l2_miss=add(c.l2_miss, mem_rem | comp_block),
+        branches=add(c.branches, is_br),
+        mispredicts=add(c.mispredicts, is_br & ~correct),
+        barriers=add(c.barriers, is_bar),
+    )
+
+    return st._replace(
+        clock=new_clock,
+        cursor=st.cursor + torch.where(active & ~blocked, 1, 0).to(
+            torch.int32),
+        done=st.done | is_done,
+        done_at=torch.where(is_done, clk, st.done_at),
+        pend_kind=pend_kind.to(torch.int32),
+        pend_addr=pend_addr,
+        pend_issue=pend_issue,
+        pend_aux=pend_aux.to(torch.int32),
+        pend_extra=pend_extra,
+        bp_table=bp_table,
+        l1i=l1i, l1d=l1d, l2=l2,
+        bar_count=bar_count,
+        bar_time=bar_time,
+        round_ctr=st.round_ctr + 1,
+        ctr_complex=st.ctr_complex + 1,
+        counters=c,
+    )
+
+
+def local_advance(params: SimParams, state: SimState,
+                  trace: TraceArrays,
+                  vp: VariantParams = None) -> SimState:
+    """Advance every non-blocked tile through events until the quantum
+    boundary, stream end, or its first remote-blocking event: window
+    rounds until they stop retiring, then one general slot, repeated
+    while the cursor sum moves (capped at max_events_per_quantum)."""
+    if vp is None:
+        vp = variant_params(params)
+    cap = params.max_events_per_quantum
+    i = 0
+    prev = -1
+    cur = _progress(state)
+    while i < cap and (i == 0 or cur > prev):
+        st = state
+        if params.block_events > 0:
+            j, pv, cv = 0, -1, cur
+            while j < cap and (j == 0 or cv > pv):
+                st = _block_retire(params, vp, st, trace)
+                j, pv, cv = j + 1, cv, _progress(st)
+        st = _complex_slot(params, vp, st, trace)
+        i, prev, cur = i + 1, cur, _progress(st)
+        state = st
+    return state

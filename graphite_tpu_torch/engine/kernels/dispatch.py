@@ -1,0 +1,35 @@
+"""Kernel-or-plain choice, by the device a tensor lives on.
+
+Counterpart of ``graphite_tpu/engine/kernels/dispatch.py``'s mode
+resolution.  The JAX package selects a mode from ``tpu/pallas_kernels``;
+the port has no such knob.  A CUDA tensor always takes the hand-written
+kernel (a launch failure raises — there is no fallback on the card), a
+CPU tensor always takes the plain PyTorch form, and any other device is
+refused.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain form); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise NotImplementedError(
+        f"no kernel or plain form for device {t.device}")
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA; without a GPU that raises (never a silent
+    CPU run)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "graphite_tpu_torch runs on CUDA by default and no GPU is "
+            "available; pass device='cpu' to run the plain PyTorch forms")
+    return dev

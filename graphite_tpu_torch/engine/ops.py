@@ -1,0 +1,98 @@
+"""Tensor idioms the JAX engine gets from ``jax.numpy`` and torch lacks.
+
+Three JAX behaviours the engine leans on have no direct torch form, so
+each gets ONE deliberate implementation here that every module calls:
+
+  * ``mode="drop"`` scatters.  The JAX engine masks scatter rows by
+    routing them past the array bound; torch raises on such rows (CPU)
+    or device-asserts (CUDA).  :func:`scatter` pads the flattened target
+    with one scratch element, sends every out-of-range row there, and
+    returns a NEW tensor (JAX's ``.at[]`` is functional too).  No host
+    sync: the row mask never becomes a data-dependent shape.
+  * Unsigned 64-bit arithmetic.  Sharer bitmaps and hash keys are
+    ``uint64`` in JAX; here they are ``int64`` with the same bits.
+    Addition, subtraction, multiplication, ``&``/``|``/``^``/``~`` and
+    left shifts agree bit for bit; right shifts and the modulo do not,
+    hence :func:`lshr` and :func:`umod64`.
+  * First-index ``argmax``/``argmin`` over bool masks (torch has no
+    bool argmax): :func:`first_true`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+def scatter(t: torch.Tensor, idx, vals, op: str = "set",
+            mask: torch.Tensor = None) -> torch.Tensor:
+    """Functional ``t.at[idx].<op>(vals, mode="drop")``.
+
+    ``idx`` is a tuple of integer index tensors (one per leading axis of
+    ``t``, broadcast together); negative indices wrap once, as in JAX,
+    and rows with any index still outside its axis — or with ``mask``
+    False — are dropped.  ``op`` is ``set`` (callers
+    guarantee one writer per element, or identical values), ``add``,
+    ``max`` or ``min`` (order-free).  Returns a new contiguous tensor.
+    """
+    if not isinstance(idx, (tuple, list)):
+        idx = (idx,)
+    idx = torch.broadcast_tensors(*[i.to(torch.int64) for i in idx])
+    shape = t.shape
+    n = t.numel()
+    valid = torch.ones(idx[0].shape, dtype=torch.bool, device=t.device)
+    lin = torch.zeros(idx[0].shape, dtype=torch.int64, device=t.device)
+    stride = 1
+    strides = []
+    for d in range(len(shape) - 1, -1, -1):
+        strides.append(stride)
+        stride *= shape[d]
+    strides = strides[::-1]
+    for d, ix in enumerate(idx):
+        ix = torch.where(ix < 0, ix + shape[d], ix)   # numpy-style wrap
+        valid = valid & (ix >= 0) & (ix < shape[d])
+        lin = lin + ix * strides[d]
+    if mask is not None:
+        valid = valid & mask
+    lin = torch.where(valid, lin, n).reshape(-1)
+    v = torch.as_tensor(vals, device=t.device).to(t.dtype)
+    v = torch.broadcast_to(v, idx[0].shape).reshape(-1)
+    flat = torch.cat([t.reshape(-1), t.new_zeros(1)])
+    if op == "set":
+        flat.index_put_((lin,), v)
+    elif op == "add":
+        flat.index_put_((lin,), v, accumulate=True)
+    elif op in ("max", "min"):
+        if t.dtype == torch.bool:
+            f8 = flat.to(torch.int8)
+            f8.scatter_reduce_(0, lin, v.to(torch.int8),
+                               "amax" if op == "max" else "amin")
+            flat = f8.to(torch.bool)
+        else:
+            flat.scatter_reduce_(0, lin, v, "amax" if op == "max" else "amin")
+    else:
+        raise ValueError(f"unknown scatter op {op!r}")
+    return flat[:n].view(shape)
+
+
+def lshr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns (``uint64 >> s``)."""
+    if s == 0:
+        return x
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def umod64(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``uint64(x) % n`` for int64 bit patterns, right for any n > 0.
+
+    A negative int64 ``x`` stands for ``x + 2**64``; that is congruent to
+    ``x + (2**64 % n)`` mod n, and torch's ``%`` with a positive divisor
+    is already non-negative."""
+    n = int(n)
+    r = x % n
+    return torch.where(x < 0, (r + (2**64 % n)) % n, r)
+
+
+def first_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the first True along ``dim`` (0 when none) — the value of
+    ``jnp.argmax`` on a bool mask."""
+    return torch.argmax(mask.to(torch.int8), dim=dim)
+

@@ -1,0 +1,82 @@
+"""The quantum engine: lax-barrier-synchronised stepping of all tiles.
+
+Counterpart of ``graphite_tpu/engine/quantum.py``: the boundary is
+recomputed from the min clock over runnable tiles (skipping empty
+quanta), and a quantum step is sub-rounds of (local_advance ; resolve)
+while the progress witness moves, capped at ``rounds_per_quantum``.
+``megarun`` runs quantum steps until every stream is done or a quanta
+budget is spent.  The JAX package runs these loops on the device; here
+each loop condition is one host read of a device scalar, and the trip
+counts (``ctr_quantum`` and everything below it) match exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphite_tpu_torch.engine.core import local_advance
+from graphite_tpu_torch.engine.resolve import resolve
+from graphite_tpu_torch.engine.state import (
+    PEND_BARRIER, PEND_CBC, PEND_COND, PEND_CSIG, PEND_JOIN, PEND_MUTEX,
+    PEND_RECV, PEND_SEND, PEND_START, SimState, TraceArrays)
+from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
+from graphite_tpu_torch.params import SimParams
+from graphite_tpu_torch.time_base import TIME_MAX
+
+
+def next_boundary(params: SimParams, state: SimState,
+                  vp: VariantParams = None) -> torch.Tensor:
+    """Advance the barrier boundary past the slowest runnable tile,
+    skipping empty quanta."""
+    k = state.pend_kind
+    sync_blocked = ((k == PEND_RECV) | (k == PEND_BARRIER)
+                    | (k == PEND_MUTEX) | (k == PEND_SEND)
+                    | (k == PEND_COND) | (k == PEND_CSIG)
+                    | (k == PEND_CBC) | (k == PEND_JOIN)
+                    | (k == PEND_START))
+    runnable = ~state.done & ~sync_blocked
+    masked = torch.where(runnable, state.clock, int(TIME_MAX))
+    min_clock = torch.amin(masked)
+    q = vp.quantum_ps if vp is not None else params.quantum_ps
+    nb = (min_clock // q + 1) * q
+    return torch.where(runnable.any(), nb, state.boundary + q).to(
+        torch.int64)
+
+
+def _progress(st: SimState) -> int:
+    return int((torch.sum(st.cursor.to(torch.int64))
+                + torch.sum(st.clock)).item())
+
+
+def quantum_step(params: SimParams, state: SimState,
+                 trace: TraceArrays,
+                 vp: VariantParams = None) -> SimState:
+    """One barrier quantum: sub-rounds of (local_advance ; resolve) while
+    the progress witness (cursor sum + clock sum) moves, capped at
+    ``rounds_per_quantum``."""
+    if vp is None:
+        vp = variant_params(params)
+    state = state._replace(boundary=next_boundary(params, state, vp=vp),
+                           ctr_quantum=state.ctr_quantum + 1)
+    cap = params.rounds_per_quantum
+    i, prev, cur = 0, -1, _progress(state)
+    while i < cap and (i == 0 or cur > prev):
+        state = local_advance(params, state, trace, vp=vp)
+        state = resolve(params, state, vp=vp)
+        i, prev, cur = i + 1, cur, _progress(state)
+    return state
+
+
+def megarun(params: SimParams, state: SimState, trace: TraceArrays,
+            max_quanta: int, vp: VariantParams = None) -> SimState:
+    """Run quantum steps until the simulation completes or ``max_quanta``
+    quanta elapse (the JAX ``megarun_loop`` with ``masked=False``)."""
+    if vp is None:
+        vp = variant_params(params)
+    done = bool(state.all_done().item())
+    n = 0
+    while not done and n < max_quanta:
+        state = quantum_step(params, state, trace, vp=vp)
+        n += 1
+        done = bool(state.all_done().item())
+    return state

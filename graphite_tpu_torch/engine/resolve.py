@@ -1,0 +1,679 @@
+"""Cross-tile resolution of pending requests.
+
+Counterpart of ``graphite_tpu/engine/resolve.py`` on this slice's path:
+``resolve_memory`` (private L1/L2, full-map MSI directory, zero-load mesh,
+the history-ring DRAM queue, ``tpu/miss_chain = 0``) and
+``resolve_barrier``.  Every parked request of every tile is priced and
+applied at once; same-line races are serialised by conflict rounds, in
+which each line's earliest pending request transacts and later ones see
+the post-transaction directory.  The conflict-round ``while_loop`` and
+the pass-level ``cond`` gates become Python loops and ``if``s on one
+device scalar each, running exactly the JAX trip counts (``ctr_conflict``,
+``ctr_resolve`` and ``round_ctr`` are part of the state).
+
+Sharer bitmaps are int64 words with the ``uint64`` bits of the JAX
+package; the modular negations and delta adds wrap identically.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphite_tpu_torch.engine import cache as cachemod
+from graphite_tpu_torch.engine import dense
+from graphite_tpu_torch.engine import directory as dirmod
+from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine import queue_models
+from graphite_tpu_torch.engine.core import STAMP_STRIDE, _lat, _period, \
+    mcp_tile
+from graphite_tpu_torch.engine.ops import first_true, scatter, umod64
+from graphite_tpu_torch.engine.state import (
+    PEND_BARRIER, PEND_EX_REQ, PEND_IFETCH, PEND_NONE, PEND_RECV,
+    PEND_SH_REQ, SimState, dword_owner, dword_pack, dword_stamp,
+    dword_state, dword_tag, dword_with_meta)
+from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
+from graphite_tpu_torch.isa import DVFSModule
+from graphite_tpu_torch.params import SimParams
+
+I, S, O, E, M = (cachemod.I, cachemod.S, cachemod.O, cachemod.E,
+                 cachemod.M)
+
+# Control-message payload bytes (ShmemMsg header) and the per-target
+# owner-delivery budget (graphite_tpu/engine/kernels/chain.py).
+CTRL_BYTES = 8
+J_OWN = 8
+
+_home_fold = dense.home_fold
+_BIG = 2**62
+_oh = dense.onehot
+_sel = dense.sel
+_fcfs_keys = dense.fcfs_keys
+_elect = dense.elect
+_grouped_rank = dense.grouped_rank
+
+
+def home_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
+    """Home (memory-controller/directory) tile of a line."""
+    return _home_fold(line, params.dram.num_controllers) \
+        * params.dram.controller_home_stride
+
+
+def dram_site_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
+    """Memory-controller tile for a line (== home for private L2)."""
+    return _home_fold(line, params.dram.num_controllers) \
+        * params.dram.controller_home_stride
+
+
+def dir_set_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
+    """Directory set within a home tile, XOR-folding the high line bits."""
+    ndsets = params.directory.num_sets
+    nslices = params.dram.num_controllers
+    x = line // nslices
+    bits = ndsets.bit_length() - 1
+    x = x ^ (x >> bits) ^ (x >> (2 * bits)) ^ (x >> (3 * bits))
+    return (x % ndsets).to(torch.int32)
+
+
+def _unblock(state: SimState, mask, completion, sync: bool) -> SimState:
+    c = state.counters
+    stall = torch.where(mask, completion - state.pend_issue, 0)
+    if sync:
+        c = c._replace(sync_stall_ps=c.sync_stall_ps + stall)
+    else:
+        c = c._replace(mem_stall_ps=c.mem_stall_ps + stall)
+    return state._replace(
+        clock=torch.where(mask, completion, state.clock),
+        cursor=state.cursor + torch.where(mask, 1, 0).to(torch.int32),
+        pend_kind=torch.where(mask, PEND_NONE, state.pend_kind).to(
+            torch.int32),
+        counters=c,
+    )
+
+
+def _parked(st: SimState) -> torch.Tensor:
+    k = st.pend_kind
+    return (k == PEND_SH_REQ) | (k == PEND_EX_REQ) | (k == PEND_IFETCH)
+
+
+# ===================================================================== memory
+
+def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
+                  ftbl: torch.Tensor):
+    """One conflict round of resolve_memory (the JAX ``round_body``)."""
+    T = params.num_tiles
+    A = params.directory.associativity
+    W = state.dir_sharers.shape[0] // A
+    K = min(params.max_inv_fanout_per_round, T)
+    H = max(1024, 16 * T)
+    dev = state.clock.device
+    rows = torch.arange(T, device=dev)
+    line_bits = params.line_size.bit_length() - 1
+    ndsets = params.directory.num_sets
+
+    p_net = _period(state, DVFSModule.NETWORK_MEMORY)
+    p_dir = _period(state, DVFSModule.DIRECTORY)
+    p_l2 = _period(state, DVFSModule.L2_CACHE)
+    p_l1 = _period(state, DVFSModule.L1_DCACHE)
+    p_core = _period(state, DVFSModule.CORE)
+    ack_ps = _lat(vp.inv_ack_cycles, p_core)
+
+    dram_access_ps = vp.dram_latency_ps
+    dram_service_ps = vp.dram_processing_ps
+    flits_req = noc.num_flits(CTRL_BYTES, vp.net_memory.flit_width_bits)
+    flits_data = noc.num_flits(params.line_size + CTRL_BYTES,
+                               vp.net_memory.flit_width_bits)
+
+    rstamp = state.round_ctr * STAMP_STRIDE + STAMP_STRIDE - 1
+
+    kind = state.pend_kind
+    line = state.pend_addr >> line_bits
+    issue = state.pend_issue
+    extra = state.pend_extra
+    unres = _parked(state)
+    is_ex = unres & (kind == PEND_EX_REQ)
+    is_if = unres & (kind == PEND_IFETCH)
+    home = home_of_line(params, line)
+    dset = dir_set_of_line(params, line)
+    fidx = (home * ndsets + dset).to(torch.int64)
+    packed = _fcfs_keys(unres, issue)
+    hidx = umod64(dense.fmix64(line), H)
+    oh_hidx = _oh(hidx, H)
+    p_net_home = p_net[home.to(torch.int64)]
+    p_dir_home = p_dir[home.to(torch.int64)]
+    net_req = noc.unicast_ps(params.net_memory, rows, home, CTRL_BYTES,
+                             p_net, params.mesh_width, vnet=vp.net_memory)
+    reply_ps = noc.unicast_ps(params.net_memory, home, rows,
+                              params.line_size + CTRL_BYTES, p_net_home,
+                              params.mesh_width, vnet=vp.net_memory)
+    dir_ps = _lat(vp.dir_access_cycles, p_dir_home)
+    ftbl_g = ftbl[:, hidx]                     # [2, T]
+    line_floor = torch.where(ftbl_g[0] == line, ftbl_g[1], 0)
+
+    # ---- earliest-per-line election
+    tbl = torch.amin(torch.where(oh_hidx & unres[:, None], packed[:, None],
+                                 _BIG), dim=0)
+    win = unres & (_sel(oh_hidx, tbl) == packed)
+
+    # ---- directory-cache probe at (home, dset)
+    drow = state.dir_word[:, fidx].T                     # [T, A]
+    dstate = dword_state(drow)
+    dstamp = dword_stamp(drow)
+    match = (dword_tag(drow) == line[:, None].to(torch.int32)) \
+        & (dstate != I)
+    hit = match.any(dim=1)
+    hway = first_true(match, 1).to(torch.int32)
+    invalid = dstate == I
+
+    # ---- victim-way assignment for allocating (miss) winners
+    hitwin = win & hit
+    misswin = win & ~hit
+    grank = _grouped_rank(fidx, packed, misswin)
+    fhash = umod64(dense.fmix64(fidx), H)
+    used_tbl = scatter(torch.zeros((H, A), dtype=torch.bool, device=dev),
+                       (fhash, hway), True, "set", mask=hitwin)
+    hway_used = used_tbl[fhash]                           # [T, A]
+    NEVER = 2**31 - 1
+    vkey = torch.where(hway_used, NEVER,
+                       torch.where(invalid, -1, dstamp)).to(torch.int32)
+    eligible = ~hway_used
+    arA0 = torch.arange(A, dtype=torch.int32, device=dev)
+    pos = torch.sum(
+        (eligible[:, None, :]
+         & ((vkey[:, None, :] < vkey[:, :, None])
+            | ((vkey[:, None, :] == vkey[:, :, None])
+               & (arA0[None, None, :] < arA0[None, :, None])))),
+        dim=2).to(torch.int32)
+    n_elig = torch.sum(eligible, dim=1).to(torch.int32)
+    miss_way = first_true(eligible & (pos == grank[:, None]), 1).to(
+        torch.int32)
+    can_alloc = misswin & (grank < n_elig)
+    way = torch.where(hit, hway, miss_way)
+
+    # ---- way-slot election safety net
+    am = (home.to(torch.int64) * ndsets + dset) * A + way
+    aidx = umod64(dense.fmix64(am), H)
+    alloc_defer = win & ((misswin & ~can_alloc)
+                         | ~_elect(win, packed, aidx, H))
+    win = win & ~alloc_defer
+    misswin = misswin & ~alloc_defer
+
+    way64 = way.to(torch.int64)
+    way_word = torch.gather(drow, 1, way64[:, None])[:, 0]
+    way_state = dword_state(way_word)
+    way_owner = dword_owner(way_word)
+    evicting = misswin & (way_state != I)
+
+    dsharers = state.dir_sharers[:, fidx].reshape(W, A, T).permute(2, 1, 0)
+    entry_state = torch.where(hit, way_state, I).to(torch.int32)
+    entry_owner = torch.where(hit, way_owner, -1).to(torch.int32)
+    vsharers = torch.gather(dsharers, 1,
+                            way64[:, None, None].expand(T, 1, W))[:, 0, :]
+    entry_sharers = torch.where(hit[:, None], vsharers,
+                                torch.zeros((T, W), dtype=torch.int64,
+                                            device=dev))
+
+    vtag = dword_tag(way_word).to(torch.int64)
+    vstate = torch.where(evicting, way_state, I)
+    vowner = way_owner
+    evict_m = evicting & (vstate == M) & (vowner >= 0)
+    evict_s = evicting & ((vstate == S) | (vstate == O)) \
+        & (vsharers != 0).any(dim=1)
+
+    act = dirmod.transition(params.protocol_kind, is_ex, rows,
+                            entry_state, entry_owner, entry_sharers, W,
+                            is_ifetch=is_if)
+
+    has_inv = win & (act.inv_targets != 0).any(dim=1)
+    owner = act.owner_tile
+    vown_c = torch.clamp(vowner, min=0).to(torch.int64)
+
+    # ---- fan-out budget: at most K multicast deliveries per round, in
+    # FCFS key order.
+    need_fan = has_inv | evict_s
+    fan_rank = torch.sum(
+        (packed[None, :] < packed[:, None]) & need_fan[None, :]
+        & need_fan[:, None], dim=1, dtype=torch.int32)
+    sel0 = need_fan & (fan_rank < K)
+    fan_defer = need_fan & ~sel0
+    win1 = win & ~fan_defer
+
+    # ---- owner-side delivery slots: at most J_OWN per target tile
+    owner_leg1 = act.owner_leg & win1
+    evict_m1 = evict_m & ~fan_defer
+    tgt2 = torch.cat([owner.to(torch.int64), vown_c])
+    val2 = torch.cat([owner_leg1, evict_m1])
+    key2 = torch.cat([packed, packed])
+    posr = _grouped_rank(tgt2, key2, val2)            # [2T]
+    over2 = val2 & (posr >= J_OWN)
+    ow_defer = over2[:T] | over2[T:]
+    win = win1 & ~ow_defer
+    has_inv = has_inv & ~fan_defer & ~ow_defer
+    evict_m = evict_m1 & ~ow_defer
+    evict_s = evict_s & ~fan_defer & ~ow_defer
+    evicting = evicting & ~fan_defer & ~ow_defer
+    evict_o = evicting & (vstate == O)
+    owner_leg = owner_leg1 & ~ow_defer
+    val2 = torch.cat([owner_leg, evict_m])
+
+    lines2 = torch.cat([line, vtag])
+    down2 = torch.cat(
+        [act.owner_downgrade_to,
+         torch.full((T,), I, dtype=torch.int32, device=dev)])
+    put = val2 & (posr < J_OWN)
+    slot2 = torch.clamp(posr, max=J_OWN - 1).to(torch.int64)
+    own_lines = scatter(torch.zeros((T, J_OWN), dtype=lines2.dtype,
+                                    device=dev), (tgt2, slot2), lines2,
+                        "set", mask=put)
+    own_valid = scatter(torch.zeros((T, J_OWN), dtype=torch.bool,
+                                    device=dev), (tgt2, slot2), True,
+                        "set", mask=put)
+    own_tgt = scatter(torch.zeros((T, J_OWN), dtype=torch.int32,
+                                  device=dev), (tgt2, slot2), down2,
+                      "set", mask=put)
+
+    # ---- shared-read combining (full_map): concurrent SH_REQs against an
+    # I/S entry all win beside the elected representative.
+    req_word = (rows // 64).to(torch.int64)
+    req_bit1 = torch.ones(T, dtype=torch.int64, device=dev) \
+        << (rows % 64).to(torch.int64)
+    sh_entry_ok = (entry_state == I) | (entry_state == S)
+    ex_unres = unres & is_ex
+    rep_sh = win & ~is_ex & sh_entry_ok
+    any_ex = torch.any(oh_hidx & ex_unres[:, None], dim=0)
+    rline = torch.amax(torch.where(oh_hidx & rep_sh[:, None], line[:, None],
+                                   -1), dim=0)
+    rway = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
+                                  way[:, None].to(torch.int64), -1), dim=0)
+    m_any_ex = _sel(oh_hidx, any_ex.to(torch.int32)) > 0
+    m_rline = _sel(oh_hidx, rline)
+    m_rway = _sel(oh_hidx, rway).to(torch.int32)
+    combinable = unres & ~win & ~is_ex & sh_entry_ok \
+        & ~m_any_ex & (m_rline == line)
+    win = win | combinable
+    way = torch.where(combinable, m_rway, way)
+    way64 = way.to(torch.int64)
+    own_word = torch.gather(entry_sharers, 1, req_word[:, None])[:, 0]
+    sharer_add = combinable & ((own_word & req_bit1) == 0)
+
+    sel = sel0 & ~ow_defer
+    rank = queue_models._cumsum_doubling(sel.to(torch.int32)) - 1
+    oh_sr = sel[None, :] & (
+        torch.arange(K, dtype=torch.int32, device=dev)[:, None]
+        == rank[None, :])
+
+    def sr_sel(vals):     # [T] -> [K] values of each slot's requester
+        return torch.sum(torch.where(oh_sr, vals[None, :], 0), dim=1,
+                         dtype=vals.dtype)
+
+    inv_words = torch.sum(
+        torch.where((oh_sr & has_inv[None, :])[:, :, None],
+                    act.inv_targets[None, :, :], 0),
+        dim=1, dtype=torch.int64)                    # [K, W]
+    vic_words = torch.sum(
+        torch.where((oh_sr & evict_s[None, :])[:, :, None],
+                    vsharers[None, :, :], 0),
+        dim=1, dtype=torch.int64)
+    inv_bool = dirmod.bitmap_to_bool(inv_words, T)   # [K, T]
+    vic_bool = dirmod.bitmap_to_bool(vic_words, T)
+
+    home_sr = sr_sel(home)
+    pnh_sr = sr_sel(p_net_home.to(torch.int64)).to(torch.int32)
+    ack_sr = sr_sel(ack_ps)
+
+    inv_ps_k = 2 * noc.max_hop_to_mask_ps(
+        params.net_memory, home_sr, inv_bool, CTRL_BYTES,
+        pnh_sr, params.mesh_width, vnet=vp.net_memory) + ack_sr
+    vic_ps_k = 2 * noc.max_hop_to_mask_ps(
+        params.net_memory, home_sr, vic_bool, CTRL_BYTES,
+        pnh_sr, params.mesh_width, vnet=vp.net_memory) + ack_sr
+    inv_ps = torch.where(has_inv, torch.sum(
+        torch.where(oh_sr, inv_ps_k[:, None], 0), dim=0), 0)
+    evict_ps = torch.where(evict_s, torch.sum(
+        torch.where(oh_sr, vic_ps_k[:, None], 0), dim=0), 0)
+    p_net_vown = p_net[vown_c]
+    l2_vown_ps = _lat(vp.l2_access_cycles, p_l2[vown_c])
+
+    # ---- latency assembly (zero-load legs)
+    arrive = torch.maximum(issue + net_req, line_floor)
+    evict_m_ps = noc.unicast_ps(
+        params.net_memory, home, vown_c, CTRL_BYTES,
+        p_net_home, params.mesh_width, vnet=vp.net_memory) \
+        + l2_vown_ps \
+        + noc.unicast_ps(
+            params.net_memory, vown_c, home,
+            params.line_size + CTRL_BYTES,
+            p_net_vown, params.mesh_width, vnet=vp.net_memory)
+    evict_ps = torch.where(evict_m, evict_m_ps, evict_ps)
+
+    t_dir = arrive + dir_ps + torch.where(evicting, evict_ps, 0)
+
+    owner64 = owner.to(torch.int64)
+    p_net_own = p_net[owner64]
+    l2_own_ps = _lat(vp.l2_access_cycles, p_l2[owner64])
+    leg_ps = noc.unicast_ps(params.net_memory, home, owner,
+                            CTRL_BYTES, p_net_home,
+                            params.mesh_width, vnet=vp.net_memory) \
+        + l2_own_ps \
+        + noc.unicast_ps(params.net_memory, owner, home,
+                         params.line_size + CTRL_BYTES, p_net_own,
+                         params.mesh_width, vnet=vp.net_memory)
+    owner_ps = torch.where(owner_leg, leg_ps, 0)
+
+    need_read = win & act.dram_read
+    dsite = home
+    dram_arrival = t_dir + owner_ps
+    dram_wb = (act.dram_write & win) | evict_m | evict_o
+    if params.dram.queue_model_enabled:
+        svc = torch.full((T,), dram_service_ps, dtype=torch.int64,
+                         device=dev)
+        q_start, _, _, rs_, re_, rp_, mg1_ = queue_models.probe(
+            params.dram.queue_model_type,
+            dsite, dram_arrival, svc,
+            need_read, state.dram_ring_start, state.dram_ring_end,
+            state.dram_ring_ptr, state.dram_qacc,
+            occ_res=dsite, occ_arr=dram_arrival,
+            occ_svc=svc, occ_valid=dram_wb,
+            ma_window=params.dram.basic_ma_window)
+        state = state._replace(dram_ring_start=rs_, dram_ring_end=re_,
+                               dram_ring_ptr=rp_, dram_qacc=mg1_)
+        dram_start = torch.where(need_read, q_start, 0)
+    else:
+        dram_start = torch.where(need_read, dram_arrival, 0)
+    dram_ready = dram_start + dram_access_ps + dram_service_ps
+
+    t_data = t_dir + owner_ps
+    t_data = torch.maximum(t_data, torch.where(need_read, dram_ready, 0))
+    t_data = torch.maximum(t_data, t_dir + inv_ps)
+
+    reply_done = t_data + reply_ps
+
+    l1_fill_ps = torch.where(
+        is_if, _lat(vp.l1i_access_cycles,
+                    _period(state, DVFSModule.L1_ICACHE)),
+        _lat(vp.l1d_access_cycles, p_l1))
+    l2_fill_ps = _lat(vp.l2_access_cycles, p_l2)
+    completion = reply_done + l2_fill_ps + l1_fill_ps + extra
+
+    # ---- apply directory entry updates
+    state = state._replace(
+        dir_word=scatter(state.dir_word, (way64, fidx),
+                         dword_pack(line, state.round_ctr, act.new_state,
+                                    act.new_owner), "set", mask=win))
+    old_row = torch.where(hit[:, None], entry_sharers, vsharers)
+    delta = act.new_sharers - old_row          # modular, like uint64
+    plane = torch.arange(W, device=dev)[:, None] * A + way64[None, :]
+    add_rows = torch.cat([plane.reshape(-1), req_word * A + way64])
+    add_cols = torch.cat(
+        [fidx[None, :].expand(W, T).reshape(-1), fidx])
+    add_mask = torch.cat(
+        [(win & ~combinable)[None, :].expand(W, T).reshape(-1), sharer_add])
+    add_vals = torch.cat([delta.T.reshape(-1), req_bit1])
+    state = state._replace(dir_sharers=scatter(
+        state.dir_sharers, (add_rows, add_cols), add_vals, "add",
+        mask=add_mask))
+
+    # ---- coherence-driven cache-state changes
+    line_sr = sr_sel(line)
+    vtag_sr = sr_sel(vtag)
+    dlv_lines = torch.cat([
+        own_lines,
+        line_sr[None, :].expand(T, K),
+        vtag_sr[None, :].expand(T, K)], dim=1)
+    dlv_valid = torch.cat([own_valid, inv_bool.T, vic_bool.T], dim=1)
+    dlv_tgt = torch.cat(
+        [own_tgt, torch.full((T, 2 * K), I, dtype=torch.int32, device=dev)],
+        dim=1)
+    state = state._replace(
+        l2=cachemod.invalidate_by_value(
+            state.l2, dlv_lines, dlv_valid, dlv_tgt),
+        l1d=cachemod.invalidate_by_value(
+            state.l1d, dlv_lines, dlv_valid, dlv_tgt))
+
+    # ---- requester-side fills / victims (install at serve time)
+    f2 = cachemod.fill(state.l2, line,
+                       torch.where(is_ex, M, S).to(torch.int32),
+                       win, params.l2.num_sets,
+                       params.l2.replacement, rstamp)
+    state = state._replace(l2=f2.cache)
+    vt1, vs1 = f2.victim_tag, f2.victim_state
+    state = state._replace(l1d=cachemod.invalidate_by_value(
+        state.l1d, f2.victim_tag[:, None],
+        (win & (f2.victim_state != I))[:, None],
+        torch.full((T, 1), I, dtype=torch.int32, device=dev)))
+    fd = cachemod.fill(state.l1d, line,
+                       torch.where(is_ex, M, S).to(torch.int32),
+                       win & ~is_if, params.l1d.num_sets,
+                       params.l1d.replacement, rstamp)
+    state = state._replace(l1d=fd.cache)
+    fi = cachemod.fill(state.l1i, line,
+                       torch.full((T,), S, dtype=torch.int32, device=dev),
+                       win & is_if, params.l1i.num_sets,
+                       params.l1i.replacement, rstamp)
+    state = state._replace(l1i=fi.cache)
+
+    victim_dirty = win & ((vs1 == M) | (vs1 == O))
+    victim_live = win & (vs1 != I)
+    victim_home = dram_site_of_line(params, vt1)
+    if params.dram.queue_model_enabled:
+        r3 = queue_models.occupy(
+            params.dram.queue_model_type,
+            state.dram_ring_start, state.dram_ring_end,
+            state.dram_ring_ptr, state.dram_qacc,
+            victim_home, t_dir, dram_service_ps, victim_dirty,
+            ma_window=params.dram.basic_ma_window)
+        state = state._replace(dram_ring_start=r3[0], dram_ring_end=r3[1],
+                               dram_ring_ptr=r3[2], dram_qacc=r3[3])
+    state = _dir_evict_notify(params, state, rows, vt1, vs1, victim_live)
+
+    # ---- counters (home-binned tallies via one stacked scatter-add)
+    kcnt_inv = torch.sum(inv_bool, dim=1).to(torch.int64)  # [K]
+    kcnt_vic = torch.sum(vic_bool, dim=1).to(torch.int64)
+    kcnt = kcnt_inv + kcnt_vic
+    kcnt_fl = kcnt_inv + kcnt_vic
+    inv_count = torch.sum(torch.where(oh_sr, kcnt[:, None], 0), dim=0)
+    inv_flits = torch.sum(torch.where(oh_sr, kcnt_fl[:, None], 0), dim=0)
+    c = state.counters
+
+    def b(m):
+        return m.to(torch.int64)
+
+    home_cols = [
+        b(win & ~is_ex),                          # dir_sh_req
+        b(win & is_ex),                           # dir_ex_req
+        inv_flits,                                # dir_invalidations
+        b(owner_leg | evict_m | evict_o),         # dir_writebacks
+        b(owner_leg & ~act.dram_write),           # dir_forwards
+        b(evicting),                              # dir_evictions
+        b(win) + inv_count,                       # net_mem_pkts @home
+        torch.where(win, flits_data, 0)
+        + inv_flits * flits_req,                  # net_mem_flits @home
+        b(alloc_defer | fan_defer | ow_defer),    # dir_deferrals
+        b(need_read), b(dram_wb),                 # dram_reads/writes
+    ]
+    vic_wr = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
+                     victim_home, b(victim_dirty), "add")
+    hstack = torch.stack(home_cols, dim=1)
+    ncol = hstack.shape[1]
+    hb = scatter(torch.zeros((T, ncol), dtype=torch.int64, device=dev),
+                 (home[:, None], torch.arange(ncol, device=dev)[None, :]),
+                 hstack, "add")
+    db = hb[:, 9:11]
+    c = c._replace(
+        dir_sh_req=c.dir_sh_req + hb[:, 0],
+        dir_ex_req=c.dir_ex_req + hb[:, 1],
+        dir_invalidations=c.dir_invalidations + hb[:, 2],
+        dir_writebacks=c.dir_writebacks + hb[:, 3],
+        dir_forwards=c.dir_forwards + hb[:, 4],
+        dir_evictions=c.dir_evictions + hb[:, 5],
+        dram_reads=c.dram_reads + db[:, 0],
+        dram_writes=c.dram_writes + db[:, 1] + vic_wr,
+        net_mem_pkts=c.net_mem_pkts
+        + torch.where(win, 1, 0)
+        + torch.where(victim_dirty, 1, 0)
+        + hb[:, 6],
+        net_mem_flits=c.net_mem_flits
+        + torch.where(win, flits_req, 0)
+        + torch.where(victim_dirty, flits_data, 0)
+        + hb[:, 7],
+        dir_deferrals=c.dir_deferrals + hb[:, 8],
+    )
+    state = state._replace(counters=c)
+
+    # ---- simple cores stall until the data arrives
+    state = _unblock(state, win, completion, sync=False)
+
+    # ---- serialization floor for still-pending same-line requests
+    t_free = t_data
+    win_oh = oh_hidx & win[:, None]
+    new_line = torch.amax(torch.where(win_oh, line[:, None], -1), dim=0)
+    new_t = torch.amax(torch.where(win_oh, t_free[:, None], 0), dim=0)
+    wrote = win_oh.any(dim=0)
+    ftbl = torch.where(wrote[None, :], torch.stack([new_line, new_t]), ftbl)
+    state = state._replace(round_ctr=state.round_ctr + 1,
+                           ctr_conflict=state.ctr_conflict + 1)
+    return state, ftbl
+
+
+def resolve_memory(params: SimParams, vp: VariantParams,
+                   state: SimState) -> SimState:
+    """Serve all parked L2-miss requests through the home directories, in
+    conflict rounds while requests remain (capped at
+    ``directory_conflict_rounds``)."""
+    T = params.num_tiles
+    H = max(1024, 16 * T)
+    dev = state.clock.device
+    ftbl = torch.stack([torch.full((H,), -1, dtype=torch.int64, device=dev),
+                        torch.zeros((H,), dtype=torch.int64, device=dev)])
+    cap = params.directory_conflict_rounds
+    state = state._replace(ctr_resolve=state.ctr_resolve + 1)
+    i = 0
+    while i < cap and bool(_parked(state).any().item()):
+        state, ftbl = _memory_round(params, vp, state, ftbl)
+        i += 1
+    saturated = _parked(state)
+    c = state.counters
+    return state._replace(counters=c._replace(
+        dir_deferrals=c.dir_deferrals + saturated.to(torch.int64)))
+
+
+class _VictimProbe:
+    """Directory entry located for a batch of dropped lines."""
+
+    def __init__(self, params: SimParams, state: SimState, tiles, vtag,
+                 valid):
+        A = params.directory.associativity
+        W = state.dir_sharers.shape[0] // A
+        self.assoc = A
+        ndsets = params.directory.num_sets
+        dev = vtag.device
+        self.vhome = home_of_line(params, vtag)
+        self.vdset = dir_set_of_line(params, vtag)
+        self.vfidx = (self.vhome * ndsets + self.vdset).to(torch.int64)
+        vfidx = self.vfidx
+        drow = state.dir_word[:, vfidx].T                   # [R, A]
+        dstate = dword_state(drow)
+        match = (dword_tag(drow) == vtag[:, None].to(torch.int32)) \
+            & (dstate != I) & valid[:, None]
+        self.found = match.any(dim=1)
+        self.way = first_true(match, 1)
+        self.word_way = torch.gather(drow, 1, self.way[:, None])[:, 0]
+        self.est = dword_state(self.word_way)
+        self.eowner = dword_owner(self.word_way)
+        oh_way = torch.arange(A, device=dev)[:, None] == self.way[None, :]
+        self.esharers = torch.sum(
+            torch.where(oh_way[None, :, :],
+                        state.dir_sharers[:, vfidx].reshape(W, A, -1), 0),
+            dim=1, dtype=torch.int64).T                     # [R, W]
+        self.word = (tiles // 64).to(torch.int64)
+        self.bit = torch.ones_like(tiles, dtype=torch.int64) \
+            << (tiles % 64).to(torch.int64)
+        self.woh = self.word[:, None] \
+            == torch.arange(W, device=dev)[None, :]
+        cur = torch.sum(torch.where(self.woh, self.esharers, 0), dim=1,
+                        dtype=torch.int64)
+        self.has_bit = (cur & self.bit) != 0
+
+    def set_meta2(self, state: SimState, mask_a, state_a, owner_a,
+                  mask_b, state_b, owner_b):
+        """Two disjoint-mask (state, owner) rewrites in one scatter."""
+        new = torch.where(mask_a,
+                          dword_with_meta(self.word_way, state_a, owner_a),
+                          dword_with_meta(self.word_way, state_b, owner_b))
+        return state._replace(dir_word=scatter(
+            state.dir_word, (self.way, self.vfidx), new, "set",
+            mask=mask_a | mask_b))
+
+
+def _dir_evict_notify(params: SimParams, state: SimState, tiles, vtag,
+                      vstate, valid) -> SimState:
+    """Tell the home directory a tile dropped ``vtag`` from its L2: an
+    M owner's entry becomes I, a sharer's bit clears (modular subtract,
+    so concurrent drops of one entry all land)."""
+    A = params.directory.associativity
+    W = state.dir_sharers.shape[0] // A
+    p = _VictimProbe(params, state, tiles, vtag, valid)
+
+    drop_m = p.found & (p.est == M) & (p.eowner == tiles)
+    drop_o = p.found & (p.est == O) & (p.eowner == tiles)
+    drop_s = p.found & p.has_bit \
+        & ((p.est == S) | ((p.est == O) & (p.eowner != tiles)))
+    left = p.esharers & ~torch.where(p.woh, p.bit[:, None], 0)
+    empty = (left == 0).all(dim=1)
+
+    state = p.set_meta2(state,
+                        drop_m | ((drop_s | drop_o) & empty), I, -1,
+                        drop_o & ~empty, S, -1)
+    clr = drop_s | drop_o
+    R = tiles.shape[0]
+    plane = torch.arange(W, device=vtag.device)[:, None] * A \
+        + p.way[None, :]
+    rows2 = torch.cat([plane.reshape(-1), p.word * A + p.way])
+    cols2 = torch.cat([p.vfidx[None, :].expand(W, R).reshape(-1), p.vfidx])
+    mask2 = torch.cat([drop_m[None, :].expand(W, R).reshape(-1),
+                       clr & p.has_bit])
+    vals2 = torch.cat([(-p.esharers.T).reshape(-1), -p.bit])
+    return state._replace(dir_sharers=scatter(
+        state.dir_sharers, (rows2, cols2), vals2, "add", mask=mask2))
+
+
+# ====================================================================== sync
+
+def resolve_barrier(params: SimParams, vp: VariantParams,
+                    state: SimState) -> SimState:
+    T = params.num_tiles
+    dev = state.clock.device
+    rows = torch.arange(T, device=dev)
+    NB = state.bar_count.shape[0]
+    is_bar = state.pend_kind == PEND_BARRIER
+    bid = torch.clip(state.pend_addr, 0, NB - 1)
+    parts = torch.clamp(state.pend_aux, min=1)
+    reached = state.bar_count[bid] >= parts
+    rel = is_bar & reached
+    p_nu = _period(state, DVFSModule.NETWORK_USER)
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    mcp = mcp_tile(params)
+    back_ps = noc.unicast_ps(params.net_user,
+                             torch.full((T,), mcp, device=dev), rows,
+                             CTRL_BYTES, p_nu[mcp], params.mesh_width,
+                             vnet=vp.net_user)
+    completion = state.bar_time[bid] + back_ps + cycle_ps
+    state = state._replace(
+        bar_count=scatter(state.bar_count, bid, 0, "set", mask=rel),
+        bar_time=scatter(state.bar_time, bid, 0, "set", mask=rel))
+    return _unblock(state, rel, completion, sync=True)
+
+
+def resolve(params: SimParams, state: SimState,
+            vp: VariantParams = None) -> SimState:
+    """One full cross-tile resolution pass: the memory pass when memory
+    requests are parked, then the sync pass when sync parks exist (only
+    barriers in this slice; the other resolvers see no parks)."""
+    if vp is None:
+        vp = variant_params(params)
+    any_mem = bool(_parked(state).any().item())
+    any_sync = bool((state.pend_kind >= PEND_RECV).any().item())
+    if any_mem:
+        state = resolve_memory(params, vp, state)
+    if any_sync and bool((state.pend_kind == PEND_BARRIER).any().item()):
+        state = resolve_barrier(params, vp, state)
+    return state
