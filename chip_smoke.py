@@ -10,24 +10,45 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      source, started together); print the seconds and the ptxas
      register/spill lines.
   3. Every kernel against its plain PyTorch form ON THE CARD at the main
-     path's shapes (T = 64, K = 16, default geometry): random operands
-     from a numpy seed and a window captured from the port's own radix64
-     run.  Every output leaf must be equal.  Times: CUDA events over many
-     launches after warm-up, kernel and plain form.
-  4. The golden shapes radix8 and fft8 against
-     tests/data/chain_off_golden.json, exactly.
-  5. The main path at full width: ``gen_radix(64, keys_per_tile=2048,
-     radix=256, seed=0)`` on the default config through
-     ``Simulator(...).run()`` — all_done, round_ctr 13838, completion
-     243,651.8 ns, and window-kernel launches == ctr_window.  Kernel
-     launch counts are zeroed just before this run and read just after.
-  6. A profiled stretch of the same run (torch.profiler): device busy
-     time per round, held against phase 5's unprofiled wall time per
-     round (the profiler's own host overhead slows the stretch's wall).
+     paths' shapes (T = 64, default geometry), every output element
+     equal; times from CUDA events over many launches after warm-up,
+     kernel and plain form:
+       * window_walk at P = 0: random operands and a window captured from
+         the port's own radix64 run;
+       * window_walk at P = 12 (fan-out replay on and off): random
+         operands with a pending [P, T] bank and banking windows captured
+         from the port's own radix64 chain-12 run;
+       * chain_classify: seeded operand sets at H = 1024 with the fan-out
+         replay and the DRAM queue model each on and off, a colliding
+         H = 4 set, and operands captured from the port's own radix64
+         chain-12 run.
+  4. The golden shapes radix8 and fft8 at miss_chain 0 against
+     tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
+     (86 engine rounds, completion 8,686.6 ns).
+  5. The chain-off main path at full width: ``gen_radix(64,
+     keys_per_tile=2048, radix=256, seed=0)`` on the default config —
+     all_done, round_ctr 13838, completion 243,651.8 ns, window-kernel
+     launches == ctr_window.
+  6. The chain-replay paths at full width, miss_chain 12: the same radix64
+     trace (round_ctr 2181, completion 245,006.6 ns) and ``gen_fft(64,
+     points_per_tile=64, writeback=True)`` (round_ctr 377, completion
+     60,677.0 ns, 1,897 fan-outs served in-pass, 17 fallbacks).
+     chain_classify launches == 12 x chain passes (round_ctr - ctr_window
+     - ctr_complex - ctr_conflict), window launches == ctr_window.  An
+     untimed second fft64 run records its first replay iterations that
+     serve a fan-out, and chain_classify is held against its plain form
+     on each of them.
+  7. Profiled stretches of the chain-off and the chain-12 radix64 runs
+     (torch.profiler; 4 quanta and 1 quantum, continuing phase 3's
+     simulations): device busy time per round, held against the
+     unprofiled wall time per round of phases 5 and 6, kernels and host
+     polls per round, and each kernel's share.
 
-The last two lines of standard output are the ``kernels`` JSON object
-and the ``ok`` JSON object.  Without a CUDA device, or without the port's
-sources beside this file, the script exits non-zero and prints no result.
+Before each path of phases 4 to 6 every kernel's launch count is set to
+0, and it is read just after.  The last two lines of standard output are
+the ``kernels`` JSON object and the ``ok`` JSON object.  Without a CUDA
+device, or without the port's sources beside this file, the script exits
+non-zero and prints no result.
 """
 
 import json
@@ -38,12 +59,32 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Values pinned by BENCH_r06's radix64 row (all-integer engine, so they
-# are device-independent).
+# Values pinned by BENCH_r06's radix64, radix64_chain12, fft64 and
+# radix8_pallas rows (all-integer engine, so they are device-independent).
 FULL_KEYS = 2048
 FULL_ROUND_CTR = 13838
 FULL_COMPLETION_PS = 243_651_800
+CHAIN = 12
+CHAIN_ROUND_CTR = 2181
+CHAIN_COMPLETION_PS = 245_006_600
+FFT_ROUND_CTR = 377
+FFT_COMPLETION_PS = 60_677_000
+FFT_FANOUT_SERVED = 1897
+FFT_FALLBACK = 17
+FFT_CAPTURED = 8                   # fft64 fan-out iterations held in phase 6
+RADIX8_CHAIN_ROUND_CTR = 86
+# radix8 chain 12's completion, as the JAX package computes it on the CPU
+# (tests/test_torch_chain_sim.py holds the port to it).
+RADIX8_CHAIN_COMPLETION_PS = 8_686_600
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM peak memory rate
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Elapsed seconds since the script started, after a phase."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -91,6 +132,148 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def chain_bytes(params, ci, out) -> int:
+    """Bytes one classify call must move on these operands: each input
+    element the function reads, once, and every output element.
+
+    Every row needs its kind flags, issue time, home, flat set, directory
+    row (the probe and the victim choice read all A words), one period
+    of the network and one of its L1 side, and the W sharer words of the
+    way it picks.  A combining member's own-bit test reads a word of the
+    representative's way, which is the member's own: both rows requested
+    one line, so they probed one directory row with one result.  Only an
+    active row needs its line, directory set and hash slot.  The gathers
+    count their distinct indices: the directory period at the homes, the
+    L2 period at the owners of served owner legs, the core period at the
+    fan-out rows.  With the DRAM queue model off the function also reads
+    each row's local cost and L2 period and copies the floor table."""
+    T = params.num_tiles
+    W = ci.dsharers.shape[2]
+    queue_off = ci.ftbl is not None
+    n_act = int(ci.active.sum().item())
+    moved = nbytes([ci.active, ci.is_ex, ci.is_if, ci.issue, ci.home,
+                    ci.fidx, ci.drow, ci.ftbl])
+    moved += n_act * (ci.line.element_size() + ci.dset.element_size()
+                      + ci.hidx.element_size())
+    moved += T * W * ci.dsharers.element_size()
+    moved += T * ci.p_l1d.element_size()
+    if params.net_memory.model != "magic":
+        moved += nbytes([ci.p_net])
+    moved += ci.p_dir.element_size() * ci.home.unique().numel()
+    if queue_off:
+        moved += nbytes([ci.extra, ci.p_l2])
+    else:
+        moved += ci.p_l2.element_size() * out.owner[out.owner_leg] \
+            .unique().numel()
+    if out.inv_bool is not None:
+        moved += ci.p_core.element_size() * int(out.fan_go.sum().item())
+    return moved + nbytes(t for t in out)
+
+
+def compare(kind, got, ref, label) -> int:
+    """Every output field of a kernel against its plain form."""
+    err = 0
+    for f in ref._fields:
+        a, b = getattr(got, f), getattr(ref, f)
+        check((a is None) == (b is None), f"{kind}: field {f} presence")
+        if b is None:
+            continue
+        e = max_abs_err(a, b)
+        check(e == 0, f"{kind} kernel != plain on {label}, field {f} "
+                      f"(max abs err {e})")
+        err = max(err, e)
+    return err
+
+
+class Recorder:
+    """Wraps a kernel entry point of the engine so that a run hands over
+    (clones of) the operands of its first calls that ``keep`` accepts."""
+
+    def __init__(self, module, name, keep, limit):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.keep, self.limit, self.seen = keep, limit, []
+
+    def __enter__(self):
+        def rec(params, vp, operands, *rest):
+            if len(self.seen) < self.limit and self.keep(operands):
+                self.seen.append(type(operands)(*[
+                    t.clone() if t is not None else None for t in operands]))
+            return self.orig(params, vp, operands, *rest)
+        # The kernel wrappers count launches on the module's entry point.
+        rec.launches = self.orig.launches
+        self.rec = rec
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.rec.launches
+        setattr(self.module, self.name, self.orig)
+
+
+def profile_stretch(psim, wall_ms, card, label, names, quanta):
+    """torch.profiler over ``quanta`` quantum steps of a simulation
+    already past its start-up: device time per round against the
+    unprofiled ``wall_ms`` per round, kernels and host polls per round,
+    and each named kernel's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from graphite_tpu_torch.engine.quantum import megarun
+    params = psim.params
+    torch.cuda.synchronize()
+    q0 = int(psim.state.ctr_quantum.item())
+    r0 = int(psim.state.round_ctr.item())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        psim.state = megarun(params, psim.state, psim.trace, quanta,
+                             vp=psim.vp)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    pr = max(int(psim.state.round_ctr.item()) - r0, 1)
+    pq = int(psim.state.ctr_quantum.item()) - q0
+    dev_us, n_kernels, ppolls = 0.0, 0, 0
+    per = {n: [0.0, 0] for n in names}
+    for evt in prof.key_averages():
+        if evt.key == "aten::_local_scalar_dense":     # one per .item()
+            ppolls += evt.count
+        t = getattr(evt, "self_device_time_total",
+                    getattr(evt, "self_cuda_time_total", 0.0))
+        if t and evt.device_type is not None \
+                and "cuda" in str(evt.device_type).lower():
+            dev_us += t
+            n_kernels += evt.count
+            for n in names:
+                if n in evt.key:
+                    per[n][0] += t
+                    per[n][1] += evt.count
+    if dev_us <= 0:
+        print(f"profile {label}: {pq} quanta, {pr} rounds in {pwall:.3f} s "
+              f"wall; device time not measured (the profiler saw no "
+              f"device events), host polls {ppolls}")
+        return
+    busy_ms = dev_us / 1e3 / pr
+    shares = ", ".join(
+        f"{n} {per[n][0] / 1e3:.3f} ms over {per[n][1]} launches "
+        f"({per[n][0] / 1e3 / max(per[n][1], 1):.6f} ms each, "
+        f"{per[n][0] / dev_us:.4f} of device time)" for n in names)
+    # The profiler's host overhead stretches the wall of this stretch, so
+    # the busy share is device time per round over the unprofiled wall
+    # time per round of the same run.
+    print(f"profile {label}: {pq} quanta, {pr} rounds in {pwall:.3f} s "
+          f"profiled wall ({1e3 * pwall / pr:.4f} ms/round); device busy "
+          f"{dev_us / 1e3:.3f} ms ({busy_ms:.6f} ms/round, "
+          f"{busy_ms / wall_ms:.4f} of the unprofiled {wall_ms:.4f} "
+          f"ms/round, idle share {1 - busy_ms / wall_ms:.4f}), {n_kernels} "
+          f"device kernels ({n_kernels / pr:.1f} per round), host polls "
+          f"{ppolls} ({ppolls / pr:.2f} per round); {shares} on {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -106,8 +289,14 @@ def main() -> int:
     check("jax" not in sys.modules, "jax must not be imported")
 
     from graphite_tpu_torch import load_config
+    from graphite_tpu_torch.engine import core as kcore
+    from graphite_tpu_torch.engine import resolve as kres
     from graphite_tpu_torch.engine.core import window_operands
     from graphite_tpu_torch.engine.kernels import build
+    from graphite_tpu_torch.engine.kernels import chain as kchain
+    from graphite_tpu_torch.engine.kernels.operands import (
+        chain_in_from_numpy, random_chain_arrays, random_window_arrays,
+        window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
     from graphite_tpu_torch.engine.quantum import next_boundary
     from graphite_tpu_torch.engine.sim import Simulator
@@ -128,6 +317,7 @@ def main() -> int:
     # ---- 2. build every kernel from this checkout
     t0 = time.perf_counter()
     info = build.build_all()
+    stamp("phase 2: kernels built")
     print(f"build: {len(info)} source(s) in "
           f"{time.perf_counter() - t0:.3f} s")
     for name, rec in info.items():
@@ -136,54 +326,155 @@ def main() -> int:
         for ln in lines:
             print(f"build: {name}: {ln}")
 
-    # ---- 3. kernel vs plain form on the card, at the main path's shapes
-    params = SimParams.from_config(load_config())      # default config
-    vp = variant_params(params)
+    # ---- 3. kernels vs plain forms on the card, at the main paths' shapes
+    def config(**over):
+        cfg = load_config()
+        for k, v in over.items():
+            cfg.set(k, v)
+        return SimParams.from_config(cfg)
+
+    params = config()                                  # default config
+    cparams = config(**{"tpu/miss_chain": CHAIN})
+    vp, cvp = variant_params(params), variant_params(cparams)
     T, K = params.num_tiles, params.block_events
-    cases = []
-    for seed in range(8):
-        cases.append((f"random seed {seed}", kwin.window_in_from_numpy(
-            kwin.random_window_arrays(params, K, seed), dev)))
+    H = max(1024, 16 * T)
     trace = synth.gen_radix(64, keys_per_tile=FULL_KEYS, radix=256, seed=0)
+
+    # window_walk, P = 0
+    cases = [(f"random seed {seed}", window_in_from_numpy(
+        random_window_arrays(params, K, seed), dev))
+        for seed in range(8)]
     cap_sim = Simulator(params, trace, device=dev)
     cap_sim.run(max_steps=2)
     st = cap_sim.state._replace(boundary=next_boundary(params,
                                                        cap_sim.state))
     _, captured = window_operands(params, st, cap_sim.trace)
     cases.append(("captured radix64 window", captured))
-    err = 0
+    err_w = 0
     for label, wi in cases:
         got = kwin.window_walk_cuda(params, vp, wi, T)
         ref = kwin.window_walk(params, vp, wi, T)
         torch.cuda.synchronize()
-        for f in kwin.WindowOut._fields:
-            e = max_abs_err(getattr(got, f), getattr(ref, f))
-            check(e == 0, f"window_walk kernel != plain on {label}, "
-                          f"leaf {f} (max abs err {e})")
-            err = max(err, e)
-    print(f"kernel window_walk: {len(cases)} operand sets, every output "
-          f"leaf equal to the plain form (max abs err {err})")
-    wi = captured
-    ms = time_cuda(lambda: kwin.window_walk_cuda(params, vp, wi, T),
-                   iters=500, warmup=50)
-    plain_ms = time_cuda(lambda: kwin.window_walk(params, vp, wi, T),
-                         iters=50, warmup=5)
-    # Bytes the out-of-place walk must move: every operand it reads once,
-    # every output it writes once.  An array the wrapper passes through
-    # (the round-robin pointers: L2's always, the L1s' unless their
-    # replacement is round_robin) is neither read nor written.
-    out = kwin.window_walk_cuda(params, vp, wi, T)
-    passed = {f for f in kwin.WindowOut._fields if f in kwin.WindowIn._fields
-              and getattr(out, f) is getattr(wi, f)}
-    moved = sum(t.numel() * t.element_size()
-                for f, t in zip(kwin.WindowIn._fields, wi)
-                if f not in passed) + sum(
-        t.numel() * t.element_size()
-        for f, t in zip(kwin.WindowOut._fields, out) if f not in passed)
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(f"kernel window_walk: {ms:.6f} ms/launch (wrapper, clones "
-          f"included), plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
-          f"({moved} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+        err_w = max(err_w, compare("window_walk", got, ref, label))
+    print(f"kernel window_walk P=0: {len(cases)} operand sets, every output "
+          f"leaf equal to the plain form (max abs err {err_w})")
+
+    def window_bytes(p, v, wi):
+        # Bytes the out-of-place walk must move: every operand it reads
+        # once, every output it writes once.  An array the wrapper passes
+        # through (the round-robin pointers: L2's always, the L1s' unless
+        # their replacement is round_robin) is neither read nor written.
+        out = kwin.window_walk_cuda(p, v, wi, T)
+        passed = {f for f in kwin.WindowOut._fields
+                  if f in kwin.WindowIn._fields
+                  and getattr(out, f) is getattr(wi, f)}
+        return nbytes(t for f, t in zip(kwin.WindowIn._fields, wi)
+                      if f not in passed) + nbytes(
+            t for f, t in zip(kwin.WindowOut._fields, out)
+            if f not in passed)
+
+    ms0 = time_cuda(lambda: kwin.window_walk_cuda(params, vp, captured, T),
+                    iters=500, warmup=50)
+    plain0 = time_cuda(lambda: kwin.window_walk(params, vp, captured, T),
+                       iters=50, warmup=5)
+    moved0 = window_bytes(params, vp, captured)
+    print(f"kernel window_walk P=0: {ms0:.6f} ms/launch (wrapper, clones "
+          f"included), plain {plain0:.6f} ms, bound "
+          f"{moved0 / HBM_BYTES_PER_S * 1e3:.6f} ms ({moved0} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+
+    # Operands of the port's own radix64 chain-12 run: banking windows
+    # (a pending bank, or elements banked by this window) and replay
+    # iterations with at least one active head.
+    csim = Simulator(cparams, trace, device=dev)
+    with Recorder(kcore.kwindow, "run_window",
+                  lambda wi: bool((wi.mq_count > wi.mq_head).any()), 6) \
+            as rw, Recorder(kres.kchain, "run_chain",
+                            lambda ci: bool(ci.active.any()), 24) as rc:
+        csim.run(max_steps=2)
+    check(len(rw.seen) == 6 and len(rc.seen) == 24,
+          f"captured {len(rw.seen)} banking windows and {len(rc.seen)} "
+          f"replay iterations from the chain-12 run")
+
+    # window_walk, P = 12
+    cases = []
+    for fan in (True, False):
+        p = config(**{"tpu/miss_chain": CHAIN, "tpu/fanout_replay": fan})
+        v = variant_params(p)
+        for seed in range(4):
+            cases.append((p, v, f"random fanout={fan} seed {seed}",
+                          window_in_from_numpy(
+                              random_window_arrays(p, K, seed), dev)))
+    cases += [(cparams, cvp, f"captured radix64 chain-12 window {i}", wi)
+              for i, wi in enumerate(rw.seen)]
+    for p, v, label, wi in cases:
+        got = kwin.window_walk_cuda(p, v, wi, T)
+        ref = kwin.window_walk(p, v, wi, T)
+        torch.cuda.synchronize()
+        err_w = max(err_w, compare("window_walk", got, ref, label))
+    print(f"kernel window_walk P={CHAIN}: {len(cases)} operand sets, every "
+          f"output leaf equal to the plain form (max abs err {err_w})")
+    wi12 = rw.seen[-1]
+    ms_w = time_cuda(lambda: kwin.window_walk_cuda(cparams, cvp, wi12, T),
+                     iters=500, warmup=50)
+    plain_w = time_cuda(lambda: kwin.window_walk(cparams, cvp, wi12, T),
+                        iters=50, warmup=5)
+    moved_w = window_bytes(cparams, cvp, wi12)
+    bound_w = moved_w / HBM_BYTES_PER_S * 1e3
+    print(f"kernel window_walk P={CHAIN}: {ms_w:.6f} ms/launch (wrapper, "
+          f"clones included), plain {plain_w:.6f} ms, bound {bound_w:.6f} "
+          f"ms ({moved_w} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) on "
+          f"{card}")
+
+    # chain_classify
+    cases = []
+    for fan in (True, False):
+        for queue in (True, False):
+            p = config(**{"tpu/miss_chain": CHAIN, "tpu/fanout_replay": fan,
+                          "dram/queue_model/enabled": queue})
+            v = variant_params(p)
+            for h, seeds in ((H, range(3)), (4, range(3, 6))):
+                for seed in seeds:
+                    cases.append((p, v, h, f"fanout={fan} queue={queue} "
+                                           f"H={h} seed {seed}",
+                                  chain_in_from_numpy(
+                                      random_chain_arrays(p, h, seed),
+                                      dev)))
+    cases += [(cparams, cvp, H, f"captured radix64 chain-12 iteration {i}",
+               ci) for i, ci in enumerate(rc.seen)]
+    err_c = 0
+    for p, v, h, label, ci in cases:
+        got = kchain.chain_classify_cuda(p, v, ci, h)
+        ref = kchain.chain_classify(p, v, ci, h)
+        torch.cuda.synchronize()
+        err_c = max(err_c, compare("chain_classify", got, ref, label))
+    print(f"kernel chain_classify: {len(cases)} operand sets, every output "
+          f"field equal to the plain form (max abs err {err_c})")
+    ci12 = rc.seen[0]
+    ms_c = time_cuda(lambda: kchain.chain_classify_cuda(cparams, cvp, ci12,
+                                                        H),
+                     iters=500, warmup=50)
+    plain_c = time_cuda(lambda: kchain.chain_classify(cparams, cvp, ci12, H),
+                        iters=50, warmup=5)
+    moved_c = chain_bytes(cparams, ci12,
+                          kchain.chain_classify_cuda(cparams, cvp, ci12, H))
+    bound_c = moved_c / HBM_BYTES_PER_S * 1e3
+    print(f"kernel chain_classify: {ms_c:.6f} ms/launch (wrapper), plain "
+          f"{plain_c:.6f} ms, bound {bound_c:.6f} ms ({moved_c} bytes the "
+          f"function reads and writes on these operands, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: none on "
+          f"{card}")
+
+    stamp("phase 3: kernels held against their plain forms")
+
+    def zero_counts():
+        kwin.run_window.launches = 0
+        kchain.run_chain.launches = 0
+
+    def round_ctrs(st):
+        return {f: int(getattr(st, f).item()) for f in (
+            "ctr_quantum", "ctr_window", "ctr_complex", "ctr_conflict",
+            "ctr_resolve", "round_ctr")}
 
     # ---- 4. golden shapes, exactly
     gold = json.load(open(os.path.join(HERE, "tests", "data",
@@ -192,11 +483,9 @@ def main() -> int:
             ("radix8", synth.gen_radix(num_tiles=8, keys_per_tile=64,
                                        radix=16, seed=3)),
             ("fft8", synth.gen_fft(num_tiles=8, points_per_tile=64))):
-        cfg = load_config()
-        cfg.set("general/total_cores", 8)
-        cfg.set("tpu/miss_chain", 0)
-        sim = Simulator(SimParams.from_config(cfg), gtrace, device=dev)
-        kwin.run_window.launches = 0
+        sim = Simulator(config(**{"general/total_cores": 8,
+                                  "tpu/miss_chain": 0}), gtrace, device=dev)
+        zero_counts()
         s = sim.run(max_steps=256)
         g = gold[name]
         check(bool(s.done.all()), f"{name}: not all done")
@@ -215,31 +504,53 @@ def main() -> int:
               f"{int(sim.state.round_ctr.item())}, completion "
               f"{s.completion_time_ps} ps, {kwin.run_window.launches} "
               f"kernel launches)")
+    sim = Simulator(config(**{"general/total_cores": 8,
+                              "tpu/miss_chain": CHAIN}),
+                    synth.gen_radix(num_tiles=8, keys_per_tile=64, radix=16,
+                                    seed=3), device=dev)
+    zero_counts()
+    s = sim.run(max_steps=256)
+    c8 = round_ctrs(sim.state)
+    passes8 = c8["round_ctr"] - c8["ctr_window"] - c8["ctr_complex"] \
+        - c8["ctr_conflict"]
+    check(bool(s.done.all()), "radix8 chain 12: not all done")
+    check(c8["round_ctr"] == RADIX8_CHAIN_ROUND_CTR
+          and s.completion_time_ps == RADIX8_CHAIN_COMPLETION_PS,
+          f"radix8 chain 12: round_ctr {c8['round_ctr']}, completion "
+          f"{s.completion_time_ps} != {RADIX8_CHAIN_ROUND_CTR}, "
+          f"{RADIX8_CHAIN_COMPLETION_PS}")
+    check(kchain.run_chain.launches == CHAIN * passes8
+          and kwin.run_window.launches == c8["ctr_window"],
+          "radix8 chain 12: kernel launches do not match the round counts")
+    print(f"radix8 chain 12: exact (round_ctr {c8['round_ctr']}, completion "
+          f"{s.completion_time_ps} ps, {passes8} chain passes, "
+          f"chain_classify launches {kchain.run_chain.launches}, "
+          f"window_walk launches {kwin.run_window.launches})")
 
-    # ---- 5. the main path at full width
+    stamp("phase 4: golden shapes")
+
+    # ---- 5. the chain-off main path at full width
     sim = Simulator(params, trace, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kwin.run_window.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     s = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kwin.run_window.launches
-    st = sim.state
-    rounds = int(st.round_ctr.item())
-    ctr = {f: int(getattr(st, f).item()) for f in (
-        "ctr_quantum", "ctr_window", "ctr_complex", "ctr_conflict",
-        "ctr_resolve", "round_ctr")}
+    launches0 = kwin.run_window.launches
+    ctr = round_ctrs(sim.state)
+    rounds = ctr["round_ctr"]
     check(bool(s.done.all()), "radix64: not all done")
     check(rounds == FULL_ROUND_CTR, f"radix64: round_ctr {rounds} != "
                                     f"{FULL_ROUND_CTR}")
     check(s.completion_time_ps == FULL_COMPLETION_PS,
           f"radix64: completion {s.completion_time_ps} != "
           f"{FULL_COMPLETION_PS}")
-    check(launches == ctr["ctr_window"] and launches > 0,
-          f"radix64: kernel launches {launches} != ctr_window "
+    check(launches0 == ctr["ctr_window"] and launches0 > 0,
+          f"radix64: kernel launches {launches0} != ctr_window "
           f"{ctr['ctr_window']}")
+    check(kchain.run_chain.launches == 0, "radix64: chain kernel launched")
     mips = s.total_instructions / wall / 1e6
     print(f"radix64 keys_per_tile={FULL_KEYS}: all_done, round_ctr "
           f"{rounds}, completion {s.completion_time_ps / 1000:.1f} ns, "
@@ -247,74 +558,121 @@ def main() -> int:
     print(f"radix64: wall {wall:.3f} s, {rounds / wall:.2f} rounds/s, "
           f"{1e3 * wall / rounds:.4f} ms/round, simulated MIPS {mips:.6f}, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
-          f"window_walk launches {launches}, "
-          f"kernel share {launches * ms / 1e3 / wall:.4f} of wall "
-          f"(launches x {ms:.6f} ms) on {card}")
+          f"window_walk launches {launches0}, "
+          f"kernel share {launches0 * ms0 / 1e3 / wall:.4f} of wall "
+          f"(launches x {ms0:.6f} ms) on {card}")
+    wall_ms0 = 1e3 * wall / rounds
 
-    # ---- 6. where the time goes: a profiled stretch of the same run
-    from torch.profiler import ProfilerActivity, profile
-    psim = Simulator(params, trace, device=dev)
-    psim.run(max_steps=2)                 # past start-up
-    torch.cuda.synchronize()
-    q0 = int(psim.state.ctr_quantum.item())
-    r0 = int(psim.state.round_ctr.item())
-    w0 = int(psim.state.ctr_window.item())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        psim.run(max_steps=4)
+    stamp("phase 5: chain-off radix64")
+
+    # ---- 6. the chain-replay paths at full width
+    def chain_run(label, ctrace, want_rounds, want_ps):
+        sim = Simulator(cparams, ctrace, device=dev)
         torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    pr = int(psim.state.round_ctr.item()) - r0
-    pq = int(psim.state.ctr_quantum.item()) - q0
-    pw = int(psim.state.ctr_window.item()) - w0
-    dev_us = 0.0
-    walk_us = 0.0
-    n_kernels = 0
-    ppolls = 0
-    for evt in prof.key_averages():
-        if evt.key == "aten::_local_scalar_dense":     # one per .item()
-            ppolls += evt.count
-        t = getattr(evt, "self_device_time_total",
-                    getattr(evt, "self_cuda_time_total", 0.0))
-        if t and evt.device_type is not None \
-                and "cuda" in str(evt.device_type).lower():
-            dev_us += t
-            n_kernels += evt.count
-            if "window_walk" in evt.key:
-                walk_us += t
-    if dev_us > 0:
-        # The profiler's host overhead stretches the wall of this stretch,
-        # so the busy share is device time per round over phase 5's
-        # unprofiled wall time per round.
-        busy_ms = dev_us / 1e3 / max(pr, 1)
-        wall_ms = 1e3 * wall / rounds
-        print(f"profile: {pq} quanta, {pr} rounds in {pwall:.3f} s "
-              f"profiled wall ({1e3 * pwall / max(pr, 1):.4f} ms/round); "
-              f"device busy {dev_us / 1e3:.3f} ms ({busy_ms:.6f} ms/round, "
-              f"{busy_ms / wall_ms:.4f} of the unprofiled {wall_ms:.4f} "
-              f"ms/round, idle share {1 - busy_ms / wall_ms:.4f}), "
-              f"{n_kernels} device "
-              f"kernels ({n_kernels / max(pr, 1):.1f} per round), "
-              f"window_walk {walk_us / 1e3:.3f} ms over {pw} launches "
-              f"({walk_us / 1e3 / max(pw, 1):.6f} ms device time each), "
-              f"host polls {ppolls} ({ppolls / max(pr, 1):.2f} per round) "
-              f"on {card}")
-    else:
-        print(f"profile: {pq} quanta, {pr} rounds in {pwall:.3f} s wall; "
-              f"device time not measured (profiler saw no device "
-              f"events), host polls {ppolls}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        s = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lw, lc = kwin.run_window.launches, kchain.run_chain.launches
+        c = round_ctrs(sim.state)
+        r = c["round_ctr"]
+        passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"]
+        check(bool(s.done.all()), f"{label}: not all done")
+        check(r == want_rounds, f"{label}: round_ctr {r} != {want_rounds}")
+        check(s.completion_time_ps == want_ps,
+              f"{label}: completion {s.completion_time_ps} != {want_ps}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{label}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        check(lc == CHAIN * passes and lc > 0,
+              f"{label}: chain_classify launches {lc} != {CHAIN} x "
+              f"{passes} chain passes")
+        fan = int(s.counters["chain_fanout_served"].sum())
+        fb = int(s.counters["chain_fallback"].sum())
+        mips = s.total_instructions / wall / 1e6
+        print(f"{label}: all_done, round_ctr {r}, completion "
+              f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
+              f"instructions, chain_fanout_served {fan}, chain_fallback "
+              f"{fb}; counters {c}, chain passes {passes}")
+        print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
+              f"{1e3 * wall / r:.4f} ms/round, simulated MIPS {mips:.6f}, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+              f"window_walk launches {lw}, chain_classify launches {lc}, "
+              f"kernel share {(lw * ms_w + lc * ms_c) / 1e3 / wall:.4f} of "
+              f"wall on {card}")
+        return lw, lc, fan, fb, 1e3 * wall / r
+
+    lw12, lc12, _, _, wall_ms12 = chain_run(
+        "radix64_chain12", trace, CHAIN_ROUND_CTR, CHAIN_COMPLETION_PS)
+    fft = synth.gen_fft(64, points_per_tile=64, writeback=True)
+    _, _, fan, fb, _ = chain_run("fft64", fft, FFT_ROUND_CTR,
+                                 FFT_COMPLETION_PS)
+    check(fan == FFT_FANOUT_SERVED and fb == FFT_FALLBACK,
+          f"fft64: chain_fanout_served {fan} / chain_fallback {fb} != "
+          f"{FFT_FANOUT_SERVED} / {FFT_FALLBACK}")
+
+    # The radix run serves no fan-out, so phase 3's captured iterations
+    # leave the fan-out rank, the [KF, T] invalidation masks and the
+    # max-hop legs to the seeded operands.  An untimed second fft64 run
+    # records its first iterations that serve a fan-out (the plain form
+    # picks them), and the kernel is held against the plain form on each.
+    with Recorder(kres.kchain, "run_chain",
+                  lambda ci: bool(kchain.chain_classify(
+                      cparams, cvp, ci, H).fan_go.any()), FFT_CAPTURED) as rf:
+        Simulator(cparams, fft, device=dev).run()
+    check(len(rf.seen) == FFT_CAPTURED,
+          f"fft64: captured {len(rf.seen)} fan-out iterations, want "
+          f"{FFT_CAPTURED}")
+    served = 0
+    for i, ci in enumerate(rf.seen):
+        got = kchain.chain_classify_cuda(cparams, cvp, ci, H)
+        ref = kchain.chain_classify(cparams, cvp, ci, H)
+        torch.cuda.synchronize()
+        err_c = max(err_c, compare("chain_classify", got, ref,
+                                   f"captured fft64 fan-out iteration {i}"))
+        served += int(ref.fan_go.sum().item())
+    print(f"kernel chain_classify: {len(rf.seen)} fft64 iterations with "
+          f"{served} fan-outs served, every output field equal to the plain "
+          f"form (max abs err {err_c})")
+
+    stamp("phase 6: chain-12 radix64 and fft64")
+
+    # ---- 7. where the time goes: profiled stretches of both radix64 runs
+    # The stretches continue phase 3's two simulations, which are eight
+    # quanta past their start.  They are short: the profiler's own cost
+    # grows with the events it records, and a chain-12 round issues about
+    # ten times the host ops of a chain-off round.
+    profile_stretch(cap_sim, wall_ms0, card, "radix64", ["window_walk"],
+                    quanta=4)
+    stamp("phase 7: chain-off stretch profiled")
+    profile_stretch(csim, wall_ms12, card, "radix64_chain12",
+                    ["window_walk", "chain_classify"], quanta=1)
+    stamp("phase 7: chain-12 stretch profiled")
 
     kernels = [{
         "name": "window_walk",
         "route": "cuda",
         "source": "graphite_tpu_torch/engine/kernels/csrc/window_walk.cu",
         "replaces": "graphite_tpu/engine/kernels/window.py:163",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "launches": lw12,
+        "max_abs_err": err_w,
+        "ms": ms_w,
+        "plain_ms": plain_w,
+        "bound_ms": bound_w,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "chain_classify",
+        "route": "cuda",
+        "source": "graphite_tpu_torch/engine/kernels/csrc/chain_classify.cu",
+        "replaces": "graphite_tpu/engine/kernels/chain.py:134",
+        "launches": lc12,
+        "max_abs_err": err_c,
+        "ms": ms_c,
+        "plain_ms": plain_c,
+        "bound_ms": bound_c,
         "bound_by": "bytes",
         "library_ms": None,
     }]

@@ -1,18 +1,23 @@
 """Local (intra-tile) event processing — the per-quantum core phase.
 
 Counterpart of ``graphite_tpu/engine/core.py`` on this slice's path
-(simple cores, private L2, ``tpu/miss_chain = 0``, no fast-forward):
+(simple cores, private L2, ``tpu/miss_chain`` 0 to 256, no
+fast-forward):
 
   * ``_block_retire`` — every round takes the next ``block_events``
     events of every tile as one [T, K] window (from the resident window
     cache) and retires the leading run of simple events through the
     window walk (engine/kernels/window.py: the CUDA kernel on the card,
-    the plain form on the CPU).
+    the plain form on the CPU).  At P > 0 misses past the local L2 bank
+    into the tile's [P, T] chain instead of ending the window.
   * ``_complex_slot`` — one event per tile for the event kinds of this
-    slice: COMPUTE / BRANCH / MEM misses park the tile for resolve,
-    BARRIER_WAIT parks on the barrier, DONE retires the stream.
-  * ``local_advance`` — window rounds until they stop retiring, then one
-    general slot, repeated while anything moves.
+    slice: COMPUTE / BRANCH / MEM misses park the tile for resolve (or,
+    at P > 0, bank as chain element 0), BARRIER_WAIT parks on the
+    barrier, DONE retires the stream.
+  * ``local_advance`` — at P = 0, window rounds until they stop
+    retiring, then one general slot, repeated while anything moves; at
+    P > 0 the chain cadence: a few window rounds to fill the bank, then
+    one guarded general slot.
 
 The JAX package's ``lax.while_loop``/``lax.cond`` become Python loops
 whose conditions read one device scalar each; their trip counts are part
@@ -45,6 +50,7 @@ I, S, E, M = cachemod.I, cachemod.S, cachemod.E, cachemod.M
 STAMP_STRIDE = params_mod.STAMP_STRIDE
 
 _lat = kwindow._lat
+_spanned_bound = kwindow._spanned_bound
 
 
 def _period(state: SimState, module: DVFSModule):
@@ -97,7 +103,8 @@ def _window_refresh(params: SimParams, st: SimState, trace: TraceArrays,
                        win_seat=torch.full_like(st.win_seat, -1))
 
 
-def window_operands(params: SimParams, st: SimState, trace: TraceArrays):
+def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
+                    vp: VariantParams = None):
     """Assemble the walk's operands for the next window round: refresh the
     resident window cache if an active tile outran it, then slice each
     tile's next K events.  Returns the (possibly refreshed) state and the
@@ -107,8 +114,14 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays):
     N = trace.num_events
     dev = st.clock.device
 
+    P = params.miss_chain
+    # Mid-chain tiles run on the relative clock: their boundary check is
+    # the walk's per-event prefix.  Empty-chain tiles may span one
+    # quantum past the cut (kwindow._spanned_bound).
+    in_chain = st.mq_count > 0 if P > 0 else torch.zeros_like(st.done)
+    wbound = _spanned_bound(params, vp, st.boundary)
     tile_active = (~st.done) & (st.pend_kind == PEND_NONE) \
-        & (st.clock < st.boundary) & (st.cursor < N)
+        & (in_chain | (st.clock < wbound)) & (st.cursor < N)
 
     ar = torch.arange(K, dtype=torch.int32, device=dev)
     pos = st.cursor[:, None] + ar[None, :]
@@ -135,6 +148,8 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays):
         l2_word=st.l2.word, l2_rr=st.l2.rr_ptr,
         boundary=st.boundary, models_enabled=st.models_enabled,
         stamp_base=_stamp_base(st),
+        **({f: getattr(st, f) for f in kwindow.CHAIN_IN_FIELDS}
+           if P > 0 else {}),
     )
     return st, wi
 
@@ -143,7 +158,7 @@ def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
                   trace: TraceArrays) -> SimState:
     """Retire the leading run of simple events in each tile's [K] window:
     assemble the walk's operands, run the walk, land its effects."""
-    st, wi = window_operands(params, st, trace)
+    st, wi = window_operands(params, st, trace, vp)
     S_ids = st.spawned_at.shape[0]
     out = kwindow.run_window(params, vp, wi, S_ids)
 
@@ -157,7 +172,7 @@ def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
         name: getattr(c, name) + out.ctr_inc[i]
         for i, name in enumerate(kwindow.WINDOW_CTRS)})
 
-    return st._replace(
+    st = st._replace(
         clock=out.clock,
         cursor=st.cursor + out.n_ret,
         l1i=st.l1i._replace(word=out.l1i_word, rr_ptr=out.l1i_rr),
@@ -169,6 +184,10 @@ def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
         ctr_window=st.ctr_window + 1,
         counters=c,
     )
+    if params.miss_chain > 0:
+        st = st._replace(**{f: getattr(out, f)
+                            for f in kwindow.CHAIN_OUT_FIELDS})
+    return st
 
 
 # ======================================================== complex slot
@@ -189,8 +208,15 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     st = state
     c = st.counters
 
+    P = params.miss_chain
+    # The slot spans like the window (kwindow._spanned_bound); a tile with
+    # banked chain elements needs an absolute clock, so it waits for the
+    # resolve pass to drain them.
+    cbound = _spanned_bound(params, vp, st.boundary)
     active = (~st.done) & (st.pend_kind == PEND_NONE) \
-        & (st.clock < st.boundary) & (st.cursor < N)
+        & (st.clock < cbound) & (st.cursor < N)
+    if P > 0:
+        active = active & (st.mq_count == 0)
     cur = torch.clamp(st.cursor, max=N - 1).to(torch.int64)
     ev = trace.meta[:, rows, cur]          # [3, T]
     addr = trace.addr[rows, cur]
@@ -287,7 +313,11 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     new_clock = clk + dt
 
     # ------------------------------------------------- blocking events
-    blocked = comp_block | mem_rem | is_bar
+    # At P > 0 a memory miss banks as chain element 0 instead of parking
+    # (the complex slot runs only on an empty chain, so slot 0 is free);
+    # the resolve pass fills the line at serve time.
+    bank = (mem_rem | comp_block) if P > 0 else torch.zeros_like(mem_rem)
+    blocked = ((comp_block | mem_rem) & ~bank) | is_bar
     kind = torch.where(comp_block, PEND_IFETCH, PEND_NONE)
     kind = torch.where(mem_rem & is_rd, PEND_SH_REQ, kind)
     kind = torch.where(mem_rem & is_wr, PEND_EX_REQ, kind)
@@ -308,6 +338,20 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     extra = torch.where(comp_block, cost_ps + fetch_ps + (n_lines - 1) * l2_ps,
                         0)
     pend_extra = torch.where(blocked, extra, st.pend_extra)
+
+    if P > 0:
+        kind_ev = torch.where(comp_block, PEND_IFETCH,
+                              torch.where(is_wr, PEND_EX_REQ,
+                                          PEND_SH_REQ)).to(torch.int64)
+        mq_req0 = kind_ev | (line << 8)
+        chain = dict(
+            mq_req=_set_row0(st.mq_req, bank, mq_req0),
+            mq_delta=_set_row0(st.mq_delta, bank, issue),
+            mq_extra=_set_row0(st.mq_extra, bank, extra),
+            mq_count=torch.where(bank, 1, st.mq_count).to(torch.int32),
+            chain_rel=torch.where(bank, 0, st.chain_rel))
+    else:
+        chain = {}
 
     # ------------------------------------------------- cache updates
     l1i = cachemod.touch(st.l1i, pI.set_idx, pI.way, is_comp & pI.hit & en,
@@ -369,7 +413,78 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         round_ctr=st.round_ctr + 1,
         ctr_complex=st.ctr_complex + 1,
         counters=c,
+        **chain,
     )
+
+
+def _set_row0(arr: torch.Tensor, mask: torch.Tensor,
+              val: torch.Tensor) -> torch.Tensor:
+    """``arr.at[0].set(where(mask, val, arr[0]))`` for a [P, T] bank."""
+    return torch.cat([torch.where(mask, val, arr[0])[None], arr[1:]])
+
+
+def _complex_slot_guarded(params: SimParams, vp: VariantParams,
+                          state: SimState,
+                          trace: TraceArrays) -> SimState:
+    """Run the general slot only when some tile can use it (P > 0): an
+    eligible tile (empty chain, un-parked, inside the spanned bound)
+    whose next event is one the window never takes — here BARRIER_WAIT,
+    DONE and NOP — or any eligible tile while models are off.  Skipping
+    is result-identical; at P == 0 the slot runs unconditionally."""
+    if params.miss_chain <= 0:
+        return _complex_slot(params, vp, state, trace)
+    N = trace.num_events
+    T = params.num_tiles
+    gbound = _spanned_bound(params, vp, state.boundary)
+    eligible = (~state.done) & (state.pend_kind == PEND_NONE) \
+        & (state.clock < gbound) & (state.cursor < N) \
+        & (state.mq_count == 0)
+    if params.block_events > 0:
+        cur = torch.clamp(state.cursor, max=N - 1).to(torch.int64)
+        op = trace.meta[0, torch.arange(T, device=cur.device), cur]
+        window_class = ((op == EventOp.COMPUTE) | (op == EventOp.BRANCH)
+                        | (op == EventOp.MEM_READ)
+                        | (op == EventOp.MEM_WRITE)
+                        | (op == EventOp.STALL) | (op == EventOp.SYNC)
+                        | (op == EventOp.SPAWN))
+        eligible = eligible & (~window_class | ~state.models_enabled)
+    if bool(eligible.any().item()):
+        return _complex_slot(params, vp, state, trace)
+    return state
+
+
+def _chain_cadence(params: SimParams, vp: VariantParams, state: SimState,
+                   trace: TraceArrays) -> SimState:
+    """local_advance at P > 0: just enough window rounds to fill the bank
+    (``cap_w``), skipped outright when no tile can retire, then one
+    guarded general slot.  With ``fanout_replay`` the window loop also
+    ends as soon as no tile can use another round."""
+    if params.block_events > 0:
+        P = params.miss_chain
+        K = params.block_events
+        cap_w = max(1, -(-P * 3 // (2 * K)))
+        N = trace.num_events
+        qps = vp.quantum_ps
+
+        def can_retire(st):
+            mid = st.mq_count > 0
+            wb = _spanned_bound(params, vp, st.boundary)
+            return (~st.done) & (st.pend_kind == PEND_NONE) \
+                & (st.cursor < N) \
+                & torch.where(mid, (st.chain_rel < qps) & (st.mq_count < P),
+                              st.clock < wb)
+
+        if bool(can_retire(state).any().item()):
+            j, cv = 0, _progress(state)
+            while True:
+                state = _block_retire(params, vp, state, trace)
+                j, pv, cv = j + 1, cv, _progress(state)
+                if j >= cap_w or cv <= pv:
+                    break
+                if params.fanout_replay \
+                        and not bool(can_retire(state).any().item()):
+                    break
+    return _complex_slot_guarded(params, vp, state, trace)
 
 
 def local_advance(params: SimParams, state: SimState,
@@ -381,6 +496,8 @@ def local_advance(params: SimParams, state: SimState,
     while the cursor sum moves (capped at max_events_per_quantum)."""
     if vp is None:
         vp = variant_params(params)
+    if params.miss_chain > 0:
+        return _chain_cadence(params, vp, state, trace)
     cap = params.max_events_per_quantum
     i = 0
     prev = -1

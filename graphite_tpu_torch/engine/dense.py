@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from graphite_tpu_torch.engine.ops import lshr
+from graphite_tpu_torch.engine.ops import lshr, scatter
 
 DENSE_MAX_ELEMS = 1 << 22
 
@@ -57,6 +57,16 @@ def binmax(oh: torch.Tensor, mask: torch.Tensor, val: torch.Tensor,
     """Dense scatter-max: per-bin max of val[r] over rows with mask."""
     return torch.amax(torch.where(oh & mask[:, None], val[:, None], init),
                       dim=0)
+
+
+def stacked_set_table(idx: torch.Tensor, mask: torch.Tensor,
+                      vals: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """tbl[f, idx[r]] = vals[f, r] where mask[r], one scatter for all F
+    rows of ``tbl`` ([F, size]).  Callers guarantee at most one masked
+    row per index value, so duplicate-index order never matters."""
+    F = tbl.shape[0]
+    fr = torch.arange(F, device=tbl.device)[:, None]
+    return scatter(tbl, (fr, idx[None, :]), vals, "set", mask=mask[None, :])
 
 
 BIG = 2**62

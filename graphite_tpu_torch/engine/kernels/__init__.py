@@ -5,4 +5,8 @@
   * ``build.py``    — builds ``csrc/*.cu`` with nvcc into ``build/kernels``
     at first use and loads each library with ctypes.
   * ``window.py``   — the block-window walk (``csrc/window_walk.cu``).
+  * ``chain.py``    — one chain-replay iteration's classify step
+    (``csrc/chain_classify.cu``).
+  * ``operands.py`` — seeded operands of both kernels, for the tests and
+    ``chip_smoke.py``.
 """

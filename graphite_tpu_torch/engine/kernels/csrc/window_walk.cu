@@ -8,32 +8,48 @@
 // graphite_tpu_torch/engine/kernels/window.py `window_walk`; both must
 // agree on every output element.
 //
-// Scope (the port's first slice): simple in-order cores, private L1I /
-// L1D / L2 under MSI, no miss chains (P = 0), one-bit or no branch
-// predictor, LRU or round-robin L1 replacement.  The wrapper refuses any
-// other configuration.
+// Scope: simple in-order cores, private L1I / L1D / L2 under MSI, miss
+// chains off (P = 0) or on (P = tpu/miss_chain > 0, with or without the
+// fan-out replay's forwarding and boundary spanning), one-bit or no
+// branch predictor, LRU or round-robin L1 replacement.  The wrapper
+// refuses shared-L2 protocols, iocoom cores and windows wider than 64.
 //
 // Design.  The JAX walk is vectorised over the window's K events with
-// [T, K, K] masks because the TPU wants wide vector operations.  Here
-// each thread owns one tile and walks its K events in order: the running
-// clock, the hazard bookkeeping and the in-window predictor forwarding
-// live in registers and a small local array, and each event reads the one
-// set row per cache level it touches straight from device memory.  The
-// sequential walk reproduces the vectorised decisions exactly because
-// only the retired prefix is observable: an event retires only if every
-// earlier event did, so its hazard, predictor and clock inputs are the
-// earlier events' own outcomes.  Probes read the INPUT arrays (window-
-// start state); touches and fills write the OUTPUT arrays, which the
-// wrapper has cloned from the inputs.  A retired fill's set is touched by
-// no other retired event of its window (the hazard rules forbid it), so
-// applying effects in event order equals the JAX scatter order.
+// [T, K, K] (and, at P > 0, [T, K, P]) masks because the TPU wants wide
+// vector operations.  Here each thread owns one tile and walks its K
+// events in order: the running clock, the chain's relative clock and
+// bank count, the hazard bookkeeping and the in-window predictor
+// forwarding live in registers and small local arrays, and each event
+// reads the one set row per cache level it touches straight from device
+// memory.
+//
+// Why the sequential walk is exact.  Only the retired prefix is
+// observable: an event retires only if every earlier event did, so its
+// hazard, forwarding, predictor and clock inputs are the earlier events'
+// own outcomes.  Every classification the JAX walk makes (hit, local-L2
+// fill, bankable miss, forwarded miss, hazard) depends only on the
+// window-start state and on earlier events' classifications, which the
+// kernel keeps per event (line, set indices, flags); the chain bank
+// before the window (slots [mq_head, mq_count) of the [P, T] arrays) is
+// read from the inputs, as the JAX walk reads it.  Probes read the INPUT
+// arrays; touches and fills write the OUTPUT arrays, which the wrapper
+// has cloned from the inputs.  At P > 0 a banked miss retires without
+// writing any cache word (the resolve pass installs the line at serve
+// time) and a forwarded miss is priced as an L1 access with no touch and
+// no fill, so the cache writes of a window are the P = 0 writes, further
+// restricted by the chain hazards.  A retired fill's set is touched by no
+// other retired event of its window (the hazard rules forbid it), so
+// applying effects in event order equals the JAX scatter order.  Banked
+// elements go to the next free slot (mq_count, then up), one slot per
+// bank, so the [P, T] bank outputs have one writer per element.
 //
 // Cost.  The walk is bound by launch latency and by the bytes of the
 // cache arrays (the wrapper's clones move the whole L1/L2 word arrays;
 // the kernel itself touches a few set rows per event), not by
-// arithmetic: a few hundred integer operations per event.  One thread
-// per tile, 32 tiles per block, is 64 threads on a 132-SM card at
-// T = 64 — a known underfill, left for a later change.
+// arithmetic: a few hundred integer operations per event, plus a scan of
+// the pending bank per event at P > 0.  One thread per tile, 32 tiles per
+// block, is 64 threads on a 132-SM card at T = 64 — a known underfill,
+// left for a later change.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,6 +62,12 @@ constexpr int kTilesPerBlock = 32;
 // Event opcodes (graphite_tpu_torch/isa.py EventOp).
 constexpr int OP_NOP = 0, OP_COMPUTE = 1, OP_MEM_READ = 2, OP_MEM_WRITE = 3,
               OP_BRANCH = 4, OP_SYNC = 7, OP_SPAWN = 8, OP_STALL = 9;
+// Pending-request kinds (engine/state.py).
+constexpr int64_t PEND_SH_REQ = 1, PEND_EX_REQ = 2, PEND_IFETCH = 3;
+// Per-event history flags.
+constexpr uint16_t F_FILL_D = 1, F_TOUCH_D = 2, F_FILL_I = 4, F_TOUCH_I = 8,
+                   F_MBANK0 = 16, F_CBANK0 = 32, F_RD = 64, F_WR = 128,
+                   F_L2FILL = 256;
 // Coherence states (engine/cache.py).
 constexpr int ST_I = 0, ST_S = 1, ST_M = 4;
 constexpr int64_t kStampField = (1LL << 29) - 1;
@@ -87,6 +109,17 @@ struct WalkArgs {
   uint8_t* spawn_mask;            // [T, K]
   int32_t* spawn_child;           // [T, K]
   int64_t* spawn_land;            // [T, K]
+  // miss-chain state (P > 0; null at P = 0).  The bank outputs hold
+  // clones of the inputs; the kernel writes the slots it banks.
+  const int64_t* chain_rel;       // [T]
+  const int32_t* mq_count;        // [T]
+  const int32_t* mq_head;         // [T]
+  const int64_t* mq_req_in;       // [P, T]
+  int64_t* chain_rel_out;         // [T]
+  int32_t* mq_count_out;          // [T]
+  int64_t* mq_req_out;            // [P, T]
+  int64_t* mq_delta_out;          // [P, T]
+  int64_t* mq_extra_out;          // [P, T]
   // geometry and timing
   int64_t T, K, NM;
   int64_t l1i_assoc, l1i_sets, l1i_round_robin;
@@ -98,6 +131,11 @@ struct WalkArgs {
   int64_t col_core, col_l1i, col_l1d, col_l2, col_nu;
   int64_t s_ids, num_tiles, mesh_width;
   int64_t nu_magic, nu_hop_cycles, nu_ser_cycles;
+  int64_t P;                      // miss_chain (0: no chains)
+  int64_t wfwd;                   // fan-out replay forwarding (P > 0)
+  int64_t qps;                    // quantum, ps: mid-chain overrun credit
+  int64_t wbound_add;             // boundary span for empty chains
+  int64_t l2_tags_cycles;
 };
 
 namespace {
@@ -216,11 +254,25 @@ window_walk_kernel(WalkArgs a) {
   const int64_t boundary = a.boundary[0];
   const int64_t stamp_base = a.stamp_base[0];
 
-  // Per-event history for the hazard rules (earlier events of the
-  // retired prefix): L1D / L1I set index and fill/touch flags.
-  int32_t set_d[kMaxWindow], set_i[kMaxWindow];
-  uint8_t flags[kMaxWindow];  // bit0 fill_d, bit1 touch_d, bit2 fill_i,
-                              // bit3 touch_i
+  const int64_t P = a.P;
+  const bool wfwd = P > 0 && a.wfwd != 0;
+  const int64_t wbound = boundary + a.wbound_add;
+  const int64_t l2tag_ps = a.l2_tags_cycles * per[a.col_l2];
+
+  // Per-event history for the hazard and forwarding rules (earlier
+  // events of the window): line, L1D / L1I / L2 set index and flags.
+  int64_t line_h[kMaxWindow];
+  int32_t set_d[kMaxWindow], set_i[kMaxWindow], set_2[kMaxWindow];
+  uint16_t flags[kMaxWindow];
+
+  // Chain state: banked count and the relative clock since the last bank.
+  int64_t nm = 0, rel = 0, phead = 0, pcount = 0;
+  if (P > 0) {
+    nm = a.mq_count[t];
+    rel = a.chain_rel[t];
+    phead = a.mq_head[t];
+    pcount = a.mq_count[t];
+  }
 
   int64_t ctr[12];
   for (int c = 0; c < 12; ++c) ctr[c] = 0;
@@ -254,28 +306,84 @@ window_walk_kernel(WalkArgs a) {
     const bool mem_l2 =
         is_mem && !l1_ok && pL2.hit && (is_rd || pL2.state == ST_M);
     const bool comp_l2 = is_comp && !pI.hit && pL2.hit;
-    const bool mem_simple = is_mem && (l1_ok || mem_l2);
-    const bool comp_simple = is_comp && (pI.hit || comp_l2);
+    bool mem_simple = is_mem && (l1_ok || mem_l2);
+    bool comp_simple = is_comp && (pI.hit || comp_l2);
     const bool fill_d = mem_l2, fill_i = comp_l2;
     const bool touch_d = is_mem && l1_ok, touch_i = is_comp && pI.hit;
+    // Bankable misses (P > 0): past the local L2.
+    const bool mem_bank0 = P > 0 && is_mem && !l1_ok && !mem_l2;
+    const bool comp_bank0 = P > 0 && is_comp && !pI.hit && !comp_l2;
 
-    // ---- fill hazards against the earlier events of the window
+    // ---- hazards and chain forwarding against the earlier events
     bool hazard = false;
+    bool fwd_d = false, fwd_i = false;
     for (int64_t i = 0; i < j; ++i) {
-      const uint8_t f = flags[i];
+      const uint16_t f = flags[i];
       if (set_d[i] == pD.set) {
-        if (is_mem && (f & 1)) hazard = true;
-        if (fill_d && (f & 3)) hazard = true;
+        if (is_mem && (f & F_FILL_D)) hazard = true;
+        if (fill_d && (f & (F_FILL_D | F_TOUCH_D))) hazard = true;
       }
       if (set_i[i] == pI.set) {
-        if (is_comp && (f & 4)) hazard = true;
-        if (fill_i && (f & 12)) hazard = true;
+        if (is_comp && (f & F_FILL_I)) hazard = true;
+        if (fill_i && (f & (F_FILL_I | F_TOUCH_I))) hazard = true;
+      }
+      if (P > 0) {
+        const bool same = line_h[i] == line;
+        const bool mb0 = f & F_MBANK0, cb0 = f & F_CBANK0;
+        const bool wr_i = f & F_WR;
+        if (same) {
+          // hit-on-pending-fill forwarding within the window
+          if (mb0 && is_rd) fwd_d = true;
+          if (cb0) fwd_i = true;
+          if (wfwd && mb0 && wr_i && is_wr) fwd_d = true;
+          // same-line accesses behind a bank its forwarding misses
+          const bool bank_w_uncov = wfwd ? (mb0 && !wr_i) : mb0;
+          if ((is_mem && cb0) || (is_wr && bank_w_uncov) ||
+              (is_comp && mb0))
+            hazard = true;
+        }
+        // banked-miss L2 hazards: the set a banked element will fill
+        if ((is_mem || is_comp) && (f & F_L2FILL) && set_2[i] == pL2.set) {
+          const bool cover =
+              same && ((is_mem && mb0 && is_rd) || (is_comp && cb0) ||
+                       (wfwd && is_wr && mb0 && wr_i));
+          if (!cover) hazard = true;
+        }
       }
     }
+    // ---- the bank before this window: forwarding and stall-on-use
+    if (P > 0 && (is_mem || is_comp)) {
+      for (int64_t sl = phead; sl < pcount; ++sl) {
+        const int64_t req = a.mq_req_in[sl * T + t];
+        const int64_t pline = req >> 8;
+        const bool p_if = (req & 7) == PEND_IFETCH;
+        const bool lm = pline == line;
+        const bool cpd = lm && !p_if && is_rd;
+        const bool cpi = lm && p_if;
+        if (cpd) fwd_d = true;
+        if (cpi) fwd_i = true;
+        if (is_mem && lm && !cpd) hazard = true;
+        if (is_comp && lm && !cpi) hazard = true;
+        if (!(cpd || cpi) && fmod_pos(pline, a.l2_sets) == pL2.set)
+          hazard = true;
+      }
+    }
+    const bool mem_fwd = mem_bank0 && fwd_d;
+    const bool comp_fwd = comp_bank0 && fwd_i;
+    const bool mem_bank = mem_bank0 && !mem_fwd;
+    const bool comp_bank = comp_bank0 && !comp_fwd;
+    mem_simple = mem_simple || mem_fwd;
+    comp_simple = comp_simple || comp_fwd;
+
+    line_h[j] = line;
     set_d[j] = static_cast<int32_t>(pD.set);
     set_i[j] = static_cast<int32_t>(pI.set);
-    flags[j] = (fill_d ? 1 : 0) | (touch_d ? 2 : 0) | (fill_i ? 4 : 0) |
-               (touch_i ? 8 : 0);
+    set_2[j] = static_cast<int32_t>(pL2.set);
+    flags[j] = (fill_d ? F_FILL_D : 0) | (touch_d ? F_TOUCH_D : 0) |
+               (fill_i ? F_FILL_I : 0) | (touch_i ? F_TOUCH_I : 0) |
+               (mem_bank0 ? F_MBANK0 : 0) | (comp_bank0 ? F_CBANK0 : 0) |
+               (is_rd ? F_RD : 0) | (is_wr ? F_WR : 0) |
+               ((mem_bank || comp_bank) ? F_L2FILL : 0);
 
     // ---- branch predictor: the output table holds the table as updated
     // by this window's earlier retired branches (last write wins), which
@@ -306,11 +414,25 @@ window_walk_kernel(WalkArgs a) {
     if (is_spawn) dt = dt_spawn;
     const int64_t floor_t = (is_stall || is_sync) ? addr : kNegFloor;
 
-    // ---- retire decision (prefix): ok & inside the quantum boundary
+    // ---- retire decision (prefix): ok & inside the quantum boundary; at
+    // P > 0 a bankable miss banks while the bank has room, and a
+    // mid-chain tile runs on its relative clock with one quantum of
+    // overrun credit
     const bool base_ok = valid && !hazard && en;
-    const bool okj = base_ok && (comp_simple || mem_simple || is_br ||
-                                 is_stall || is_sync || is_spawn);
-    const bool can = run && okj && clk < boundary;
+    const bool ok_rel = base_ok && (comp_simple || mem_simple || is_br);
+    const bool ok_abs = base_ok && (is_stall || is_sync || is_spawn);
+    bool can, bankc = false, abs_step;
+    if (P > 0) {
+      const bool bank_j = base_ok && (mem_bank || comp_bank) && nm < P;
+      const bool okj = ok_rel || (ok_abs && nm == 0) || bank_j;
+      const bool in_b = nm == 0 ? clk < wbound : (rel < a.qps && nm < P);
+      can = run && okj && in_b;
+      bankc = can && bank_j;
+      abs_step = can && nm == 0 && !bankc;
+    } else {
+      can = run && (ok_rel || ok_abs) && clk < boundary;
+      abs_step = can;
+    }
 
     // ---- SPAWN landing (every event; the mask marks retired spawns)
     int32_t child = arg2 < 0 ? 0 : arg2;
@@ -356,17 +478,36 @@ window_walk_kernel(WalkArgs a) {
       }
       if ((is_mem && (arg2 & 0xFF) == 0) || is_br) ctr[0] += 1;
       if (is_br) ctr[1] += 1;
-      if (is_comp && !pI.hit) ctr[2] += n_lines;
+      if (is_comp && !pI.hit && !comp_fwd) ctr[2] += n_lines;
       if (is_rd) ctr[3] += 1;
-      if (is_rd && !l1_ok) ctr[4] += 1;
+      if (is_rd && !l1_ok && !mem_fwd) ctr[4] += 1;
       if (is_wr) ctr[5] += 1;
-      if (is_wr && !l1_ok) ctr[6] += 1;
-      if (mem_l2 || comp_l2) ctr[7] += 1;
+      if (is_wr && !l1_ok && !mem_fwd) ctr[6] += 1;
+      const bool l2_fill_cand = mem_bank || comp_bank;
+      if (mem_l2 || comp_l2 || l2_fill_cand) ctr[7] += 1;
+      if (l2_fill_cand) ctr[8] += 1;
       if (is_br) ctr[9] += 1;
       if (is_br && !correct) ctr[10] += 1;
       if (is_spawn) ctr[11] += 1;
 
-      clk = (clk > floor_t ? clk : floor_t) + dt;
+      if (bankc) {
+        // Record the element: kind | line << 8, its issue point (absolute
+        // for the chain's first element, else relative to the previous
+        // element's completion) and the local cost owed at completion.
+        const int64_t kind = is_comp ? PEND_IFETCH
+                             : (is_wr ? PEND_EX_REQ : PEND_SH_REQ);
+        const int64_t off_ps = (is_comp ? l1i_ps : l1d_ps) + l2tag_ps;
+        const int64_t slot = nm * T + t;
+        a.mq_req_out[slot] = kind | (line << 8);
+        a.mq_delta_out[slot] = (nm == 0 ? clk : rel) + off_ps;
+        a.mq_extra_out[slot] =
+            is_comp ? cost_ps + fetch_ps + (n_lines - 1) * l2_ps : 0;
+        rel = 0;
+        nm += 1;
+      } else if (P > 0 && nm > 0) {
+        rel += dt;
+      }
+      if (abs_step) clk = (clk > floor_t ? clk : floor_t) + dt;
       n += 1;
     }
     run = can;
@@ -375,6 +516,10 @@ window_walk_kernel(WalkArgs a) {
   a.clock_out[t] = clk;
   a.n_ret[t] = n;
   for (int c = 0; c < 12; ++c) a.ctr_inc[c * T + t] = ctr[c];
+  if (P > 0) {
+    a.mq_count_out[t] = static_cast<int32_t>(nm);
+    a.chain_rel_out[t] = nm > 0 ? rel : 0;
+  }
 }
 
 }  // namespace

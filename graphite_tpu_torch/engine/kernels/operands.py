@@ -1,0 +1,232 @@
+"""Seeded operands for the kernels of this package, for holding each
+kernel, its plain form and the JAX reference against each other.
+
+Each ``random_*_arrays`` returns numpy arrays (field name -> array) made
+from a numpy seed; each ``*_in_from_numpy`` turns them into the kernel's
+operand tuple on a device.  The CPU tests and ``chip_smoke.py`` use them;
+nothing on the simulator's path does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphite_tpu_torch.engine import cache as cachemod
+from graphite_tpu_torch.engine import dense
+from graphite_tpu_torch.engine.kernels.chain import ChainIn
+from graphite_tpu_torch.engine.kernels.window import WindowIn
+from graphite_tpu_torch.engine.ops import umod64
+from graphite_tpu_torch.engine.resolve import dir_set_of_line, home_of_line
+from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
+                                             PEND_SH_REQ)
+from graphite_tpu_torch.isa import DVFSModule, EventOp
+from graphite_tpu_torch.params import SimParams
+
+I, S, M = cachemod.I, cachemod.S, cachemod.M
+
+
+
+def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
+    """Random walk operands as numpy arrays (field name -> array), for
+    holding the kernel, the plain form and the JAX walk against each
+    other.  Cache words are valid packed words whose tags come from the
+    same small line pool as the window's addresses, so probes hit, miss,
+    alias sets and collide on predictor slots; every event kind the walk
+    classifies appears."""
+    rng = np.random.default_rng(seed)
+    T = params.num_tiles
+    lb = params.line_size.bit_length() - 1
+    pool = rng.integers(0, 1 << 20, size=max(8, K * 2)) \
+        * rng.choice([1, params.l1d.num_sets, params.l2.num_sets],
+                     size=max(8, K * 2))
+    pool = pool % (1 << 30)
+    ops = np.array([int(EventOp.COMPUTE), int(EventOp.MEM_READ),
+                    int(EventOp.MEM_WRITE), int(EventOp.BRANCH),
+                    int(EventOp.STALL), int(EventOp.SYNC),
+                    int(EventOp.SPAWN), int(EventOp.BARRIER_WAIT),
+                    int(EventOp.NOP)])
+    opw = np.array([30, 25, 15, 12, 3, 3, 3, 2, 2], dtype=np.float64)
+    op = rng.choice(ops, size=(T, K), p=opw / opw.sum()).astype(np.int32)
+    line = rng.choice(pool, size=(T, K))
+    addr = (line << lb) + rng.integers(0, params.line_size, size=(T, K))
+    clock = rng.integers(0, 5_000_000, size=T).astype(np.int64)
+    is_time = (op == int(EventOp.STALL)) | (op == int(EventOp.SYNC))
+    addr = np.where(is_time, clock[:, None]
+                    + rng.integers(-20_000, 200_000, size=(T, K)), addr)
+    arg = np.where(op == int(EventOp.BRANCH), rng.integers(0, 2, (T, K)),
+                   rng.integers(-2, 40, (T, K))).astype(np.int32)
+    arg2 = np.where(op == int(EventOp.COMPUTE),
+                    rng.integers(0, 200, (T, K)),
+                    np.where(rng.random((T, K)) < 0.8, 0,
+                             rng.integers(-3, 3 * T, (T, K)))
+                    ).astype(np.int32)
+
+    def words(cp, A, S):
+        tags = rng.choice(pool, size=(A, T, S)) % (1 << 31)
+        stamps = rng.integers(0, 1 << 29, size=(A, T, S))
+        st = rng.choice([0, 1, 1, 4, 4, 3, 2], size=(A, T, S))
+        return ((tags.astype(np.int64) << 32) | (stamps << 3) | st
+                ).astype(np.int64)
+
+    def place(w, S):
+        # Plant the window's lines in their sets so probes hit.
+        A = w.shape[0]
+        for t in range(T):
+            for j in range(K):
+                if rng.random() < 0.5:
+                    ln = int(line[t, j])
+                    w[rng.integers(0, A), t, ln % S] = \
+                        (ln << 32) | (int(rng.integers(0, 1 << 29)) << 3) \
+                        | int(rng.choice([1, 4, 4]))
+        return w
+
+    A1, S1 = params.l1i.associativity, params.l1i.num_sets
+    Ad, Sd = params.l1d.associativity, params.l1d.num_sets
+    A2, S2 = params.l2.associativity, params.l2.num_sets
+    nm = len(DVFSModule)
+    out = dict(
+        meta=np.stack([op, arg, arg2]).astype(np.int32),
+        addr=addr.astype(np.int64),
+        valid_ev=rng.random((T, K)) < 0.95,
+        tile_active=rng.random(T) < 0.9,
+        tile_ids=np.arange(T, dtype=np.int32),
+        clock=clock,
+        period_ps=rng.integers(250, 1200, size=(T, nm)).astype(np.int32),
+        bp_table=rng.random((T, params.core.bp_size)) < 0.5,
+        l1i_word=place(words(params.l1i, A1, S1), S1),
+        l1i_rr=rng.integers(0, A1, size=(T, S1)).astype(np.int32),
+        l1d_word=place(words(params.l1d, Ad, Sd), Sd),
+        l1d_rr=rng.integers(0, Ad, size=(T, Sd)).astype(np.int32),
+        l2_word=place(words(params.l2, A2, S2), S2),
+        l2_rr=rng.integers(0, A2, size=(T, S2)).astype(np.int32),
+        boundary=np.int64(5_000_000 + int(rng.integers(0, 3_000_000))),
+        models_enabled=np.bool_(rng.random() < 0.9),
+        stamp_base=np.int32(64 * int(rng.integers(0, 100_000))),
+    )
+    P = params.miss_chain
+    if P > 0:
+        # A bank from earlier rounds: some tiles empty, some mid-chain
+        # (served head < count), some full; pending lines from the
+        # window's pool so forwarding and stall-on-use both fire.
+        count = rng.integers(0, P + 1, size=T)
+        count[rng.random(T) < 0.3] = 0
+        head = (rng.random(T) * (count + 1)).astype(np.int64)
+        head = np.minimum(head, np.maximum(count - 1, 0))
+        kinds = rng.choice([PEND_SH_REQ, PEND_EX_REQ, PEND_IFETCH],
+                           size=(P, T))
+        plines = rng.choice(pool, size=(P, T))
+        qps = params.quantum_ps
+        out.update(
+            chain_rel=np.where(count > 0,
+                               rng.integers(0, 2 * qps, size=T),
+                               0).astype(np.int64),
+            mq_count=count.astype(np.int32), mq_head=head.astype(np.int32),
+            mq_req=(kinds | (plines << 8)).astype(np.int64),
+            mq_delta=rng.integers(0, 400_000, size=(P, T)).astype(np.int64),
+            mq_extra=rng.integers(0, 60_000, size=(P, T)).astype(np.int64))
+    return out
+
+
+def window_in_from_numpy(arrays: dict, device) -> WindowIn:
+    """A :class:`WindowIn` on ``device`` from numpy operands."""
+    dev = torch.device(device)
+    return WindowIn(**{
+        f: torch.from_numpy(np.array(arrays[f])).to(dev)
+        for f in WindowIn._fields if arrays.get(f) is not None})
+
+
+
+def random_chain_arrays(params: SimParams, H: int, seed: int) -> dict:
+    """Random classify operands as numpy arrays (field name -> array), for
+    holding the kernel, the plain form and the JAX function against each
+    other.  Lines come from a small pool, so heads share lines, directory
+    sets and hash slots; directory rows hold I / S / M entries whose tags
+    come from the same pool (hits, misses, live and dead victims, owners
+    other than the requester), and sharer words are random tile bits."""
+    rng = np.random.default_rng(seed)
+    T = params.num_tiles
+    A = params.directory.associativity
+    W = (T + 63) // 64
+    ndsets = params.directory.num_sets
+    pool = rng.integers(0, 1 << 24, size=max(3, T // 2))
+    active = rng.random(T) < 0.85
+    kind = rng.choice([PEND_SH_REQ, PEND_EX_REQ, PEND_IFETCH], size=T,
+                      p=[0.45, 0.4, 0.15])
+    line = np.where(active, rng.choice(pool, size=T), 0).astype(np.int64)
+    lt = torch.from_numpy(line)
+    home = home_of_line(params, lt).numpy()
+    dset = dir_set_of_line(params, lt).numpy()
+    fidx = (home.astype(np.int64) * ndsets + dset).astype(np.int32)
+    hidx = umod64(dense.fmix64(lt), H).to(torch.int32).numpy()
+
+    # One directory row per distinct flat set, gathered per head.
+    sets = {int(f) for f in fidx}
+    word_t, sh_t = {}, {}
+    tilebits = (1 << T) - 1 if T < 64 else -1
+    for f in sorted(sets):
+        st = rng.choice([I, S, S, S, M], size=A)
+        st[rng.random(A) < 0.2] = I
+        tags = rng.choice(pool, size=A)
+        # Plant most of this set's requested lines, so heads hit.
+        for ln in sorted({int(x) for x, g in zip(line, fidx) if g == f}):
+            if rng.random() < 0.7:
+                w = int(rng.integers(0, A))
+                tags[w] = ln
+                if st[w] == I:
+                    st[w] = S
+        owner = np.where(st == M, rng.integers(0, T, size=A), -1)
+        stamp = rng.integers(0, 1 << 17, size=A)
+        word_t[f] = ((tags.astype(np.int64) << 33) | (stamp << 16)
+                     | ((owner + 1) << 3) | st).astype(np.int64)
+        sh = np.zeros((A, W), dtype=np.uint64)
+        for w in range(A):
+            for k in range(W):
+                bits = int(rng.integers(0, 1 << 62)) \
+                    | (int(rng.integers(0, 4)) << 62)
+                if W == 1:
+                    bits &= tilebits & ((1 << 64) - 1)
+                if st[w] == I or rng.random() < 0.2:
+                    bits = 0
+                if st[w] == M:
+                    o = int(owner[w])
+                    bits = (1 << (o % 64)) if o // 64 == k else 0
+                sh[w, k] = np.uint64(bits)
+        sh_t[f] = sh
+    drow = np.stack([word_t[int(f)] for f in fidx])           # [T, A]
+    dsharers = np.stack([sh_t[int(f)] for f in fidx])         # [T, A, W]
+
+    def periods():
+        return rng.integers(250, 1200, size=T).astype(np.int32)
+
+    ftbl = None
+    if not params.dram.queue_model_enabled:
+        ftbl = np.stack([np.where(rng.random(H) < 0.5, -1,
+                                  rng.choice(pool, size=H)),
+                         rng.integers(0, 3_000_000, size=H)]).astype(np.int64)
+    return dict(
+        active=active, is_ex=active & (kind == PEND_EX_REQ),
+        is_if=active & (kind == PEND_IFETCH), line=line,
+        issue=rng.integers(0, 2_000_000, size=T).astype(np.int64),
+        extra=rng.integers(0, 60_000, size=T).astype(np.int64),
+        home=home.astype(np.int32), dset=dset.astype(np.int32), fidx=fidx,
+        hidx=hidx.astype(np.int32), drow=drow,
+        dsharers=dsharers.view(np.int64), p_net=periods(), p_dir=periods(),
+        p_l2=periods(), p_l1d=periods(), p_l1i=periods(), p_core=periods(),
+        ftbl=ftbl)
+
+
+def chain_in_from_numpy(arrays: dict, device) -> ChainIn:
+    """A :class:`ChainIn` on ``device`` from numpy operands (the sharer
+    words as int64 bits)."""
+    dev = torch.device(device)
+
+    def conv(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return ChainIn(**{f: conv(arrays.get(f)) for f in ChainIn._fields})

@@ -3,16 +3,19 @@
 ``window_walk`` is engine/core._block_retire's hot loop — tag probes
 against every cache level, hit/stall/hazard classification over the
 [T, K] window, within-window branch-predictor read-after-write, the
-max-plus clock prefix, LRU touches and fills, and counter accumulation.
-It is the counterpart of ``graphite_tpu/engine/kernels/window.py:163``,
-transliterated for this slice's configuration: simple in-order cores,
-private L1/L2 under MSI, no miss chains (``tpu/miss_chain = 0``).
+max-plus clock prefix, chain banking into the [P, T] ``mq_*`` arrays at
+``tpu/miss_chain = P > 0`` (with forwarding onto pending fills), LRU
+touches and fills, and counter accumulation.  It is the counterpart of
+``graphite_tpu/engine/kernels/window.py:163``, transliterated for this
+slice's configuration: simple in-order cores, private L1/L2 under MSI,
+miss chains off or on.  Shared-L2 protocols, iocoom cores and
+fast-forward's wide windows are refused (later slices).
 
 Two forms compute the same function:
 
   * :func:`window_walk` — plain PyTorch, vectorised over the window with
-    the JAX package's [T, K, K] masks.  The CPU tests hold it against the
-    JAX walk leaf for leaf.
+    the JAX package's [T, K, K] and [T, K, P] masks.  The CPU tests hold
+    it against the JAX walk leaf for leaf.
   * ``csrc/window_walk.cu`` — a CUDA kernel for ``sm_90a`` that walks
     each tile's K events in order, one thread per tile.
 
@@ -25,7 +28,7 @@ launches, so a run can show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +36,8 @@ from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import noc
 from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.ops import first_true, scatter
+from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
+                                             PEND_SH_REQ)
 from graphite_tpu_torch.engine.vparams import VariantParams
 from graphite_tpu_torch.events.schema import ICACHE_BYTES_PER_INSTRUCTION
 from graphite_tpu_torch.isa import DVFSModule, EventOp
@@ -52,8 +57,8 @@ def _lat(cycles, period_ps):
 
 
 class WindowIn(NamedTuple):
-    """Window-walk operands (the JAX WindowIn's fields that exist at
-    P = 0 with private L2 and simple cores)."""
+    """Window-walk operands (the JAX WindowIn's fields that exist with
+    private L2 and simple cores; the chain fields only at P > 0)."""
 
     meta: torch.Tensor           # [3, T, K] int32 (op, arg, arg2)
     addr: torch.Tensor           # [T, K] int64
@@ -72,6 +77,19 @@ class WindowIn(NamedTuple):
     boundary: torch.Tensor       # [] int64
     models_enabled: torch.Tensor  # [] bool
     stamp_base: torch.Tensor     # [] int32 (round_ctr * STAMP_STRIDE)
+    # Miss-chain state (None at P == 0).
+    chain_rel: Optional[torch.Tensor] = None  # [T] int64
+    mq_count: Optional[torch.Tensor] = None   # [T] int32
+    mq_head: Optional[torch.Tensor] = None    # [T] int32
+    mq_req: Optional[torch.Tensor] = None     # [P, T] int64
+    mq_delta: Optional[torch.Tensor] = None   # [P, T] int64
+    mq_extra: Optional[torch.Tensor] = None   # [P, T] int64
+
+
+CHAIN_IN_FIELDS = ("chain_rel", "mq_count", "mq_head", "mq_req",
+                   "mq_delta", "mq_extra")
+CHAIN_OUT_FIELDS = ("chain_rel", "mq_count", "mq_req", "mq_delta",
+                    "mq_extra")
 
 
 # Counter increments, in the order ``ctr_inc`` rows are stacked.
@@ -96,6 +114,23 @@ class WindowOut(NamedTuple):
     spawn_mask: torch.Tensor     # [T, K] bool (is_spawn & retired)
     spawn_child: torch.Tensor    # [T, K] int32 clipped stream id
     spawn_land: torch.Tensor     # [T, K] int64 landing time
+    chain_rel: Optional[torch.Tensor] = None  # (None at P == 0)
+    mq_count: Optional[torch.Tensor] = None
+    mq_req: Optional[torch.Tensor] = None
+    mq_delta: Optional[torch.Tensor] = None
+    mq_extra: Optional[torch.Tensor] = None
+
+
+def _spanned_bound(params: SimParams, vp, boundary):
+    """The boundary-spanning bound (``tpu/fanout_replay``, effective only
+    at miss_chain > 0): the window, complex-slot and cadence gates admit
+    one quantum of overrun past the cut.  Strict at miss_chain == 0 and
+    with the replay off.  The one definition — core.py and quantum.py
+    use it too, so the walk and those gates cannot drift apart."""
+    if params.miss_chain > 0 and params.fanout_replay:
+        q = vp.quantum_ps if vp is not None else params.quantum_ps
+        return boundary + q
+    return boundary
 
 
 def check_window_config(params: SimParams) -> None:
@@ -103,9 +138,6 @@ def check_window_config(params: SimParams) -> None:
     if params.core.model != "simple":
         raise NotImplementedError(
             "the window walk for iocoom cores is ported in a later slice")
-    if params.miss_chain > 0:
-        raise NotImplementedError(
-            "miss chains (tpu/miss_chain > 0) are ported in slice 2")
     if params.shared_l2:
         raise NotImplementedError(
             "shared-L2 protocols are ported in a later slice")
@@ -117,15 +149,18 @@ def check_window_config(params: SimParams) -> None:
 def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
                 s_ids: int) -> WindowOut:
     """Classify + retire one [T, K] window — the plain PyTorch form, a
-    transliteration of the JAX walk at P = 0, private L2, simple cores
-    (see graphite_tpu/engine/kernels/window.py for the semantics
-    commentary).  Pure: reads only ``wi``, returns every effect."""
+    transliteration of the JAX walk for private L2 and simple cores, at
+    any P (see graphite_tpu/engine/kernels/window.py and engine/core.py
+    for the semantics commentary).  Pure: reads only ``wi``, returns
+    every effect."""
     check_window_config(params)
     K = wi.addr.shape[1]
     TL = wi.clock.shape[0]
+    P = params.miss_chain
     dev = wi.clock.device
     line_bits = params.line_size.bit_length() - 1
     rows = torch.arange(TL, device=dev)
+    wbound = _spanned_bound(params, vp, wi.boundary)
 
     l1i = cachemod.CacheArrays(word=wi.l1i_word, rr_ptr=wi.l1i_rr)
     l1d = cachemod.CacheArrays(word=wi.l1d_word, rr_ptr=wi.l1d_rr)
@@ -169,9 +204,56 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     comp_simple = is_comp & (pI.hit | comp_l2)
     fill_d = mem_l2                           # L1D fill from local L2 hit
     fill_i = comp_l2                          # L1I fill from local L2 hit
+    none = torch.zeros_like(l1_ok)
+
+    # Bankable misses (P > 0): a miss past the local L2 banks as a chain
+    # element instead of ending the window.
+    if P > 0:
+        mem_bank0 = is_mem & ~l1_ok & ~mem_l2
+        comp_bank0 = is_comp & ~pI.hit & ~comp_l2
+    else:
+        mem_bank0 = comp_bank0 = none
 
     ar = torch.arange(K, device=dev)
     earlier = ar[None, :, None] > ar[None, None, :]           # [1, Kj, Ki]
+
+    # ---- chain forwarding (hit-on-pending-fill): a bankable miss to a
+    # line an earlier element (in this window, or banked in an earlier
+    # round) already requests is served by that element's fill.
+    wfwd = P > 0 and params.fanout_replay
+    if P > 0:
+        same_line_w = line[:, :, None] == line[:, None, :]    # [T, Kj, Ki]
+        fwd_win_d = (earlier & same_line_w & mem_bank0[:, None, :]
+                     & is_rd[:, :, None]).any(dim=2)
+        fwd_win_i = (earlier & same_line_w
+                     & comp_bank0[:, None, :]).any(dim=2)
+        slots_pc = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        pvalid = (slots_pc >= wi.mq_head[None, :]) \
+            & (slots_pc < wi.mq_count[None, :])               # [P, T]
+        pline = wi.mq_req >> 8
+        pkind = (wi.mq_req & 7).to(torch.int32)
+        p_is_if = pkind == PEND_IFETCH
+        pend_memT = (pvalid & ~p_is_if).T[:, None, :]         # [T, 1, P]
+        pend_ifT = (pvalid & p_is_if).T[:, None, :]
+        linematch_p = line[:, :, None] == pline.T[:, None, :]  # [T, K, P]
+        cover_pd = linematch_p & pend_memT & is_rd[:, :, None]
+        cover_pi = linematch_p & pend_ifT
+        if wfwd:
+            # In-window write-over-EX-bank forwarding.
+            fwd_win_w = (earlier & same_line_w
+                         & (mem_bank0 & is_wr)[:, None, :]
+                         & is_wr[:, :, None]).any(dim=2)
+            fwd_win_d = fwd_win_d | fwd_win_w
+        fwd_pend_d = torch.any(cover_pd, dim=2)
+        fwd_pend_i = torch.any(cover_pi, dim=2)
+        mem_fwd = mem_bank0 & (fwd_win_d | fwd_pend_d)
+        comp_fwd = comp_bank0 & (fwd_win_i | fwd_pend_i)
+    else:
+        mem_fwd = comp_fwd = none
+    mem_bank = mem_bank0 & ~mem_fwd
+    comp_bank = comp_bank0 & ~comp_fwd
+    mem_simple = mem_simple | mem_fwd
+    comp_simple = comp_simple | comp_fwd
 
     def _hazard(fills, accesses, set_idx):
         """accesses[j] unsafe if exists i<j with fills[i] & same set."""
@@ -184,12 +266,53 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         | _hazard(touch_d | fill_d, fill_d, pD.set_idx)
     haz_i = _hazard(fill_i, is_comp, pI.set_idx) \
         | _hazard(touch_i | fill_i, fill_i, pI.set_idx)
+    if P > 0:
+        # Same-line accesses behind a bank its forwarding does not cover.
+        bank_w_uncov = (mem_bank0 & ~is_wr) if wfwd else mem_bank0
+        uncov_w = earlier & same_line_w & (
+            (is_mem[:, :, None] & comp_bank0[:, None, :])
+            | (is_wr[:, :, None] & bank_w_uncov[:, None, :])
+            | (is_comp[:, :, None] & mem_bank0[:, None, :]))
+        hazard_uncov = uncov_w.any(dim=2)
+        haz_d = haz_d | (is_mem & hazard_uncov)
+        haz_i = haz_i | (is_comp & hazard_uncov)
     hazard = haz_d | haz_i
+
+    # Banked-miss L2 hazards: an access to the L2 set a banked element
+    # will fill (other than the line it covers) waits.
+    l2_fill_cand = mem_bank | comp_bank
+    if P > 0:
+        l2ss = pL2.set_idx[:, :, None] == pL2.set_idx[:, None, :]
+        l2_cover = same_line_w & (
+            (is_mem[:, :, None] & mem_bank0[:, None, :]
+             & is_rd[:, :, None])
+            | (is_comp[:, :, None] & comp_bank0[:, None, :]))
+        if wfwd:
+            l2_cover = l2_cover | (
+                same_line_w & is_wr[:, :, None]
+                & (mem_bank0 & is_wr)[:, None, :])
+        hazard = hazard | ((is_mem | is_comp) & (
+            earlier & l2ss & ~l2_cover
+            & l2_fill_cand[:, None, :]).any(dim=2))
+
+    # Pending-chain hazards (stall-on-use across rounds) against the
+    # elements banked in earlier rounds.
+    if P > 0:
+        pvT = pvalid.T[:, None, :]
+        haz_pend = (is_mem & torch.any(
+            linematch_p & pvT & ~cover_pd, dim=2)) \
+            | (is_comp & torch.any(linematch_p & pvT & ~cover_pi, dim=2))
+        p2_set = cachemod.set_index(pline, params.l2.num_sets).T
+        haz_pend = haz_pend | ((is_mem | is_comp) & torch.any(
+            pvT & ~(cover_pd | cover_pi)
+            & (pL2.set_idx[:, :, None] == p2_set[:, None, :]), dim=2))
+        hazard = hazard | haz_pend
 
     base_ok = valid_ev & ~hazard & en
     ok_rel = (comp_simple | mem_simple | is_br) & base_ok
     ok_abs = (is_stall | is_sync | is_spawn) & base_ok
-    ok = ok_rel | ok_abs
+    ok_bank = (mem_bank | comp_bank) & base_ok
+    ok = ok_rel | ok_abs | ok_bank
 
     # ---- branch predictor: within-window read-after-write on table slots
     taken = arg != 0
@@ -230,18 +353,43 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     NEGF = -(2**62)
     floor = torch.where(is_stall | is_sync, addr, NEGF)
 
-    # ---- max-plus prefix
+    # ---- max-plus prefix.  At P > 0 a banked miss records its issue
+    # point (absolute for the chain's first element, else relative to the
+    # previous element's still-unknown completion) and the tile runs on
+    # a relative clock ``rel`` until the resolve pass drains the chain.
+    qps = vp.quantum_ps
+    issue_off = torch.where(is_comp, l1i_ps, l1d_ps) \
+        + _lat(vp.l2_tags_access_cycles, p_l2)
     clk = wi.clock
+    rel = wi.chain_rel if P > 0 else None
+    nm = wi.mq_count if P > 0 else None
     n_ret = torch.zeros(TL, dtype=torch.int32, device=dev)
     run = wi.tile_active
     clks = []
+    bank_marks, bank_slots, bank_deltas = [], [], []
     for j in range(K):
         clks.append(clk)                     # clock BEFORE event j
-        okj = ok_rel[:, j] | ok_abs[:, j]
-        in_b = clk < wi.boundary
-        can = run & okj & in_b
-        clk = torch.where(can, torch.maximum(clk, floor[:, j]) + dt[:, j],
-                          clk)
+        if P > 0:
+            bank_j = ok_bank[:, j] & (nm < P)
+            okj = ok_rel[:, j] | (ok_abs[:, j] & (nm == 0)) | bank_j
+            in_b = torch.where(nm == 0, clk < wbound,
+                               (rel < qps) & (nm < P))
+            can = run & okj & in_b
+            bankc = can & bank_j
+            bank_marks.append(bankc)
+            bank_slots.append(nm)
+            bank_deltas.append(torch.where(nm == 0, clk, rel)
+                               + issue_off[:, j])
+            abs_step = can & (nm == 0) & ~bankc
+            rel_step = can & (nm > 0) & ~bankc
+            rel = torch.where(bankc, 0,
+                              torch.where(rel_step, rel + dt[:, j], rel))
+            nm = nm + bankc.to(torch.int32)
+        else:
+            can = run & (ok_rel[:, j] | ok_abs[:, j]) & (clk < wi.boundary)
+            abs_step = can
+        clk = torch.where(abs_step,
+                          torch.maximum(clk, floor[:, j]) + dt[:, j], clk)
         n_ret = n_ret + can.to(torch.int32)
         run = can
     clk_before = torch.stack(clks, dim=1)                     # [T, K]
@@ -324,17 +472,44 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         msum(is_comp, icount_ev)
         + msum((is_mem & ((arg2 & 0xFF) == 0)) | is_br),     # icount
         msum(is_comp, icount_ev) + msum(is_br),              # l1i_access
-        msum(is_comp & ~pI.hit, n_lines),                    # l1i_miss
+        msum(is_comp & ~pI.hit & ~comp_fwd, n_lines),        # l1i_miss
         msum(is_rd),                                         # l1d_read
-        msum(is_rd & ~l1_ok),                                # l1d_read_miss
+        msum(is_rd & ~l1_ok & ~mem_fwd),                     # l1d_read_miss
         msum(is_wr),                                         # l1d_write
-        msum(is_wr & ~l1_ok),                                # l1d_write_miss
-        msum(mem_l2 | comp_l2),                              # l2_access
-        zero,                                                # l2_miss
+        msum(is_wr & ~l1_ok & ~mem_fwd),                     # l1d_write_miss
+        msum(mem_l2 | comp_l2 | l2_fill_cand),               # l2_access
+        msum(l2_fill_cand) if P > 0 else zero,               # l2_miss
         msum(is_br),                                         # branches
         msum(is_br & ~correct),                              # mispredicts
         msum(is_spawn),                                      # spawns
     ])
+
+    # ---- record banked chain elements ([T, K] window results -> the
+    # [P, T] chain arrays, via a dense slot one-hot)
+    chain = {}
+    if P > 0:
+        bank_mark = torch.stack(bank_marks, dim=1)    # [T, K]
+        bank_slot = torch.stack(bank_slots, dim=1)
+        bank_delta = torch.stack(bank_deltas, dim=1)
+        kind_ev = torch.where(is_comp, PEND_IFETCH,
+                              torch.where(is_wr, PEND_EX_REQ, PEND_SH_REQ))
+        req_val = kind_ev.to(torch.int64) | (line << 8)
+        extra_val = torch.where(is_comp,
+                                cost_ps + fetch_ps + (n_lines - 1) * l2_ps,
+                                0)
+        slot_oh = (bank_slot[None] == torch.arange(
+            P, device=dev)[:, None, None]) & bank_mark[None]   # [P, T, K]
+        anyb = slot_oh.any(dim=2)
+
+        def put(dst, val):
+            v = torch.sum(torch.where(slot_oh, val[None], 0),
+                          dim=2).to(dst.dtype)
+            return torch.where(anyb, v, dst)
+
+        chain = dict(mq_req=put(wi.mq_req, req_val),
+                     mq_delta=put(wi.mq_delta, bank_delta),
+                     mq_extra=put(wi.mq_extra, extra_val),
+                     mq_count=nm, chain_rel=torch.where(nm > 0, rel, 0))
 
     return WindowOut(
         clock=clk, n_ret=n_ret, bp_table=bp_table,
@@ -343,7 +518,7 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         l2_word=l2.word, l2_rr=l2.rr_ptr,
         ctr_inc=ctr_inc,
         spawn_mask=spawn_mask, spawn_child=child.to(torch.int32),
-        spawn_land=spawn_land,
+        spawn_land=spawn_land, **chain,
     )
 
 
@@ -359,13 +534,16 @@ class _WalkArgs(ctypes.Structure):
         "l2_in", "boundary", "models_enabled", "stamp_base",
         "clock_out", "n_ret", "bp_out", "l1i_out", "l1i_rr_out", "l1d_out",
         "l1d_rr_out", "l2_out", "ctr_inc", "spawn_mask", "spawn_child",
-        "spawn_land")] + [(n, ctypes.c_int64) for n in (
+        "spawn_land", "chain_rel", "mq_count", "mq_head", "mq_req_in",
+        "chain_rel_out", "mq_count_out", "mq_req_out", "mq_delta_out",
+        "mq_extra_out")] + [(n, ctypes.c_int64) for n in (
         "T", "K", "NM", "l1i_assoc", "l1i_sets", "l1i_round_robin",
         "l1d_assoc", "l1d_sets", "l1d_round_robin", "l2_assoc", "l2_sets",
         "bp_size", "line_bits", "line_size", "l1i_cycles", "l1d_cycles",
         "l2_cycles", "bp_penalty", "col_core", "col_l1i", "col_l1d",
         "col_l2", "col_nu", "s_ids", "num_tiles", "mesh_width", "nu_magic",
-        "nu_hop_cycles", "nu_ser_cycles")]
+        "nu_hop_cycles", "nu_ser_cycles", "P", "wfwd", "qps", "wbound_add",
+        "l2_tags_cycles")]
 
 
 def _check(name, t, dtype, shape, dev):
@@ -411,6 +589,17 @@ def _check_inputs(params: SimParams, wi: WindowIn) -> None:
             ("models_enabled", wi.models_enabled, b, ()),
             ("stamp_base", wi.stamp_base, i32, ())):
         _check(name, t, dt, shape, dev)
+    P = params.miss_chain
+    for name in CHAIN_IN_FIELDS:
+        if (getattr(wi, name) is None) != (P == 0):
+            raise ValueError(f"window_walk: {name} is given iff "
+                             f"tpu/miss_chain > 0")
+    if P > 0:
+        for name, dt, shape in (
+                ("chain_rel", i64, (T,)), ("mq_count", i32, (T,)),
+                ("mq_head", i32, (T,)), ("mq_req", i64, (P, T)),
+                ("mq_delta", i64, (P, T)), ("mq_extra", i64, (P, T))):
+            _check(name, getattr(wi, name), dt, shape, dev)
 
 
 def _alloc_out(params: SimParams, wi: WindowIn) -> WindowOut:
@@ -436,6 +625,11 @@ def _alloc_out(params: SimParams, wi: WindowIn) -> WindowOut:
         spawn_mask=torch.empty((T, K), dtype=b, device=dev),
         spawn_child=torch.empty((T, K), dtype=i32, device=dev),
         spawn_land=torch.empty((T, K), dtype=i64, device=dev),
+        **({} if params.miss_chain == 0 else dict(
+            chain_rel=torch.empty(T, dtype=i64, device=dev),
+            mq_count=torch.empty(T, dtype=i32, device=dev),
+            mq_req=wi.mq_req.clone(), mq_delta=wi.mq_delta.clone(),
+            mq_extra=wi.mq_extra.clone())),
     )
 
 
@@ -446,7 +640,20 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
     nu = params.net_user
     noc._zero_load_only(nu)
     flits = noc.num_flits(8, vp.net_user.flit_width_bits)
+    P = params.miss_chain
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     return _WalkArgs(
+        chain_rel=ptr(wi.chain_rel), mq_count=ptr(wi.mq_count),
+        mq_head=ptr(wi.mq_head), mq_req_in=ptr(wi.mq_req),
+        chain_rel_out=ptr(out.chain_rel), mq_count_out=ptr(out.mq_count),
+        mq_req_out=ptr(out.mq_req), mq_delta_out=ptr(out.mq_delta),
+        mq_extra_out=ptr(out.mq_extra), P=P,
+        wfwd=int(P > 0 and params.fanout_replay), qps=vp.quantum_ps,
+        wbound_add=vp.quantum_ps if P > 0 and params.fanout_replay else 0,
+        l2_tags_cycles=vp.l2_tags_access_cycles,
         meta=wi.meta.data_ptr(), addr=wi.addr.data_ptr(),
         valid_ev=wi.valid_ev.data_ptr(),
         tile_active=wi.tile_active.data_ptr(),
@@ -488,8 +695,9 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
 def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
                      s_ids: int) -> WindowOut:
     """Launch csrc/window_walk.cu on CUDA tensors.  Out of place: the
-    cache and predictor arrays (and round-robin pointers the walk moves)
-    are cloned and the kernel updates the clones' touched rows."""
+    cache and predictor arrays, the round-robin pointers the walk moves
+    and, at P > 0, the [P, T] chain bank are cloned and the kernel
+    updates the clones' touched rows."""
     check_window_config(params)
     if wi.clock.device.type != "cuda":
         raise ValueError("window_walk_cuda takes CUDA tensors")
@@ -518,93 +726,3 @@ def run_window(params: SimParams, vp: VariantParams, wi: WindowIn,
 
 run_window.launches = 0
 
-
-# ------------------------------------------------------ test operands
-
-def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
-    """Random walk operands as numpy arrays (field name -> array), for
-    holding the kernel, the plain form and the JAX walk against each
-    other.  Cache words are valid packed words whose tags come from the
-    same small line pool as the window's addresses, so probes hit, miss,
-    alias sets and collide on predictor slots; every event kind the walk
-    classifies appears."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    T = params.num_tiles
-    lb = params.line_size.bit_length() - 1
-    pool = rng.integers(0, 1 << 20, size=max(8, K * 2)) \
-        * rng.choice([1, params.l1d.num_sets, params.l2.num_sets],
-                     size=max(8, K * 2))
-    pool = pool % (1 << 30)
-    ops = np.array([int(EventOp.COMPUTE), int(EventOp.MEM_READ),
-                    int(EventOp.MEM_WRITE), int(EventOp.BRANCH),
-                    int(EventOp.STALL), int(EventOp.SYNC),
-                    int(EventOp.SPAWN), int(EventOp.BARRIER_WAIT),
-                    int(EventOp.NOP)])
-    opw = np.array([30, 25, 15, 12, 3, 3, 3, 2, 2], dtype=np.float64)
-    op = rng.choice(ops, size=(T, K), p=opw / opw.sum()).astype(np.int32)
-    line = rng.choice(pool, size=(T, K))
-    addr = (line << lb) + rng.integers(0, params.line_size, size=(T, K))
-    clock = rng.integers(0, 5_000_000, size=T).astype(np.int64)
-    is_time = (op == int(EventOp.STALL)) | (op == int(EventOp.SYNC))
-    addr = np.where(is_time, clock[:, None]
-                    + rng.integers(-20_000, 200_000, size=(T, K)), addr)
-    arg = np.where(op == int(EventOp.BRANCH), rng.integers(0, 2, (T, K)),
-                   rng.integers(-2, 40, (T, K))).astype(np.int32)
-    arg2 = np.where(op == int(EventOp.COMPUTE),
-                    rng.integers(0, 200, (T, K)),
-                    np.where(rng.random((T, K)) < 0.8, 0,
-                             rng.integers(-3, 3 * T, (T, K)))
-                    ).astype(np.int32)
-
-    def words(cp, A, S):
-        tags = rng.choice(pool, size=(A, T, S)) % (1 << 31)
-        stamps = rng.integers(0, 1 << 29, size=(A, T, S))
-        st = rng.choice([0, 1, 1, 4, 4, 3, 2], size=(A, T, S))
-        return ((tags.astype(np.int64) << 32) | (stamps << 3) | st
-                ).astype(np.int64)
-
-    def place(w, S):
-        # Plant the window's lines in their sets so probes hit.
-        A = w.shape[0]
-        for t in range(T):
-            for j in range(K):
-                if rng.random() < 0.5:
-                    ln = int(line[t, j])
-                    w[rng.integers(0, A), t, ln % S] = \
-                        (ln << 32) | (int(rng.integers(0, 1 << 29)) << 3) \
-                        | int(rng.choice([1, 4, 4]))
-        return w
-
-    A1, S1 = params.l1i.associativity, params.l1i.num_sets
-    Ad, Sd = params.l1d.associativity, params.l1d.num_sets
-    A2, S2 = params.l2.associativity, params.l2.num_sets
-    nm = len(DVFSModule)
-    return dict(
-        meta=np.stack([op, arg, arg2]).astype(np.int32),
-        addr=addr.astype(np.int64),
-        valid_ev=rng.random((T, K)) < 0.95,
-        tile_active=rng.random(T) < 0.9,
-        tile_ids=np.arange(T, dtype=np.int32),
-        clock=clock,
-        period_ps=rng.integers(250, 1200, size=(T, nm)).astype(np.int32),
-        bp_table=rng.random((T, params.core.bp_size)) < 0.5,
-        l1i_word=place(words(params.l1i, A1, S1), S1),
-        l1i_rr=rng.integers(0, A1, size=(T, S1)).astype(np.int32),
-        l1d_word=place(words(params.l1d, Ad, Sd), Sd),
-        l1d_rr=rng.integers(0, Ad, size=(T, Sd)).astype(np.int32),
-        l2_word=place(words(params.l2, A2, S2), S2),
-        l2_rr=rng.integers(0, A2, size=(T, S2)).astype(np.int32),
-        boundary=np.int64(5_000_000 + int(rng.integers(0, 3_000_000))),
-        models_enabled=np.bool_(rng.random() < 0.9),
-        stamp_base=np.int32(64 * int(rng.integers(0, 100_000))),
-    )
-
-
-def window_in_from_numpy(arrays: dict, device) -> WindowIn:
-    """A :class:`WindowIn` on ``device`` from numpy operands."""
-    import numpy as np
-    dev = torch.device(device)
-    return WindowIn(**{
-        f: torch.from_numpy(np.array(arrays[f])).to(dev)
-        for f in WindowIn._fields})

@@ -35,7 +35,14 @@ def next_boundary(params: SimParams, state: SimState,
                     | (k == PEND_CBC) | (k == PEND_JOIN)
                     | (k == PEND_START))
     runnable = ~state.done & ~sync_blocked
-    masked = torch.where(runnable, state.clock, int(TIME_MAX))
+    clk = state.clock
+    if params.miss_chain > 0 and params.fanout_replay:
+        # A mid-chain tile's clock is frozen at its pre-bank value until
+        # the drain restores it; its served progress lives in chain_base,
+        # a sound lower bound on its post-drain clock.
+        clk = torch.where(state.mq_head > 0,
+                          torch.maximum(clk, state.chain_base), clk)
+    masked = torch.where(runnable, clk, int(TIME_MAX))
     min_clock = torch.amin(masked)
     q = vp.quantum_ps if vp is not None else params.quantum_ps
     nb = (min_clock // q + 1) * q
@@ -43,27 +50,35 @@ def next_boundary(params: SimParams, state: SimState,
         torch.int64)
 
 
-def _progress(st: SimState) -> int:
-    return int((torch.sum(st.cursor.to(torch.int64))
-                + torch.sum(st.clock)).item())
+def _progress(st: SimState, chain: bool) -> int:
+    """Cursor sum + clock sum, plus at P > 0 the memory-stall sum: a
+    mid-chain serve moves neither cursor nor clock until the chain
+    drains, but it strictly increases the stall counter."""
+    p = torch.sum(st.cursor.to(torch.int64)) + torch.sum(st.clock)
+    if chain:
+        p = p + torch.sum(st.counters.mem_stall_ps)
+    return int(p.item())
 
 
 def quantum_step(params: SimParams, state: SimState,
                  trace: TraceArrays,
                  vp: VariantParams = None) -> SimState:
     """One barrier quantum: sub-rounds of (local_advance ; resolve) while
-    the progress witness (cursor sum + clock sum) moves, capped at
-    ``rounds_per_quantum``."""
+    the progress witness moves, capped at ``rounds_per_quantum`` — at
+    P > 0 at max(rounds_per_quantum, max_events_per_quantum), since the
+    sub-round loop then alternates banking with resolve passes."""
     if vp is None:
         vp = variant_params(params)
     state = state._replace(boundary=next_boundary(params, state, vp=vp),
                            ctr_quantum=state.ctr_quantum + 1)
-    cap = params.rounds_per_quantum
-    i, prev, cur = 0, -1, _progress(state)
+    chain = params.miss_chain > 0
+    cap = max(params.rounds_per_quantum, params.max_events_per_quantum) \
+        if chain else params.rounds_per_quantum
+    i, prev, cur = 0, -1, _progress(state, chain)
     while i < cap and (i == 0 or cur > prev):
         state = local_advance(params, state, trace, vp=vp)
         state = resolve(params, state, vp=vp)
-        i, prev, cur = i + 1, cur, _progress(state)
+        i, prev, cur = i + 1, cur, _progress(state, chain)
     return state
 
 

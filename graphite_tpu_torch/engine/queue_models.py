@@ -77,9 +77,14 @@ def _record(ring_start, ring_end, ring_ptr, lo, hi, has):
 
 def fcfs_ring(resource, arrival, service, valid, ring_start, ring_end,
               ring_ptr, occ_res=None, occ_arr=None, occ_svc=None,
-              occ_valid=None) -> RingFcfsResult:
+              occ_valid=None, record_split: int = 1) -> RingFcfsResult:
     """Exact-within-batch FCFS against a bounded busy-interval history
-    (graphite_tpu/engine/queue_models.py fcfs_ring, record_split 1)."""
+    (graphite_tpu/engine/queue_models.py fcfs_ring).
+
+    ``record_split`` > 1 (the chain replay's batches, which mix tiles at
+    very different simulated times) records TWO merged intervals per
+    controller — the requests starting below / above the midpoint of the
+    controller's batch span — instead of one."""
     K = resource.shape[0]
     R, C = ring_start.shape
     dev = arrival.device
@@ -108,9 +113,19 @@ def fcfs_ring(resource, arrival, service, valid, ring_start, ring_end,
     end = start + svc
     delay = torch.where(valid, start - arrival, 0)
 
-    lo, hi, has = _merged(res_eff, valid, start, end, C)
-    ring_start, ring_end, ring_ptr = _record(ring_start, ring_end, ring_ptr,
-                                             lo, hi, has)
+    if record_split > 1:
+        loF, hiF, _ = _merged(res_eff, valid, start, end, C)
+        # (loF is the BIG sentinel on empty controllers: the half-
+        # difference form cannot overflow.)
+        mid = loF + (torch.maximum(hiF, loF) - loF) // 2     # [C]
+        grpA = valid & (start < mid[res_g])
+        groups = (grpA, valid & ~grpA)
+    else:
+        groups = (valid,)
+    for grp in groups:
+        lo, hi, has = _merged(res_eff, grp, start, end, C)
+        ring_start, ring_end, ring_ptr = _record(ring_start, ring_end,
+                                                 ring_ptr, lo, hi, has)
     if occ_res is not None:
         occ_end = occ_arr + occ_svc
         lo2, hi2, has2 = _merged(
@@ -145,13 +160,15 @@ def _history_only(qtype: str):
 def probe(qtype: str, resource, arrival, service, valid,
           ring_start, ring_end, ring_ptr, moments,
           occ_res=None, occ_arr=None, occ_svc=None, occ_valid=None,
-          ma_window: int = 0):
+          ma_window: int = 0, record_split: int = 1):
     """Config-dispatched queue probe: returns (start, end, delay,
-    ring_start, ring_end, ring_ptr, moments)."""
+    ring_start, ring_end, ring_ptr, moments).  ``record_split`` > 1
+    records split busy intervals (see :func:`fcfs_ring`)."""
     _history_only(qtype)
     q = fcfs_ring(resource, arrival, service, valid, ring_start, ring_end,
                   ring_ptr, occ_res=occ_res, occ_arr=occ_arr,
-                  occ_svc=occ_svc, occ_valid=occ_valid)
+                  occ_svc=occ_svc, occ_valid=occ_valid,
+                  record_split=record_split)
     return (q.start, q.end, q.delay, q.ring_start, q.ring_end, q.ring_ptr,
             moments)
 

@@ -2,14 +2,17 @@
 
 Counterpart of ``graphite_tpu/engine/resolve.py`` on this slice's path:
 ``resolve_memory`` (private L1/L2, full-map MSI directory, zero-load mesh,
-the history-ring DRAM queue, ``tpu/miss_chain = 0``) and
-``resolve_barrier``.  Every parked request of every tile is priced and
-applied at once; same-line races are serialised by conflict rounds, in
-which each line's earliest pending request transacts and later ones see
-the post-transaction directory.  The conflict-round ``while_loop`` and
-the pass-level ``cond`` gates become Python loops and ``if``s on one
-device scalar each, running exactly the JAX trip counts (``ctr_conflict``,
-``ctr_resolve`` and ``round_ctr`` are part of the state).
+the history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
+the blocking chain replay ``chain_fast_pass`` in front of its conflict
+rounds, and ``resolve_barrier``.  Every parked request (or chain head) of
+every tile is priced and applied at once; same-line races are serialised
+by conflict rounds, in which each line's earliest pending request
+transacts and later ones see the post-transaction directory.  The
+conflict-round ``while_loop``, the chain pass's ``fori_loop`` and the
+pass-level ``cond`` gates become Python loops and ``if``s, running
+exactly the JAX trip counts (``ctr_conflict``, ``ctr_resolve`` and
+``round_ctr`` are part of the state).  The miss-type branch of the chain
+pass (``track_miss_types``) is refused at construction.
 
 Sharer bitmaps are int64 words with the ``uint64`` bits of the JAX
 package; the modular negations and delta adds wrap identically.
@@ -26,6 +29,7 @@ from graphite_tpu_torch.engine import noc
 from graphite_tpu_torch.engine import queue_models
 from graphite_tpu_torch.engine.core import STAMP_STRIDE, _lat, _period, \
     mcp_tile
+from graphite_tpu_torch.engine.kernels import chain as kchain
 from graphite_tpu_torch.engine.ops import first_true, scatter, umod64
 from graphite_tpu_torch.engine.state import (
     PEND_BARRIER, PEND_EX_REQ, PEND_IFETCH, PEND_NONE, PEND_RECV,
@@ -37,11 +41,6 @@ from graphite_tpu_torch.params import SimParams
 
 I, S, O, E, M = (cachemod.I, cachemod.S, cachemod.O, cachemod.E,
                  cachemod.M)
-
-# Control-message payload bytes (ShmemMsg header) and the per-target
-# owner-delivery budget (graphite_tpu/engine/kernels/chain.py).
-CTRL_BYTES = 8
-J_OWN = 8
 
 _home_fold = dense.home_fold
 _BIG = 2**62
@@ -97,6 +96,288 @@ def _parked(st: SimState) -> torch.Tensor:
 
 # ===================================================================== memory
 
+def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
+                    H: int, ftbl: torch.Tensor):
+    """Serve whole banked miss chains in ONE resolve pass with blocking
+    semantics (the JAX ``chain_fast_pass``): exactly P iterations, each
+    serving every tile's CURRENT chain head with the round loop's math —
+    element k+1 probes the directory state element k (and the other
+    tiles' served elements) wrote, and installs its line at serve time.
+    A chain stops at its first element that needs machinery the replay
+    does not carry (``hard_stop``); the conflict rounds serve the rest.
+    Each iteration's classify step is ``kernels/chain.run_chain`` (the
+    CUDA kernel on the card); the head and directory-row gathers, the
+    DRAM queue probe and the apply scatters stay here.  The P iterations
+    always all run (no host poll ends the pass early), so the kernel
+    launches P times per pass."""
+    P = params.miss_chain
+    T = params.num_tiles
+    A = params.directory.associativity
+    W = state.dir_sharers.shape[0] // A
+    ndsets = params.directory.num_sets
+    dev = state.clock.device
+    rows = torch.arange(T, device=dev)
+    head0 = state.mq_head
+    stop_hi = state.mq_count
+    fanout = params.fanout_replay
+    KF = min(params.max_inv_fanout_per_round, T)
+    queue_on = params.dram.queue_model_enabled
+
+    # Per-tile constants of the pass (clock periods change only in a
+    # complex slot, never mid-resolve), contiguous for the kernel.
+    p_net, p_dir, p_l2, p_l1d, p_l1i, p_core = (
+        _period(state, m).contiguous() for m in (
+            DVFSModule.NETWORK_MEMORY, DVFSModule.DIRECTORY,
+            DVFSModule.L2_CACHE, DVFSModule.L1_DCACHE,
+            DVFSModule.L1_ICACHE, DVFSModule.CORE))
+    dram_access_ps = vp.dram_latency_ps
+    dram_service_ps = vp.dram_processing_ps
+    flits_req = noc.num_flits(kchain.CTRL_BYTES, vp.net_memory.flit_width_bits)
+    flits_data = noc.num_flits(params.line_size + kchain.CTRL_BYTES,
+                               vp.net_memory.flit_width_bits)
+    rstamp = state.round_ctr * STAMP_STRIDE + STAMP_STRIDE - 1
+    svc = torch.full((T,), dram_service_ps, dtype=torch.int64, device=dev)
+    req_word = (rows // 64).to(torch.int64)
+    req_bit = torch.ones(T, dtype=torch.int64, device=dev) \
+        << (rows % 64).to(torch.int64)
+
+    stopped = torch.zeros(T, dtype=torch.bool, device=dev)
+    head = head0
+    base = torch.where(head0 == 0, 0, state.chain_base)
+    for _ in range(P):
+        # Each iteration serves every tile's current head: an election
+        # loser retries the same element next iteration while the
+        # winner's chain moves on.
+        hsel = torch.clamp(head, 0, P - 1).to(torch.int64)[None, :]
+        req = torch.gather(state.mq_req, 0, hsel)[0]
+        delta = torch.gather(state.mq_delta, 0, hsel)[0]
+        extra = torch.gather(state.mq_extra, 0, hsel)[0]
+        active = (~stopped) & (head < stop_hi)
+        kind = (req & 7).to(torch.int32)
+        line = torch.where(active, req >> 8, 0)
+        is_ex = active & (kind == PEND_EX_REQ)
+        is_if = active & (kind == PEND_IFETCH)
+        home = home_of_line(params, line)
+        dset = dir_set_of_line(params, line)
+        fidx = (home * ndsets + dset).to(torch.int32)
+        fidx64 = fidx.to(torch.int64)
+        # Blocking chain composition: element p's issue point is the
+        # previous element's completion (the carried base) plus its
+        # recorded local delta.
+        issue = base + delta
+        hidx = umod64(dense.fmix64(line), H).to(torch.int32)
+        hidx64 = hidx.to(torch.int64)
+
+        # ---- directory entry rows at (home, dset) — one gather each
+        drow = state.dir_word[:, fidx64].T.contiguous()          # [T, A]
+        dsharers = state.dir_sharers[:, fidx64].reshape(
+            W, A, T).permute(2, 1, 0).contiguous()               # [T, A, W]
+
+        ci = kchain.ChainIn(
+            active=active, is_ex=is_ex, is_if=is_if, line=line,
+            issue=issue, extra=extra, home=home, dset=dset, fidx=fidx,
+            hidx=hidx, drow=drow, dsharers=dsharers,
+            p_net=p_net, p_dir=p_dir, p_l2=p_l2, p_l1d=p_l1d,
+            p_l1i=p_l1i, p_core=p_core,
+            ftbl=None if queue_on else ftbl)
+        co = kchain.run_chain(params, vp, ci, H)
+        serve, serve_all = co.serve, co.serve_all
+        owner_leg, fan_go = co.owner_leg, co.fan_go
+        need_read, dram_wb = co.need_read, co.dram_wb
+        t_dir, inv_count = co.t_dir, co.inv_count
+        stopped = stopped | co.hard_stop
+
+        # ---- DRAM queue + completion (the loop-carried stretch the
+        # kernel hands back; with the queue model off the kernel already
+        # produced completion / t_data and wrote the floors)
+        dsite = home
+        if queue_on:
+            # record_split: one batch mixes tiles at very different
+            # simulated times; split busy records stop one tile's
+            # far-future element from convoying another's chain.
+            q_start, _, _, rs_, re_, rp_, mg1_ = queue_models.probe(
+                params.dram.queue_model_type,
+                dsite, co.dram_arrival, svc,
+                need_read, state.dram_ring_start, state.dram_ring_end,
+                state.dram_ring_ptr, state.dram_qacc,
+                occ_res=dsite, occ_arr=co.dram_arrival,
+                occ_svc=svc, occ_valid=dram_wb,
+                ma_window=params.dram.basic_ma_window,
+                record_split=2 if fanout else 1)
+            state = state._replace(dram_ring_start=rs_, dram_ring_end=re_,
+                                   dram_ring_ptr=rp_, dram_qacc=mg1_)
+            dram_start = torch.where(need_read, q_start, 0)
+            dram_ready = dram_start + dram_access_ps + dram_service_ps \
+                + co.from_dram_ps
+            t_data = torch.maximum(t_dir + co.owner_ps,
+                                   torch.where(need_read, dram_ready, 0))
+            if fanout:
+                # The data grant waits on the last invalidation ack.
+                t_data = torch.maximum(t_data, t_dir + co.inv_ps)
+            completion = t_data + co.reply_ps \
+                + _lat(vp.l2_access_cycles, p_l2) + co.l1_fill_ps + extra
+        else:
+            t_data, completion, ftbl = co.t_data, co.completion, co.ftbl
+
+        # ---- apply: directory entry + sharer-bitmap delta (winners hold
+        # distinct (home, dset, way) slots by the election)
+        way64 = co.way.to(torch.int64)
+        state = state._replace(dir_word=scatter(
+            state.dir_word, (way64, fidx64),
+            dword_pack(line, state.round_ctr, co.new_state, co.new_owner),
+            "set", mask=serve))
+        # Representatives land (new - old) per plane; combining members
+        # add their own bit on top — one merged scatter-add.
+        plane = torch.arange(W, device=dev)[:, None] * A + way64[None, :]
+        add_rows = torch.cat([plane.reshape(-1), req_word * A + way64])
+        add_cols = torch.cat([fidx64[None, :].expand(W, T).reshape(-1),
+                              fidx64])
+        add_mask = torch.cat([serve[None, :].expand(W, T).reshape(-1),
+                              co.member_add])
+        add_vals = torch.cat([co.delta_sh.T.reshape(-1), req_bit])
+        state = state._replace(dir_sharers=scatter(
+            state.dir_sharers, (add_rows, add_cols), add_vals, "add",
+            mask=add_mask))
+
+        # ---- owner-side downgrade deliveries: per-target [T, J_OWN]
+        # line lists (ranks < J_OWN are unique per target by the budget
+        # election), one invalidate/downgrade sweep per cache
+        ow_tgt = co.owner.to(torch.int64)
+        ow_slot = co.ow_slot.to(torch.int64)
+        own_lines = scatter(torch.zeros((T, kchain.J_OWN), dtype=torch.int64,
+                                        device=dev), (ow_tgt, ow_slot), line,
+                            "set", mask=owner_leg)
+        own_valid = scatter(torch.zeros((T, kchain.J_OWN), dtype=torch.bool,
+                                        device=dev), (ow_tgt, ow_slot), True,
+                            "set", mask=owner_leg)
+        own_down = scatter(torch.zeros((T, kchain.J_OWN), dtype=torch.int32,
+                                       device=dev), (ow_tgt, ow_slot),
+                           co.down_to, "set", mask=owner_leg)
+        if fanout:
+            # Fan-out INV deliveries ride the same per-target sweep.
+            dlv_lines = torch.cat(
+                [own_lines, co.line_fr[None, :].expand(T, KF)], dim=1)
+            dlv_valid = torch.cat([own_valid, co.inv_bool.T], dim=1)
+            dlv_down = torch.cat(
+                [own_down, torch.full((T, KF), I, dtype=torch.int32,
+                                      device=dev)], dim=1)
+        else:
+            dlv_lines, dlv_valid, dlv_down = own_lines, own_valid, own_down
+        state = state._replace(
+            l2=cachemod.invalidate_by_value(
+                state.l2, dlv_lines, dlv_valid, dlv_down),
+            l1d=cachemod.invalidate_by_value(
+                state.l1d, dlv_lines, dlv_valid, dlv_down))
+
+        # ---- requester-side fills at serve time + victim notify / DRAM
+        # writeback occupancy
+        f2 = cachemod.fill(state.l2, line,
+                           torch.where(is_ex, M, S).to(torch.int32),
+                           serve_all, params.l2.num_sets,
+                           params.l2.replacement, rstamp)
+        state = state._replace(l2=f2.cache)
+        vt1, vs1 = f2.victim_tag, f2.victim_state
+        # Inclusion: the L2 victim's L1D copy drops with it.
+        state = state._replace(l1d=cachemod.invalidate_by_value(
+            state.l1d, vt1[:, None], (serve_all & (vs1 != I))[:, None],
+            torch.full((T, 1), I, dtype=torch.int32, device=dev)))
+        fd = cachemod.fill(state.l1d, line,
+                           torch.where(is_ex, M, S).to(torch.int32),
+                           serve_all & ~is_if, params.l1d.num_sets,
+                           params.l1d.replacement, rstamp)
+        fi = cachemod.fill(state.l1i, line,
+                           torch.full((T,), S, dtype=torch.int32,
+                                      device=dev),
+                           serve_all & is_if, params.l1i.num_sets,
+                           params.l1i.replacement, rstamp)
+        state = state._replace(l1d=fd.cache, l1i=fi.cache)
+        victim_dirty = serve_all & ((vs1 == M) | (vs1 == O))
+        victim_live = serve_all & (vs1 != I)
+        victim_home = dram_site_of_line(params, vt1)
+        if queue_on:
+            r3 = queue_models.occupy(
+                params.dram.queue_model_type,
+                state.dram_ring_start, state.dram_ring_end,
+                state.dram_ring_ptr, state.dram_qacc,
+                victim_home, t_dir, dram_service_ps, victim_dirty,
+                ma_window=params.dram.basic_ma_window)
+            state = state._replace(dram_ring_start=r3[0],
+                                   dram_ring_end=r3[1],
+                                   dram_ring_ptr=r3[2], dram_qacc=r3[3])
+        state = _dir_evict_notify(params, state, rows, vt1, vs1,
+                                  victim_live)
+
+        # ---- counters (home-binned tallies via one stacked scatter)
+        def b(m):
+            return m.to(torch.int64)
+
+        home_cols = [
+            b(serve_all & ~is_ex), b(serve & is_ex),  # dir_sh/ex_req
+            b(co.evicting),                       # dir_evictions
+            b(owner_leg),                         # dir_writebacks
+            b(owner_leg & ~co.dram_write),        # dir_forwards
+            b(serve_all) + inv_count,             # net_mem_pkts @home
+            torch.where(serve_all, flits_data, 0)
+            + inv_count * flits_req,              # net_mem_flits @home
+            inv_count,                            # dir_invalidations
+            b(need_read), b(dram_wb),             # dram_reads/writes
+        ]
+        vic_wr = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
+                         victim_home, 1, "add", mask=victim_dirty)
+        hstack = torch.stack(home_cols, dim=1)
+        ncol = hstack.shape[1]
+        hb = scatter(torch.zeros((T, ncol), dtype=torch.int64, device=dev),
+                     (home[:, None], torch.arange(ncol, device=dev)[None, :]),
+                     hstack, "add")
+        c = state.counters
+        c = c._replace(
+            dir_sh_req=c.dir_sh_req + hb[:, 0],
+            dir_ex_req=c.dir_ex_req + hb[:, 1],
+            dir_evictions=c.dir_evictions + hb[:, 2],
+            dir_writebacks=c.dir_writebacks + hb[:, 3],
+            dir_forwards=c.dir_forwards + hb[:, 4],
+            dir_invalidations=c.dir_invalidations + hb[:, 7],
+            dram_reads=c.dram_reads + hb[:, 8],
+            dram_writes=c.dram_writes + hb[:, 9] + vic_wr,
+            net_mem_pkts=c.net_mem_pkts + b(serve_all) + b(victim_dirty)
+            + hb[:, 5],
+            net_mem_flits=c.net_mem_flits + b(serve_all) * flits_req
+            + b(victim_dirty) * flits_data + hb[:, 6],
+            mem_stall_ps=c.mem_stall_ps + torch.where(
+                serve_all, completion - issue, 0),
+            chain_fanout_served=c.chain_fanout_served + b(fan_go),
+            chain_fallback=c.chain_fallback + b(co.hard_stop),
+        )
+        state = state._replace(counters=c)
+
+        # ---- serialization floor for later same-line requests (with
+        # the queue model off the kernel already wrote it)
+        if queue_on:
+            tkey = t_data * T + rows
+            tmax_t = scatter(torch.full((H,), -1, dtype=torch.int64,
+                                        device=dev), hidx64, tkey, "max",
+                             mask=serve_all)
+            fwin = serve_all & (tmax_t[hidx64] == tkey)
+            ftbl = dense.stacked_set_table(
+                hidx64, fwin, torch.stack([line, t_data]), ftbl)
+        base = torch.where(serve_all, completion, base)
+        head = head + serve_all.to(torch.int32)
+
+    # Drained chains restore the absolute clock (last completion + the
+    # local time the window accumulated past the final bank); partial
+    # chains keep their continuation base for the round loop.
+    drained = (state.mq_count > 0) & (head >= state.mq_count)
+    state = state._replace(
+        mq_head=torch.where(drained, 0, head).to(torch.int32),
+        mq_count=torch.where(drained, 0, state.mq_count).to(torch.int32),
+        chain_base=torch.where(drained, 0, base),
+        clock=torch.where(drained, base + state.chain_rel, state.clock),
+        chain_rel=torch.where(drained, 0, state.chain_rel),
+        round_ctr=state.round_ctr + 1,
+    )
+    return state, ftbl
+
+
 def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                   ftbl: torch.Tensor):
     """One conflict round of resolve_memory (the JAX ``round_body``)."""
@@ -119,17 +400,38 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
 
     dram_access_ps = vp.dram_latency_ps
     dram_service_ps = vp.dram_processing_ps
-    flits_req = noc.num_flits(CTRL_BYTES, vp.net_memory.flit_width_bits)
-    flits_data = noc.num_flits(params.line_size + CTRL_BYTES,
+    flits_req = noc.num_flits(kchain.CTRL_BYTES, vp.net_memory.flit_width_bits)
+    flits_data = noc.num_flits(params.line_size + kchain.CTRL_BYTES,
                                vp.net_memory.flit_width_bits)
 
     rstamp = state.round_ctr * STAMP_STRIDE + STAMP_STRIDE - 1
 
-    kind = state.pend_kind
-    line = state.pend_addr >> line_bits
-    issue = state.pend_issue
-    extra = state.pend_extra
-    unres = _parked(state)
+    P = params.miss_chain
+    if P > 0:
+        # The active request is each tile's chain head (at P > 0 memory
+        # misses always bank, never park).  Element 0's delta is its
+        # absolute issue time; later elements chain off the previous
+        # element's continuation point.
+        slots_p = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        head_oh = slots_p == state.mq_head[None, :]          # [P, T]
+
+        def hsel(arr):
+            return torch.sum(torch.where(head_oh, arr, 0), dim=0)
+
+        req = hsel(state.mq_req)
+        cdelta = hsel(state.mq_delta)
+        issue = torch.where(state.mq_head == 0, cdelta,
+                            state.chain_base + cdelta)
+        kind = (req & 7).to(torch.int32)
+        line = req >> 8
+        extra = hsel(state.mq_extra)
+        unres = state.mq_head < state.mq_count
+    else:
+        kind = state.pend_kind
+        line = state.pend_addr >> line_bits
+        issue = state.pend_issue
+        extra = state.pend_extra
+        unres = _parked(state)
     is_ex = unres & (kind == PEND_EX_REQ)
     is_if = unres & (kind == PEND_IFETCH)
     home = home_of_line(params, line)
@@ -140,10 +442,10 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     oh_hidx = _oh(hidx, H)
     p_net_home = p_net[home.to(torch.int64)]
     p_dir_home = p_dir[home.to(torch.int64)]
-    net_req = noc.unicast_ps(params.net_memory, rows, home, CTRL_BYTES,
+    net_req = noc.unicast_ps(params.net_memory, rows, home, kchain.CTRL_BYTES,
                              p_net, params.mesh_width, vnet=vp.net_memory)
     reply_ps = noc.unicast_ps(params.net_memory, home, rows,
-                              params.line_size + CTRL_BYTES, p_net_home,
+                              params.line_size + kchain.CTRL_BYTES, p_net_home,
                               params.mesh_width, vnet=vp.net_memory)
     dir_ps = _lat(vp.dir_access_cycles, p_dir_home)
     ftbl_g = ftbl[:, hidx]                     # [2, T]
@@ -244,7 +546,7 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     val2 = torch.cat([owner_leg1, evict_m1])
     key2 = torch.cat([packed, packed])
     posr = _grouped_rank(tgt2, key2, val2)            # [2T]
-    over2 = val2 & (posr >= J_OWN)
+    over2 = val2 & (posr >= kchain.J_OWN)
     ow_defer = over2[:T] | over2[T:]
     win = win1 & ~ow_defer
     has_inv = has_inv & ~fan_defer & ~ow_defer
@@ -259,15 +561,15 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     down2 = torch.cat(
         [act.owner_downgrade_to,
          torch.full((T,), I, dtype=torch.int32, device=dev)])
-    put = val2 & (posr < J_OWN)
-    slot2 = torch.clamp(posr, max=J_OWN - 1).to(torch.int64)
-    own_lines = scatter(torch.zeros((T, J_OWN), dtype=lines2.dtype,
+    put = val2 & (posr < kchain.J_OWN)
+    slot2 = torch.clamp(posr, max=kchain.J_OWN - 1).to(torch.int64)
+    own_lines = scatter(torch.zeros((T, kchain.J_OWN), dtype=lines2.dtype,
                                     device=dev), (tgt2, slot2), lines2,
                         "set", mask=put)
-    own_valid = scatter(torch.zeros((T, J_OWN), dtype=torch.bool,
+    own_valid = scatter(torch.zeros((T, kchain.J_OWN), dtype=torch.bool,
                                     device=dev), (tgt2, slot2), True,
                         "set", mask=put)
-    own_tgt = scatter(torch.zeros((T, J_OWN), dtype=torch.int32,
+    own_tgt = scatter(torch.zeros((T, kchain.J_OWN), dtype=torch.int32,
                                   device=dev), (tgt2, slot2), down2,
                       "set", mask=put)
 
@@ -321,10 +623,10 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     ack_sr = sr_sel(ack_ps)
 
     inv_ps_k = 2 * noc.max_hop_to_mask_ps(
-        params.net_memory, home_sr, inv_bool, CTRL_BYTES,
+        params.net_memory, home_sr, inv_bool, kchain.CTRL_BYTES,
         pnh_sr, params.mesh_width, vnet=vp.net_memory) + ack_sr
     vic_ps_k = 2 * noc.max_hop_to_mask_ps(
-        params.net_memory, home_sr, vic_bool, CTRL_BYTES,
+        params.net_memory, home_sr, vic_bool, kchain.CTRL_BYTES,
         pnh_sr, params.mesh_width, vnet=vp.net_memory) + ack_sr
     inv_ps = torch.where(has_inv, torch.sum(
         torch.where(oh_sr, inv_ps_k[:, None], 0), dim=0), 0)
@@ -336,12 +638,12 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     # ---- latency assembly (zero-load legs)
     arrive = torch.maximum(issue + net_req, line_floor)
     evict_m_ps = noc.unicast_ps(
-        params.net_memory, home, vown_c, CTRL_BYTES,
+        params.net_memory, home, vown_c, kchain.CTRL_BYTES,
         p_net_home, params.mesh_width, vnet=vp.net_memory) \
         + l2_vown_ps \
         + noc.unicast_ps(
             params.net_memory, vown_c, home,
-            params.line_size + CTRL_BYTES,
+            params.line_size + kchain.CTRL_BYTES,
             p_net_vown, params.mesh_width, vnet=vp.net_memory)
     evict_ps = torch.where(evict_m, evict_m_ps, evict_ps)
 
@@ -351,11 +653,11 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     p_net_own = p_net[owner64]
     l2_own_ps = _lat(vp.l2_access_cycles, p_l2[owner64])
     leg_ps = noc.unicast_ps(params.net_memory, home, owner,
-                            CTRL_BYTES, p_net_home,
+                            kchain.CTRL_BYTES, p_net_home,
                             params.mesh_width, vnet=vp.net_memory) \
         + l2_own_ps \
         + noc.unicast_ps(params.net_memory, owner, home,
-                         params.line_size + CTRL_BYTES, p_net_own,
+                         params.line_size + kchain.CTRL_BYTES, p_net_own,
                          params.mesh_width, vnet=vp.net_memory)
     owner_ps = torch.where(owner_leg, leg_ps, 0)
 
@@ -519,8 +821,28 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     )
     state = state._replace(counters=c)
 
-    # ---- simple cores stall until the data arrives
-    state = _unblock(state, win, completion, sync=False)
+    if P == 0:
+        # ---- simple cores stall until the data arrives
+        state = _unblock(state, win, completion, sync=False)
+    else:
+        # ---- chain winners advance their chain: the completion becomes
+        # the base of the next element's issue; a drained chain restores
+        # the absolute clock (base + the local time accumulated past the
+        # last bank) and frees the bank.
+        c4 = state.counters
+        new_head = state.mq_head + win.to(torch.int32)
+        drained = win & (new_head >= state.mq_count)
+        state = state._replace(
+            mq_head=torch.where(drained, 0, new_head).to(torch.int32),
+            mq_count=torch.where(drained, 0, state.mq_count).to(
+                torch.int32),
+            chain_base=torch.where(win, completion, state.chain_base),
+            clock=torch.where(drained, completion + state.chain_rel,
+                              state.clock),
+            chain_rel=torch.where(drained, 0, state.chain_rel),
+            counters=c4._replace(
+                mem_stall_ps=c4.mem_stall_ps
+                + torch.where(win, completion - issue, 0)))
 
     # ---- serialization floor for still-pending same-line requests
     t_free = t_data
@@ -541,16 +863,30 @@ def resolve_memory(params: SimParams, vp: VariantParams,
     ``directory_conflict_rounds``)."""
     T = params.num_tiles
     H = max(1024, 16 * T)
+    P = params.miss_chain
     dev = state.clock.device
     ftbl = torch.stack([torch.full((H,), -1, dtype=torch.int64, device=dev),
                         torch.zeros((H,), dtype=torch.int64, device=dev)])
-    cap = params.directory_conflict_rounds
+    # Chain replay first (P > 0; this slice runs only simple cores,
+    # full-map directories and zero-load networks, so it always applies):
+    # whole banked chains served in one pass, the floor table threaded
+    # through to the conflict rounds that serve the leftovers.
+    if P > 0:
+        state, ftbl = chain_fast_pass(params, vp, state, H, ftbl)
+
+    def pending(st):
+        if P > 0:
+            return st.mq_head < st.mq_count
+        return _parked(st)
+
+    cap = params.max_resolve_rounds if P > 0 \
+        else params.directory_conflict_rounds
     state = state._replace(ctr_resolve=state.ctr_resolve + 1)
     i = 0
-    while i < cap and bool(_parked(state).any().item()):
+    while i < cap and bool(pending(state).any().item()):
         state, ftbl = _memory_round(params, vp, state, ftbl)
         i += 1
-    saturated = _parked(state)
+    saturated = pending(state)
     c = state.counters
     return state._replace(counters=c._replace(
         dir_deferrals=c.dir_deferrals + saturated.to(torch.int64)))
@@ -654,7 +990,7 @@ def resolve_barrier(params: SimParams, vp: VariantParams,
     mcp = mcp_tile(params)
     back_ps = noc.unicast_ps(params.net_user,
                              torch.full((T,), mcp, device=dev), rows,
-                             CTRL_BYTES, p_nu[mcp], params.mesh_width,
+                             kchain.CTRL_BYTES, p_nu[mcp], params.mesh_width,
                              vnet=vp.net_user)
     completion = state.bar_time[bid] + back_ps + cycle_ps
     state = state._replace(
@@ -670,7 +1006,10 @@ def resolve(params: SimParams, state: SimState,
     barriers in this slice; the other resolvers see no parks)."""
     if vp is None:
         vp = variant_params(params)
-    any_mem = bool(_parked(state).any().item())
+    if params.miss_chain > 0:
+        any_mem = bool((state.mq_count > 0).any().item())
+    else:
+        any_mem = bool(_parked(state).any().item())
     any_sync = bool((state.pend_kind >= PEND_RECV).any().item())
     if any_mem:
         state = resolve_memory(params, vp, state)

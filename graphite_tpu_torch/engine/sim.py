@@ -37,8 +37,11 @@ SLICE_OPS = (EventOp.NOP, EventOp.COMPUTE, EventOp.BRANCH, EventOp.MEM_READ,
 
 
 def check_slice(params: SimParams, trace: Optional[Trace] = None) -> None:
-    """Refuse, loudly, every configuration and event kind this slice of
-    the port does not run — nothing is mispriced silently."""
+    """Refuse, loudly, every configuration and event kind the port does
+    not run yet — nothing is mispriced silently.  Admitted: simple cores,
+    private L1/L2 under MSI with a full-map directory, zero-load networks,
+    the history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with
+    the fan-out replay on or off, and the events of ``SLICE_OPS``."""
     def later(what, where="a later slice (model breadth)"):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "
@@ -46,8 +49,6 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None) -> None:
 
     if params.core.model != "simple" or params.core.mixed:
         later("the iocoom core model")
-    if params.miss_chain > 0:
-        later("tpu/miss_chain > 0 (the chain replay)", "slice 2")
     if params.fast_forward > 0:
         later("tpu/fast_forward > 0 (fast_forward_walk)", "slice 3")
     if params.tile_shards > 1 or params.shard_state != "replicated":

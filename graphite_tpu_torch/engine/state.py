@@ -4,10 +4,11 @@ Counterpart of ``graphite_tpu/engine/state.py`` with the SAME field names,
 shapes and dtypes, so a state converts one-to-one between the packages
 (graphite_tpu_torch/convert.py).  The one dtype that differs is the
 directory sharer bitmap: ``uint64`` in JAX, ``int64`` with the same bits
-here (torch's uint64 support on CUDA is thin).  Leaves that belong to
-later slices of the port (chain banks at P = 0, iocoom rings, telemetry,
-CAPI channels, scheduler seats) keep the shapes ``make_state`` gives them
-at this config, which is zero-size or unused.
+here (torch's uint64 support on CUDA is thin).  The miss-chain bank
+(``mq_*``, ``chain_*``) is [P, T] at ``tpu/miss_chain = P`` and zero-size
+at P = 0.  Leaves that belong to later slices of the port (iocoom rings,
+telemetry, CAPI channels, scheduler seats) keep the shapes ``make_state``
+gives them at this config, which is zero-size or unused.
 """
 
 from __future__ import annotations

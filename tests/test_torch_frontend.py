@@ -130,7 +130,8 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("over,trace_fn", [
-    ({"tpu/miss_chain": 12}, None),
+    # The chain replay itself is admitted; its miss-type branch is not.
+    ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True}, None),
     ({"tpu/fast_forward": 4}, None),
     ({"tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
     ({"caching_protocol/type": "pr_l1_pr_l2_dram_directory_mosi"}, None),

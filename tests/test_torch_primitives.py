@@ -235,6 +235,48 @@ def test_fcfs_ring_and_occupy_history_tree(seed):
     _eq(jq._cumsum_doubling(jnp.asarray(x)), tq._cumsum_doubling(_t(x)))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fcfs_ring_record_split_matches_jax(seed):
+    """record_split = 2 (the chain replay's probe): two merged busy
+    intervals per controller, below and above its batch midpoint."""
+    rng = np.random.default_rng(100 + seed)
+    K, R, C = 32, 8, 8
+    res = rng.integers(0, C, size=K).astype(np.int32)
+    arr = rng.integers(0, 400_000, size=K).astype(np.int64)
+    svc = np.full(K, 300, dtype=np.int64)
+    valid = rng.random(K) < 0.8
+    rs = np.sort(rng.integers(0, 6000, size=(R, C)), axis=0).astype(np.int64)
+    re = (rs + rng.integers(0, 800, size=(R, C))).astype(np.int64)
+    rp = rng.integers(0, 20, size=C).astype(np.int32)
+    occ_v = rng.random(K) < 0.3
+    mom = np.zeros((6, C))
+    jo = jq.probe("history_tree", jnp.asarray(res), jnp.asarray(arr),
+                  jnp.asarray(svc), jnp.asarray(valid), jnp.asarray(rs),
+                  jnp.asarray(re), jnp.asarray(rp), jnp.asarray(mom),
+                  occ_res=jnp.asarray(res), occ_arr=jnp.asarray(arr),
+                  occ_svc=jnp.asarray(svc), occ_valid=jnp.asarray(occ_v),
+                  record_split=2)
+    to = tq.probe("history_tree", _t(res), _t(arr), _t(svc), _t(valid),
+                  _t(rs), _t(re), _t(rp), _t(mom), occ_res=_t(res),
+                  occ_arr=_t(arr), occ_svc=_t(svc), occ_valid=_t(occ_v),
+                  record_split=2)
+    for a, b in zip(jo, to):
+        _eq(a, b)
+
+
+def test_stacked_set_table_matches_jax():
+    rng = np.random.default_rng(7)
+    H, R = 64, 40
+    idx = rng.permutation(H)[:R].astype(np.int32)     # one row per slot
+    mask = rng.random(R) < 0.6
+    vals = rng.integers(-5, 1 << 40, size=(2, R)).astype(np.int64)
+    tbl = rng.integers(-1, 1 << 30, size=(2, H)).astype(np.int64)
+    _eq(jdense.stacked_set_table(jnp.asarray(idx), jnp.asarray(mask),
+                                 jnp.asarray(vals), jnp.asarray(tbl)),
+        tdense.stacked_set_table(_t(idx).to(torch.int64), _t(mask),
+                                 _t(vals), _t(tbl)))
+
+
 def test_home_dset_and_noc_legs():
     jp, tp = _params(T=64)
     rng = np.random.default_rng(5)
