@@ -21,7 +21,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        * chain_classify: seeded operand sets at H = 1024 with the fan-out
          replay and the DRAM queue model each on and off, a colliding
          H = 4 set, and operands captured from the port's own radix64
-         chain-12 run.
+         chain-12 run;
+       * fast_forward_walk at F = 64: seeded operand sets (engage and
+         decline, the run-ahead bound crossed and not, repeated lines,
+         predictor-slot collisions, models disabled, tiles that are not
+         candidates, no predictor, miss_chain 12) and analytic rounds
+         captured from the port's own radix64 span-1000 run, some with
+         engaging tiles;
+       * window_walk at the wide width K = 64, P = 0 and P = 12: seeded
+         operand sets and wide windows captured from the fast-forward
+         runs.
   4. The golden shapes radix8 and fft8 at miss_chain 0 against
      tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
      (86 engine rounds, completion 8,686.6 ns).
@@ -29,8 +38,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      keys_per_tile=2048, radix=256, seed=0)`` on the default config —
      all_done, round_ctr 13838, completion 243,651.8 ns, window-kernel
      launches == ctr_window.
-  6. The chain-replay paths at full width, miss_chain 12: the same radix64
-     trace (round_ctr 2181, completion 245,006.6 ns) and ``gen_fft(64,
+  6. The chain-replay paths at full width, miss_chain 12: the radix64
+     trace at a cut depth, ``gen_radix(64, keys_per_tile=512, radix=256,
+     seed=0)`` (round_ctr 740, completion 133,200.8 ns; the full depth,
+     2,181 rounds and 245,006.6 ns, is held on the card by
+     tests/test_torch_card_paths.py) and ``gen_fft(64,
      points_per_tile=64, writeback=True)`` (round_ctr 377, completion
      60,677.0 ns, 1,897 fan-outs served in-pass, 17 fallbacks).
      chain_classify launches == 12 x chain passes (round_ctr - ctr_window
@@ -43,10 +55,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      simulations): device busy time per round, held against the
      unprofiled wall time per round of phases 5 and 6, kernels and host
      polls per round, and each kernel's share.
+  8. The fast-forward paths at full width, ``tpu/fast_forward = 8``
+     (wide rounds of 64 events):
+       * radix64_ff_span: the radix64 trace at miss_chain 0 and a
+         run-ahead span of 1000 ns (round_ctr 13353, completion
+         243,687.4 ns, ctr_ff 1804, ctr_ffq 356, ff_events 211211,
+         icount 1,844,224); fast_forward_walk launches > 0 and at least
+         the analytic rounds that engaged, window_walk launches ==
+         ctr_window, no chain_classify launch;
+       * fft64_ff_span: the fft64 trace at miss_chain 12, span 1000, the
+         path on which all three kernels run (round_ctr 293, completion
+         61,719.4 ns, 1,737 fan-outs, 13 fallbacks);
+       * fft64_ff: the same at span 0, where only the wide rounds run
+         (round_ctr 278, completion 62,347.6 ns, ctr_ff 73, ctr_ffq 29,
+         ff_events 28817, 1,737 fan-outs, 14 fallbacks, no
+         fast_forward_walk launch).
+     Chain passes (round_ctr - ctr_window - ctr_complex - ctr_conflict
+     - engaged analytic rounds) == ctr_resolve at miss_chain 12 and 0 at
+     0; chain_classify launches == 12 x chain passes.
 
-Before each path of phases 4 to 6 every kernel's launch count is set to
-0, and it is read just after.  The last two lines of standard output are
-the ``kernels`` JSON object and the ``ok`` JSON object.  Without a CUDA
+Before each path of phases 4 to 6 and 8 every kernel's launch count is
+set to 0, and it is read just after; each full-width path prints its
+peak device memory and the part of it above what was held before the
+path started.  The last two lines of standard output are the
+``kernels`` JSON object and the ``ok`` JSON object.  Without a CUDA
 device, or without the port's sources beside this file, the script exits
 non-zero and prints no result.
 """
@@ -59,14 +91,23 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Values pinned by BENCH_r06's radix64, radix64_chain12, fft64 and
-# radix8_pallas rows (all-integer engine, so they are device-independent).
+# Values pinned by BENCH_r06's radix64, fft64 and radix8_pallas rows
+# (all-integer engine, so they are device-independent); the JAX package
+# on the CPU gives BENCH_r06's values for radix64_chain12 (2,181 rounds,
+# 245,006.6 ns), fft64, radix64_ff and fft64_ff.
 FULL_KEYS = 2048
 FULL_ROUND_CTR = 13838
 FULL_COMPLETION_PS = 243_651_800
 CHAIN = 12
-CHAIN_ROUND_CTR = 2181
-CHAIN_COMPLETION_PS = 245_006_600
+# Phase 6 runs radix64_chain12 at a cut depth, so that the script with
+# phase 8 ends well inside its time limit on a slow host (the full depth
+# took 176-251 s of host-bound wall on an NVIDIA H100 80GB HBM3 at
+# 700 W; tests/test_torch_card_paths.py holds it on the card).  The JAX
+# package on the CPU gives these values for gen_radix(64,
+# keys_per_tile=512, radix=256, seed=0) at miss_chain 12.
+CHAIN_KEYS = 512
+CHAIN_CUT_ROUND_CTR = 740
+CHAIN_CUT_COMPLETION_PS = 133_200_800
 FFT_ROUND_CTR = 377
 FFT_COMPLETION_PS = 60_677_000
 FFT_FANOUT_SERVED = 1897
@@ -76,6 +117,26 @@ RADIX8_CHAIN_ROUND_CTR = 86
 # radix8 chain 12's completion, as the JAX package computes it on the CPU
 # (tests/test_torch_chain_sim.py holds the port to it).
 RADIX8_CHAIN_COMPLETION_PS = 8_686_600
+# Fast-forward paths (phase 8), as the JAX package computes them on the
+# CPU; the span-0 fft64 row is BENCH_r06's fft64_ff.
+FF = 8
+FF_SPAN_NS = 1000
+FULL_ICOUNT = 1_844_224
+FF_SPAN_CTRS = dict(round_ctr=13353, ctr_window=6548, ctr_complex=3614,
+                    ctr_conflict=2787, ctr_resolve=1711, ctr_quantum=547,
+                    ctr_ff=1804, ctr_ffq=356, ff_events=211211)
+FF_SPAN_COMPLETION_PS = 243_687_400
+FFT_FF_SPAN_CTRS = dict(round_ctr=293, ctr_window=92, ctr_complex=27,
+                        ctr_conflict=90, ctr_resolve=70, ctr_quantum=31,
+                        ctr_ff=79, ctr_ffq=29, ff_events=38318)
+FFT_FF_SPAN_COMPLETION_PS = 61_719_400
+FFT_FF_SPAN_FALLBACK = 13
+FFT_FF_CTRS = dict(round_ctr=278, ctr_window=97, ctr_complex=27,
+                   ctr_conflict=86, ctr_resolve=68, ctr_quantum=32,
+                   ctr_ff=73, ctr_ffq=29, ff_events=28817)
+FFT_FF_COMPLETION_PS = 62_347_600
+FFT_FF_FANOUT_SERVED = 1737
+FFT_FF_FALLBACK = 14
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM peak memory rate
 
 
@@ -175,6 +236,77 @@ def chain_bytes(params, ci, out) -> int:
     return moved + nbytes(t for t in out)
 
 
+def ff_bytes(params, vp, fi) -> int:
+    """Bytes one fast-forward call must move on these operands: each input
+    element the function reads, once, and every output element it
+    writes.
+
+    A candidate tile (tile_active, models enabled) reads its committed
+    prefix: per event the valid flag and the op, and what its kind uses
+    (COMPUTE: arg, arg2 and addr; BRANCH: arg and addr when there is a
+    predictor; MEM: addr, and arg2 only where the tile engages, for the
+    icount row).  Each COMPUTE or MEM event probes one set row of L1I or
+    L1D (A words, once per distinct row), each branch one predictor
+    entry (once per distinct slot).  The walk stops at the first event
+    it does not commit.  Where the clock before that event has reached
+    the run-ahead bound, nothing of the event is needed (the clock is
+    the sum of the committed events' times); otherwise the event is
+    ineligible, and the walk reads its valid flag, its op where it is
+    valid, and the address and probed row of a COMPUTE or MEM.  Every
+    tile reads its active flag and clock (a declined tile returns the
+    clock); a candidate reads three periods.  Every tile writes its
+    clock, n_ret and 12 counters; an engaged tile also writes each word
+    it touches and each predictor entry it updates, once.  The whole
+    cache arrays are not counted: the function needs only the rows it
+    probes."""
+    import torch
+    from graphite_tpu_torch.engine.kernels import window as kwin
+    fp = kwin.ff_price(params, vp, fi)
+    T, F = fi.addr.shape
+    dev = fi.addr.device
+    cand = fi.tile_active & fi.models_enabled
+    comm = fp.commit0                        # a prefix; only candidates
+    n_c = comm.sum(1)
+    pre = fi.clock + torch.where(comm, fp.dt, 0).sum(1)
+    at_bound = pre >= kwin._ff_bound(params, vp, fi.boundary)
+    stop = (cand & ~at_bound & (n_c < F))[:, None] \
+        & (torch.arange(F, device=dev)[None] == n_c[:, None])
+    rows = torch.arange(T, device=dev)[:, None].expand(T, F)
+
+    def count(mask):
+        return int(mask.sum())
+
+    def distinct(mask, *keys):
+        return torch.unique(torch.stack([k[mask].to(torch.int64)
+                                         for k in keys]), dim=1).shape[1]
+
+    is_mem = fp.is_rd | fp.is_wr
+    eng = comm & fp.engage[:, None]
+    # is_comp / is_mem are false on an invalid event (its op reads as NOP).
+    probe_i = (comm | stop) & fp.is_comp
+    probe_d = (comm | stop) & is_mem
+    moved = count(comm | stop)                              # valid_ev
+    moved += 4 * count(comm | (stop & fi.valid_ev))         # op
+    moved += 8 * count(comm & fp.is_comp)                   # arg, arg2
+    moved += 4 * count(eng & is_mem)                        # arg2
+    moved += 8 * count(probe_i | probe_d)                   # addr
+    moved += distinct(probe_i, rows, fp.pI.set_idx) \
+        * params.l1i.associativity * 8
+    moved += distinct(probe_d, rows, fp.pD.set_idx) \
+        * params.l1d.associativity * 8
+    if fp.bidx is not None:
+        moved += (4 + 8) * count(comm & fp.is_br)           # arg, addr
+        moved += distinct(comm & fp.is_br, rows, fp.bidx)   # table entries
+    moved += T * (1 + 8) + count(cand) * 3 * 4 + 8 + 1 + 4  # active, clock,
+    #                                  periods, boundary, enable, stamp base
+    moved += T * (8 + 4 + 12 * 8)                           # clock, n_ret, ctr
+    moved += 8 * (distinct(eng & fp.is_comp, rows, fp.pI.set_idx, fp.pI.way)
+                  + distinct(eng & is_mem, rows, fp.pD.set_idx, fp.pD.way))
+    if fp.bidx is not None:
+        moved += distinct(eng & fp.is_br, rows, fp.bidx)
+    return moved
+
+
 def compare(kind, got, ref, label) -> int:
     """Every output field of a kernel against its plain form."""
     err = 0
@@ -205,15 +337,54 @@ class Recorder:
                 self.seen.append(type(operands)(*[
                     t.clone() if t is not None else None for t in operands]))
             return self.orig(params, vp, operands, *rest)
-        # The kernel wrappers count launches on the module's entry point.
-        rec.launches = self.orig.launches
-        self.rec = rec
         setattr(self.module, self.name, rec)
         return self
 
     def __exit__(self, *exc):
-        self.orig.launches = self.rec.launches
         setattr(self.module, self.name, self.orig)
+
+
+def device_ms(fn, kernel: str, launches: int = 100):
+    """Device time per launch of ``kernel`` over ``launches`` calls of
+    ``fn`` (torch.profiler), or None where the profiler sees no device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.device_type is not None \
+                and "cuda" in str(evt.device_type).lower():
+            total += getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0))
+            n += evt.count
+    return total / 1e3 / n if n else None
+
+
+def peak_reset() -> int:
+    """Restart the peak-memory count; return the bytes allocated now."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_line(held: int) -> str:
+    """The peak since :func:`peak_reset`, and its part above ``held``."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    return (f"max_memory_allocated {peak} B ({peak - held} B above the "
+            f"{held} B held before the run)")
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.6f} ms"
 
 
 def profile_stretch(psim, wall_ms, card, label, names, quanta):
@@ -294,9 +465,11 @@ def main() -> int:
     from graphite_tpu_torch.engine.core import window_operands
     from graphite_tpu_torch.engine.kernels import build
     from graphite_tpu_torch.engine.kernels import chain as kchain
+    from graphite_tpu_torch.engine.kernels.dispatch import (COUNTS,
+                                                            reset_counts)
     from graphite_tpu_torch.engine.kernels.operands import (
-        chain_in_from_numpy, random_chain_arrays, random_window_arrays,
-        window_in_from_numpy)
+        chain_in_from_numpy, ff_in_from_numpy, random_chain_arrays,
+        random_ff_arrays, random_window_arrays, window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
     from graphite_tpu_torch.engine.quantum import next_boundary
     from graphite_tpu_torch.engine.sim import Simulator
@@ -465,16 +638,137 @@ def main() -> int:
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: none on "
           f"{card}")
 
-    stamp("phase 3: kernels held against their plain forms")
+    # fast_forward_walk at F = 64
+    fparams = config(**{"tpu/fast_forward": FF,
+                        "tpu/fast_forward_span": FF_SPAN_NS})
+    fvp = variant_params(fparams)
+    F = kcore._ff_width(fparams)
+    check(F == 64, f"fast-forward width {F} != 64")
+    cases = []
+    for label, over in (
+            ("span 1000", {}), ("span 0", {"tpu/fast_forward_span": 0}),
+            ("no predictor", {"branch_predictor/type": "none"}),
+            ("chain 12 span 300", {"tpu/miss_chain": CHAIN,
+                                   "tpu/fast_forward_span": 300})):
+        p = config(**{"tpu/fast_forward": FF,
+                      "tpu/fast_forward_span": FF_SPAN_NS, **over})
+        v = variant_params(p)
+        for seed in range(8):
+            cases.append((p, v, f"{label} seed {seed}", ff_in_from_numpy(
+                random_ff_arrays(p, F, seed), dev)))
+    # Operands of the port's own radix64 span-1000 run: analytic rounds
+    # with engaging tiles, and wide windows the walk retires past one
+    # narrow round's capacity.
+    fsim = Simulator(fparams, trace, device=dev)
+    with Recorder(kcore.kwindow, "run_fast_forward",
+                  lambda fi: bool(kwin.ff_price(fparams, fvp, fi)
+                                  .engage.any()), 6) as rff, \
+            Recorder(kcore.kwindow, "run_window",
+                     lambda wi: bool((kwin.window_walk(
+                         fparams, fvp, wi, T).n_ret > K).any()), 4) as rww:
+        for step in range(1, 17):
+            if len(rff.seen) == 6 and len(rww.seen) == 4:
+                break
+            fsim.run(max_steps=step)
+    check(len(rff.seen) >= 1 and len(rww.seen) >= 1,
+          f"captured {len(rff.seen)} engaging analytic rounds and "
+          f"{len(rww.seen)} wide windows from the radix64 span-1000 run")
+    cases += [(fparams, fvp, f"captured radix64 analytic round {i}", fi)
+              for i, fi in enumerate(rff.seen)]
+    err_f, engaged_f = 0, 0
+    for p, v, label, fi in cases:
+        got = kwin.fast_forward_walk_cuda(p, v, fi)
+        ref = kwin.fast_forward_walk(p, v, fi)
+        torch.cuda.synchronize()
+        err_f = max(err_f, compare("fast_forward_walk", got, ref, label))
+        engaged_f += int((ref.n_ret > 0).sum().item())
+    check(engaged_f > 0, "no tile engaged in any fast_forward_walk set")
+    print(f"kernel fast_forward_walk: {len(cases)} operand sets "
+          f"({len(rff.seen)} captured), {engaged_f} engaged tiles, every "
+          f"output field equal to the plain form (max abs err {err_f})")
+    fi_cap = rff.seen[-1]
+    ms_f = time_cuda(lambda: kwin.fast_forward_walk_cuda(fparams, fvp,
+                                                         fi_cap),
+                     iters=500, warmup=50)
+    plain_f = time_cuda(lambda: kwin.fast_forward_walk(fparams, fvp, fi_cap),
+                        iters=50, warmup=5)
+    moved_f = ff_bytes(fparams, fvp, fi_cap)
+    bound_f = moved_f / HBM_BYTES_PER_S * 1e3
+    dev_f = device_ms(lambda: kwin.fast_forward_walk_cuda(fparams, fvp,
+                                                          fi_cap),
+                      "fast_forward_walk_kernel")
+    print(f"kernel fast_forward_walk: {ms_f:.6f} ms/launch (wrapper, clones "
+          f"included), device {fmt_ms(dev_f)} per launch, plain "
+          f"{plain_f:.6f} ms, bound {bound_f:.9f} ms "
+          f"({moved_f} bytes the function reads and writes on these "
+          f"operands, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: "
+          f"none on {card}")
 
-    def zero_counts():
-        kwin.run_window.launches = 0
-        kchain.run_chain.launches = 0
+    # window_walk at the wide width K = 64, P = 0 and P = 12
+    fcparams = config(**{"tpu/fast_forward": FF,
+                         "tpu/fast_forward_span": FF_SPAN_NS,
+                         "tpu/miss_chain": CHAIN})
+    fcvp = variant_params(fcparams)
+    fft = synth.gen_fft(64, points_per_tile=64, writeback=True)
+    fcsim = Simulator(fcparams, fft, device=dev)
+    # Wide rounds fill the bank in one round (cap_w = 1), so a wide
+    # window starts on an empty bank: keep windows that bank elements.
+    with Recorder(kcore.kwindow, "run_window",
+                  lambda wi: bool((kwin.window_walk(
+                      fcparams, fcvp, wi, T).mq_count > wi.mq_count).any()),
+                  4) as rwc:
+        for step in range(1, 17):
+            if len(rwc.seen) == 4:
+                break
+            fcsim.run(max_steps=step)
+    check(len(rwc.seen) >= 1, "captured no wide banking window from the "
+                              "fft64 chain-12 fast-forward run")
+    cases = []
+    for label, over in (("P=0", {}), ("P=12", {"tpu/miss_chain": CHAIN}),
+                        ("P=12 no fan-out", {"tpu/miss_chain": CHAIN,
+                                             "tpu/fanout_replay": False})):
+        p = config(**{"tpu/fast_forward": FF, **over})
+        v = variant_params(p)
+        for seed in range(3):
+            cases.append((p, v, f"K=64 {label} seed {seed}",
+                          window_in_from_numpy(
+                              random_window_arrays(p, F, seed), dev)))
+    cases += [(fparams, fvp, f"captured radix64 wide window {i}", wi)
+              for i, wi in enumerate(rww.seen)]
+    cases += [(fcparams, fcvp, f"captured fft64 wide banking window {i}", wi)
+              for i, wi in enumerate(rwc.seen)]
+    for p, v, label, wi in cases:
+        check(wi.addr.shape[1] == 64, f"{label}: K != 64")
+        got = kwin.window_walk_cuda(p, v, wi, T)
+        ref = kwin.window_walk(p, v, wi, T)
+        torch.cuda.synchronize()
+        err_w = max(err_w, compare("window_walk", got, ref, label))
+    print(f"kernel window_walk K=64: {len(cases)} operand sets, every output "
+          f"leaf equal to the plain form (max abs err {err_w})")
+    for label, p, v, wi in (("P=0", fparams, fvp, rww.seen[-1]),
+                            (f"P={CHAIN}", fcparams, fcvp, rwc.seen[-1])):
+        ms = time_cuda(lambda: kwin.window_walk_cuda(p, v, wi, T),
+                       iters=500, warmup=50)
+        plain = time_cuda(lambda: kwin.window_walk(p, v, wi, T),
+                          iters=20, warmup=3)
+        moved = window_bytes(p, v, wi)
+        dev_w = device_ms(lambda: kwin.window_walk_cuda(p, v, wi, T),
+                          "window_walk_kernel")
+        print(f"kernel window_walk K=64 {label}: {ms:.6f} ms/launch (wrapper, "
+              f"clones included), device {fmt_ms(dev_w)} per launch, plain "
+              f"{plain:.6f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms ({moved} bytes at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+    # The fast-forward simulations and their recorded operands are done
+    # with; phase 7 continues only cap_sim and csim.
+    del fsim, fcsim, rff, rww, rwc, cases, fi_cap, wi, got, ref
+
+    stamp("phase 3: kernels held against their plain forms")
 
     def round_ctrs(st):
         return {f: int(getattr(st, f).item()) for f in (
             "ctr_quantum", "ctr_window", "ctr_complex", "ctr_conflict",
-            "ctr_resolve", "round_ctr")}
+            "ctr_resolve", "round_ctr", "ctr_ff", "ctr_ffq", "ff_events")}
 
     # ---- 4. golden shapes, exactly
     gold = json.load(open(os.path.join(HERE, "tests", "data",
@@ -485,7 +779,7 @@ def main() -> int:
             ("fft8", synth.gen_fft(num_tiles=8, points_per_tile=64))):
         sim = Simulator(config(**{"general/total_cores": 8,
                                   "tpu/miss_chain": 0}), gtrace, device=dev)
-        zero_counts()
+        reset_counts()
         s = sim.run(max_steps=256)
         g = gold[name]
         check(bool(s.done.all()), f"{name}: not all done")
@@ -498,17 +792,17 @@ def main() -> int:
             check(got == want, f"{name}.{f}: {got} != golden {want}")
         for k, want in g["counters"].items():
             check(s.counters[k].tolist() == want, f"{name}.{k} differs")
-        check(kwin.run_window.launches == int(sim.state.ctr_window.item()),
+        check(COUNTS["window_walk"] == int(sim.state.ctr_window.item()),
               f"{name}: kernel launches != ctr_window")
         print(f"golden {name}: exact (round_ctr "
               f"{int(sim.state.round_ctr.item())}, completion "
-              f"{s.completion_time_ps} ps, {kwin.run_window.launches} "
+              f"{s.completion_time_ps} ps, {COUNTS['window_walk']} "
               f"kernel launches)")
     sim = Simulator(config(**{"general/total_cores": 8,
                               "tpu/miss_chain": CHAIN}),
                     synth.gen_radix(num_tiles=8, keys_per_tile=64, radix=16,
                                     seed=3), device=dev)
-    zero_counts()
+    reset_counts()
     s = sim.run(max_steps=256)
     c8 = round_ctrs(sim.state)
     passes8 = c8["round_ctr"] - c8["ctr_window"] - c8["ctr_complex"] \
@@ -519,26 +813,25 @@ def main() -> int:
           f"radix8 chain 12: round_ctr {c8['round_ctr']}, completion "
           f"{s.completion_time_ps} != {RADIX8_CHAIN_ROUND_CTR}, "
           f"{RADIX8_CHAIN_COMPLETION_PS}")
-    check(kchain.run_chain.launches == CHAIN * passes8
-          and kwin.run_window.launches == c8["ctr_window"],
+    check(COUNTS["chain_classify"] == CHAIN * passes8
+          and COUNTS["window_walk"] == c8["ctr_window"],
           "radix8 chain 12: kernel launches do not match the round counts")
     print(f"radix8 chain 12: exact (round_ctr {c8['round_ctr']}, completion "
           f"{s.completion_time_ps} ps, {passes8} chain passes, "
-          f"chain_classify launches {kchain.run_chain.launches}, "
-          f"window_walk launches {kwin.run_window.launches})")
+          f"chain_classify launches {COUNTS['chain_classify']}, "
+          f"window_walk launches {COUNTS['window_walk']})")
 
     stamp("phase 4: golden shapes")
 
     # ---- 5. the chain-off main path at full width
+    held = peak_reset()
     sim = Simulator(params, trace, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    reset_counts()
     t0 = time.perf_counter()
     s = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches0 = kwin.run_window.launches
+    launches0 = COUNTS["window_walk"]
     ctr = round_ctrs(sim.state)
     rounds = ctr["round_ctr"]
     check(bool(s.done.all()), "radix64: not all done")
@@ -550,14 +843,14 @@ def main() -> int:
     check(launches0 == ctr["ctr_window"] and launches0 > 0,
           f"radix64: kernel launches {launches0} != ctr_window "
           f"{ctr['ctr_window']}")
-    check(kchain.run_chain.launches == 0, "radix64: chain kernel launched")
+    check(COUNTS["chain_classify"] == 0, "radix64: chain kernel launched")
     mips = s.total_instructions / wall / 1e6
     print(f"radix64 keys_per_tile={FULL_KEYS}: all_done, round_ctr "
           f"{rounds}, completion {s.completion_time_ps / 1000:.1f} ns, "
           f"{s.total_instructions} instructions; counters {ctr}")
     print(f"radix64: wall {wall:.3f} s, {rounds / wall:.2f} rounds/s, "
           f"{1e3 * wall / rounds:.4f} ms/round, simulated MIPS {mips:.6f}, "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+          f"{peak_line(held)}, "
           f"window_walk launches {launches0}, "
           f"kernel share {launches0 * ms0 / 1e3 / wall:.4f} of wall "
           f"(launches x {ms0:.6f} ms) on {card}")
@@ -567,15 +860,14 @@ def main() -> int:
 
     # ---- 6. the chain-replay paths at full width
     def chain_run(label, ctrace, want_rounds, want_ps):
+        held = peak_reset()
         sim = Simulator(cparams, ctrace, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
+        reset_counts()
         t0 = time.perf_counter()
         s = sim.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        lw, lc = kwin.run_window.launches, kchain.run_chain.launches
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         c = round_ctrs(sim.state)
         r = c["round_ctr"]
         passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"]
@@ -598,15 +890,16 @@ def main() -> int:
               f"{fb}; counters {c}, chain passes {passes}")
         print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
               f"{1e3 * wall / r:.4f} ms/round, simulated MIPS {mips:.6f}, "
-              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+              f"{peak_line(held)}, "
               f"window_walk launches {lw}, chain_classify launches {lc}, "
               f"kernel share {(lw * ms_w + lc * ms_c) / 1e3 / wall:.4f} of "
               f"wall on {card}")
         return lw, lc, fan, fb, 1e3 * wall / r
 
     lw12, lc12, _, _, wall_ms12 = chain_run(
-        "radix64_chain12", trace, CHAIN_ROUND_CTR, CHAIN_COMPLETION_PS)
-    fft = synth.gen_fft(64, points_per_tile=64, writeback=True)
+        f"radix64_chain12 keys_per_tile={CHAIN_KEYS}",
+        synth.gen_radix(64, keys_per_tile=CHAIN_KEYS, radix=256, seed=0),
+        CHAIN_CUT_ROUND_CTR, CHAIN_CUT_COMPLETION_PS)
     _, _, fan, fb, _ = chain_run("fft64", fft, FFT_ROUND_CTR,
                                  FFT_COMPLETION_PS)
     check(fan == FFT_FANOUT_SERVED and fb == FFT_FALLBACK,
@@ -651,6 +944,85 @@ def main() -> int:
                     ["window_walk", "chain_classify"], quanta=1)
     stamp("phase 7: chain-12 stretch profiled")
 
+    # ---- 8. the fast-forward paths at full width
+    def ff_run(label, p, ctrace, want, want_ps):
+        held = peak_reset()
+        sim = Simulator(p, ctrace, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        s = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+        lf = COUNTS["fast_forward_walk"]
+        engaged = COUNTS["ff_engaged"]
+        c = round_ctrs(sim.state)
+        r = c["round_ctr"]
+        # Every engine round is a window round, a complex slot, a conflict
+        # round, a chain pass (one per resolve pass at P > 0) or an
+        # analytic round in which some tile engaged.
+        passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
+            - engaged
+        check(bool(s.done.all()), f"{label}: not all done")
+        for k, v in want.items():
+            check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
+        check(s.completion_time_ps == want_ps,
+              f"{label}: completion {s.completion_time_ps} != {want_ps}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{label}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        check(lf >= engaged, f"{label}: fast_forward_walk launches {lf} < "
+                             f"{engaged} engaged analytic rounds")
+        check(passes == (c["ctr_resolve"] if p.miss_chain else 0),
+              f"{label}: {passes} chain passes from the round identity, "
+              f"ctr_resolve {c['ctr_resolve']}")
+        check(lc == p.miss_chain * passes,
+              f"{label}: chain_classify launches {lc} != {p.miss_chain} x "
+              f"{passes} chain passes")
+        fan = int(s.counters["chain_fanout_served"].sum())
+        fb = int(s.counters["chain_fallback"].sum())
+        mips = s.total_instructions / wall / 1e6
+        print(f"{label}: all_done, round_ctr {r}, completion "
+              f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
+              f"instructions, chain_fanout_served {fan}, chain_fallback "
+              f"{fb}; counters {c}, analytic rounds that engaged {engaged}, "
+              f"chain passes {passes}")
+        print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
+              f"{1e3 * wall / r:.4f} ms/round, simulated MIPS {mips:.6f}, "
+              f"{peak_line(held)}, "
+              f"window_walk launches {lw}, chain_classify launches {lc}, "
+              f"fast_forward_walk launches {lf} on {card}")
+        return s, lf, lc, fan, fb
+
+    s, lf_span, lc_f, _, _ = ff_run("radix64_ff_span", fparams, trace,
+                                    FF_SPAN_CTRS, FF_SPAN_COMPLETION_PS)
+    check(lf_span > 0 and lc_f == 0,
+          f"radix64_ff_span: fast_forward_walk launches {lf_span}, "
+          f"chain_classify launches {lc_f}")
+    check(s.total_instructions == FULL_ICOUNT,
+          f"radix64_ff_span: icount {s.total_instructions} != {FULL_ICOUNT}")
+    stamp("phase 8: radix64_ff_span")
+    _, lf, lc, fan, fb = ff_run("fft64_ff_span", fcparams, fft,
+                                FFT_FF_SPAN_CTRS, FFT_FF_SPAN_COMPLETION_PS)
+    check(lf > 0 and lc > 0 and fan == FFT_FF_FANOUT_SERVED
+          and fb == FFT_FF_SPAN_FALLBACK,
+          f"fft64_ff_span: fast_forward_walk launches {lf}, chain_classify "
+          f"launches {lc}, chain_fanout_served {fan} / chain_fallback {fb} "
+          f"!= {FFT_FF_FANOUT_SERVED} / {FFT_FF_SPAN_FALLBACK}")
+    stamp("phase 8: fft64_ff_span")
+    s, lf, lc, fan, fb = ff_run(
+        "fft64_ff", config(**{"tpu/fast_forward": FF,
+                              "tpu/miss_chain": CHAIN}),
+        fft, FFT_FF_CTRS, FFT_FF_COMPLETION_PS)
+    check(lf == 0 and lc > 0 and fan == FFT_FF_FANOUT_SERVED
+          and fb == FFT_FF_FALLBACK,
+          f"fft64_ff: fast_forward_walk launches {lf} (the leg is dormant at "
+          f"span 0), chain_fanout_served {fan} / chain_fallback {fb} != "
+          f"{FFT_FF_FANOUT_SERVED} / {FFT_FF_FALLBACK}")
+    check(s.to_dict()["ff_rounds"] == FFT_FF_CTRS["ctr_ff"],
+          "fft64_ff: summary ff_rounds")
+    stamp("phase 8: fft64_ff")
+
     kernels = [{
         "name": "window_walk",
         "route": "cuda",
@@ -673,6 +1045,19 @@ def main() -> int:
         "ms": ms_c,
         "plain_ms": plain_c,
         "bound_ms": bound_c,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "fast_forward_walk",
+        "route": "cuda",
+        "source": "graphite_tpu_torch/engine/kernels/csrc/"
+                  "fast_forward_walk.cu",
+        "replaces": "graphite_tpu/engine/kernels/window.py:779",
+        "launches": lf_span,
+        "max_abs_err": err_f,
+        "ms": ms_f,
+        "plain_ms": plain_f,
+        "bound_ms": bound_f,
         "bound_by": "bytes",
         "library_ms": None,
     }]

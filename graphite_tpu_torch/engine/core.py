@@ -1,28 +1,35 @@
 """Local (intra-tile) event processing — the per-quantum core phase.
 
-Counterpart of ``graphite_tpu/engine/core.py`` on this slice's path
-(simple cores, private L2, ``tpu/miss_chain`` 0 to 256, no
-fast-forward):
+Counterpart of ``graphite_tpu/engine/core.py`` on the port's path
+(simple cores, private L2, ``tpu/miss_chain`` 0 to 256,
+``tpu/fast_forward`` on or off):
 
   * ``_block_retire`` — every round takes the next ``block_events``
     events of every tile as one [T, K] window (from the resident window
     cache) and retires the leading run of simple events through the
     window walk (engine/kernels/window.py: the CUDA kernel on the card,
     the plain form on the CPU).  At P > 0 misses past the local L2 bank
-    into the tile's [P, T] chain instead of ending the window.
+    into the tile's [P, T] chain instead of ending the window.  At
+    ``tpu/fast_forward`` > 0 the rounds are wide: K = ``_ff_width``.
+  * ``_fast_forward_guarded`` — at ``tpu/fast_forward`` > 0 and a
+    run-ahead span above 0, analytic rounds through the fast-forward
+    walk (the CUDA kernel on the card) before the detailed machinery:
+    each prices a candidate tile's hit/compute-only prefix in closed
+    form.
   * ``_complex_slot`` — one event per tile for the event kinds of this
     slice: COMPUTE / BRANCH / MEM misses park the tile for resolve (or,
     at P > 0, bank as chain element 0), BARRIER_WAIT parks on the
     barrier, DONE retires the stream.
-  * ``local_advance`` — at P = 0, window rounds until they stop
-    retiring, then one general slot, repeated while anything moves; at
-    P > 0 the chain cadence: a few window rounds to fill the bank, then
-    one guarded general slot.
+  * ``local_advance`` — the analytic rounds first (at
+    ``tpu/fast_forward`` > 0); then at P = 0, window rounds until they
+    stop retiring, then one general slot, repeated while anything moves;
+    at P > 0 the chain cadence: a few window rounds to fill the bank,
+    then one guarded general slot.
 
 The JAX package's ``lax.while_loop``/``lax.cond`` become Python loops
 whose conditions read one device scalar each; their trip counts are part
-of the state (``ctr_window``, ``ctr_complex``, ``round_ctr``) and match
-the JAX loops exactly.
+of the state (``ctr_window``, ``ctr_complex``, ``ctr_ff``, ``round_ctr``)
+and match the JAX loops exactly.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import dense
 from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.kernels import window as kwindow
 from graphite_tpu_torch.engine.ops import scatter
 from graphite_tpu_torch.engine.state import (
@@ -51,6 +59,7 @@ STAMP_STRIDE = params_mod.STAMP_STRIDE
 
 _lat = kwindow._lat
 _spanned_bound = kwindow._spanned_bound
+_ff_bound = kwindow._ff_bound
 
 
 def _period(state: SimState, module: DVFSModule):
@@ -89,13 +98,12 @@ def _window_slice_gather(st: SimState, trace: TraceArrays, width: int):
 
 
 def _window_refresh(params: SimParams, st: SimState, trace: TraceArrays,
-                    tile_active: torch.Tensor) -> SimState:
+                    tile_active: torch.Tensor, width: int) -> SimState:
     """Re-gather the [T, WC] resident window slice only when some active
-    tile's next K events fall outside its cached span."""
-    K = params.block_events
+    tile's next ``width`` events fall outside its cached span."""
     WC = st.win_meta.shape[2]
     d = st.cursor - st.win_base
-    ok = (d >= 0) & (d + K <= WC)
+    ok = (d >= 0) & (d + width <= WC)
     if not bool(torch.any(tile_active & ~ok).item()):
         return st
     meta, addr = _window_slice_gather(st, trace, WC)
@@ -103,13 +111,32 @@ def _window_refresh(params: SimParams, st: SimState, trace: TraceArrays,
                        win_seat=torch.full_like(st.win_seat, -1))
 
 
+def _ff_width(params: SimParams) -> int:
+    """Fast-forward span width in events (0: the leg is off).
+
+    ``tpu/fast_forward`` counts block_events-sized windows; the width is
+    clipped so one round's per-event stamps fit its STAMP_STRIDE
+    allocation.  It sizes both surfaces: the wide window rounds and the
+    analytic span.  The multiplier floors at 2 (one window cannot beat
+    the narrow round), and with K > STRIDE / 2 no width can, so the leg
+    is off."""
+    K = params.block_events
+    if params.fast_forward <= 0 or K <= 0:
+        return 0
+    cap = STAMP_STRIDE // K
+    if cap < 2:
+        return 0
+    return K * min(max(params.fast_forward, 2), cap)
+
+
 def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
-                    vp: VariantParams = None):
+                    vp: VariantParams = None, width: int = None):
     """Assemble the walk's operands for the next window round: refresh the
     resident window cache if an active tile outran it, then slice each
-    tile's next K events.  Returns the (possibly refreshed) state and the
+    tile's next K events (K = ``width``, a wide fast-forward round, else
+    ``block_events``).  Returns the (possibly refreshed) state and the
     :class:`~graphite_tpu_torch.engine.kernels.window.WindowIn`."""
-    K = params.block_events
+    K = params.block_events if width is None else width
     T = params.num_tiles
     N = trace.num_events
     dev = st.clock.device
@@ -127,7 +154,7 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
     pos = st.cursor[:, None] + ar[None, :]
     valid_ev = (pos < N) & tile_active[:, None]
     if st.win_meta.shape[2] >= K:
-        st = _window_refresh(params, st, trace, tile_active)
+        st = _window_refresh(params, st, trace, tile_active, K)
         WC = st.win_meta.shape[2]
         # Post-refresh every active tile's offset is in bounds; inactive
         # tiles clamp and read junk that valid_ev masks.
@@ -155,10 +182,12 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
 
 
 def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
-                  trace: TraceArrays) -> SimState:
+                  trace: TraceArrays, width: int = None) -> SimState:
     """Retire the leading run of simple events in each tile's [K] window:
-    assemble the walk's operands, run the walk, land its effects."""
-    st, wi = window_operands(params, st, trace, vp)
+    assemble the walk's operands, run the walk, land its effects.
+    ``width`` widens the window to ``_ff_width`` events (a wide
+    fast-forward round: the unchanged walk over a longer slice)."""
+    st, wi = window_operands(params, st, trace, vp, width)
     S_ids = st.spawned_at.shape[0]
     out = kwindow.run_window(params, vp, wi, S_ids)
 
@@ -187,7 +216,92 @@ def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
     if params.miss_chain > 0:
         st = st._replace(**{f: getattr(out, f)
                             for f in kwindow.CHAIN_OUT_FIELDS})
+    if width is not None and width > params.block_events:
+        # A wide round counts as a fast-forward round when it retires more
+        # than one narrow round's per-tile capacity somewhere.
+        gain = torch.clamp(out.n_ret - params.block_events, min=0)
+        st = st._replace(
+            ctr_ff=st.ctr_ff + (gain > 0).any().to(torch.int64),
+            ff_events=st.ff_events + torch.sum(gain).to(torch.int64))
     return st
+
+
+# =================================================== analytic fast-forward
+
+def _fast_forward_retire(params: SimParams, vp: VariantParams,
+                         st: SimState, trace: TraceArrays,
+                         cand: torch.Tensor) -> SimState:
+    """One analytic round: gather each candidate tile's next
+    ``_ff_width`` events straight from the trace (an engaged span sweeps
+    about the window cache's whole width, so the cache rarely covers
+    it), price the hit/compute-only prefix in closed form through the
+    fast-forward walk, and land clock, cursor, cache, predictor and
+    counter effects.  ``round_ctr`` and ``ctr_ff`` advance only when
+    some tile engages: a declined probe uses no stamps."""
+    F = _ff_width(params)
+    N = trace.num_events
+    meta, addr = _window_slice_gather(st, trace, F)
+    pos = st.cursor[:, None] + torch.arange(F, dtype=torch.int32,
+                                            device=st.cursor.device)[None, :]
+    fi = kwindow.FFIn(
+        meta=meta, addr=addr, valid_ev=(pos < N) & cand[:, None],
+        tile_active=cand, clock=st.clock, period_ps=st.period_ps,
+        bp_table=st.bp_table, l1i_word=st.l1i.word, l1d_word=st.l1d.word,
+        boundary=st.boundary, models_enabled=st.models_enabled,
+        stamp_base=_stamp_base(st))
+    out = kwindow.run_fast_forward(params, vp, fi)
+
+    any_engage = (out.n_ret > 0).any()
+    c = st.counters
+    c = c._replace(**{
+        name: getattr(c, name) + out.ctr_inc[i]
+        for i, name in enumerate(kwindow.WINDOW_CTRS)})
+    return st._replace(
+        clock=out.clock,
+        cursor=st.cursor + out.n_ret,
+        l1i=st.l1i._replace(word=out.l1i_word),
+        l1d=st.l1d._replace(word=out.l1d_word),
+        bp_table=out.bp_table,
+        counters=c,
+        round_ctr=st.round_ctr + any_engage.to(torch.int32),
+        ctr_ff=st.ctr_ff + any_engage.to(torch.int64),
+        ff_events=st.ff_events + torch.sum(out.n_ret).to(torch.int64),
+    )
+
+
+def _fast_forward_guarded(params: SimParams, vp: VariantParams,
+                          state: SimState,
+                          trace: TraceArrays) -> SimState:
+    """The analytic leg's gate: skipped when the leg is off
+    (``_ff_width`` 0), when the run-ahead span is 0 (the walk's engage
+    rule, commits past the window bound, can then never fire), when no
+    tile is a candidate, or when models are disabled.  Otherwise analytic
+    rounds while the cursor sum grows, at most
+    ``max(1, max_events_per_quantum)``.  At P > 0 tiles with pending
+    chain heads are no candidates."""
+    if _ff_width(params) == 0 or vp.fast_forward_span_ps <= 0:
+        return state
+    N = trace.num_events
+    P = params.miss_chain
+
+    def cand_of(s):
+        c = (~s.done) & (s.pend_kind == PEND_NONE) & (s.cursor < N) \
+            & (s.clock < _ff_bound(params, vp, s.boundary))
+        if P > 0:
+            c = c & (s.mq_count == 0)
+        return c
+
+    if not bool((cand_of(state).any() & state.models_enabled).item()):
+        return state
+    cap = max(1, params.max_events_per_quantum)
+    i, cv = 0, _progress(state)
+    while True:
+        state = _fast_forward_retire(params, vp, state, trace,
+                                     cand_of(state))
+        i, pv, cv = i + 1, cv, _progress(state)
+        dispatch.COUNTS["ff_engaged"] += int(cv > pv)
+        if i >= cap or cv <= pv:
+            return state
 
 
 # ======================================================== complex slot
@@ -454,14 +568,15 @@ def _complex_slot_guarded(params: SimParams, vp: VariantParams,
 
 
 def _chain_cadence(params: SimParams, vp: VariantParams, state: SimState,
-                   trace: TraceArrays) -> SimState:
+                   trace: TraceArrays, wide: int = None) -> SimState:
     """local_advance at P > 0: just enough window rounds to fill the bank
-    (``cap_w``), skipped outright when no tile can retire, then one
-    guarded general slot.  With ``fanout_replay`` the window loop also
-    ends as soon as no tile can use another round."""
+    (``cap_w``, from the round's width: ``wide`` for wide fast-forward
+    rounds), skipped outright when no tile can retire, then one guarded
+    general slot.  With ``fanout_replay`` the window loop also ends as
+    soon as no tile can use another round."""
     if params.block_events > 0:
         P = params.miss_chain
-        K = params.block_events
+        K = params.block_events if wide is None else wide
         cap_w = max(1, -(-P * 3 // (2 * K)))
         N = trace.num_events
         qps = vp.quantum_ps
@@ -477,7 +592,7 @@ def _chain_cadence(params: SimParams, vp: VariantParams, state: SimState,
         if bool(can_retire(state).any().item()):
             j, cv = 0, _progress(state)
             while True:
-                state = _block_retire(params, vp, state, trace)
+                state = _block_retire(params, vp, state, trace, wide)
                 j, pv, cv = j + 1, cv, _progress(state)
                 if j >= cap_w or cv <= pv:
                     break
@@ -493,11 +608,18 @@ def local_advance(params: SimParams, state: SimState,
     """Advance every non-blocked tile through events until the quantum
     boundary, stream end, or its first remote-blocking event: window
     rounds until they stop retiring, then one general slot, repeated
-    while the cursor sum moves (capped at max_events_per_quantum)."""
+    while the cursor sum moves (capped at max_events_per_quantum).  At
+    ``tpu/fast_forward`` > 0 the analytic rounds run first and every
+    window round is wide."""
     if vp is None:
         vp = variant_params(params)
+    wide = None
+    if params.fast_forward > 0:
+        state = _fast_forward_guarded(params, vp, state, trace)
+        if _ff_width(params) > params.block_events:
+            wide = _ff_width(params)
     if params.miss_chain > 0:
-        return _chain_cadence(params, vp, state, trace)
+        return _chain_cadence(params, vp, state, trace, wide)
     cap = params.max_events_per_quantum
     i = 0
     prev = -1
@@ -507,7 +629,7 @@ def local_advance(params: SimParams, state: SimState,
         if params.block_events > 0:
             j, pv, cv = 0, -1, cur
             while j < cap and (j == 0 or cv > pv):
-                st = _block_retire(params, vp, st, trace)
+                st = _block_retire(params, vp, st, trace, wide)
                 j, pv, cv = j + 1, cv, _progress(st)
         st = _complex_slot(params, vp, st, trace)
         i, prev, cur = i + 1, cur, _progress(st)

@@ -21,7 +21,8 @@ Two forms compute the same function:
     one thread per tile, the H-sized tables in shared memory.
 
 :func:`run_chain` picks between them by the tensors' device, like
-``window.run_window``; ``run_chain.launches`` counts kernel launches.
+``window.run_window``; the wrapper counts its launches in
+``dispatch.COUNTS``.
 
 What stays outside, in ``resolve.chain_fast_pass``: the chain-head and
 directory-row gathers, the DRAM queue probe (its ring is loop-carried)
@@ -529,7 +530,7 @@ def chain_classify_cuda(params: SimParams, vp: VariantParams, ci: ChainIn,
     if err != 0:
         raise RuntimeError(f"chain_classify kernel launch failed: CUDA "
                            f"error {err} ({build.error_string(lib, err)})")
-    run_chain.launches += 1
+    dispatch.COUNTS["chain_classify"] += 1
     return out
 
 
@@ -540,7 +541,4 @@ def run_chain(params: SimParams, vp: VariantParams, ci: ChainIn,
     if dispatch.use_kernel(ci.line):
         return chain_classify_cuda(params, vp, ci, H)
     return chain_classify(params, vp, ci, H)
-
-
-run_chain.launches = 0
 

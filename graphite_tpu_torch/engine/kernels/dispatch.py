@@ -12,6 +12,20 @@ from __future__ import annotations
 
 import torch
 
+# Kernel launches, one count per kernel, added to by each wrapper where it
+# launches its kernel and nowhere else; and the analytic fast-forward
+# rounds in which some tile engaged (``core._fast_forward_guarded``), the
+# one round kind the state's counters do not separate.  A run sets them
+# to 0 with :func:`reset_counts` and reads them after, to show that its
+# path went through the kernels.
+COUNTS = {"window_walk": 0, "chain_classify": 0, "fast_forward_walk": 0,
+          "ff_engaged": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
 
 def use_kernel(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor

@@ -15,7 +15,7 @@ import torch
 from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import dense
 from graphite_tpu_torch.engine.kernels.chain import ChainIn
-from graphite_tpu_torch.engine.kernels.window import WindowIn
+from graphite_tpu_torch.engine.kernels.window import FFIn, WindowIn
 from graphite_tpu_torch.engine.ops import umod64
 from graphite_tpu_torch.engine.resolve import dir_set_of_line, home_of_line
 from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
@@ -135,6 +135,112 @@ def window_in_from_numpy(arrays: dict, device) -> WindowIn:
         f: torch.from_numpy(np.array(arrays[f])).to(dev)
         for f in WindowIn._fields if arrays.get(f) is not None})
 
+
+
+def random_ff_arrays(params: SimParams, F: int, seed: int) -> dict:
+    """Random fast-forward operands as numpy arrays (field name -> array).
+
+    Spans are mostly eligible hits, so prefixes longer than one window
+    round occur and tiles engage; each tile draws its own case: an
+    ineligible event (a miss, a write to a read-only line, a STALL) early
+    or late in its span or none, a clock below, across or past the
+    bounds, the trace end inside the span, or not a candidate at all.
+    Lines come from a small pool (repeated touches of one way), branch
+    addresses from a few predictor slots (in-span slot collisions), and
+    cache stamps are random up to 2^29 (touches that must not lower a
+    word).  About one seed in eight has models disabled."""
+    rng = np.random.default_rng(seed)
+    T = params.num_tiles
+    lb = params.line_size.bit_length() - 1
+    BP = params.core.bp_size
+    pool = rng.integers(0, 1 << 22, size=12)
+    ro_pool = rng.integers(0, 1 << 22, size=3)      # resident read-only
+    miss_pool = rng.integers(1 << 22, 1 << 23, size=3)   # never resident
+
+    ops = np.array([int(EventOp.COMPUTE), int(EventOp.MEM_READ),
+                    int(EventOp.MEM_WRITE), int(EventOp.BRANCH)])
+    op = rng.choice(ops, size=(T, F), p=[0.4, 0.25, 0.15, 0.2])
+    line = rng.choice(pool, size=(T, F))
+    # Reads may also hit the read-only lines.
+    ro = (op == int(EventOp.MEM_READ)) & (rng.random((T, F)) < 0.3)
+    line = np.where(ro, rng.choice(ro_pool, size=(T, F)), line)
+    # Per-tile stop: an ineligible event at a random position, or none.
+    stop = np.where(rng.random(T) < 0.5, F,
+                    rng.integers(0, F, size=T))
+    kinds = rng.integers(0, 4, size=T)
+    for t in range(T):
+        j = int(stop[t])
+        if j >= F:
+            continue
+        if kinds[t] == 0:                 # L1D miss
+            op[t, j], line[t, j] = int(EventOp.MEM_READ), miss_pool[0]
+        elif kinds[t] == 1:               # write to a read-only line
+            op[t, j], line[t, j] = int(EventOp.MEM_WRITE), ro_pool[0]
+        elif kinds[t] == 2:               # L1I miss
+            op[t, j], line[t, j] = int(EventOp.COMPUTE), miss_pool[1]
+        else:                             # an event the leg never takes
+            op[t, j] = int(EventOp.STALL)
+    slots = rng.integers(0, BP, size=4)
+    br_addr = rng.choice(slots, size=(T, F)) \
+        + BP * rng.integers(0, 1 << 10, size=(T, F))
+    addr = (line << lb) + rng.integers(0, params.line_size, size=(T, F))
+    addr = np.where(op == int(EventOp.BRANCH), br_addr, addr)
+    arg = np.where(op == int(EventOp.BRANCH), rng.integers(0, 2, (T, F)),
+                   rng.integers(-2, 40, (T, F))).astype(np.int32)
+    arg2 = np.where(op == int(EventOp.COMPUTE), rng.integers(0, 200, (T, F)),
+                    np.where(rng.random((T, F)) < 0.7, 0,
+                             rng.integers(1, 300, (T, F)))).astype(np.int32)
+
+    def words(A, S, resident, ro_lines, states):
+        tags = rng.choice(miss_pool[2:], size=(A, T, S))
+        stamps = rng.integers(0, 1 << 29, size=(A, T, S))
+        st = rng.choice([0, 1, 4], size=(A, T, S))
+        w = (tags.astype(np.int64) << 32) | (stamps << 3) | st
+        for t in range(T):
+            placed = set()
+            for ln in list(resident) + list(ro_lines):
+                if ln in placed:
+                    continue
+                placed.add(ln)
+                state = 1 if ln in ro_lines else int(rng.choice(states))
+                way = int(rng.integers(0, A))
+                w[way, t, int(ln) % S] = (int(ln) << 32) \
+                    | (int(rng.integers(0, 1 << 29)) << 3) | state
+        return w.astype(np.int64)
+
+    Ai, Si = params.l1i.associativity, params.l1i.num_sets
+    Ad, Sd = params.l1d.associativity, params.l1d.num_sets
+    l1i = words(Ai, Si, pool, [], [1, 4])
+    l1d = words(Ad, Sd, pool, ro_pool, [4, 4, 4, 3])
+
+    nm = len(DVFSModule)
+    period = rng.integers(250, 1200, size=(T, nm)).astype(np.int32)
+    boundary = 50_000_000 + int(rng.integers(0, 10_000_000))
+    # Clocks from well below the window bound to past the run-ahead bound.
+    clock = boundary - rng.choice(
+        [0, 200_000, 1_000_000, 3_000_000, 20_000_000], size=T) \
+        + rng.integers(-100_000, 100_000, size=T)
+    clock = np.where(rng.random(T) < 0.1, boundary + 5_000_000, clock)
+    valid = np.ones((T, F), dtype=bool)
+    end = rng.random(T) < 0.2                      # trace end in the span
+    valid &= ~(end[:, None] & (np.arange(F)[None, :]
+                               >= rng.integers(0, F, size=T)[:, None]))
+    cand = rng.random(T) < 0.85
+    return dict(
+        meta=np.stack([op, arg, arg2]).astype(np.int32),
+        addr=addr.astype(np.int64), valid_ev=valid & cand[:, None],
+        tile_active=cand, clock=clock.astype(np.int64), period_ps=period,
+        bp_table=rng.random((T, BP)) < 0.5, l1i_word=l1i, l1d_word=l1d,
+        boundary=np.int64(boundary),
+        models_enabled=np.bool_(seed % 8 != 7),
+        stamp_base=np.int32(64 * int(rng.integers(0, 8_000_000))))
+
+
+def ff_in_from_numpy(arrays: dict, device) -> FFIn:
+    """An :class:`FFIn` on ``device`` from numpy operands."""
+    dev = torch.device(device)
+    return FFIn(**{f: torch.from_numpy(np.array(arrays[f])).to(dev)
+                   for f in FFIn._fields})
 
 
 def random_chain_arrays(params: SimParams, H: int, seed: int) -> dict:

@@ -8,21 +8,29 @@ max-plus clock prefix, chain banking into the [P, T] ``mq_*`` arrays at
 touches and fills, and counter accumulation.  It is the counterpart of
 ``graphite_tpu/engine/kernels/window.py:163``, transliterated for this
 slice's configuration: simple in-order cores, private L1/L2 under MSI,
-miss chains off or on.  Shared-L2 protocols, iocoom cores and
-fast-forward's wide windows are refused (later slices).
+miss chains off or on, narrow windows (K = ``block_events``) and the
+wide windows of ``tpu/fast_forward`` (K = ``core._ff_width``, at most
+64).  Shared-L2 protocols and iocoom cores are refused (later slices).
 
-Two forms compute the same function:
+The module also holds the fast-forward walk, ``fast_forward_walk``: the
+closed-form pricing of each candidate tile's longest hit/compute-only
+event prefix (the counterpart of
+``graphite_tpu/engine/kernels/window.py:779``).
 
-  * :func:`window_walk` — plain PyTorch, vectorised over the window with
-    the JAX package's [T, K, K] and [T, K, P] masks.  The CPU tests hold
-    it against the JAX walk leaf for leaf.
-  * ``csrc/window_walk.cu`` — a CUDA kernel for ``sm_90a`` that walks
-    each tile's K events in order, one thread per tile.
+Two forms compute each function:
 
-:func:`run_window` picks between them by the tensors' device: CPU
-tensors take the plain form, CUDA tensors launch the kernel (or raise —
-there is no fallback on the card).  ``run_window.launches`` counts kernel
-launches, so a run can show that its path went through the kernel.
+  * :func:`window_walk` / :func:`fast_forward_walk` — plain PyTorch,
+    vectorised over the window with the JAX package's [T, K, K] (and
+    [T, K, P]) masks.  The CPU tests hold them against the JAX functions
+    leaf for leaf.
+  * ``csrc/window_walk.cu`` / ``csrc/fast_forward_walk.cu`` — CUDA
+    kernels for ``sm_90a`` that walk each tile's events in order, one
+    thread per tile.
+
+:func:`run_window` and :func:`run_fast_forward` pick between them by the
+tensors' device: CPU tensors take the plain form, CUDA tensors launch
+the kernel (or raise — there is no fallback on the card).  The wrappers
+count their launches in ``dispatch.COUNTS``.
 """
 
 from __future__ import annotations
@@ -45,8 +53,9 @@ from graphite_tpu_torch.params import SimParams
 
 I, S, E, M = cachemod.I, cachemod.S, cachemod.E, cachemod.M
 
-# The kernel keeps each tile's per-event set indices in fixed local
-# arrays; block_events is validated <= STAMP_STRIDE - 2 = 62 anyway.
+# The kernels keep each tile's per-event history in fixed local arrays;
+# block_events is validated <= STAMP_STRIDE - 2 = 62 and the fast-forward
+# width is capped at STAMP_STRIDE = 64 anyway.
 MAX_WINDOW = 64
 
 
@@ -131,6 +140,20 @@ def _spanned_bound(params: SimParams, vp, boundary):
         q = vp.quantum_ps if vp is not None else params.quantum_ps
         return boundary + q
     return boundary
+
+
+def _ff_bound(params: SimParams, vp, boundary):
+    """The fast-forward bound: the analytic span commits events whose
+    pre-clock stays under the window's (possibly spanned) bound plus the
+    variant run-ahead budget ``tpu/fast_forward_span``.  At span 0 it
+    equals the window bound.  The one definition — core.py uses it for
+    the cadence gate, so the gate and the walk's commit cut agree."""
+    b = _spanned_bound(params, vp, boundary)
+    if params.fast_forward > 0:
+        span = vp.fast_forward_span_ps if vp is not None \
+            else params.fast_forward_span_ps
+        return b + span
+    return b
 
 
 def check_window_config(params: SimParams) -> None:
@@ -711,7 +734,7 @@ def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
     if err != 0:
         raise RuntimeError(f"window_walk kernel launch failed: CUDA error "
                            f"{err} ({build.error_string(lib, err)})")
-    run_window.launches += 1
+    dispatch.COUNTS["window_walk"] += 1
     return out
 
 
@@ -724,5 +747,352 @@ def run_window(params: SimParams, vp: VariantParams, wi: WindowIn,
     return window_walk(params, vp, wi, s_ids)
 
 
-run_window.launches = 0
 
+# ------------------------------------------------- the fast-forward walk
+
+class FFIn(NamedTuple):
+    """Fast-forward-walk operands: the hit/compute-only subset of the
+    window operands over a [T, F] span (F = core._ff_width).  No chain
+    state, no L2, no round-robin pointers: the leg excludes every event
+    class that could need them."""
+
+    meta: torch.Tensor           # [3, T, F] int32 (op, arg, arg2)
+    addr: torch.Tensor           # [T, F] int64
+    valid_ev: torch.Tensor       # [T, F] bool (pos < N & candidate)
+    tile_active: torch.Tensor    # [T] bool fast-forward candidates
+    clock: torch.Tensor          # [T] int64
+    period_ps: torch.Tensor      # [T, NUM_DVFS_MODULES] int32
+    bp_table: torch.Tensor       # [T, bp_size] bool
+    l1i_word: torch.Tensor       # [A, T, sets] int64
+    l1d_word: torch.Tensor       # [A, T, sets] int64
+    boundary: torch.Tensor       # [] int64
+    models_enabled: torch.Tensor  # [] bool
+    stamp_base: torch.Tensor     # [] int32
+
+
+class FFOut(NamedTuple):
+    clock: torch.Tensor          # [T] int64
+    n_ret: torch.Tensor          # [T] int32 (0 on every declined tile)
+    bp_table: torch.Tensor       # [T, bp_size] bool
+    l1i_word: torch.Tensor       # [A, T, sets] int64 (touch stamps only)
+    l1d_word: torch.Tensor       # [A, T, sets] int64
+    ctr_inc: torch.Tensor        # [len(WINDOW_CTRS), T] int64
+
+
+# The tile axis of each operand and output (None: a replicated scalar),
+# as the JAX package declares them for its tile-sharded walk; the
+# multi-device slice slices by them.
+FF_IN_AXES = dict(
+    meta=1, addr=0, valid_ev=0, tile_active=0, clock=0, period_ps=0,
+    bp_table=0, l1i_word=1, l1d_word=1, boundary=None,
+    models_enabled=None, stamp_base=None,
+)
+FF_OUT_AXES = dict(clock=0, n_ret=0, bp_table=0, l1i_word=1, l1d_word=1,
+                   ctr_inc=1)
+
+
+def check_ff_config(params: SimParams) -> None:
+    """The fast-forward walk's scope: simple cores under MSI.  The sticky
+    E->M upgrade of ``sh_l2_mesi`` is not ported; refusing it keeps a
+    span from being mispriced."""
+    if params.core.model != "simple":
+        raise NotImplementedError(
+            "the fast-forward leg is disabled under iocoom cores")
+    if params.protocol_kind == "sh_l2_mesi":
+        raise NotImplementedError(
+            "the fast-forward walk under sh_l2_mesi (sticky E->M upgrades) "
+            "is ported in a later slice")
+
+
+class FFPrice(NamedTuple):
+    """The walk's per-event pricing before any effect lands ([T, F]
+    unless noted): what the span commits and whether the tile engages."""
+
+    line: torch.Tensor
+    is_comp: torch.Tensor
+    is_br: torch.Tensor
+    is_rd: torch.Tensor
+    is_wr: torch.Tensor
+    pI: cachemod.ProbeResult
+    pD: cachemod.ProbeResult
+    taken: torch.Tensor
+    bidx: Optional[torch.Tensor]   # None without a branch predictor
+    correct: torch.Tensor
+    icount_ev: torch.Tensor
+    dt: torch.Tensor
+    lead: torch.Tensor             # leading eligible run
+    commit0: torch.Tensor          # lead & pre-clock under _ff_bound
+    engage: torch.Tensor           # [T]
+
+
+def ff_price(params: SimParams, vp: VariantParams, fi: FFIn) -> FFPrice:
+    """Classify and price every event of the span against span-start
+    state (the first half of :func:`fast_forward_walk`).  Eligible
+    events are COMPUTE with an L1I hit, BRANCH, and MEM reads / writes
+    with a readable / writable L1D hit: pure hits install no lines, so
+    span-start probes give the hits the window rounds would see event by
+    event, and the clock prefix is a cumulative sum."""
+    check_ff_config(params)
+    TL, F = fi.addr.shape
+    dev = fi.clock.device
+    line_bits = params.line_size.bit_length() - 1
+
+    l1i = cachemod.CacheArrays(word=fi.l1i_word, rr_ptr=None)
+    l1d = cachemod.CacheArrays(word=fi.l1d_word, rr_ptr=None)
+    valid_ev = fi.valid_ev
+    op, arg, arg2 = fi.meta[0], fi.meta[1], fi.meta[2]
+    op = torch.where(valid_ev, op, int(EventOp.NOP))
+    en = fi.models_enabled
+
+    p_core = fi.period_ps[:, int(DVFSModule.CORE)][:, None]
+    p_l1i = fi.period_ps[:, int(DVFSModule.L1_ICACHE)][:, None]
+    p_l1d = fi.period_ps[:, int(DVFSModule.L1_DCACHE)][:, None]
+    l1i_ps = _lat(vp.l1i_access_cycles, p_l1i)
+    l1d_ps = _lat(vp.l1d_access_cycles, p_l1d)
+    cycle_ps = _lat(1, p_core)
+
+    line = fi.addr >> line_bits
+    is_comp = op == EventOp.COMPUTE
+    is_br = op == EventOp.BRANCH
+    is_rd = op == EventOp.MEM_READ
+    is_wr = op == EventOp.MEM_WRITE
+    is_mem = is_rd | is_wr
+
+    pI = cachemod.probe(l1i, line, params.l1i.num_sets)
+    pD = cachemod.probe(l1d, line, params.l1d.num_sets)
+    l1_ok = pD.hit & (is_rd | (pD.state >= M))
+    elig = ((is_comp & pI.hit) | is_br | (is_mem & l1_ok)) \
+        & valid_ev & fi.tile_active[:, None] & en
+    lead = torch.cumsum((~elig).to(torch.int32), dim=1) == 0
+
+    ar = torch.arange(F, device=dev)
+    earlier = ar[None, :, None] > ar[None, None, :]           # [1, Fj, Fi]
+
+    # Branch predictor: the last earlier in-lead write to the slot, else
+    # the table (commits are a prefix of the lead, so this is exact).
+    taken = arg != 0
+    if params.core.bp_type == "none":
+        correct = torch.ones_like(is_br)
+        bidx = None
+    else:
+        bidx = (fi.addr % params.core.bp_size).to(torch.int32)
+        tbl_pred = torch.gather(fi.bp_table, 1, bidx.to(torch.int64))
+        same_slot = bidx[:, :, None] == bidx[:, None, :]
+        w_mask = earlier & same_slot & (is_br & lead)[:, None, :]
+        has_w = w_mask.any(dim=2)
+        last_w = torch.argmax(torch.where(w_mask, ar[None, None, :], -1),
+                              dim=2)
+        pred = torch.where(has_w, torch.gather(taken, 1, last_w), tbl_pred)
+        correct = pred == taken
+
+    icount_ev = torch.clamp(arg2 & ((1 << 20) - 1), min=0).to(torch.int64)
+    cost_ps = _lat(torch.clamp(arg, min=0), p_core)
+    dt = torch.zeros((TL, F), dtype=torch.int64, device=dev)
+    dt = torch.where(is_comp, cost_ps + icount_ev * l1i_ps, dt)
+    dt = torch.where(is_br,
+                     torch.where(correct, cycle_ps,
+                                 _lat(vp.bp_mispredict_penalty, p_core))
+                     + l1i_ps, dt)
+    dt = torch.where(is_mem, l1d_ps, dt)
+
+    # Commit: the clock BEFORE event j under the bound (dt >= 0, so the
+    # committed events are a prefix of the lead).  A tile engages only
+    # when the span beats one window round (n_commit > K) and commits
+    # past the window's own bound: at span 0 it never does.
+    bound = _ff_bound(params, vp, fi.boundary)
+    dtm = torch.where(lead, dt, 0)
+    pre = fi.clock[:, None] + torch.cumsum(dtm, dim=1) - dtm
+    commit0 = lead & (pre < bound)
+    n_commit = torch.sum(commit0, dim=1)
+    wb = _spanned_bound(params, vp, fi.boundary)
+    engage = fi.tile_active & (n_commit > params.block_events) \
+        & (commit0 & (pre >= wb)).any(dim=1)
+    return FFPrice(line=line, is_comp=is_comp, is_br=is_br, is_rd=is_rd,
+                   is_wr=is_wr, pI=pI, pD=pD, taken=taken, bidx=bidx,
+                   correct=correct, icount_ev=icount_ev, dt=dt, lead=lead,
+                   commit0=commit0, engage=engage)
+
+
+def fast_forward_walk(params: SimParams, vp: VariantParams,
+                      fi: FFIn) -> FFOut:
+    """Price each candidate tile's longest hit/compute-only prefix in
+    closed form — the plain PyTorch form, a transliteration of the JAX
+    walk (graphite_tpu/engine/kernels/window.py:779).  An engaged tile
+    commits its prefix: clock, cursor increment, LRU-touch scatter-max
+    (stamps ``stamp_base + j``), the predictor table's last committed
+    write per slot, and the window's counters with every miss, L2 and
+    spawn row zero.  A declined tile is returned untouched.  Pure."""
+    fp = ff_price(params, vp, fi)
+    TL, F = fi.addr.shape
+    dev = fi.clock.device
+    rows = torch.arange(TL, device=dev)
+    ar = torch.arange(F, device=dev)
+    is_mem = fp.is_rd | fp.is_wr
+
+    commit = fp.commit0 & fp.engage[:, None]
+    n_ret = torch.where(fp.engage, torch.sum(fp.commit0, dim=1), 0).to(
+        torch.int32)
+    clock = fi.clock + torch.sum(torch.where(commit, fp.dt, 0), dim=1)
+
+    stamp = (fi.stamp_base + ar)[None, :]
+    l1i = cachemod.touch(
+        cachemod.CacheArrays(word=fi.l1i_word, rr_ptr=None),
+        fp.pI.set_idx, fp.pI.way, fp.is_comp & commit,
+        cachemod.row_word(fp.pI.row, fp.pI.way), stamp)
+    l1d = cachemod.touch(
+        cachemod.CacheArrays(word=fi.l1d_word, rr_ptr=None),
+        fp.pD.set_idx, fp.pD.way, is_mem & commit,
+        cachemod.row_word(fp.pD.row, fp.pD.way), stamp)
+
+    bp_table = fi.bp_table
+    if fp.bidx is not None:
+        earlier = ar[None, :, None] > ar[None, None, :]
+        same_slot = fp.bidx[:, :, None] == fp.bidx[:, None, :]
+        wr_ev = fp.is_br & commit
+        later_same = (earlier.transpose(1, 2) & same_slot
+                      & wr_ev[:, None, :]).any(dim=2)
+        winner = wr_ev & ~later_same
+        bp_table = scatter(bp_table, (rows[:, None], fp.bidx), fp.taken,
+                           "set", mask=winner)
+
+    def msum(mask, val=1):
+        v = torch.as_tensor(val, device=dev)
+        v = torch.broadcast_to(v, (TL, F)) if v.ndim < 2 else v
+        return torch.sum(torch.where(mask & commit, v.to(torch.int64), 0),
+                         dim=1)
+
+    arg2 = fi.meta[2]
+    zero = torch.zeros(TL, dtype=torch.int64, device=dev)
+    ctr_inc = torch.stack([
+        msum(fp.is_comp, fp.icount_ev)
+        + msum((is_mem & ((arg2 & 0xFF) == 0)) | fp.is_br),  # icount
+        msum(fp.is_comp, fp.icount_ev) + msum(fp.is_br),     # l1i_access
+        zero,                                                # l1i_miss
+        msum(fp.is_rd),                                      # l1d_read
+        zero,                                                # l1d_read_miss
+        msum(fp.is_wr),                                      # l1d_write
+        zero,                                                # l1d_write_miss
+        zero,                                                # l2_access
+        zero,                                                # l2_miss
+        msum(fp.is_br),                                      # branches
+        msum(fp.is_br & ~fp.correct),                        # mispredicts
+        zero,                                                # spawns
+    ])
+    return FFOut(clock=clock, n_ret=n_ret, bp_table=bp_table,
+                 l1i_word=l1i.word, l1d_word=l1d.word, ctr_inc=ctr_inc)
+
+
+class _FFArgs(ctypes.Structure):
+    """Mirror of ``struct FFArgs`` in csrc/fast_forward_walk.cu: pointers,
+    then int64 scalars only, so the layout has no padding."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "meta", "addr", "valid_ev", "tile_active", "clock", "period_ps",
+        "bp_in", "l1i_in", "l1d_in", "boundary", "models_enabled",
+        "stamp_base", "clock_out", "n_ret", "bp_out", "l1i_out", "l1d_out",
+        "ctr_inc")] + [(n, ctypes.c_int64) for n in (
+        "T", "F", "NM", "K", "l1i_assoc", "l1i_sets", "l1d_assoc",
+        "l1d_sets", "bp_size", "line_bits", "l1i_cycles", "l1d_cycles",
+        "bp_penalty", "col_core", "col_l1i", "col_l1d", "wbound_add",
+        "span_add")]
+
+
+def _check_ff_inputs(params: SimParams, fi: FFIn) -> None:
+    """Device, dtype, shape and contiguity of every operand."""
+    dev = fi.clock.device
+    T, F = fi.addr.shape
+    if F > MAX_WINDOW:
+        raise ValueError(f"fast_forward_walk: F = {F} > {MAX_WINDOW}")
+    i32, i64, b = torch.int32, torch.int64, torch.bool
+    shapes = dict(
+        meta=(i32, (3, T, F)), addr=(i64, (T, F)), valid_ev=(b, (T, F)),
+        tile_active=(b, (T,)), clock=(i64, (T,)),
+        period_ps=(i32, (T, fi.period_ps.shape[1])),
+        bp_table=(b, (T, fi.bp_table.shape[1])),
+        l1i_word=(i64, (params.l1i.associativity, T, params.l1i.num_sets)),
+        l1d_word=(i64, (params.l1d.associativity, T, params.l1d.num_sets)),
+        boundary=(i64, ()), models_enabled=(b, ()), stamp_base=(i32, ()))
+    for name in FFIn._fields:
+        dt, shape = shapes[name]
+        t = getattr(fi, name)
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"fast_forward_walk: {name} is {t.dtype}{tuple(t.shape)} on "
+                f"{t.device} (contiguous: {t.is_contiguous()}), not "
+                f"{dt}{shape} on {dev}, contiguous")
+
+
+def _ff_alloc_out(fi: FFIn) -> FFOut:
+    """Outputs: fresh tensors, and clones of the arrays the kernel
+    updates in place (the predictor table and both L1 word arrays)."""
+    T = fi.addr.shape[0]
+    dev = fi.clock.device
+    return FFOut(
+        clock=torch.empty(T, dtype=torch.int64, device=dev),
+        n_ret=torch.empty(T, dtype=torch.int32, device=dev),
+        bp_table=fi.bp_table.clone(), l1i_word=fi.l1i_word.clone(),
+        l1d_word=fi.l1d_word.clone(),
+        ctr_inc=torch.empty((len(WINDOW_CTRS), T), dtype=torch.int64,
+                            device=dev))
+
+
+def _ff_args(params: SimParams, vp: VariantParams, fi: FFIn,
+             out: FFOut) -> _FFArgs:
+    """Pack pointers and scalars into the kernel's argument struct."""
+    T, F = fi.addr.shape
+    wbound_add = int(_spanned_bound(params, vp, 0))
+    return _FFArgs(
+        meta=fi.meta.data_ptr(), addr=fi.addr.data_ptr(),
+        valid_ev=fi.valid_ev.data_ptr(),
+        tile_active=fi.tile_active.data_ptr(), clock=fi.clock.data_ptr(),
+        period_ps=fi.period_ps.data_ptr(), bp_in=fi.bp_table.data_ptr(),
+        l1i_in=fi.l1i_word.data_ptr(), l1d_in=fi.l1d_word.data_ptr(),
+        boundary=fi.boundary.data_ptr(),
+        models_enabled=fi.models_enabled.data_ptr(),
+        stamp_base=fi.stamp_base.data_ptr(),
+        clock_out=out.clock.data_ptr(), n_ret=out.n_ret.data_ptr(),
+        bp_out=out.bp_table.data_ptr(), l1i_out=out.l1i_word.data_ptr(),
+        l1d_out=out.l1d_word.data_ptr(), ctr_inc=out.ctr_inc.data_ptr(),
+        T=T, F=F, NM=fi.period_ps.shape[1], K=params.block_events,
+        l1i_assoc=params.l1i.associativity, l1i_sets=params.l1i.num_sets,
+        l1d_assoc=params.l1d.associativity, l1d_sets=params.l1d.num_sets,
+        bp_size=0 if params.core.bp_type == "none" else fi.bp_table.shape[1],
+        line_bits=params.line_size.bit_length() - 1,
+        l1i_cycles=vp.l1i_access_cycles, l1d_cycles=vp.l1d_access_cycles,
+        bp_penalty=vp.bp_mispredict_penalty,
+        col_core=int(DVFSModule.CORE), col_l1i=int(DVFSModule.L1_ICACHE),
+        col_l1d=int(DVFSModule.L1_DCACHE), wbound_add=wbound_add,
+        span_add=int(_ff_bound(params, vp, 0)) - wbound_add)
+
+
+def fast_forward_walk_cuda(params: SimParams, vp: VariantParams,
+                           fi: FFIn) -> FFOut:
+    """Launch csrc/fast_forward_walk.cu on CUDA tensors.  Out of place:
+    the predictor table and both L1 word arrays are cloned and the kernel
+    updates the clones' touched entries of engaged tiles."""
+    check_ff_config(params)
+    if fi.clock.device.type != "cuda":
+        raise ValueError("fast_forward_walk_cuda takes CUDA tensors")
+    _check_ff_inputs(params, fi)
+    from graphite_tpu_torch.engine.kernels import build
+    lib = build.load("fast_forward_walk")
+    out = _ff_alloc_out(fi)
+    a = _ff_args(params, vp, fi, out)
+    stream = torch.cuda.current_stream(fi.clock.device).cuda_stream
+    err = lib.fast_forward_walk_launch(ctypes.addressof(a), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fast_forward_walk kernel launch failed: CUDA error {err} "
+            f"({build.error_string(lib, err)})")
+    dispatch.COUNTS["fast_forward_walk"] += 1
+    return out
+
+
+def run_fast_forward(params: SimParams, vp: VariantParams,
+                     fi: FFIn) -> FFOut:
+    """The fast-forward walk, dispatched by device: the CUDA kernel for
+    CUDA tensors, the plain PyTorch form for CPU tensors."""
+    if dispatch.use_kernel(fi.clock):
+        return fast_forward_walk_cuda(params, vp, fi)
+    return fast_forward_walk(params, vp, fi)

@@ -3,7 +3,9 @@
 Counterpart of ``graphite_tpu/engine/quantum.py``: the boundary is
 recomputed from the min clock over runnable tiles (skipping empty
 quanta), and a quantum step is sub-rounds of (local_advance ; resolve)
-while the progress witness moves, capped at ``rounds_per_quantum``.
+while the progress witness moves, capped at ``rounds_per_quantum``; at
+``tpu/fast_forward`` > 0 the quantum counts in ``ctr_ffq`` when it
+fast-forwarded.
 ``megarun`` runs quantum steps until every stream is done or a quanta
 budget is spent.  The JAX package runs these loops on the device; here
 each loop condition is one host read of a device scalar, and the trip
@@ -74,11 +76,17 @@ def quantum_step(params: SimParams, state: SimState,
     chain = params.miss_chain > 0
     cap = max(params.rounds_per_quantum, params.max_events_per_quantum) \
         if chain else params.rounds_per_quantum
+    ff0 = state.ctr_ff
     i, prev, cur = 0, -1, _progress(state, chain)
     while i < cap and (i == 0 or cur > prev):
         state = local_advance(params, state, trace, vp=vp)
         state = resolve(params, state, vp=vp)
         i, prev, cur = i + 1, cur, _progress(state, chain)
+    if params.fast_forward > 0:
+        # A quantum counts as fast-forwarded once if some sub-round grew
+        # ctr_ff (ctr_ffq / ctr_quantum is the ff-quanta fraction).
+        state = state._replace(
+            ctr_ffq=state.ctr_ffq + (state.ctr_ff > ff0).to(torch.int64))
     return state
 
 

@@ -41,7 +41,8 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None) -> None:
     not run yet — nothing is mispriced silently.  Admitted: simple cores,
     private L1/L2 under MSI with a full-map directory, zero-load networks,
     the history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with
-    the fan-out replay on or off, and the events of ``SLICE_OPS``."""
+    the fan-out replay on or off, ``tpu/fast_forward`` at any width and
+    run-ahead span, and the events of ``SLICE_OPS``."""
     def later(what, where="a later slice (model breadth)"):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "
@@ -49,8 +50,6 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None) -> None:
 
     if params.core.model != "simple" or params.core.mixed:
         later("the iocoom core model")
-    if params.fast_forward > 0:
-        later("tpu/fast_forward > 0 (fast_forward_walk)", "slice 3")
     if params.tile_shards > 1 or params.shard_state != "replicated":
         later("tile sharding (tpu/tile_shards > 1, resident shard state)",
               "the multi-device slice")
@@ -109,6 +108,12 @@ class SimSummary:
         self.vm_brk = int(state.vm_brk.item())
         self.vm_mmap_bytes = int(state.vm_mmap_bytes.item())
         self.vm_munmap_bytes = int(state.vm_munmap_bytes.item())
+        # Fast-forward attribution: analytic and wide rounds that beat a
+        # narrow round, the quanta they ran in, and the events they
+        # retired beyond it (all zero when tpu/fast_forward = 0).
+        self.ff_rounds = int(state.ctr_ff.item())
+        self.ff_quanta = int(state.ctr_ffq.item())
+        self.ff_events = int(state.ff_events.item())
 
     # ------------------------------------------------------------ metrics
 
@@ -152,6 +157,12 @@ class SimSummary:
             "num_streams": int(self.done.shape[0]),
             "aggregate": agg,
         }
+        if self.params.fast_forward > 0:
+            out["ff_rounds"] = self.ff_rounds
+            out["ff_quanta"] = self.ff_quanta
+            out["ff_events"] = self.ff_events
+            out["ff_quanta_frac"] = round(
+                self.ff_quanta / max(self.quanta, 1), 4)
         if self.params.enable_power_modeling:
             out["energy"] = self.energy().to_dict()
         vm_sec = self.vm_summary()
@@ -184,6 +195,12 @@ class SimSummary:
         row("Total Instructions", agg["icount"])
         row("Host Time (in s)", f"{self.host_seconds:.3f}")
         row("Simulated MIPS", f"{self.simulated_mips:.3f}")
+        if self.params.fast_forward > 0:
+            lines.append("[fast_forward]")
+            row("Analytic Rounds", self.ff_rounds)
+            row("Fast-Forwarded Quanta",
+                f"{self.ff_quanta} / {self.quanta}")
+            row("Events Priced In Closed Form", self.ff_events)
         lines.append("[core]")
         row("Total Instructions", agg["icount"])
         row("Branches", agg["branches"])

@@ -23,6 +23,7 @@ import torch
 
 from graphite_tpu_torch import load_config
 from graphite_tpu_torch.engine.kernels import chain as tchain
+from graphite_tpu_torch.engine.kernels import dispatch as tdispatch
 from graphite_tpu_torch.engine.kernels import operands as toperands
 from graphite_tpu_torch.engine.kernels import window as twin
 from graphite_tpu_torch.engine.vparams import variant_params
@@ -302,10 +303,10 @@ def test_run_chain_dispatches_by_device():
     H = max(1024, 16 * tp.num_tiles)
     ci = toperands.chain_in_from_numpy(
         toperands.random_chain_arrays(tp, H, 5), "cpu")
-    before = tchain.run_chain.launches
+    before = tdispatch.COUNTS["chain_classify"]
     out = tchain.run_chain(tp, vp, ci, H)
     ref = tchain.chain_classify(tp, vp, ci, H)
-    assert tchain.run_chain.launches == before
+    assert tdispatch.COUNTS["chain_classify"] == before
     _assert_fields_equal(ref, out)
     with pytest.raises(ValueError, match="CUDA"):
         tchain.chain_classify_cuda(tp, vp, ci, H)
@@ -327,9 +328,9 @@ def test_cuda_chain_kernel_matches_plain(T):
             for seed in range(4):
                 ci = toperands.chain_in_from_numpy(
                     toperands.random_chain_arrays(tp, H, seed), "cuda")
-                before = tchain.run_chain.launches
+                before = tdispatch.COUNTS["chain_classify"]
                 got = tchain.run_chain(tp, vp, ci, H)
-                assert tchain.run_chain.launches == before + 1
+                assert tdispatch.COUNTS["chain_classify"] == before + 1
                 ref = tchain.chain_classify(tp, vp, ci, H)
                 torch.cuda.synchronize()
                 _assert_fields_equal(ref, got, f"{config} H={H} {seed}")

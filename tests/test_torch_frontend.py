@@ -132,7 +132,12 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("over,trace_fn", [
     # The chain replay itself is admitted; its miss-type branch is not.
     ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True}, None),
-    ({"tpu/fast_forward": 4}, None),
+    # Fast-forward is admitted; the shared-L2 MESI protocol is still
+    # refused at fast_forward > 0 (as at 0: the refusal is the protocol's).
+    # The walk's own refusal of its sticky E->M branch is tested in
+    # test_torch_ff_kernel.py.
+    ({"tpu/fast_forward": 4, "tpu/fast_forward_span": 1000,
+      "caching_protocol/type": "pr_l1_sh_l2_mesi"}, None),
     ({"tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
     ({"caching_protocol/type": "pr_l1_pr_l2_dram_directory_mosi"}, None),
     ({"dram/queue_model/type": "basic"}, None),

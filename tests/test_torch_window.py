@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from graphite_tpu_torch import load_config
+from graphite_tpu_torch.engine.kernels import dispatch as tdispatch
 from graphite_tpu_torch.engine.kernels import operands as toperands
 from graphite_tpu_torch.engine.kernels import window as twin
 from graphite_tpu_torch.engine.vparams import variant_params
@@ -176,10 +177,10 @@ def test_run_window_dispatches_by_device():
     tp = _torch_params(8, {})
     arrays = toperands.random_window_arrays(tp, tp.block_events, 5)
     wi = toperands.window_in_from_numpy(arrays, "cpu")
-    before = twin.run_window.launches
+    before = tdispatch.COUNTS["window_walk"]
     out = twin.run_window(tp, variant_params(tp), wi, 8)
     ref = twin.window_walk(tp, variant_params(tp), wi, 8)
-    assert twin.run_window.launches == before
+    assert tdispatch.COUNTS["window_walk"] == before
     assert _leaves_equal(out, ref) is None
     with pytest.raises(ValueError, match="CUDA"):
         twin.window_walk_cuda(tp, variant_params(tp), wi, 8)
@@ -203,9 +204,9 @@ def test_cuda_kernel_matches_plain_walk(T):
         for seed in range(4):
             arrays = toperands.random_window_arrays(tp, tp.block_events, seed)
             wi = toperands.window_in_from_numpy(arrays, "cuda")
-            before = twin.run_window.launches
+            before = tdispatch.COUNTS["window_walk"]
             got = twin.run_window(tp, vp, wi, T)
-            assert twin.run_window.launches == before + 1
+            assert tdispatch.COUNTS["window_walk"] == before + 1
             ref = twin.window_walk(tp, vp, wi, T)
             torch.cuda.synchronize()
             assert _leaves_equal(got, ref) is None, (config, seed)
@@ -213,7 +214,7 @@ def test_cuda_kernel_matches_plain_walk(T):
     sim = Simulator(tp, synth.gen_radix(num_tiles=T, keys_per_tile=32,
                                         radix=16, seed=3), device="cuda")
     sim.run(max_steps=2)
-    assert twin.run_window.launches > 0
+    assert tdispatch.COUNTS["window_walk"] > 0
     st = sim.state._replace(boundary=next_boundary(tp, sim.state))
     _, wi = window_operands(tp, st, sim.trace)
     got = twin.run_window(tp, sim.vp, wi, T)
