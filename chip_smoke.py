@@ -8,16 +8,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. The card (nvidia-smi name and power limit), torch and CUDA versions.
   2. Build every CUDA source of the port from this checkout (one nvcc per
      source, started together); print the seconds and the ptxas
-     register/spill lines.
+     register/spill lines; window_walk must have no stack frame.
   3. Every kernel against its plain PyTorch form ON THE CARD at the main
      paths' shapes (T = 64, default geometry), every output element
      equal; times from CUDA events over many launches after warm-up,
-     kernel and plain form:
-       * window_walk at P = 0: random operands and a window captured from
-         the port's own radix64 run;
-       * window_walk at P = 12 (fan-out replay on and off): random
-         operands with a pending [P, T] bank and banking windows captured
-         from the port's own radix64 chain-12 run;
+     kernel and plain form, and device time per launch from
+     torch.profiler.  window_walk updates its operands in place, so it
+     runs on copies and the plain form on the originals, and its
+     written leaves must be the copies' own tensors:
+       * window_walk at P = 0: random operands, seeded collision operands
+         (operands.seeded_window_arrays) and a window captured from the
+         port's own radix64 run (timed: K = 16, P = 0);
+       * window_walk at P = 12 (fan-out replay on and off): random and
+         seeded collision operands with a pending [P, T] bank and
+         banking windows captured from the port's own radix64 chain-12
+         run (timed: K = 16, P = 12);
        * chain_classify: seeded operand sets at H = 1024 with the fan-out
          replay and the DRAM queue model each on and off, a colliding
          H = 4 set, and operands captured from the port's own radix64
@@ -28,9 +33,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          candidates, no predictor, miss_chain 12) and analytic rounds
          captured from the port's own radix64 span-1000 run, some with
          engaging tiles;
-       * window_walk at the wide width K = 64, P = 0 and P = 12: seeded
-         operand sets and wide windows captured from the fast-forward
-         runs.
+       * window_walk at the wide width K = 64, P = 0 and P = 12: random
+         and seeded collision operands and wide windows captured from the
+         fast-forward runs (timed: K = 64, P = 0 and P = 12).
+     Each kernel's bound counts the bytes the function needs on the
+     timed operands (chain_bytes, ff_bytes, window_bytes).
   4. The golden shapes radix8 and fft8 at miss_chain 0 against
      tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
      (86 engine rounds, completion 8,686.6 ns).
@@ -307,6 +314,118 @@ def ff_bytes(params, vp, fi) -> int:
     return moved
 
 
+def window_bytes(params, vp, wi, out) -> int:
+    """Bytes one window walk must move on these operands: each input
+    element the function reads, once, and every output element it writes
+    (``out`` is the plain form's result on ``wi``).
+
+    Every event's arg and arg2 are read (each event's spawn landing and
+    child are outputs).  A tile that retires (active, models enabled)
+    examines its retired prefix and the event that stops it, unless the
+    window had closed before that event (the clock past the bound, or at
+    P > 0 the chain out of room or credit): per examined event its valid
+    flag, its op where valid, and its address where its kind uses it
+    (COMPUTE, MEM, STALL and SYNC; BRANCH with a predictor).  A COMPUTE
+    probes its L1I row, a MEM its L1D row, and either one its L2 row where
+    the L1 does not serve it (A words a row, each distinct row once); a
+    branch reads its predictor entry (once per distinct slot); at P > 0 a
+    tile whose examined events probe reads its pending bank slots.  Every
+    tile reads its active flag, clock and core period (and its id and
+    network period without a magic network); a retiring tile its L1I,
+    L1D and L2 periods; at P > 0 every tile its bank count and relative
+    clock, a retiring one its bank head.  Writes: the fresh outputs, each
+    distinct word the retired prefix touches, each fill word (and its
+    round-robin pointer, read and written, on a miss under round_robin),
+    each predictor entry written, each banked element's three words.
+    The whole cache arrays are not counted: the function needs only the
+    rows it probes."""
+    import torch
+    from graphite_tpu_torch.engine import cache as cachemod
+    from graphite_tpu_torch.engine.kernels import window as kwin
+    from graphite_tpu_torch.isa import EventOp
+    T, K = wi.addr.shape
+    dev = wi.addr.device
+    P = params.miss_chain
+    act = wi.tile_active & wi.models_enabled
+    n = out.n_ret.to(torch.int64)
+    ar = torch.arange(K, device=dev)
+    ret = ar[None] < n[:, None]
+    if P > 0:
+        wb = kwin._spanned_bound(params, vp, wi.boundary)
+        nm = out.mq_count
+        still = torch.where(nm == 0, out.clock < wb,
+                            (out.chain_rel < vp.quantum_ps) & (nm < P))
+    else:
+        still = out.clock < wi.boundary
+    stop = (act & still & (n < K))[:, None] & (ar[None] == n[:, None])
+    exam = ret | stop
+    op = torch.where(wi.valid_ev & exam, wi.meta[0], int(EventOp.NOP))
+    is_comp = op == EventOp.COMPUTE
+    is_rd, is_wr = op == EventOp.MEM_READ, op == EventOp.MEM_WRITE
+    is_mem = is_rd | is_wr
+    is_br = op == EventOp.BRANCH
+    is_time = (op == EventOp.STALL) | (op == EventOp.SYNC)
+    bp = params.core.bp_type != "none"
+    line = wi.addr >> (params.line_size.bit_length() - 1)
+
+    def probe(word, rr, cp):
+        return cachemod.probe(cachemod.CacheArrays(word=word, rr_ptr=rr),
+                              line, cp.num_sets)
+
+    pI = probe(wi.l1i_word, wi.l1i_rr, params.l1i)
+    pD = probe(wi.l1d_word, wi.l1d_rr, params.l1d)
+    p2 = probe(wi.l2_word, wi.l2_rr, params.l2)
+    l1_ok = pD.hit & (is_rd | (pD.state >= cachemod.M))
+    mem_l2 = is_mem & ~l1_ok & p2.hit & (is_rd | (p2.state == cachemod.M))
+    comp_l2 = is_comp & ~pI.hit & p2.hit
+    rows = torch.arange(T, device=dev)[:, None].expand(T, K)
+    bidx = wi.addr % params.core.bp_size
+
+    def count(mask):
+        return int(mask.sum())
+
+    def distinct(mask, *keys):
+        return torch.unique(torch.stack([k[mask].to(torch.int64)
+                                         for k in keys]), dim=1).shape[1]
+
+    moved = count(exam) + 4 * count(wi.valid_ev & exam)      # valid, op
+    moved += 8 * T * K                                        # arg, arg2
+    moved += 8 * count(is_mem | is_comp | is_time | (is_br & bp))  # addr
+    moved += 8 * (params.l1i.associativity
+                  * distinct(is_comp, rows, pI.set_idx)
+                  + params.l1d.associativity
+                  * distinct(is_mem, rows, pD.set_idx)
+                  + params.l2.associativity * distinct(
+                      (is_comp & ~pI.hit) | (is_mem & ~l1_ok), rows,
+                      p2.set_idx))
+    if bp:
+        moved += distinct(is_br, rows, bidx)                  # entries read
+    moved += T * (1 + 8 + 4) + 3 * 4 * count(act) + 8 + 1 + 4
+    if params.net_user.model != "magic":
+        moved += T * (4 + 4)                                  # id, period
+    moved += T * (8 + 4 + 12 * 8) + T * K * (1 + 4 + 8)       # fresh
+    r = ret & act[:, None]
+    for hit_touch, fill, pr, cp in (
+            (r & is_comp & pI.hit, r & comp_l2, pI, params.l1i),
+            (r & is_mem & l1_ok, r & mem_l2, pD, params.l1d)):
+        moved += 8 * (distinct(hit_touch, rows, pr.set_idx, pr.way)
+                      + count(fill))
+        if cp.replacement == "round_robin":
+            moved += 8 * count(fill & ~pr.hit)
+    moved += 8 * distinct(r & (mem_l2 | comp_l2), rows, p2.set_idx, p2.way)
+    if bp:
+        moved += distinct(r & is_br, rows, bidx)              # entries set
+    if P > 0:
+        probes = (is_mem | is_comp).any(1) & act
+        npend = torch.clamp(wi.mq_count - wi.mq_head, min=0)
+        moved += 8 * int(npend[probes].sum())                 # pending
+        moved += T * (4 + 8) + 4 * count(act)                 # count, rel,
+        #                                                       head
+        moved += T * (8 + 4)                                  # fresh
+        moved += 24 * int((out.mq_count - wi.mq_count).sum())  # banked
+    return moved
+
+
 def compare(kind, got, ref, label) -> int:
     """Every output field of a kernel against its plain form."""
     err = 0
@@ -334,8 +453,7 @@ class Recorder:
     def __enter__(self):
         def rec(params, vp, operands, *rest):
             if len(self.seen) < self.limit and self.keep(operands):
-                self.seen.append(type(operands)(*[
-                    t.clone() if t is not None else None for t in operands]))
+                self.seen.append(clone_operands(operands))
             return self.orig(params, vp, operands, *rest)
         setattr(self.module, self.name, rec)
         return self
@@ -365,6 +483,56 @@ def device_ms(fn, kernel: str, launches: int = 100):
                              getattr(evt, "self_cuda_time_total", 0.0))
             n += evt.count
     return total / 1e3 / n if n else None
+
+
+def clone_operands(nt):
+    return type(nt)(*[t.clone() if t is not None else None for t in nt])
+
+
+def walk_pair(kwin, p, v, wi, T):
+    """window_walk's kernel and its plain form on the same operands: the
+    kernel updates its operands in place, so it runs on a clone and the
+    plain form on ``wi``.  The leaves the kernel writes must be the
+    clone's own tensors."""
+    work = clone_operands(wi)
+    got = kwin.window_walk_cuda(p, v, work, T)
+    ref = kwin.window_walk(p, v, wi, T)
+    for f in kwin.INPLACE_FIELDS:
+        if getattr(work, f) is not None:
+            check(getattr(got, f).data_ptr() == getattr(work, f).data_ptr(),
+                  f"window_walk: leaf {f} is not the operand's own tensor")
+    return got, ref
+
+
+def walk_times(kwin, p, v, wi, T, iters=200, warmup=20):
+    """One window_walk case, every launch from the window-start state of
+    ``wi`` (which no launch touches): the wrapper's time per call (CUDA
+    events over calls on fresh copies of the leaves the kernel writes),
+    the kernel's device time per launch (torch.profiler; each launch
+    after a device copy that restores those leaves, so the rows it reads
+    are warm in L2, as in the engine where the round's other ops have
+    just touched them), the plain form's time and the plain result."""
+    written = [f for f in kwin.INPLACE_FIELDS if getattr(wi, f) is not None]
+
+    def fresh():
+        return wi._replace(**{f: getattr(wi, f).clone() for f in written})
+
+    pool = iter([fresh() for _ in range(iters + warmup)])
+    ms = time_cuda(lambda: kwin.window_walk_cuda(p, v, next(pool), T),
+                   iters=iters, warmup=warmup)
+    del pool
+    work = fresh()
+
+    def restore_and_launch():
+        for f in written:
+            getattr(work, f).copy_(getattr(wi, f))
+        kwin.window_walk_cuda(p, v, work, T)
+
+    dev = device_ms(restore_and_launch, "window_walk_kernel")
+    big = wi.addr.shape[1] > 16 and p.miss_chain > 0
+    plain = time_cuda(lambda: kwin.window_walk(p, v, wi, T),
+                      iters=20 if big else 50, warmup=3 if big else 5)
+    return ms, dev, plain, kwin.window_walk(p, v, wi, T)
 
 
 def peak_reset() -> int:
@@ -469,7 +637,8 @@ def main() -> int:
                                                             reset_counts)
     from graphite_tpu_torch.engine.kernels.operands import (
         chain_in_from_numpy, ff_in_from_numpy, random_chain_arrays,
-        random_ff_arrays, random_window_arrays, window_in_from_numpy)
+        random_ff_arrays, random_window_arrays, seeded_window_arrays,
+        window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
     from graphite_tpu_torch.engine.quantum import next_boundary
     from graphite_tpu_torch.engine.sim import Simulator
@@ -498,6 +667,13 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         for ln in lines:
             print(f"build: {name}: {ln}")
+    # The window walk indexes no per-thread array at runtime: ptxas gives
+    # it no stack (local memory) at all.
+    frames = [ln for ln in info["window_walk"]["ptxas"]
+              if "bytes stack frame" in ln]
+    check(bool(frames) and all(ln.strip().startswith("0 bytes stack frame")
+                               for ln in frames),
+          f"window_walk: ptxas reports a stack frame: {frames}")
 
     # ---- 3. kernels vs plain forms on the card, at the main paths' shapes
     def config(**over):
@@ -517,44 +693,40 @@ def main() -> int:
     cases = [(f"random seed {seed}", window_in_from_numpy(
         random_window_arrays(params, K, seed), dev))
         for seed in range(8)]
+    cases += [(f"seeded collisions seed {seed}", window_in_from_numpy(
+        seeded_window_arrays(params, K, seed), dev)) for seed in range(4)]
     cap_sim = Simulator(params, trace, device=dev)
     cap_sim.run(max_steps=2)
     st = cap_sim.state._replace(boundary=next_boundary(params,
                                                        cap_sim.state))
+    # The walk's operands alias the simulation's state, which phase 7
+    # continues: keep a copy, which no launch touches (walk_pair and
+    # walk_times launch on copies of it).
     _, captured = window_operands(params, st, cap_sim.trace)
+    captured = clone_operands(captured)
     cases.append(("captured radix64 window", captured))
     err_w = 0
     for label, wi in cases:
-        got = kwin.window_walk_cuda(params, vp, wi, T)
-        ref = kwin.window_walk(params, vp, wi, T)
+        got, ref = walk_pair(kwin, params, vp, wi, T)
         torch.cuda.synchronize()
         err_w = max(err_w, compare("window_walk", got, ref, label))
     print(f"kernel window_walk P=0: {len(cases)} operand sets, every output "
-          f"leaf equal to the plain form (max abs err {err_w})")
+          f"leaf equal to the plain form, the written leaves the operands' "
+          f"own (max abs err {err_w})")
 
-    def window_bytes(p, v, wi):
-        # Bytes the out-of-place walk must move: every operand it reads
-        # once, every output it writes once.  An array the wrapper passes
-        # through (the round-robin pointers: L2's always, the L1s' unless
-        # their replacement is round_robin) is neither read nor written.
-        out = kwin.window_walk_cuda(p, v, wi, T)
-        passed = {f for f in kwin.WindowOut._fields
-                  if f in kwin.WindowIn._fields
-                  and getattr(out, f) is getattr(wi, f)}
-        return nbytes(t for f, t in zip(kwin.WindowIn._fields, wi)
-                      if f not in passed) + nbytes(
-            t for f, t in zip(kwin.WindowOut._fields, out)
-            if f not in passed)
+    def walk_line(label, p, v, wi):
+        ms, dev_ms, plain, ref = walk_times(kwin, p, v, wi, T)
+        moved = window_bytes(p, v, wi, ref)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        print(f"kernel window_walk {label}: {ms:.6f} ms/launch (wrapper), "
+              f"device {fmt_ms(dev_ms)} per launch, plain {plain:.6f} ms, "
+              f"bound {bound:.9f} ms ({moved} bytes the function reads and "
+              f"writes on these operands, at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: none on "
+              f"{card}")
+        return ms, plain, bound
 
-    ms0 = time_cuda(lambda: kwin.window_walk_cuda(params, vp, captured, T),
-                    iters=500, warmup=50)
-    plain0 = time_cuda(lambda: kwin.window_walk(params, vp, captured, T),
-                       iters=50, warmup=5)
-    moved0 = window_bytes(params, vp, captured)
-    print(f"kernel window_walk P=0: {ms0:.6f} ms/launch (wrapper, clones "
-          f"included), plain {plain0:.6f} ms, bound "
-          f"{moved0 / HBM_BYTES_PER_S * 1e3:.6f} ms ({moved0} bytes at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+    ms0, _, _ = walk_line("K=16 P=0", params, vp, captured)
 
     # Operands of the port's own radix64 chain-12 run: banking windows
     # (a pending bank, or elements banked by this window) and replay
@@ -578,26 +750,21 @@ def main() -> int:
             cases.append((p, v, f"random fanout={fan} seed {seed}",
                           window_in_from_numpy(
                               random_window_arrays(p, K, seed), dev)))
+        for seed in range(4):
+            cases.append((p, v, f"seeded collisions fanout={fan} seed "
+                                f"{seed}", window_in_from_numpy(
+                                    seeded_window_arrays(p, K, seed), dev)))
     cases += [(cparams, cvp, f"captured radix64 chain-12 window {i}", wi)
               for i, wi in enumerate(rw.seen)]
     for p, v, label, wi in cases:
-        got = kwin.window_walk_cuda(p, v, wi, T)
-        ref = kwin.window_walk(p, v, wi, T)
+        got, ref = walk_pair(kwin, p, v, wi, T)
         torch.cuda.synchronize()
         err_w = max(err_w, compare("window_walk", got, ref, label))
     print(f"kernel window_walk P={CHAIN}: {len(cases)} operand sets, every "
-          f"output leaf equal to the plain form (max abs err {err_w})")
-    wi12 = rw.seen[-1]
-    ms_w = time_cuda(lambda: kwin.window_walk_cuda(cparams, cvp, wi12, T),
-                     iters=500, warmup=50)
-    plain_w = time_cuda(lambda: kwin.window_walk(cparams, cvp, wi12, T),
-                        iters=50, warmup=5)
-    moved_w = window_bytes(cparams, cvp, wi12)
-    bound_w = moved_w / HBM_BYTES_PER_S * 1e3
-    print(f"kernel window_walk P={CHAIN}: {ms_w:.6f} ms/launch (wrapper, "
-          f"clones included), plain {plain_w:.6f} ms, bound {bound_w:.6f} "
-          f"ms ({moved_w} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) on "
-          f"{card}")
+          f"output leaf equal to the plain form, the written leaves the "
+          f"operands' own (max abs err {err_w})")
+    ms_w, plain_w, bound_w = walk_line(f"K=16 P={CHAIN}", cparams, cvp,
+                                       rw.seen[-1])
 
     # chain_classify
     cases = []
@@ -729,36 +896,25 @@ def main() -> int:
                                              "tpu/fanout_replay": False})):
         p = config(**{"tpu/fast_forward": FF, **over})
         v = variant_params(p)
-        for seed in range(3):
-            cases.append((p, v, f"K=64 {label} seed {seed}",
-                          window_in_from_numpy(
-                              random_window_arrays(p, F, seed), dev)))
+        for gen in (random_window_arrays, seeded_window_arrays):
+            for seed in range(3):
+                cases.append((p, v, f"K=64 {label} {gen.__name__} seed "
+                                    f"{seed}", window_in_from_numpy(
+                                        gen(p, F, seed), dev)))
     cases += [(fparams, fvp, f"captured radix64 wide window {i}", wi)
               for i, wi in enumerate(rww.seen)]
     cases += [(fcparams, fcvp, f"captured fft64 wide banking window {i}", wi)
               for i, wi in enumerate(rwc.seen)]
     for p, v, label, wi in cases:
         check(wi.addr.shape[1] == 64, f"{label}: K != 64")
-        got = kwin.window_walk_cuda(p, v, wi, T)
-        ref = kwin.window_walk(p, v, wi, T)
+        got, ref = walk_pair(kwin, p, v, wi, T)
         torch.cuda.synchronize()
         err_w = max(err_w, compare("window_walk", got, ref, label))
     print(f"kernel window_walk K=64: {len(cases)} operand sets, every output "
-          f"leaf equal to the plain form (max abs err {err_w})")
-    for label, p, v, wi in (("P=0", fparams, fvp, rww.seen[-1]),
-                            (f"P={CHAIN}", fcparams, fcvp, rwc.seen[-1])):
-        ms = time_cuda(lambda: kwin.window_walk_cuda(p, v, wi, T),
-                       iters=500, warmup=50)
-        plain = time_cuda(lambda: kwin.window_walk(p, v, wi, T),
-                          iters=20, warmup=3)
-        moved = window_bytes(p, v, wi)
-        dev_w = device_ms(lambda: kwin.window_walk_cuda(p, v, wi, T),
-                          "window_walk_kernel")
-        print(f"kernel window_walk K=64 {label}: {ms:.6f} ms/launch (wrapper, "
-              f"clones included), device {fmt_ms(dev_w)} per launch, plain "
-              f"{plain:.6f} ms, bound "
-              f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms ({moved} bytes at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+          f"leaf equal to the plain form, the written leaves the operands' "
+          f"own (max abs err {err_w})")
+    walk_line("K=64 P=0", fparams, fvp, rww.seen[-1])
+    walk_line(f"K=64 P={CHAIN}", fcparams, fcvp, rwc.seen[-1])
     # The fast-forward simulations and their recorded operands are done
     # with; phase 7 continues only cap_sim and csim.
     del fsim, fcsim, rff, rww, rwc, cases, fi_cap, wi, got, ref

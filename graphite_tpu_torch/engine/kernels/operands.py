@@ -128,6 +128,147 @@ def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
     return out
 
 
+# The per-tile cases of :func:`seeded_window_arrays`, in the order tile t
+# of seed s draws them ((t + s) % len).
+WINDOW_CASES = ("touch", "branch", "cut0", "cutlast", "inactive",
+                "fullbank", "pending", "fill", "random")
+
+
+def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
+    """Walk operands (as :func:`random_window_arrays`) in which each tile
+    draws one of ``WINDOW_CASES``, to force what an event-parallel walk
+    that writes in place could get wrong:
+
+      * touch — reads and writes of two L1D-resident lines, all retiring:
+        several touches of one (set, way), some with stamps below the
+        resident word's;
+      * branch — branches on two predictor slots between hits, all
+        retiring: several retired writers of one slot;
+      * cut0 — an event the walk never takes first: the cut at event 0;
+      * cutlast — K - 1 hits, then an event the walk never takes: the cut
+        at event K - 1;
+      * inactive — a tile that is not active, beside active ones;
+      * fullbank — at P > 0 a bank two slots short of full and misses to
+        fresh lines between hits: the bank reaches P and stops the walk;
+      * pending — at P > 0 a pending bank (shared, ifetch and exclusive
+        requests) and a window that reads and fetches its lines (hits on
+        pending fills), then a write to a pending shared line or an
+        access to another line of a pending line's L2 set;
+      * fill — L2 hits that fill L1I and L1D (one line fetched and then
+        read: two touches of its L2 word), then an access to a filled
+        L1D set;
+      * random — the tile as :func:`random_window_arrays` draws it.
+
+    The lines the cases use lie above every line of the random pool, so
+    they are resident exactly where a case puts them.  Models are
+    enabled and the boundary is far, so a cut is the case's own."""
+    a = random_window_arrays(params, K, seed)
+    rng = np.random.default_rng(1_000_003 + seed)
+    T = params.num_tiles
+    P = params.miss_chain
+    lb = params.line_size.bit_length() - 1
+    BP = params.core.bp_size
+    Si, Sd, S2 = (params.l1i.num_sets, params.l1d.num_sets,
+                  params.l2.num_sets)
+    RD, WR = int(EventOp.MEM_READ), int(EventOp.MEM_WRITE)
+    COMP, BR = int(EventOp.COMPUTE), int(EventOp.BRANCH)
+    NEVER = int(EventOp.BARRIER_WAIT)        # an event the walk never takes
+    op, arg, arg2 = a["meta"]
+    addr = a["addr"]
+    a["boundary"] = np.int64(50_000_000)
+    a["models_enabled"] = np.bool_(True)
+    used = {}
+
+    def put(name, t, ln, state):
+        # Resident in a way no other case line of this set holds.
+        w = a[name]
+        A, S = w.shape[0], w.shape[2]
+        k = (name, t, ln % S)
+        way = used.get(k, int(rng.integers(0, A)))
+        used[k] = (way + 1) % A
+        # Half the stamps lie below the window's, half (most likely) above.
+        hi = (1 << 29) if rng.random() < 0.5 else int(a["stamp_base"]) + 1
+        w[way, t, ln % S] = (ln << 32) \
+            | (int(rng.integers(0, hi)) << 3) | state
+
+    def event(t, j, o, ln=0, pc=None):
+        op[t, j] = o
+        addr[t, j] = (ln << lb) + int(rng.integers(0, params.line_size)) \
+            if pc is None else pc
+        arg[t, j] = int(rng.integers(0, 2)) if o == BR \
+            else int(rng.integers(0, 8))
+        arg2[t, j] = int(rng.integers(0, 4)) if o == COMP \
+            else int(rng.choice([0, 0, 1]))
+
+    for t in range(T):
+        case = WINDOW_CASES[(t + seed) % len(WINDOW_CASES)]
+        if case == "random":
+            continue
+        base = (1 << 30) + 4096 * t          # this tile's case lines
+        la, lb_ = base, base + 1
+        put("l1d_word", t, la, M)
+        put("l1d_word", t, lb_, M)
+        a["clock"][t] = int(rng.integers(0, 1_000_000))
+        a["valid_ev"][t] = case != "inactive"
+        a["tile_active"][t] = case != "inactive"
+        hits = [(RD, la), (WR, la), (RD, lb_), (WR, lb_)]
+
+        def hit(t, j):
+            o, ln = hits[int(rng.integers(0, len(hits)))]
+            event(t, j, o, ln)
+
+        for j in range(K):
+            hit(t, j)
+        if case == "branch":
+            slots = rng.choice(BP, size=2, replace=False)
+            for j in range(K):
+                if rng.random() < 0.6:
+                    event(t, j, BR, pc=int(rng.choice(slots))
+                          + BP * int(rng.integers(0, 1 << 10)))
+        elif case == "cut0":
+            op[t, 0] = NEVER
+        elif case == "cutlast":
+            op[t, K - 1] = NEVER
+        elif case == "fullbank" and P > 0:
+            a["mq_count"][t] = a["mq_head"][t] = max(P - 2, 0)
+            a["chain_rel"][t] = 0
+            for j in range(0, K, 2):
+                event(t, j, RD, base + 16 + j)   # fresh lines, fresh sets
+        elif case == "pending" and P > 0:
+            n = min(P, 4)
+            plines = [base + 8 + i for i in range(n)]
+            kinds = [PEND_SH_REQ, PEND_IFETCH, PEND_EX_REQ, PEND_SH_REQ][:n]
+            a["mq_head"][t], a["mq_count"][t] = 0, n
+            a["chain_rel"][t] = int(rng.integers(0, 1000))
+            for s in range(n):
+                a["mq_req"][s, t] = kinds[s] | (plines[s] << 8)
+            sh = [ln for ln, k in zip(plines, kinds) if k != PEND_IFETCH]
+            ifl = [ln for ln, k in zip(plines, kinds) if k == PEND_IFETCH]
+            cut = int(rng.integers(2, K))
+            for j in range(cut):
+                r = rng.random()
+                if r < 0.3:
+                    event(t, j, RD, int(rng.choice(sh)))
+                elif r < 0.45 and ifl:
+                    event(t, j, COMP, ifl[0])
+            if (t // len(WINDOW_CASES) + seed) % 2 == 0:
+                event(t, cut, WR, sh[-1])        # write on a pending SH
+            else:                                # same L2 set, other line
+                event(t, cut, RD, plines[0] + S2 * (1 + t))
+        elif case == "fill":
+            lc, le = base + 2, base + 3
+            for ln in (lc, le, le + Sd):
+                put("l2_word", t, ln, M)
+            event(t, 0, COMP, lc)                # L2 hit: fills L1I
+            event(t, 1, RD, lc)                  # L2 hit: fills L1D
+            event(t, 2, WR, le)                  # L2 hit (M): fills L1D
+            event(t, min(3 + int(rng.integers(0, K - 3)), K - 1), RD,
+                  le + Sd)                       # the filled L1D set
+    a["meta"] = np.stack([op, arg, arg2]).astype(np.int32)
+    a["addr"] = addr.astype(np.int64)
+    return a
+
+
 def window_in_from_numpy(arrays: dict, device) -> WindowIn:
     """A :class:`WindowIn` on ``device`` from numpy operands."""
     dev = torch.device(device)

@@ -23,9 +23,12 @@ Two forms compute each function:
     vectorised over the window with the JAX package's [T, K, K] (and
     [T, K, P]) masks.  The CPU tests hold them against the JAX functions
     leaf for leaf.
-  * ``csrc/window_walk.cu`` / ``csrc/fast_forward_walk.cu`` — CUDA
-    kernels for ``sm_90a`` that walk each tile's events in order, one
-    thread per tile.
+  * ``csrc/window_walk.cu`` — a CUDA kernel for ``sm_90a``, one block
+    per tile and one thread per event: every event classified at once,
+    one thread's pass for the retire cut, then the retired events'
+    effects applied in place on the state's own cache, predictor and
+    chain-bank arrays.  ``csrc/fast_forward_walk.cu`` — one thread per
+    tile walking its span in order.
 
 :func:`run_window` and :func:`run_fast_forward` pick between them by the
 tensors' device: CPU tensors take the plain form, CUDA tensors launch
@@ -53,9 +56,10 @@ from graphite_tpu_torch.params import SimParams
 
 I, S, E, M = cachemod.I, cachemod.S, cachemod.E, cachemod.M
 
-# The kernels keep each tile's per-event history in fixed local arrays;
-# block_events is validated <= STAMP_STRIDE - 2 = 62 and the fast-forward
-# width is capped at STAMP_STRIDE = 64 anyway.
+# The widest window the kernels take (one thread per event in the window
+# walk, a fixed per-tile history in the fast-forward walk); block_events
+# is validated <= STAMP_STRIDE - 2 = 62 and the fast-forward width is
+# capped at STAMP_STRIDE = 64 anyway.
 MAX_WINDOW = 64
 
 
@@ -99,6 +103,12 @@ CHAIN_IN_FIELDS = ("chain_rel", "mq_count", "mq_head", "mq_req",
                    "mq_delta", "mq_extra")
 CHAIN_OUT_FIELDS = ("chain_rel", "mq_count", "mq_req", "mq_delta",
                     "mq_extra")
+# The WindowIn leaves the CUDA walk updates in place and returns as the
+# WindowOut leaves of the same name (the chain bank only at P > 0; the
+# round-robin pointers move only under round_robin replacement, L2's
+# never).  Every other WindowOut leaf is a fresh tensor.
+INPLACE_FIELDS = ("bp_table", "l1i_word", "l1i_rr", "l1d_word", "l1d_rr",
+                  "l2_word", "l2_rr", "mq_req", "mq_delta", "mq_extra")
 
 
 # Counter increments, in the order ``ctr_inc`` rows are stacked.
@@ -553,13 +563,12 @@ class _WalkArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "meta", "addr", "valid_ev", "tile_active", "tile_ids", "clock",
-        "period_ps", "bp_in", "l1i_in", "l1i_rr_in", "l1d_in", "l1d_rr_in",
-        "l2_in", "boundary", "models_enabled", "stamp_base",
-        "clock_out", "n_ret", "bp_out", "l1i_out", "l1i_rr_out", "l1d_out",
-        "l1d_rr_out", "l2_out", "ctr_inc", "spawn_mask", "spawn_child",
-        "spawn_land", "chain_rel", "mq_count", "mq_head", "mq_req_in",
-        "chain_rel_out", "mq_count_out", "mq_req_out", "mq_delta_out",
-        "mq_extra_out")] + [(n, ctypes.c_int64) for n in (
+        "period_ps", "boundary", "models_enabled", "stamp_base",
+        "bp", "l1i", "l1i_rr", "l1d", "l1d_rr", "l2",
+        "clock_out", "n_ret", "ctr_inc", "spawn_mask", "spawn_child",
+        "spawn_land", "chain_rel", "mq_count", "mq_head", "mq_req",
+        "mq_delta", "mq_extra", "chain_rel_out", "mq_count_out")] + [
+        (n, ctypes.c_int64) for n in (
         "T", "K", "NM", "l1i_assoc", "l1i_sets", "l1i_round_robin",
         "l1d_assoc", "l1d_sets", "l1d_round_robin", "l2_assoc", "l2_sets",
         "bp_size", "line_bits", "line_size", "l1i_cycles", "l1d_cycles",
@@ -582,8 +591,30 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"window_walk: {name} is not contiguous")
 
 
+def _check_no_alias(wi: WindowIn) -> None:
+    """Refuse operands where a leaf the walk updates in place
+    (INPLACE_FIELDS) shares storage with any other operand: the byte
+    ranges of the operands, sorted by start, must not overlap where
+    either one is such a leaf."""
+    written = set(INPLACE_FIELDS)
+    spans = sorted(
+        (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), f)
+        for f, t in zip(WindowIn._fields, wi)
+        if t is not None and t.numel() > 0)
+    reach, holder = None, None
+    for start, end, f in spans:
+        if reach is not None and start < reach \
+                and (f in written or holder in written):
+            raise ValueError(
+                f"window_walk: {f} shares storage with {holder}, and the "
+                f"kernel updates {f if f in written else holder} in place")
+        if reach is None or end > reach:
+            reach, holder = end, f
+
+
 def _check_inputs(params: SimParams, wi: WindowIn) -> None:
-    """Device, dtype, shape and contiguity of every operand."""
+    """Device, dtype, shape and contiguity of every operand, and no
+    storage shared with a leaf the walk updates in place."""
     dev = wi.clock.device
     T, K = wi.addr.shape
     if K > MAX_WINDOW:
@@ -623,36 +654,27 @@ def _check_inputs(params: SimParams, wi: WindowIn) -> None:
                 ("mq_head", i32, (T,)), ("mq_req", i64, (P, T)),
                 ("mq_delta", i64, (P, T)), ("mq_extra", i64, (P, T))):
             _check(name, getattr(wi, name), dt, shape, dev)
+    _check_no_alias(wi)
 
 
 def _alloc_out(params: SimParams, wi: WindowIn) -> WindowOut:
-    """Outputs: fresh tensors, and clones of the arrays the kernel
-    updates in place (caches, predictor table, and the L1 round-robin
-    pointers under round_robin replacement).  The other pointers, L2's
-    always, pass through untouched, as in the plain form."""
+    """Outputs: the operands the kernel updates in place (INPLACE_FIELDS:
+    caches, round-robin pointers, predictor table, chain bank) and fresh
+    tensors for the rest."""
     dev = wi.clock.device
     T, K = wi.addr.shape
     i32, i64, b = torch.int32, torch.int64, torch.bool
-
-    def rr(cp, t):
-        return t.clone() if cp.replacement == "round_robin" else t
-
     return WindowOut(
         clock=torch.empty(T, dtype=i64, device=dev),
         n_ret=torch.empty(T, dtype=i32, device=dev),
-        bp_table=wi.bp_table.clone(),
-        l1i_word=wi.l1i_word.clone(), l1i_rr=rr(params.l1i, wi.l1i_rr),
-        l1d_word=wi.l1d_word.clone(), l1d_rr=rr(params.l1d, wi.l1d_rr),
-        l2_word=wi.l2_word.clone(), l2_rr=wi.l2_rr,
         ctr_inc=torch.empty((len(WINDOW_CTRS), T), dtype=i64, device=dev),
         spawn_mask=torch.empty((T, K), dtype=b, device=dev),
         spawn_child=torch.empty((T, K), dtype=i32, device=dev),
         spawn_land=torch.empty((T, K), dtype=i64, device=dev),
+        **{f: getattr(wi, f) for f in INPLACE_FIELDS},
         **({} if params.miss_chain == 0 else dict(
             chain_rel=torch.empty(T, dtype=i64, device=dev),
-            mq_count=torch.empty(T, dtype=i32, device=dev),
-            mq_req=wi.mq_req.clone(), mq_delta=wi.mq_delta.clone(),
-            mq_extra=wi.mq_extra.clone())),
+            mq_count=torch.empty(T, dtype=i32, device=dev))),
     )
 
 
@@ -670,27 +692,23 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
 
     return _WalkArgs(
         chain_rel=ptr(wi.chain_rel), mq_count=ptr(wi.mq_count),
-        mq_head=ptr(wi.mq_head), mq_req_in=ptr(wi.mq_req),
+        mq_head=ptr(wi.mq_head), mq_req=ptr(wi.mq_req),
+        mq_delta=ptr(wi.mq_delta), mq_extra=ptr(wi.mq_extra),
         chain_rel_out=ptr(out.chain_rel), mq_count_out=ptr(out.mq_count),
-        mq_req_out=ptr(out.mq_req), mq_delta_out=ptr(out.mq_delta),
-        mq_extra_out=ptr(out.mq_extra), P=P,
-        wfwd=int(P > 0 and params.fanout_replay), qps=vp.quantum_ps,
+        P=P, wfwd=int(P > 0 and params.fanout_replay), qps=vp.quantum_ps,
         wbound_add=vp.quantum_ps if P > 0 and params.fanout_replay else 0,
         l2_tags_cycles=vp.l2_tags_access_cycles,
         meta=wi.meta.data_ptr(), addr=wi.addr.data_ptr(),
         valid_ev=wi.valid_ev.data_ptr(),
         tile_active=wi.tile_active.data_ptr(),
         tile_ids=wi.tile_ids.data_ptr(), clock=wi.clock.data_ptr(),
-        period_ps=wi.period_ps.data_ptr(), bp_in=wi.bp_table.data_ptr(),
-        l1i_in=wi.l1i_word.data_ptr(), l1i_rr_in=wi.l1i_rr.data_ptr(),
-        l1d_in=wi.l1d_word.data_ptr(), l1d_rr_in=wi.l1d_rr.data_ptr(),
-        l2_in=wi.l2_word.data_ptr(), boundary=wi.boundary.data_ptr(),
+        period_ps=wi.period_ps.data_ptr(), boundary=wi.boundary.data_ptr(),
         models_enabled=wi.models_enabled.data_ptr(),
         stamp_base=wi.stamp_base.data_ptr(),
+        bp=wi.bp_table.data_ptr(), l1i=wi.l1i_word.data_ptr(),
+        l1i_rr=wi.l1i_rr.data_ptr(), l1d=wi.l1d_word.data_ptr(),
+        l1d_rr=wi.l1d_rr.data_ptr(), l2=wi.l2_word.data_ptr(),
         clock_out=out.clock.data_ptr(), n_ret=out.n_ret.data_ptr(),
-        bp_out=out.bp_table.data_ptr(), l1i_out=out.l1i_word.data_ptr(),
-        l1i_rr_out=out.l1i_rr.data_ptr(), l1d_out=out.l1d_word.data_ptr(),
-        l1d_rr_out=out.l1d_rr.data_ptr(), l2_out=out.l2_word.data_ptr(),
         ctr_inc=out.ctr_inc.data_ptr(), spawn_mask=out.spawn_mask.data_ptr(),
         spawn_child=out.spawn_child.data_ptr(),
         spawn_land=out.spawn_land.data_ptr(),
@@ -717,10 +735,12 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
 
 def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
                      s_ids: int) -> WindowOut:
-    """Launch csrc/window_walk.cu on CUDA tensors.  Out of place: the
-    cache and predictor arrays, the round-robin pointers the walk moves
-    and, at P > 0, the [P, T] chain bank are cloned and the kernel
-    updates the clones' touched rows."""
+    """Launch csrc/window_walk.cu on CUDA tensors.  In place: the kernel
+    updates the operands' cache word arrays, L1 round-robin pointers
+    (under round_robin), predictor table and, at P > 0, [P, T] chain bank,
+    and the returned WindowOut holds those operand tensors
+    (INPLACE_FIELDS); its other leaves are fresh.  A caller that needs
+    the operands unchanged clones them first."""
     check_window_config(params)
     if wi.clock.device.type != "cuda":
         raise ValueError("window_walk_cuda takes CUDA tensors")

@@ -336,12 +336,32 @@ def test_cuda_chain_kernel_matches_plain(T):
                 _assert_fields_equal(ref, got, f"{config} H={H} {seed}")
 
 
+def _clone(nt):
+    return type(nt)(*[t.clone() if t is not None else None for t in nt])
+
+
+def _window_kernel_against_plain(tp, vp, wi, T, label):
+    """window_walk's kernel on ``wi`` (which it updates in place) against
+    the plain form on a clone taken first; the written leaves are the
+    operands' own tensors."""
+    pristine = _clone(wi)
+    got = twin.run_window(tp, vp, wi, T)
+    ref = twin.window_walk(tp, vp, pristine, T)
+    torch.cuda.synchronize()
+    for f in twin.INPLACE_FIELDS:
+        if getattr(wi, f) is not None:
+            assert getattr(got, f).data_ptr() == getattr(wi, f).data_ptr(), \
+                (label, f)
+    _assert_fields_equal(ref, got, label)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [8, 64])
 def test_cuda_window_kernel_matches_plain_at_p12(T):
     """window_walk's CUDA kernel against the plain form on the card with
-    a pending [P, T] bank, and on a window of the port's own radix
-    chain-12 run."""
+    a pending [P, T] bank (random and seeded collision operands: a bank
+    that fills, pending lines the window forwards onto or stops on), and
+    on a window of the port's own radix chain-12 run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     from graphite_tpu_torch.engine.core import window_operands
@@ -351,21 +371,17 @@ def test_cuda_window_kernel_matches_plain_at_p12(T):
     for config in sorted(WINDOW_CONFIGS):
         tp = _torch_params(T, WINDOW_CONFIGS[config])
         vp = variant_params(tp)
-        for seed in range(4):
-            wi = toperands.window_in_from_numpy(
-                toperands.random_window_arrays(tp, tp.block_events, seed),
-                "cuda")
-            got = twin.run_window(tp, vp, wi, T)
-            ref = twin.window_walk(tp, vp, wi, T)
-            torch.cuda.synchronize()
-            _assert_fields_equal(ref, got, f"{config} {seed}")
+        for gen in (toperands.random_window_arrays,
+                    toperands.seeded_window_arrays):
+            for seed in range(4):
+                wi = toperands.window_in_from_numpy(
+                    gen(tp, tp.block_events, seed), "cuda")
+                _window_kernel_against_plain(
+                    tp, vp, wi, T, f"{config} {gen.__name__} {seed}")
     tp = _torch_params(T, {})
     sim = Simulator(tp, synth.gen_radix(num_tiles=T, keys_per_tile=32,
                                         radix=16, seed=3), device="cuda")
     sim.run(max_steps=2)
     st = sim.state._replace(boundary=next_boundary(tp, sim.state))
     _, wi = window_operands(tp, st, sim.trace, sim.vp)
-    got = twin.run_window(tp, sim.vp, wi, T)
-    ref = twin.window_walk(tp, sim.vp, wi, T)
-    torch.cuda.synchronize()
-    _assert_fields_equal(ref, got, "radix")
+    _window_kernel_against_plain(tp, sim.vp, _clone(wi), T, "radix")

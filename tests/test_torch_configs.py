@@ -76,9 +76,9 @@ def _build(builder_cls, plan):
 
 SETTINGS = {
     "defaults": {},
-    "round_robin_l1": {"l1_dcache/replacement_policy": "round_robin",
-                       "l1_icache/replacement_policy": "round_robin",
-                       "l2_cache/replacement_policy": "round_robin"},
+    "round_robin_l1": {"l1_dcache/T1/replacement_policy": "round_robin",
+                       "l1_icache/T1/replacement_policy": "round_robin",
+                       "l2_cache/T1/replacement_policy": "round_robin"},
     "no_predictor": {"branch_predictor/type": "none"},
     "window_off": {"tpu/block_events": 0},
     "window_cache_off_k4": {"tpu/window_cache": "false",

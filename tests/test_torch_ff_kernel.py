@@ -359,16 +359,27 @@ def test_cuda_ff_kernel_matches_plain(T):
 @pytest.mark.parametrize("T", [8, 64])
 def test_cuda_window_kernel_matches_plain_at_k64(T):
     """window_walk's CUDA kernel against the plain form at the wide
-    width, P = 0 and P = 12."""
+    width, P = 0 and P = 12, on random and seeded collision operands; the
+    kernel updates the operands in place, so the plain form runs on a
+    clone taken first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     for config in sorted(WIDE_CONFIGS):
         tp = _torch_params(T, WIDE_CONFIGS[config])
         vp = variant_params(tp)
-        for seed in range(4):
-            wi = toperands.window_in_from_numpy(
-                toperands.random_window_arrays(tp, 64, seed), "cuda")
-            got = twin.run_window(tp, vp, wi, T)
-            ref = twin.window_walk(tp, vp, wi, T)
-            torch.cuda.synchronize()
-            _assert_fields_equal(ref, got, f"{config} {seed}")
+        for gen in (toperands.random_window_arrays,
+                    toperands.seeded_window_arrays):
+            for seed in range(4):
+                wi = toperands.window_in_from_numpy(gen(tp, 64, seed),
+                                                    "cuda")
+                pristine = type(wi)(*[t.clone() if t is not None else None
+                                      for t in wi])
+                got = twin.run_window(tp, vp, wi, T)
+                ref = twin.window_walk(tp, vp, pristine, T)
+                torch.cuda.synchronize()
+                for f in twin.INPLACE_FIELDS:
+                    if getattr(wi, f) is not None:
+                        assert getattr(got, f).data_ptr() \
+                            == getattr(wi, f).data_ptr(), (config, seed, f)
+                _assert_fields_equal(ref, got,
+                                     f"{config} {gen.__name__} {seed}")

@@ -27,7 +27,7 @@ OVERRIDES = [
     {},
     {"general/total_cores": 8},
     {"general/total_cores": 16, "tpu/block_events": 4,
-     "l1_dcache/replacement_policy": "round_robin"},
+     "l1_dcache/T1/replacement_policy": "round_robin"},
     {"caching_protocol/type": "pr_l1_sh_l2_mesi", "tpu/miss_chain": 12},
     {"tile/model_list": "<default,iocoom,T1,T1,T1>",
      "network/memory": "emesh_hop_by_hop"},
