@@ -8,14 +8,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. The card (nvidia-smi name and power limit), torch and CUDA versions.
   2. Build every CUDA source of the port from this checkout (one nvcc per
      source, started together); print the seconds and the ptxas
-     register/spill lines; window_walk must have no stack frame.
+     register/spill lines; no kernel may have a stack frame.
   3. Every kernel against its plain PyTorch form ON THE CARD at the main
      paths' shapes (T = 64, default geometry), every output element
      equal; times from CUDA events over many launches after warm-up,
      kernel and plain form, and device time per launch from
-     torch.profiler.  window_walk updates its operands in place, so it
-     runs on copies and the plain form on the originals, and its
-     written leaves must be the copies' own tensors:
+     torch.profiler.  Every kernel updates state in place (window_walk
+     its cache, predictor and bank leaves, fast_forward_walk its
+     predictor and L1 leaves, chain_classify the floor table), so it runs
+     on copies and the plain form on the originals, and its written
+     leaves must be the copies' own tensors:
        * window_walk at P = 0: random operands, seeded collision operands
          (operands.seeded_window_arrays) and a window captured from the
          port's own radix64 run (timed: K = 16, P = 0);
@@ -23,21 +25,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          seeded collision operands with a pending [P, T] bank and
          banking windows captured from the port's own radix64 chain-12
          run (timed: K = 16, P = 12);
-       * chain_classify: seeded operand sets at H = 1024 with the fan-out
-         replay and the DRAM queue model each on and off, a colliding
-         H = 4 set, and operands captured from the port's own radix64
-         chain-12 run;
+       * chain_classify, one replay iteration from the state's own arrays
+         (head gathers, directory-row gathers, classify) against the
+         plain chain_step: state-level seeded sets
+         (operands.random_chain_step_arrays) at H = 1024, a
+         non-power-of-two H and a colliding H = 4 with the fan-out replay
+         and the DRAM queue model each on and off, and iterations
+         captured at run_chain_step's inputs in the port's own radix64
+         chain-12 run (timed, device time per launch);
        * fast_forward_walk at F = 64: seeded operand sets (engage and
          decline, the run-ahead bound crossed and not, repeated lines,
          predictor-slot collisions, models disabled, tiles that are not
          candidates, no predictor, miss_chain 12) and analytic rounds
          captured from the port's own radix64 span-1000 run, some with
-         engaging tiles;
+         engaging tiles (timed on a captured round);
        * window_walk at the wide width K = 64, P = 0 and P = 12: random
          and seeded collision operands and wide windows captured from the
          fast-forward runs (timed: K = 64, P = 0 and P = 12).
      Each kernel's bound counts the bytes the function needs on the
-     timed operands (chain_bytes, ff_bytes, window_bytes).
+     timed operands (chain_bytes, ff_bytes, window_bytes).  The chain
+     wrapper must make one device allocation per call and the
+     fast-forward wrapper none beyond its three fresh outputs (the
+     allocator's request counts); the chain wrapper's host time is split
+     into carving its output views, its checks and its allocation.
   4. The golden shapes radix8 and fft8 at miss_chain 0 against
      tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
      (86 engine rounds, completion 8,686.6 ns).
@@ -54,14 +64,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      60,677.0 ns, 1,897 fan-outs served in-pass, 17 fallbacks).
      chain_classify launches == 12 x chain passes (round_ctr - ctr_window
      - ctr_complex - ctr_conflict), window launches == ctr_window.  An
-     untimed second fft64 run records its first replay iterations that
-     serve a fan-out, and chain_classify is held against its plain form
-     on each of them.
+     untimed second fft64 run records, at run_chain_step's inputs, its
+     first replay iterations that serve a fan-out, and chain_classify is
+     held against its plain form on each of them.
   7. Profiled stretches of the chain-off and the chain-12 radix64 runs
      (torch.profiler; 4 quanta and 1 quantum, continuing phase 3's
-     simulations): device busy time per round, held against the
-     unprofiled wall time per round of phases 5 and 6, kernels and host
-     polls per round, and each kernel's share.
+     simulations), and of the radix64_ff_span run (4 quanta, continuing
+     phase 3's fast-forward simulation; it runs after phase 8's
+     radix64_ff_span path, whose unprofiled wall it is held against):
+     device busy time per round, held against the unprofiled wall time
+     per round of phases 5, 6 and 8, kernels and host polls per round,
+     and each kernel's share.
   8. The fast-forward paths at full width, ``tpu/fast_forward = 8``
      (wide rounds of 64 events):
        * radix64_ff_span: the radix64 trace at miss_chain 0 and a
@@ -205,42 +218,55 @@ def nbytes(tensors) -> int:
                if t is not None)
 
 
-def chain_bytes(params, ci, out) -> int:
-    """Bytes one classify call must move on these operands: each input
-    element the function reads, once, and every output element.
+def chain_bytes(params, si, head, out) -> int:
+    """Bytes one replay iteration (head gathers, directory-row gathers,
+    classify) must move on these operands: each input element the
+    function reads, once, and every output element (``head`` and
+    ``out`` are the plain step's result on ``si``).
 
-    Every row needs its kind flags, issue time, home, flat set, directory
-    row (the probe and the victim choice read all A words), one period
-    of the network and one of its L1 side, and the W sharer words of the
-    way it picks.  A combining member's own-bit test reads a word of the
-    representative's way, which is the member's own: both rows requested
-    one line, so they probed one directory row with one result.  Only an
-    active row needs its line, directory set and hash slot.  The gathers
-    count their distinct indices: the directory period at the homes, the
-    L2 period at the owners of served owner legs, the core period at the
-    fan-out rows.  With the DRAM queue model off the function also reads
-    each row's local cost and L2 period and copies the floor table."""
+    Every tile reads its head index, stop flag, bank count and base, and
+    the delta and local cost of its head slot (both feed outputs of
+    every row); an active tile also its head's request word.  Every
+    tile's directory row is read (its probe and victim scan feed the way
+    of every row), each distinct flat set's A words once, and the W
+    sharer words of the way each row picks, each distinct (set, way)
+    once (a combining member's own-bit word is among them: a member's
+    way is its representative's, in the same row).  Periods: each tile
+    its L1 side (the fill time of every row) and, without a magic
+    network, its network period; each distinct home its directory
+    period and network period; each served owner leg's owner its L2 and
+    network periods; each fan-out row its core period; with the DRAM
+    queue model off each tile its L2 period.  Writes: every ChainHead
+    and ChainOut element, and with the queue model off each floor-table
+    slot a served row wins (line and time), once."""
+    import torch
     T = params.num_tiles
-    W = ci.dsharers.shape[2]
-    queue_off = ci.ftbl is not None
-    n_act = int(ci.active.sum().item())
-    moved = nbytes([ci.active, ci.is_ex, ci.is_if, ci.issue, ci.home,
-                    ci.fidx, ci.drow, ci.ftbl])
-    moved += n_act * (ci.line.element_size() + ci.dset.element_size()
-                      + ci.hidx.element_size())
-    moved += T * W * ci.dsharers.element_size()
-    moved += T * ci.p_l1d.element_size()
-    if params.net_memory.model != "magic":
-        moved += nbytes([ci.p_net])
-    moved += ci.p_dir.element_size() * ci.home.unique().numel()
-    if queue_off:
-        moved += nbytes([ci.extra, ci.p_l2])
-    else:
-        moved += ci.p_l2.element_size() * out.owner[out.owner_leg] \
-            .unique().numel()
-    if out.inv_bool is not None:
-        moved += ci.p_core.element_size() * int(out.fan_go.sum().item())
-    return moved + nbytes(t for t in out)
+    A = params.directory.associativity
+    W = si.dir_sharers.shape[0] // A
+    net = params.net_memory.model != "magic"
+    i64 = torch.int64
+
+    def distinct(*keys):
+        return torch.unique(torch.stack([k.to(i64) for k in keys]),
+                            dim=1).shape[1]
+
+    moved = T * (4 + 1 + 4 + 8)                     # head, stopped, count,
+    #                                                 base
+    moved += T * (8 + 8) + 8 * int(head.active.sum())  # delta, extra, req
+    moved += 8 * A * distinct(head.fidx)             # directory rows
+    moved += 8 * W * distinct(head.fidx, out.way)    # sharer words
+    moved += 4 * T * (1 + int(net))                  # L1 and network
+    moved += 4 * distinct(head.home) * (1 + int(net))  # dir, network
+    legs = out.owner[out.owner_leg]
+    if legs.numel():
+        moved += 4 * distinct(legs) * (1 + int(net))  # L2, network
+    moved += 4 * int(out.fan_go.sum()) if out.inv_bool is not None else 0
+    if out.ftbl is not None:
+        moved += 4 * T                               # L2 period
+        won = head.hidx[out.serve_all]
+        moved += 16 * (distinct(won) if won.numel() else 0)
+    return moved + nbytes(head) + nbytes(t for f, t in zip(out._fields, out)
+                                          if f != "ftbl")
 
 
 def ff_bytes(params, vp, fi) -> int:
@@ -485,8 +511,108 @@ def device_ms(fn, kernel: str, launches: int = 100):
     return total / 1e3 / n if n else None
 
 
+def host_ms(fn, iters: int = 2000) -> float:
+    """Milliseconds of host time per call of ``fn`` (no device wait)."""
+    for _ in range(50):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def allocations(fn) -> int:
+    """Device allocation requests one call of ``fn`` makes."""
+    import torch
+    fn()
+    key = "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    fn()
+    return torch.cuda.memory_stats()[key] - before
+
+
+def device_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type is not None
+               and "cuda" in str(evt.device_type).lower()
+               and getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0)))
+
+
 def clone_operands(nt):
     return type(nt)(*[t.clone() if t is not None else None for t in nt])
+
+
+def step_pair(kchain, p, v, si, H):
+    """chain_classify's fused kernel and the plain step on the same
+    operands: the kernel writes the floor table in place, so it runs on
+    a clone of it and the plain step on ``si``.  The floor table the
+    kernel returns must be the clone itself."""
+    work = si._replace(ftbl=None if si.ftbl is None else si.ftbl.clone())
+    got = kchain.chain_step_cuda(p, v, work, H)
+    ref = kchain.chain_step(p, v, si, H)
+    if work.ftbl is not None:
+        check(got[1].ftbl.data_ptr() == work.ftbl.data_ptr(),
+              "chain_classify: the floor table is not the operand's own")
+    return got, ref
+
+
+def compare_step(got, ref, label) -> int:
+    """Every ChainHead and ChainOut field of the fused kernel against the
+    plain step (the floor table included where the queue model is off)."""
+    return max(compare("chain_classify", got[0], ref[0], label),
+               compare("chain_classify", got[1], ref[1], label))
+
+
+def ff_pair(kwin, p, v, fi):
+    """fast_forward_walk's kernel and its plain form on the same operands:
+    the kernel updates its operands in place, so it runs on a clone and
+    the plain form on ``fi``; the leaves it writes must be the clone's
+    own tensors."""
+    work = clone_operands(fi)
+    got = kwin.fast_forward_walk_cuda(p, v, work)
+    ref = kwin.fast_forward_walk(p, v, fi)
+    for f in kwin.FF_INPLACE_FIELDS:
+        check(getattr(got, f).data_ptr() == getattr(work, f).data_ptr(),
+              f"fast_forward_walk: leaf {f} is not the operand's own tensor")
+    return got, ref
+
+
+def ff_times(kwin, p, v, fi, iters=200, warmup=20):
+    """One fast_forward_walk case, every launch from the span-start state
+    of ``fi`` (which no launch touches): the wrapper's time per call
+    (CUDA events over calls on fresh copies of the leaves the kernel
+    writes), the kernel's device time per launch (torch.profiler, each
+    launch after a device copy that restores those leaves) and the plain
+    form's time."""
+    def fresh():
+        return fi._replace(**{f: getattr(fi, f).clone()
+                              for f in kwin.FF_INPLACE_FIELDS})
+
+    pool = iter([fresh() for _ in range(iters + warmup)])
+    ms = time_cuda(lambda: kwin.fast_forward_walk_cuda(p, v, next(pool)),
+                   iters=iters, warmup=warmup)
+    del pool
+    work = fresh()
+
+    def restore_and_launch():
+        for f in kwin.FF_INPLACE_FIELDS:
+            getattr(work, f).copy_(getattr(fi, f))
+        kwin.fast_forward_walk_cuda(p, v, work)
+
+    dev = device_ms(restore_and_launch, "fast_forward_walk_kernel")
+    plain = time_cuda(lambda: kwin.fast_forward_walk(p, v, fi), iters=50,
+                      warmup=5)
+    return ms, dev, plain
 
 
 def walk_pair(kwin, p, v, wi, T):
@@ -636,7 +762,7 @@ def main() -> int:
     from graphite_tpu_torch.engine.kernels.dispatch import (COUNTS,
                                                             reset_counts)
     from graphite_tpu_torch.engine.kernels.operands import (
-        chain_in_from_numpy, ff_in_from_numpy, random_chain_arrays,
+        chain_step_in_from_numpy, ff_in_from_numpy, random_chain_step_arrays,
         random_ff_arrays, random_window_arrays, seeded_window_arrays,
         window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
@@ -667,13 +793,14 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         for ln in lines:
             print(f"build: {name}: {ln}")
-    # The window walk indexes no per-thread array at runtime: ptxas gives
-    # it no stack (local memory) at all.
-    frames = [ln for ln in info["window_walk"]["ptxas"]
-              if "bytes stack frame" in ln]
-    check(bool(frames) and all(ln.strip().startswith("0 bytes stack frame")
-                               for ln in frames),
-          f"window_walk: ptxas reports a stack frame: {frames}")
+    # No kernel indexes a per-thread array at runtime: ptxas gives none of
+    # them a stack (local memory) at all.
+    for name in build.SOURCES:
+        frames = [ln for ln in info[name]["ptxas"]
+                  if "bytes stack frame" in ln]
+        check(bool(frames) and all(
+            ln.strip().startswith("0 bytes stack frame") for ln in frames),
+            f"{name}: ptxas reports a stack frame: {frames}")
 
     # ---- 3. kernels vs plain forms on the card, at the main paths' shapes
     def config(**over):
@@ -732,10 +859,13 @@ def main() -> int:
     # (a pending bank, or elements banked by this window) and replay
     # iterations with at least one active head.
     csim = Simulator(cparams, trace, device=dev)
+    def any_head(si):
+        return bool(((~si.stopped) & (si.head < si.stop_hi)).any())
+
     with Recorder(kcore.kwindow, "run_window",
                   lambda wi: bool((wi.mq_count > wi.mq_head).any()), 6) \
-            as rw, Recorder(kres.kchain, "run_chain",
-                            lambda ci: bool(ci.active.any()), 24) as rc:
+            as rw, Recorder(kres.kchain, "run_chain_step", any_head, 24) \
+            as rc:
         csim.run(max_steps=2)
     check(len(rw.seen) == 6 and len(rc.seen) == 24,
           f"captured {len(rw.seen)} banking windows and {len(rc.seen)} "
@@ -766,44 +896,74 @@ def main() -> int:
     ms_w, plain_w, bound_w = walk_line(f"K=16 P={CHAIN}", cparams, cvp,
                                        rw.seen[-1])
 
-    # chain_classify
+    # chain_classify: one replay iteration from the state's own arrays
     cases = []
     for fan in (True, False):
         for queue in (True, False):
             p = config(**{"tpu/miss_chain": CHAIN, "tpu/fanout_replay": fan,
                           "dram/queue_model/enabled": queue})
             v = variant_params(p)
-            for h, seeds in ((H, range(3)), (4, range(3, 6))):
+            for h, seeds in ((H, range(3)), (1000, range(3, 4)),
+                             (4, range(4, 6))):
                 for seed in seeds:
                     cases.append((p, v, h, f"fanout={fan} queue={queue} "
                                            f"H={h} seed {seed}",
-                                  chain_in_from_numpy(
-                                      random_chain_arrays(p, h, seed),
+                                  chain_step_in_from_numpy(
+                                      random_chain_step_arrays(p, h, seed),
                                       dev)))
     cases += [(cparams, cvp, H, f"captured radix64 chain-12 iteration {i}",
-               ci) for i, ci in enumerate(rc.seen)]
+               si) for i, si in enumerate(rc.seen)]
     err_c = 0
-    for p, v, h, label, ci in cases:
-        got = kchain.chain_classify_cuda(p, v, ci, h)
-        ref = kchain.chain_classify(p, v, ci, h)
+    for p, v, h, label, si in cases:
+        got, ref = step_pair(kchain, p, v, si, h)
         torch.cuda.synchronize()
-        err_c = max(err_c, compare("chain_classify", got, ref, label))
-    print(f"kernel chain_classify: {len(cases)} operand sets, every output "
-          f"field equal to the plain form (max abs err {err_c})")
-    ci12 = rc.seen[0]
-    ms_c = time_cuda(lambda: kchain.chain_classify_cuda(cparams, cvp, ci12,
-                                                        H),
+        err_c = max(err_c, compare_step(got, ref, label))
+    print(f"kernel chain_classify: {len(cases)} operand sets "
+          f"({len(rc.seen)} captured), every ChainHead and ChainOut field "
+          f"and the in-place floor table equal to the plain step (max abs "
+          f"err {err_c})")
+    si12 = rc.seen[0]
+    ms_c = time_cuda(lambda: kchain.chain_step_cuda(cparams, cvp, si12, H),
                      iters=500, warmup=50)
-    plain_c = time_cuda(lambda: kchain.chain_classify(cparams, cvp, ci12, H),
+    dev_c = device_ms(lambda: kchain.chain_step_cuda(cparams, cvp, si12, H),
+                      "chain_classify_kernel")
+    plain_c = time_cuda(lambda: kchain.chain_step(cparams, cvp, si12, H),
                         iters=50, warmup=5)
-    moved_c = chain_bytes(cparams, ci12,
-                          kchain.chain_classify_cuda(cparams, cvp, ci12, H))
+    # What the wrapper's host time is made of: carving the output views
+    # from the one buffer, and the operand checks.
+    step = kchain.chain_step_entry(cparams, cvp, H, si12.dir_sharers.shape[0]
+                                   // cparams.directory.associativity)
+    buf = torch.empty(step.layout.nbytes, dtype=torch.uint8, device=dev)
+    n_views = sum(t is not None for nt in step.layout.carve(buf, None)
+                  for t in nt)
+    carve_ms = host_ms(lambda: step.layout.carve(buf, None))
+    check_ms = host_ms(lambda: (step.bind_pass(si12), step.check(si12)))
+    alloc_ms = host_ms(lambda: torch.empty(step.layout.nbytes,
+                                           dtype=torch.uint8, device=dev))
+    n_alloc = allocations(lambda: kchain.chain_step_cuda(cparams, cvp, si12,
+                                                         H))
+    check(n_alloc == 1, f"chain_classify: the wrapper makes {n_alloc} "
+                        f"device allocations per call, not one")
+    print(f"kernel chain_classify: one device allocation per call; "
+          f"wrapper parts on the host, per call: "
+          f"carving {n_views} output views {carve_ms:.6f} ms, the operand "
+          f"checks {check_ms:.6f} ms, the one allocation {alloc_ms:.6f} ms")
+    n_fold = device_kernels(lambda: kchain.chain_rows(
+        si12.dir_word, si12.dir_sharers, kchain.chain_head(
+            cparams, si12.mq_req, si12.mq_delta, si12.mq_extra, si12.head,
+            si12.stopped, si12.stop_hi, si12.base, H).fidx))
+    print(f"kernel chain_classify: the plain chain_head + chain_rows launch "
+          f"{n_fold} device kernels on these operands (the gathers the "
+          f"pass issued before its classify kernel until the step was "
+          f"fused)")
+    moved_c = chain_bytes(cparams, si12,
+                          *kchain.chain_step(cparams, cvp, si12, H))
     bound_c = moved_c / HBM_BYTES_PER_S * 1e3
-    print(f"kernel chain_classify: {ms_c:.6f} ms/launch (wrapper), plain "
-          f"{plain_c:.6f} ms, bound {bound_c:.6f} ms ({moved_c} bytes the "
-          f"function reads and writes on these operands, at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: none on "
-          f"{card}")
+    print(f"kernel chain_classify: {ms_c:.6f} ms/launch (wrapper), device "
+          f"{fmt_ms(dev_c)} per launch, plain {plain_c:.6f} ms, bound "
+          f"{bound_c:.9f} ms ({moved_c} bytes the function reads and "
+          f"writes on these operands, at {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s), library call: none on {card}")
 
     # fast_forward_walk at F = 64
     fparams = config(**{"tpu/fast_forward": FF,
@@ -844,28 +1004,28 @@ def main() -> int:
               for i, fi in enumerate(rff.seen)]
     err_f, engaged_f = 0, 0
     for p, v, label, fi in cases:
-        got = kwin.fast_forward_walk_cuda(p, v, fi)
-        ref = kwin.fast_forward_walk(p, v, fi)
+        got, ref = ff_pair(kwin, p, v, fi)
         torch.cuda.synchronize()
         err_f = max(err_f, compare("fast_forward_walk", got, ref, label))
         engaged_f += int((ref.n_ret > 0).sum().item())
     check(engaged_f > 0, "no tile engaged in any fast_forward_walk set")
     print(f"kernel fast_forward_walk: {len(cases)} operand sets "
           f"({len(rff.seen)} captured), {engaged_f} engaged tiles, every "
-          f"output field equal to the plain form (max abs err {err_f})")
+          f"output field equal to the plain form, the written leaves the "
+          f"operands' own (max abs err {err_f})")
     fi_cap = rff.seen[-1]
-    ms_f = time_cuda(lambda: kwin.fast_forward_walk_cuda(fparams, fvp,
-                                                         fi_cap),
-                     iters=500, warmup=50)
-    plain_f = time_cuda(lambda: kwin.fast_forward_walk(fparams, fvp, fi_cap),
-                        iters=50, warmup=5)
+    ms_f, dev_f, plain_f = ff_times(kwin, fparams, fvp, fi_cap)
+    # clock, n_ret and the counters: no clone of the state it updates
+    n_alloc = allocations(lambda: kwin.fast_forward_walk_cuda(
+        fparams, fvp, clone_operands(fi_cap)))
+    n_clone = allocations(lambda: clone_operands(fi_cap))
+    check(n_alloc - n_clone == 3,
+          f"fast_forward_walk: the wrapper makes {n_alloc - n_clone} device "
+          f"allocations per call, not 3 (its fresh outputs)")
     moved_f = ff_bytes(fparams, fvp, fi_cap)
     bound_f = moved_f / HBM_BYTES_PER_S * 1e3
-    dev_f = device_ms(lambda: kwin.fast_forward_walk_cuda(fparams, fvp,
-                                                          fi_cap),
-                      "fast_forward_walk_kernel")
-    print(f"kernel fast_forward_walk: {ms_f:.6f} ms/launch (wrapper, clones "
-          f"included), device {fmt_ms(dev_f)} per launch, plain "
+    print(f"kernel fast_forward_walk: {ms_f:.6f} ms/launch (wrapper), "
+          f"device {fmt_ms(dev_f)} per launch, plain "
           f"{plain_f:.6f} ms, bound {bound_f:.9f} ms "
           f"({moved_f} bytes the function reads and writes on these "
           f"operands, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: "
@@ -915,9 +1075,9 @@ def main() -> int:
           f"own (max abs err {err_w})")
     walk_line("K=64 P=0", fparams, fvp, rww.seen[-1])
     walk_line(f"K=64 P={CHAIN}", fcparams, fcvp, rwc.seen[-1])
-    # The fast-forward simulations and their recorded operands are done
-    # with; phase 7 continues only cap_sim and csim.
-    del fsim, fcsim, rff, rww, rwc, cases, fi_cap, wi, got, ref
+    # The other fast-forward simulation and the recorded operands are done
+    # with; phase 7 continues cap_sim, csim and fsim.
+    del fcsim, rff, rww, rwc, cases, fi_cap, wi, got, ref
 
     stamp("phase 3: kernels held against their plain forms")
 
@@ -1064,27 +1224,38 @@ def main() -> int:
 
     # The radix run serves no fan-out, so phase 3's captured iterations
     # leave the fan-out rank, the [KF, T] invalidation masks and the
-    # max-hop legs to the seeded operands.  An untimed second fft64 run
-    # records its first iterations that serve a fan-out (the plain form
-    # picks them), and the kernel is held against the plain form on each.
-    with Recorder(kres.kchain, "run_chain",
-                  lambda ci: bool(kchain.chain_classify(
-                      cparams, cvp, ci, H).fan_go.any()), FFT_CAPTURED) as rf:
-        Simulator(cparams, fft, device=dev).run()
+    # max-hop legs to the seeded operands.  An untimed second fft64 run,
+    # stopped once it has them, records its first iterations that serve a
+    # fan-out (the plain form picks them), and the kernel is held against
+    # the plain form on each.
+    with Recorder(kres.kchain, "run_chain_step",
+                  lambda si: bool(kchain.chain_step(
+                      cparams, cvp, si, H)[1].fan_go.any()),
+                  FFT_CAPTURED) as rf:
+        fsim2 = Simulator(cparams, fft, device=dev)
+        for step in range(1, FFT_ROUND_CTR):
+            if len(rf.seen) == FFT_CAPTURED or bool(fsim2.state.done.all()):
+                break
+            fsim2.run(max_steps=step)
+        del fsim2
     check(len(rf.seen) == FFT_CAPTURED,
           f"fft64: captured {len(rf.seen)} fan-out iterations, want "
           f"{FFT_CAPTURED}")
     served = 0
-    for i, ci in enumerate(rf.seen):
-        got = kchain.chain_classify_cuda(cparams, cvp, ci, H)
-        ref = kchain.chain_classify(cparams, cvp, ci, H)
+    for i, si in enumerate(rf.seen):
+        got, ref = step_pair(kchain, cparams, cvp, si, H)
         torch.cuda.synchronize()
-        err_c = max(err_c, compare("chain_classify", got, ref,
-                                   f"captured fft64 fan-out iteration {i}"))
-        served += int(ref.fan_go.sum().item())
+        err_c = max(err_c, compare_step(
+            got, ref, f"captured fft64 fan-out iteration {i}"))
+        served += int(ref[1].fan_go.sum().item())
+    sif = rf.seen[0]
+    dev_cf = device_ms(lambda: kchain.chain_step_cuda(cparams, cvp, sif, H),
+                       "chain_classify_kernel")
     print(f"kernel chain_classify: {len(rf.seen)} fft64 iterations with "
           f"{served} fan-outs served, every output field equal to the plain "
-          f"form (max abs err {err_c})")
+          f"form (max abs err {err_c}); device {fmt_ms(dev_cf)} per launch "
+          f"on the first (fan-out rank, masks and their barrier live) on "
+          f"{card}")
 
     stamp("phase 6: chain-12 radix64 and fft64")
 
@@ -1148,17 +1319,23 @@ def main() -> int:
               f"{peak_line(held)}, "
               f"window_walk launches {lw}, chain_classify launches {lc}, "
               f"fast_forward_walk launches {lf} on {card}")
-        return s, lf, lc, fan, fb
+        return s, lf, lc, fan, fb, 1e3 * wall / r
 
-    s, lf_span, lc_f, _, _ = ff_run("radix64_ff_span", fparams, trace,
-                                    FF_SPAN_CTRS, FF_SPAN_COMPLETION_PS)
+    s, lf_span, lc_f, _, _, wall_ms_ff = ff_run(
+        "radix64_ff_span", fparams, trace, FF_SPAN_CTRS,
+        FF_SPAN_COMPLETION_PS)
     check(lf_span > 0 and lc_f == 0,
           f"radix64_ff_span: fast_forward_walk launches {lf_span}, "
           f"chain_classify launches {lc_f}")
     check(s.total_instructions == FULL_ICOUNT,
           f"radix64_ff_span: icount {s.total_instructions} != {FULL_ICOUNT}")
     stamp("phase 8: radix64_ff_span")
-    _, lf, lc, fan, fb = ff_run("fft64_ff_span", fcparams, fft,
+    # Phase 7's fast-forward stretch, held against the run just made.
+    profile_stretch(fsim, wall_ms_ff, card, "radix64_ff_span",
+                    ["window_walk", "fast_forward_walk"], quanta=4)
+    del fsim
+    stamp("phase 7: fast-forward stretch profiled")
+    _, lf, lc, fan, fb, _ = ff_run("fft64_ff_span", fcparams, fft,
                                 FFT_FF_SPAN_CTRS, FFT_FF_SPAN_COMPLETION_PS)
     check(lf > 0 and lc > 0 and fan == FFT_FF_FANOUT_SERVED
           and fb == FFT_FF_SPAN_FALLBACK,
@@ -1166,7 +1343,7 @@ def main() -> int:
           f"launches {lc}, chain_fanout_served {fan} / chain_fallback {fb} "
           f"!= {FFT_FF_FANOUT_SERVED} / {FFT_FF_SPAN_FALLBACK}")
     stamp("phase 8: fft64_ff_span")
-    s, lf, lc, fan, fb = ff_run(
+    s, lf, lc, fan, fb, _ = ff_run(
         "fft64_ff", config(**{"tpu/fast_forward": FF,
                               "tpu/miss_chain": CHAIN}),
         fft, FFT_FF_CTRS, FFT_FF_COMPLETION_PS)

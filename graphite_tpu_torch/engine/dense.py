@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.engine.ops import lshr, scatter
+from graphite_tpu_torch.params import SimParams
 
 DENSE_MAX_ELEMS = 1 << 22
 
@@ -78,6 +79,28 @@ def home_fold(line: torch.Tensor, n: int) -> torch.Tensor:
     bits = max(n.bit_length() - 1, 1)
     x = line ^ (line >> bits) ^ (line >> (2 * bits)) ^ (line >> (3 * bits))
     return (x % n).to(torch.int32)
+
+
+def home_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
+    """Home (memory-controller/directory) tile of a line."""
+    return home_fold(line, params.dram.num_controllers) \
+        * params.dram.controller_home_stride
+
+
+def dram_site_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
+    """Memory-controller tile for a line (== home for private L2)."""
+    return home_fold(line, params.dram.num_controllers) \
+        * params.dram.controller_home_stride
+
+
+def dir_set_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
+    """Directory set within a home tile, XOR-folding the high line bits."""
+    ndsets = params.directory.num_sets
+    nslices = params.dram.num_controllers
+    x = line // nslices
+    bits = ndsets.bit_length() - 1
+    x = x ^ (x >> bits) ^ (x >> (2 * bits)) ^ (x >> (3 * bits))
+    return (x % ndsets).to(torch.int32)
 
 
 def fcfs_keys(active: torch.Tensor, issue: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@
     at first use and loads each library with ctypes.
   * ``window.py``   — the block-window walk (``csrc/window_walk.cu``) and
     the analytic fast-forward walk (``csrc/fast_forward_walk.cu``).
-  * ``chain.py``    — one chain-replay iteration's classify step
-    (``csrc/chain_classify.cu``).
+  * ``chain.py``    — one chain-replay iteration: the chain-head and
+    directory-row gathers and the classify step
+    (``csrc/chain_classify.cu``, one launch).
   * ``operands.py`` — seeded operands of the kernels, for the tests and
     ``chip_smoke.py``.
 """

@@ -1,5 +1,5 @@
-"""One chain-replay iteration's classify step: its plain PyTorch form and
-its CUDA kernel.
+"""One chain-replay iteration: the chain-head and directory-row gathers
+and the classify step, in plain PyTorch and as one CUDA kernel.
 
 ``chain_classify`` is the sub-chain that every iteration of
 ``resolve.chain_fast_pass`` runs for every tile's current chain head:
@@ -10,23 +10,29 @@ timing legs and, with the DRAM queue model off, the completion time and
 the per-line floor write.  It is the counterpart of
 ``graphite_tpu/engine/kernels/chain.py:134``, transliterated for this
 slice's configuration: simple cores, private L1/L2 under MSI, a
-full-map directory, zero-load networks.
+full-map directory, zero-load networks.  The JAX package gathers each
+iteration's heads and directory rows outside its Pallas kernel
+(``graphite_tpu/engine/resolve.py:264-285``); here they are part of the
+step (:func:`chain_head`, :func:`chain_rows`).
 
-Two forms compute the same function:
+Two forms compute one iteration from the state's own arrays
+(:class:`ChainStepIn`):
 
-  * :func:`chain_classify` — plain PyTorch, with the JAX package's
-    [T, T] rank masks and H-slot scatter tables.  The CPU tests hold it
-    against the JAX function field for field.
-  * ``csrc/chain_classify.cu`` — a CUDA kernel for ``sm_90a``: one block,
-    one thread per tile, the H-sized tables in shared memory.
+  * :func:`chain_step` — plain PyTorch: :func:`chain_head`,
+    :func:`chain_rows` and :func:`chain_classify`, the last with the JAX
+    package's [T, T] rank masks and H-slot scatter tables.  The CPU
+    tests hold :func:`chain_classify` against the JAX function field for
+    field, and :func:`chain_step` against it on state-level operands.
+  * ``csrc/chain_classify.cu`` — ONE CUDA launch for ``sm_90a`` per
+    iteration: one block, one thread per tile for the per-tile work and
+    the whole block for the tables, the directory-row staging and the
+    invalidation masks; every output leaf a view of one device buffer
+    (:class:`StepLayout`), the floor table updated in place.
 
-:func:`run_chain` picks between them by the tensors' device, like
+:func:`run_chain_step` picks between them by the tensors' device, like
 ``window.run_window``; the wrapper counts its launches in
-``dispatch.COUNTS``.
-
-What stays outside, in ``resolve.chain_fast_pass``: the chain-head and
-directory-row gathers, the DRAM queue probe (its ring is loop-carried)
-and the apply scatters.
+``dispatch.COUNTS``.  What stays in ``resolve.chain_fast_pass``: the
+DRAM queue probe (its ring is loop-carried) and the apply scatters.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from graphite_tpu_torch.engine import directory as dirmod
 from graphite_tpu_torch.engine import noc
 from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.ops import first_true, scatter, umod64
-from graphite_tpu_torch.engine.state import (dword_owner, dword_stamp,
+from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
+                                             dword_owner, dword_stamp,
                                              dword_state, dword_tag)
 from graphite_tpu_torch.engine.vparams import VariantParams
 from graphite_tpu_torch.params import SimParams
@@ -122,6 +129,88 @@ class ChainOut(NamedTuple):
     completion: Optional[torch.Tensor]  # [T] int64 (queue off only)
     t_data: Optional[torch.Tensor]      # [T] int64 (queue off only)
     ftbl: Optional[torch.Tensor]        # [2, H] int64 (queue off only)
+
+
+class ChainHead(NamedTuple):
+    """Each tile's current chain head, as the apply code of
+    ``resolve.chain_fast_pass`` reads it (all [T]): the first ten fields
+    of :class:`ChainIn`."""
+
+    active: torch.Tensor      # bool
+    is_ex: torch.Tensor       # bool
+    is_if: torch.Tensor       # bool
+    line: torch.Tensor        # int64
+    issue: torch.Tensor       # int64
+    extra: torch.Tensor       # int64
+    home: torch.Tensor        # int32
+    dset: torch.Tensor        # int32
+    fidx: torch.Tensor        # int32
+    hidx: torch.Tensor        # int32
+
+
+class ChainStepIn(NamedTuple):
+    """One replay iteration's operands as the state holds them: the
+    [P, T] chain bank, the pass's head / stop / base carry, the directory
+    arrays and the pass's periods."""
+
+    mq_req: torch.Tensor       # [P, T] int64 banked elements
+    mq_delta: torch.Tensor     # [P, T] int64
+    mq_extra: torch.Tensor     # [P, T] int64
+    head: torch.Tensor         # [T] int32 served elements (the head index)
+    stopped: torch.Tensor      # [T] bool chains demoted this pass
+    stop_hi: torch.Tensor      # [T] int32 banked elements (mq_count)
+    base: torch.Tensor         # [T] int64 last served completion
+    dir_word: torch.Tensor     # [A, T * ndsets] int64
+    dir_sharers: torch.Tensor  # [W * A, T * ndsets] int64 (uint64 bits)
+    p_net: torch.Tensor        # [T] int32 periods
+    p_dir: torch.Tensor
+    p_l2: torch.Tensor
+    p_l1d: torch.Tensor
+    p_l1i: torch.Tensor
+    p_core: torch.Tensor
+    ftbl: Optional[torch.Tensor]  # [2, H] int64 (DRAM queue model off)
+
+
+def chain_head(params: SimParams, mq_req, mq_delta, mq_extra, head,
+               stopped, stop_hi, base, H: int) -> ChainHead:
+    """Each tile's current chain head and its directory coordinates (the
+    JAX ``slot_body``'s head gathers, graphite_tpu/engine/resolve.py).
+    An election loser retries the same element next iteration while the
+    winner's chain moves on; element p's issue point is the previous
+    element's completion (the carried base) plus its recorded delta."""
+    P = params.miss_chain
+    ndsets = params.directory.num_sets
+    hsel = torch.clamp(head, 0, P - 1).to(torch.int64)[None, :]
+    req = torch.gather(mq_req, 0, hsel)[0]
+    delta = torch.gather(mq_delta, 0, hsel)[0]
+    extra = torch.gather(mq_extra, 0, hsel)[0]
+    active = (~stopped) & (head < stop_hi)
+    kind = (req & 7).to(torch.int32)
+    line = torch.where(active, req >> 8, 0)
+    is_ex = active & (kind == PEND_EX_REQ)
+    is_if = active & (kind == PEND_IFETCH)
+    home = dense.home_of_line(params, line)
+    dset = dense.dir_set_of_line(params, line)
+    fidx = (home * ndsets + dset).to(torch.int32)
+    issue = base + delta
+    hidx = umod64(dense.fmix64(line), H).to(torch.int32)
+    return ChainHead(active=active, is_ex=is_ex, is_if=is_if, line=line,
+                     issue=issue, extra=extra, home=home, dset=dset,
+                     fidx=fidx, hidx=hidx)
+
+
+def chain_rows(dir_word: torch.Tensor, dir_sharers: torch.Tensor,
+               fidx: torch.Tensor):
+    """The directory entry rows at each head's (home, dset): drow [T, A]
+    and dsharers [T, A, W], one gather each."""
+    A = dir_word.shape[0]
+    W = dir_sharers.shape[0] // A
+    T = fidx.shape[0]
+    f = fidx.to(torch.int64)
+    drow = dir_word[:, f].T.contiguous()
+    dsharers = dir_sharers[:, f].reshape(W, A, T).permute(2, 1, 0) \
+        .contiguous()
+    return drow, dsharers
 
 
 def check_chain_config(params: SimParams) -> None:
@@ -357,188 +446,339 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
     )
 
 
+
+
 # ------------------------------------------------------- the CUDA kernel
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
 
-# Sharer-bitmap words a thread holds in registers (kMaxWords in the .cu):
-# one block of one thread per tile serves T <= 512.
+# Sharer-bitmap words per directory entry the kernel takes (T <= 512).
 MAX_WORDS = 8
 
-_IN_PTRS = ("active", "is_ex", "is_if", "line", "issue", "extra", "home",
-            "dset", "fidx", "hidx", "drow", "dsharers", "p_net", "p_dir",
-            "p_l2", "p_l1d", "p_l1i", "p_core", "ftbl_in")
-_OUT_PTRS = ("way", "hit", "serve", "serve_all", "member", "member_add",
-             "hard_stop", "fan_go", "owner_leg", "evicting", "owner",
-             "ow_slot", "down_to", "new_state", "new_owner", "delta_sh",
-             "dram_read", "dram_write", "need_read", "dram_wb", "t_dir",
-             "owner_ps", "inv_ps", "reply_ps", "from_dram_ps",
-             "dram_arrival", "l1_fill_ps", "inv_bool", "line_fr",
-             "inv_count", "completion", "t_data", "ftbl_out")
-_SCALARS = ("T", "A", "W", "H", "KF", "fanout", "queue_on", "ndsets",
-            "mesh_width", "net_magic", "hop_cycles", "ser_req", "ser_data",
+# One fused launch writes every ChainHead and ChainOut leaf into ONE
+# device buffer: the [T] int64 leaves, then the other int64 leaves, the
+# [T] int32 leaves and the bool leaves, so each leaf is aligned to its
+# element size.  _LEAVES is the order of the kernel's off_* offsets.
+_ROWS_I64 = ("line", "issue", "extra", "t_dir", "owner_ps", "inv_ps",
+             "reply_ps", "from_dram_ps", "dram_arrival", "l1_fill_ps",
+             "inv_count", "completion", "t_data")
+_ROWS_I32 = ("home", "dset", "fidx", "hidx", "way", "owner", "ow_slot",
+             "down_to", "new_state", "new_owner")
+_ROWS_B = ("active", "is_ex", "is_if", "hit", "serve", "serve_all",
+           "member", "member_add", "hard_stop", "fan_go", "owner_leg",
+           "evicting", "dram_read", "dram_write", "need_read", "dram_wb")
+_LEAVES = _ROWS_I64 + ("delta_sh", "line_fr") + _ROWS_I32 + _ROWS_B \
+    + ("inv_bool",)
+_QUEUE_OFF = ("completion", "t_data")
+_FANOUT = ("line_fr", "inv_bool")
+
+
+class StepLayout:
+    """Where each output leaf of one fused launch lies in its buffer
+    (``offsets``: byte offset, -1 for a leaf the configuration leaves
+    None), and the carving of such a buffer into the ChainHead and
+    ChainOut views (ChainOut.ftbl is the caller's, updated in place)."""
+
+    def __init__(self, params: SimParams, W: int):
+        T = params.num_tiles
+        KF = min(params.max_inv_fanout_per_round, T)
+        absent = set()
+        if params.dram.queue_model_enabled:
+            absent.update(_QUEUE_OFF)
+        if not params.fanout_replay:
+            absent.update(_FANOUT)
+        i64, i32, b = torch.int64, torch.int32, torch.bool
+        size = {i64: 8, i32: 4, b: 1}
+        # (dtype, names, leaf shape, a group of [T] rows?)
+        groups = [
+            (i64, [n for n in _ROWS_I64 if n not in absent], (T,), True),
+            (i64, ["delta_sh"], (T, W), False),
+            (i64, [n for n in ("line_fr",) if n not in absent], (KF,),
+             False),
+            (i32, list(_ROWS_I32), (T,), True),
+            (b, list(_ROWS_B), (T,), True),
+            (b, [n for n in ("inv_bool",) if n not in absent], (KF, T),
+             False),
+        ]
+        self.offsets = {n: -1 for n in _LEAVES}
+        # (start, stop, dtype, view shape, unbind): a group of [T] rows is
+        # one [n, T] view unbound into its rows.
+        self._plan = []
+        carved = []
+        off = 0
+        for dtype, names, shape, rows in groups:
+            if not names:
+                continue
+            per = size[dtype] * int(torch.Size(shape).numel())
+            for k, n in enumerate(names):
+                self.offsets[n] = off + k * per
+            stop = off + per * len(names)
+            self._plan.append((off, stop, dtype,
+                               (len(names), T) if rows else shape, rows))
+            carved += names
+            off = (stop + 7) & ~7
+        self.nbytes = off
+        # Where each ChainHead / ChainOut field lies in the carved leaves
+        # (then None, then the caller's floor table).
+        where = {n: k for k, n in enumerate(carved)}
+        self._head = [where[f] for f in ChainHead._fields]
+        self._out = [where.get(f, len(carved) + (f == "ftbl"))
+                     for f in ChainOut._fields]
+
+    def carve(self, buf: torch.Tensor, ftbl: Optional[torch.Tensor]):
+        """(ChainHead, ChainOut) views of ``buf`` (uint8, ``nbytes``)."""
+        leaves = []
+        for start, stop, dtype, shape, rows in self._plan:
+            v = buf[start:stop].view(dtype).view(shape)
+            if rows:
+                leaves += v.unbind(0)
+            else:
+                leaves.append(v)
+        leaves += (None, ftbl)
+        return (ChainHead._make([leaves[k] for k in self._head]),
+                ChainOut._make([leaves[k] for k in self._out]))
+
+
+def fast_divisor(d: int):
+    """(d, magic, shift) for the kernel's exact uint64 division by d
+    without a divide instruction (the branch-free round-up method):
+    q = (((x - hi) >> 1) + hi) >> shift with hi = mulhi(magic, x); a
+    power of two has magic 0, and d = 1 is the kernel's identity."""
+    d = int(d)
+    if d < 1:
+        raise ValueError(f"divisor {d} < 1")
+    if d == 1:
+        return (1, 0, 0)
+    fl = d.bit_length() - 1
+    if d & (d - 1) == 0:
+        return (d, 0, fl - 1)
+    return (d, ((1 << (65 + fl)) // d + 1) & ((1 << 64) - 1), fl)
+
+
+class _FastDiv(ctypes.Structure):
+    """Mirror of ``struct FastDiv`` in csrc/chain_classify.cu."""
+
+    _fields_ = [("d", ctypes.c_uint64), ("magic", ctypes.c_uint64),
+                ("shift", ctypes.c_int64)]
+
+
+_IN_PTRS = ChainStepIn._fields + ("out",)
+# The operands one chain pass holds fixed: checked, and their pointers
+# set, when they are new tensors.
+_PASS_FIELDS = ("mq_req", "mq_delta", "mq_extra", "stop_hi", "p_net",
+                "p_dir", "p_l2", "p_l1d", "p_l1i", "p_core", "ftbl")
+_SCALARS = ("T", "P", "A", "W", "D", "H", "KF", "fanout", "queue_on",
+            "ndsets", "home_stride", "fold_bits", "dset_bits", "mesh_width",
+            "net_magic", "hop_cycles", "ser_req", "ser_data",
             "inv_ack_cycles", "dir_cycles", "l2_cycles", "l1d_cycles",
             "l1i_cycles", "dram_latency_ps", "dram_processing_ps")
+_DIVS = ("div_h", "div_ctrl", "div_dsets")
 
 
-class _ChainArgs(ctypes.Structure):
-    """Mirror of ``struct ChainArgs`` in csrc/chain_classify.cu: pointers,
-    then int64 scalars only, so the layout has no padding."""
+class _StepArgs(ctypes.Structure):
+    """Mirror of ``struct StepArgs`` in csrc/chain_classify.cu: pointers,
+    the output offsets, int64 scalars, then the divisors — every field 8
+    bytes, so the layout has no padding."""
 
-    _fields_ = [(n, ctypes.c_void_p) for n in _IN_PTRS + _OUT_PTRS] \
-        + [(n, ctypes.c_int64) for n in _SCALARS]
+    _fields_ = [(n, ctypes.c_void_p) for n in _IN_PTRS] \
+        + [("off_" + n, ctypes.c_int64) for n in _LEAVES] \
+        + [(n, ctypes.c_int64) for n in _SCALARS] \
+        + [(n, _FastDiv) for n in _DIVS]
 
 
 def _check(name, t, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f"chain_classify: {name} is on {t.device}, not {dev}")
-    if t.dtype != dtype:
-        raise ValueError(f"chain_classify: {name} is {t.dtype}, not {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"chain_classify: {name} has shape "
-                         f"{tuple(t.shape)}, not {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"chain_classify: {name} is not contiguous")
-
-
-def _check_inputs(params: SimParams, ci: ChainIn, H: int) -> None:
-    """Device, dtype, shape and contiguity of every operand."""
-    dev = ci.line.device
-    T = params.num_tiles
-    A = params.directory.associativity
-    W = ci.dsharers.shape[2]
-    i32, i64, b = torch.int32, torch.int64, torch.bool
-    for name, t, dt, shape in (
-            ("active", ci.active, b, (T,)), ("is_ex", ci.is_ex, b, (T,)),
-            ("is_if", ci.is_if, b, (T,)), ("line", ci.line, i64, (T,)),
-            ("issue", ci.issue, i64, (T,)), ("extra", ci.extra, i64, (T,)),
-            ("home", ci.home, i32, (T,)), ("dset", ci.dset, i32, (T,)),
-            ("fidx", ci.fidx, i32, (T,)), ("hidx", ci.hidx, i32, (T,)),
-            ("drow", ci.drow, i64, (T, A)),
-            ("dsharers", ci.dsharers, i64, (T, A, W)),
-            ("p_net", ci.p_net, i32, (T,)), ("p_dir", ci.p_dir, i32, (T,)),
-            ("p_l2", ci.p_l2, i32, (T,)), ("p_l1d", ci.p_l1d, i32, (T,)),
-            ("p_l1i", ci.p_l1i, i32, (T,)),
-            ("p_core", ci.p_core, i32, (T,))):
-        _check(name, t, dt, shape, dev)
-    queue_on = params.dram.queue_model_enabled
-    if queue_on != (ci.ftbl is None):
-        raise ValueError("chain_classify: ftbl is given iff the DRAM queue "
-                         "model is off")
-    if ci.ftbl is not None:
-        _check("ftbl", ci.ftbl, i64, (2, H), dev)
-    if T > 64 * MAX_WORDS or W > MAX_WORDS or A > 32:
+    if t.device != dev or t.dtype != dtype or t.shape != shape \
+            or not t.is_contiguous():
         raise ValueError(
-            f"chain_classify: T = {T}, W = {W}, A = {A} exceed the "
-            f"kernel's limits (T <= {64 * MAX_WORDS}, at most {MAX_WORDS} "
-            f"sharer words per row, A <= 32 ways)")
+            f"chain_classify: {name} is {t.dtype}{tuple(t.shape)} on "
+            f"{t.device} (contiguous: {t.is_contiguous()}), not "
+            f"{dtype}{tuple(shape)} on {dev}, contiguous")
 
 
-def _alloc_out(params: SimParams, ci: ChainIn, H: int) -> ChainOut:
-    """Fresh output tensors; fields a configuration leaves None stay
-    None (the kernel skips them by its flags)."""
-    dev = ci.line.device
-    T = params.num_tiles
-    W = ci.dsharers.shape[2]
-    KF = min(params.max_inv_fanout_per_round, T)
-    fanout = params.fanout_replay
-    queue_on = params.dram.queue_model_enabled
+class _Step:
+    """The fused launch at one (params, vp, H, W): the loaded library,
+    the argument struct with every scalar and output offset filled, the
+    output layout and the shared-memory size.  Per call only the
+    pointers are set."""
 
-    def e(dtype, shape=(T,)):
-        return torch.empty(shape, dtype=dtype, device=dev)
+    def __init__(self, params: SimParams, vp: VariantParams, H: int,
+                 W: int):
+        check_chain_config(params)
+        net = params.net_memory
+        noc._zero_load_only(net)
+        T = params.num_tiles
+        A = params.directory.associativity
+        KF = min(params.max_inv_fanout_per_round, T)
+        if T > 64 * MAX_WORDS or W != (T + 63) // 64 or A > 32:
+            raise ValueError(
+                f"chain_classify: T = {T}, W = {W}, A = {A} outside the "
+                f"kernel's limits (T <= {64 * MAX_WORDS}, W = ceil(T / "
+                f"64) sharer words per entry, A <= 32 ways)")
+        from graphite_tpu_torch.engine.kernels import build
+        self.lib = build.load("chain_classify")
+        fn = self.lib.chain_classify_smem_bytes
+        fn.argtypes = [ctypes.c_int64] * 5
+        fn.restype = ctypes.c_size_t
+        self.smem = int(fn(T, A, W, H, KF))
+        if self.smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"chain_classify: tables and directory rows need "
+                f"{self.smem} bytes of shared memory, more than "
+                f"{MAX_SMEM_BYTES}")
+        self.params, self.vp, self.H, self.W = params, vp, H, W
+        self.layout = StepLayout(params, W)
+        self.pass_ops = None      # the pass operands last checked
+        nctrl = params.dram.num_controllers
+        ndsets = params.directory.num_sets
+        fw = vp.net_memory.flit_width_bits
+        a = _StepArgs(
+            **{"off_" + n: o for n, o in self.layout.offsets.items()},
+            T=T, P=params.miss_chain, A=A, W=W, D=T * ndsets, H=H, KF=KF,
+            fanout=int(params.fanout_replay),
+            queue_on=int(params.dram.queue_model_enabled),
+            ndsets=ndsets, home_stride=params.dram.controller_home_stride,
+            fold_bits=max(nctrl.bit_length() - 1, 1),
+            dset_bits=ndsets.bit_length() - 1,
+            mesh_width=params.mesh_width,
+            net_magic=int(net.model == "magic"),
+            hop_cycles=vp.net_memory.router_delay_cycles
+            + vp.net_memory.link_delay_cycles,
+            ser_req=max(noc.num_flits(CTRL_BYTES, fw) - 1, 0),
+            ser_data=max(noc.num_flits(params.line_size + CTRL_BYTES, fw)
+                         - 1, 0),
+            inv_ack_cycles=vp.inv_ack_cycles,
+            dir_cycles=vp.dir_access_cycles, l2_cycles=vp.l2_access_cycles,
+            l1d_cycles=vp.l1d_access_cycles,
+            l1i_cycles=vp.l1i_access_cycles,
+            dram_latency_ps=vp.dram_latency_ps,
+            dram_processing_ps=vp.dram_processing_ps,
+            div_h=_FastDiv(*fast_divisor(H)),
+            div_ctrl=_FastDiv(*fast_divisor(nctrl)),
+            div_dsets=_FastDiv(*fast_divisor(ndsets)))
+        self.args, self.addr = a, ctypes.addressof(a)
 
-    i32, i64, b = torch.int32, torch.int64, torch.bool
-    return ChainOut(
-        way=e(i32), hit=e(b), serve=e(b), serve_all=e(b), member=e(b),
-        member_add=e(b), hard_stop=e(b), fan_go=e(b), owner_leg=e(b),
-        evicting=e(b), owner=e(i32), ow_slot=e(i32), down_to=e(i32),
-        new_state=e(i32), new_owner=e(i32), delta_sh=e(i64, (T, W)),
-        dram_read=e(b), dram_write=e(b), need_read=e(b), dram_wb=e(b),
-        t_dir=e(i64), owner_ps=e(i64), inv_ps=e(i64), reply_ps=e(i64),
-        from_dram_ps=e(i64), dram_arrival=e(i64), l1_fill_ps=e(i64),
-        inv_bool=e(b, (KF, T)) if fanout else None,
-        line_fr=e(i64, (KF,)) if fanout else None,
-        inv_count=e(i64),
-        completion=None if queue_on else e(i64),
-        t_data=None if queue_on else e(i64),
-        ftbl=None if queue_on else e(i64, (2, H)))
+    def bind_pass(self, si: ChainStepIn) -> None:
+        """Check the operands a pass holds fixed (bank, stop count,
+        periods, floor table: device, dtype, shape, contiguity) and set
+        their pointers, when they are other tensors than last call's:
+        once per pass."""
+        fixed = tuple(getattr(si, n) for n in _PASS_FIELDS)
+        if self.pass_ops is not None and all(
+                x is y for x, y in zip(fixed, self.pass_ops)):
+            return
+        p = self.params
+        T, P = p.num_tiles, p.miss_chain
+        dev = si.base.device
+        for n in ("mq_req", "mq_delta", "mq_extra"):
+            _check(n, getattr(si, n), torch.int64, (P, T), dev)
+        for n in ("stop_hi", "p_net", "p_dir", "p_l2", "p_l1d", "p_l1i",
+                  "p_core"):
+            _check(n, getattr(si, n), torch.int32, (T,), dev)
+        if p.dram.queue_model_enabled != (si.ftbl is None):
+            raise ValueError("chain_classify: ftbl is given iff the DRAM "
+                             "queue model is off")
+        if si.ftbl is not None:
+            _check("ftbl", si.ftbl, torch.int64, (2, self.H), dev)
+        for n, t in zip(_PASS_FIELDS, fixed):
+            setattr(self.args, n, t.data_ptr() if t is not None else None)
+        self.pass_ops = fixed
+
+    def check(self, si: ChainStepIn) -> None:
+        """The per-iteration operands (the head / stop / base carry and
+        the directory arrays): device, dtype, shape and contiguity; and
+        no storage shared with the floor table, which the kernel updates
+        in place."""
+        p = self.params
+        T = p.num_tiles
+        A = p.directory.associativity
+        D = T * p.directory.num_sets
+        dev = si.base.device
+        _check("head", si.head, torch.int32, (T,), dev)
+        _check("stopped", si.stopped, torch.bool, (T,), dev)
+        _check("base", si.base, torch.int64, (T,), dev)
+        _check("dir_word", si.dir_word, torch.int64, (A, D), dev)
+        _check("dir_sharers", si.dir_sharers, torch.int64,
+               (self.W * A, D), dev)
+        if si.ftbl is not None:
+            dispatch.check_no_alias("chain_classify", si, ("ftbl",))
+
+    def __call__(self, si: ChainStepIn):
+        self.bind_pass(si)
+        self.check(si)
+        buf = torch.empty(self.layout.nbytes, dtype=torch.uint8,
+                          device=si.base.device)
+        a = self.args
+        a.head, a.stopped, a.base = (si.head.data_ptr(),
+                                     si.stopped.data_ptr(),
+                                     si.base.data_ptr())
+        a.dir_word, a.dir_sharers = (si.dir_word.data_ptr(),
+                                     si.dir_sharers.data_ptr())
+        a.out = buf.data_ptr()
+        stream = torch.cuda.current_stream(si.base.device).cuda_stream
+        err = self.lib.chain_classify_launch(self.addr, stream)
+        if err != 0:
+            from graphite_tpu_torch.engine.kernels import build
+            raise RuntimeError(
+                f"chain_classify kernel launch failed: CUDA error {err} "
+                f"({build.error_string(self.lib, err)})")
+        dispatch.COUNTS["chain_classify"] += 1
+        return self.layout.carve(buf, si.ftbl)
 
 
-def _chain_args(params: SimParams, vp: VariantParams, ci: ChainIn, H: int,
-                out: ChainOut) -> _ChainArgs:
-    """Pack pointers and scalars into the kernel's argument struct."""
-    net = params.net_memory
-    noc._zero_load_only(net)
-    T = params.num_tiles
-    ptr = {f: getattr(ci, f).data_ptr() for f in ChainIn._fields
-           if f != "ftbl"}
-    ptr["ftbl_in"] = ci.ftbl.data_ptr() if ci.ftbl is not None else None
-    for f in ChainOut._fields:
-        t = getattr(out, f)
-        ptr["ftbl_out" if f == "ftbl" else f] = \
-            t.data_ptr() if t is not None else None
-    fw = vp.net_memory.flit_width_bits
-    return _ChainArgs(
-        **ptr, T=T, A=params.directory.associativity,
-        W=ci.dsharers.shape[2], H=H,
-        KF=min(params.max_inv_fanout_per_round, T),
-        fanout=int(params.fanout_replay),
-        queue_on=int(params.dram.queue_model_enabled),
-        ndsets=params.directory.num_sets, mesh_width=params.mesh_width,
-        net_magic=int(net.model == "magic"),
-        hop_cycles=vp.net_memory.router_delay_cycles
-        + vp.net_memory.link_delay_cycles,
-        ser_req=max(noc.num_flits(CTRL_BYTES, fw) - 1, 0),
-        ser_data=max(noc.num_flits(params.line_size + CTRL_BYTES, fw) - 1,
-                     0),
-        inv_ack_cycles=vp.inv_ack_cycles, dir_cycles=vp.dir_access_cycles,
-        l2_cycles=vp.l2_access_cycles, l1d_cycles=vp.l1d_access_cycles,
-        l1i_cycles=vp.l1i_access_cycles,
-        dram_latency_ps=vp.dram_latency_ps,
-        dram_processing_ps=vp.dram_processing_ps)
+# (id(params), id(vp), H, W) -> _Step; the entry holds params and vp, so
+# their ids stay theirs while it lives.  A run uses one entry; the cache
+# is emptied when it outgrows a handful.
+_STEPS = {}
+_MAX_STEPS = 16
 
 
-def smem_bytes(lib, params: SimParams, W: int, H: int) -> int:
-    """Dynamic shared memory the kernel asks for at these shapes."""
-    T = params.num_tiles
-    KF = min(params.max_inv_fanout_per_round, T)
-    fn = lib.chain_classify_smem_bytes
-    fn.argtypes = [ctypes.c_int64] * 4
-    fn.restype = ctypes.c_size_t
-    return int(fn(T, W, H, KF))
+def chain_step_entry(params: SimParams, vp: VariantParams, H: int,
+                     W: int) -> _Step:
+    """The cached fused launch at (params, vp, H, W)."""
+    key = (id(params), id(vp), H, W)
+    step = _STEPS.get(key)
+    if step is None:
+        if len(_STEPS) >= _MAX_STEPS:
+            _STEPS.clear()
+        step = _STEPS[key] = _Step(params, vp, H, W)
+    return step
 
 
-def chain_classify_cuda(params: SimParams, vp: VariantParams, ci: ChainIn,
-                        H: int) -> ChainOut:
-    """Launch csrc/chain_classify.cu on CUDA tensors: one block, one
-    thread per tile, outputs into fresh tensors."""
-    check_chain_config(params)
-    if ci.line.device.type != "cuda":
-        raise ValueError("chain_classify_cuda takes CUDA tensors")
-    _check_inputs(params, ci, H)
-    from graphite_tpu_torch.engine.kernels import build
-    lib = build.load("chain_classify")
-    need = smem_bytes(lib, params, ci.dsharers.shape[2], H)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"chain_classify: tables need {need} bytes of "
-                         f"shared memory, more than {MAX_SMEM_BYTES}")
-    out = _alloc_out(params, ci, H)
-    a = _chain_args(params, vp, ci, H, out)
-    stream = torch.cuda.current_stream(ci.line.device).cuda_stream
-    err = lib.chain_classify_launch(ctypes.addressof(a), stream)
-    if err != 0:
-        raise RuntimeError(f"chain_classify kernel launch failed: CUDA "
-                           f"error {err} ({build.error_string(lib, err)})")
-    dispatch.COUNTS["chain_classify"] += 1
-    return out
+def chain_step_cuda(params: SimParams, vp: VariantParams, si: ChainStepIn,
+                    H: int):
+    """One replay iteration on CUDA tensors, ONE launch of
+    csrc/chain_classify.cu: the head gathers, the directory-row gathers
+    and the classify step.  Returns (ChainHead, ChainOut), every leaf a
+    view of one fresh buffer; with the DRAM queue model off the kernel
+    writes the floors into ``si.ftbl`` in place and ChainOut.ftbl is that
+    tensor."""
+    if si.base.device.type != "cuda":
+        raise ValueError("chain_step_cuda takes CUDA tensors")
+    W = si.dir_sharers.shape[0] // params.directory.associativity
+    return chain_step_entry(params, vp, H, W)(si)
 
 
-def run_chain(params: SimParams, vp: VariantParams, ci: ChainIn,
-              H: int) -> ChainOut:
-    """The classify step, dispatched by device: the CUDA kernel for CUDA
-    tensors, the plain PyTorch form for CPU tensors."""
-    if dispatch.use_kernel(ci.line):
-        return chain_classify_cuda(params, vp, ci, H)
-    return chain_classify(params, vp, ci, H)
+def chain_step(params: SimParams, vp: VariantParams, si: ChainStepIn,
+               H: int):
+    """One replay iteration in plain PyTorch: :func:`chain_head`,
+    :func:`chain_rows` and :func:`chain_classify`, out of place (the
+    floor table comes back as a new ChainOut.ftbl).  Returns (ChainHead,
+    ChainOut)."""
+    head = chain_head(params, si.mq_req, si.mq_delta, si.mq_extra, si.head,
+                      si.stopped, si.stop_hi, si.base, H)
+    drow, dsharers = chain_rows(si.dir_word, si.dir_sharers, head.fidx)
+    ci = ChainIn(*head, drow=drow, dsharers=dsharers, p_net=si.p_net,
+                 p_dir=si.p_dir, p_l2=si.p_l2, p_l1d=si.p_l1d,
+                 p_l1i=si.p_l1i, p_core=si.p_core, ftbl=si.ftbl)
+    return head, chain_classify(params, vp, ci, H)
 
+
+def run_chain_step(params: SimParams, vp: VariantParams, si: ChainStepIn,
+                   H: int):
+    """One replay iteration, dispatched by device: one launch of the
+    fused kernel for CUDA tensors (floor table in place), the plain
+    :func:`chain_step` for CPU tensors.  Returns (ChainHead, ChainOut)."""
+    if dispatch.use_kernel(si.base):
+        return chain_step_cuda(params, vp, si, H)
+    return chain_step(params, vp, si, H)

@@ -47,3 +47,24 @@ def resolve_device(device) -> torch.device:
             "graphite_tpu_torch runs on CUDA by default and no GPU is "
             "available; pass device='cpu' to run the plain PyTorch forms")
     return dev
+
+
+def check_no_alias(kernel: str, operands, written) -> None:
+    """Refuse operands (a NamedTuple of tensors or None) where a leaf the
+    kernel updates in place (a name in ``written``) shares storage with
+    any other operand: the byte ranges of the operands, sorted by start,
+    must not overlap where either one is such a leaf."""
+    written = set(written)
+    spans = sorted(
+        (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), f)
+        for f, t in zip(operands._fields, operands)
+        if t is not None and t.numel() > 0)
+    reach, holder = None, None
+    for start, end, f in spans:
+        if reach is not None and start < reach \
+                and (f in written or holder in written):
+            raise ValueError(
+                f"{kernel}: {f} shares storage with {holder}, and the "
+                f"kernel updates {f if f in written else holder} in place")
+        if reach is None or end > reach:
+            reach, holder = end, f

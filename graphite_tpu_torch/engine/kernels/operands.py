@@ -14,10 +14,10 @@ import torch
 
 from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import dense
-from graphite_tpu_torch.engine.kernels.chain import ChainIn
+from graphite_tpu_torch.engine.kernels.chain import ChainIn, ChainStepIn
 from graphite_tpu_torch.engine.kernels.window import FFIn, WindowIn
 from graphite_tpu_torch.engine.ops import umod64
-from graphite_tpu_torch.engine.resolve import dir_set_of_line, home_of_line
+from graphite_tpu_torch.engine.dense import dir_set_of_line, home_of_line
 from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
                                              PEND_SH_REQ)
 from graphite_tpu_torch.isa import DVFSModule, EventOp
@@ -477,3 +477,165 @@ def chain_in_from_numpy(arrays: dict, device) -> ChainIn:
         return torch.from_numpy(np.array(a)).to(dev)
 
     return ChainIn(**{f: conv(arrays.get(f)) for f in ChainIn._fields})
+
+
+def _flat_sets(params: SimParams, lines: np.ndarray) -> np.ndarray:
+    """Flat directory set (home * ndsets + dset) of each line."""
+    lt = torch.from_numpy(np.asarray(lines, dtype=np.int64))
+    home = home_of_line(params, lt).to(torch.int64)
+    return (home * params.directory.num_sets
+            + dir_set_of_line(params, lt)).numpy()
+
+
+def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
+    """Random operands of one replay iteration as the state holds them
+    (field name -> numpy array, :class:`ChainStepIn`'s fields), for
+    holding the fused kernel, the plain head / rows / classify and the
+    JAX function against each other.
+
+    The [P, T] bank holds shared, exclusive and ifetch requests to lines
+    from a small pool, part of which shares flat directory sets, so heads
+    share lines, sets and hash slots; heads lie anywhere in [0, mq_count]
+    (drained chains are inactive) and some chains are stopped.
+    ``dir_word [A, D]`` and ``dir_sharers [W * A, D]`` are one directory:
+    every set's ways hold I / S / M entries with pool tags (M with an
+    owner, sharer words empty, random or the owner's bit alone), and most
+    lines are resident in their sets.  On top, tiles drawn by the seed
+    carry the cases a classify step must get right (T >= 8): three
+    shared reads of one line (an election winner, then combining members
+    or losers), a hit on a shared set's least recently used line beside a
+    miss to that set (a victim way the hit excludes), an exclusive
+    request on a line other tiles share (a fan-out, or a hard stop
+    without the fan-out replay), a read of a line another tile holds in
+    M (an owner leg) and a miss to a set with an invalid way (an
+    allocation)."""
+    rng = np.random.default_rng(seed)
+    T, P = params.num_tiles, params.miss_chain
+    A = params.directory.associativity
+    W = (T + 63) // 64
+    D = T * params.directory.num_sets
+
+    # The pool: the lines of two or three shared sets (three lines each)
+    # and as many random lines.
+    cand = rng.integers(0, 1 << 24, size=max(20_000, 8 * D))
+    cf = _flat_sets(params, cand)
+    order = np.argsort(cf, kind="stable")
+    cs, cl = cf[order], cand[order]
+    starts = np.flatnonzero(np.r_[True, cs[1:] != cs[:-1]])
+    sizes = np.diff(np.r_[starts, len(cs)])
+    multi = starts[sizes >= 3]
+    groups = [[int(x) for x in cl[g:g + 3]] for g in rng.choice(
+        multi, size=min(len(multi), 2 + seed % 2), replace=False)]
+    others = [int(x) for x in rng.integers(0, 1 << 24, size=max(6, T // 2))]
+    pool = np.array([x for g in groups for x in g] + others, dtype=np.int64)
+
+    kind = rng.choice([PEND_SH_REQ, PEND_EX_REQ, PEND_IFETCH], size=(P, T),
+                      p=[0.45, 0.4, 0.15])
+    lines = rng.choice(pool, size=(P, T))
+    count = rng.integers(0, P + 1, size=T)
+    count[rng.random(T) < 0.15] = 0
+    head = (rng.random(T) * (count + 1)).astype(np.int64)
+    stopped = rng.random(T) < 0.1
+
+    st = rng.choice([I, S, S, S, M], size=(A, D))
+    st[rng.random((A, D)) < 0.2] = I
+    tags = rng.choice(others, size=(A, D))
+    stamp = rng.integers(1, 1 << 17, size=(A, D))
+    owner = np.where(st == M, rng.integers(0, T, size=(A, D)), -1)
+    bits = rng.integers(0, 1 << 64, size=(W, A, D), dtype=np.uint64)
+    if W == 1 and T < 64:
+        bits &= np.uint64((1 << T) - 1)
+    bits[rng.random((W, A, D)) < 0.25] = 0
+
+    def flat(ln):
+        return int(_flat_sets(params, [ln])[0])
+
+    def resident(ln, state, w=None):
+        f = flat(ln)
+        w = int(rng.integers(0, A)) if w is None else w
+        tags[w, f], st[w, f] = ln, state
+        return w, f
+
+    for ln in others[4:]:
+        if rng.random() < 0.75:
+            resident(ln, S)
+    # A shared set has no invalid way; its first line is resident in the
+    # least recently used way, its second line in another way half the
+    # time, and its third line never.
+    for g in groups:
+        f = flat(g[0])
+        st[:, f] = rng.choice([S, S, M], size=A)
+        tags[:, f] = rng.choice(others, size=A)
+        w0, w1 = rng.choice(A, size=2, replace=False)
+        resident(g[0], S, w0)
+        stamp[w0, f] = 0
+        if rng.random() < 0.5:
+            resident(g[1], S, w1)
+
+    def put_head(t, ln, k):
+        count[t] = max(count[t], 1)
+        head[t] = min(head[t], count[t] - 1)
+        stopped[t] = False
+        lines[head[t], t], kind[head[t], t] = ln, k
+
+    if T >= 8:
+        tl = [int(x) for x in rng.permutation(T)]
+        shared_rd, own_rd, excl_rd, alloc_rd = others[:4]
+        if rng.random() < 0.5:
+            resident(shared_rd, S)
+        for t in tl[:3]:                      # one line, three readers
+            put_head(t, shared_rd, PEND_SH_REQ)
+        g = groups[0]                         # hit beside a miss
+        put_head(tl[3], g[0], PEND_SH_REQ)
+        put_head(tl[4], g[2], PEND_SH_REQ)
+        w, f = resident(own_rd, M)            # another tile's M line
+        owner[w, f] = (tl[5] + 1 + int(rng.integers(0, T - 1))) % T
+        put_head(tl[5], own_rd, PEND_SH_REQ)
+        w, f = resident(excl_rd, S)           # others share the line
+        bits[(tl[6] + 1) % T // 64, w, f] |= np.uint64(
+            1 << ((tl[6] + 1) % T % 64))
+        put_head(tl[6], excl_rd, PEND_EX_REQ)
+        f = flat(alloc_rd)                    # a miss, an invalid way
+        tags[tags[:, f] == alloc_rd, f] = others[4]
+        st[int(rng.integers(0, A)), f] = I
+        put_head(tl[7], alloc_rd, PEND_SH_REQ)
+
+    owner = np.where(st == M, np.where(owner < 0, 0, owner), -1)
+    word = (tags.astype(np.int64) << 33) | (stamp << 16) \
+        | ((owner + 1) << 3) | st
+    bits[np.broadcast_to((st == I)[None], bits.shape)] = 0
+    k = np.arange(W)[:, None, None]
+    own_bit = np.left_shift(np.uint64(1),
+                            np.maximum(owner, 0).astype(np.uint64) % 64)
+    bits = np.where((st == M)[None], np.where(
+        k == np.maximum(owner, 0)[None] // 64, own_bit[None], 0),
+        bits).astype(np.uint64)
+
+    def periods():
+        return rng.integers(250, 1200, size=T).astype(np.int32)
+
+    ftbl = None
+    if not params.dram.queue_model_enabled:
+        ftbl = np.stack([np.where(rng.random(H) < 0.5, -1,
+                                  rng.choice(pool, size=H)),
+                         rng.integers(0, 3_000_000, size=H)]).astype(np.int64)
+    return dict(
+        mq_req=(kind | (lines << 8)).astype(np.int64),
+        mq_delta=rng.integers(0, 400_000, size=(P, T)).astype(np.int64),
+        mq_extra=rng.integers(0, 60_000, size=(P, T)).astype(np.int64),
+        head=head.astype(np.int32), stopped=stopped,
+        stop_hi=count.astype(np.int32),
+        base=rng.integers(0, 2_000_000, size=T).astype(np.int64),
+        dir_word=word.astype(np.int64),
+        dir_sharers=bits.reshape(W * A, D).view(np.int64),
+        p_net=periods(), p_dir=periods(), p_l2=periods(), p_l1d=periods(),
+        p_l1i=periods(), p_core=periods(), ftbl=ftbl)
+
+
+def chain_step_in_from_numpy(arrays: dict, device) -> ChainStepIn:
+    """A :class:`ChainStepIn` on ``device`` from numpy operands."""
+    dev = torch.device(device)
+    return ChainStepIn(**{
+        f: (torch.from_numpy(np.array(arrays[f])).to(dev)
+            if arrays.get(f) is not None else None)
+        for f in ChainStepIn._fields})

@@ -27,8 +27,10 @@ Two forms compute each function:
     per tile and one thread per event: every event classified at once,
     one thread's pass for the retire cut, then the retired events'
     effects applied in place on the state's own cache, predictor and
-    chain-bank arrays.  ``csrc/fast_forward_walk.cu`` — one thread per
-    tile walking its span in order.
+    chain-bank arrays.  ``csrc/fast_forward_walk.cu`` — the same shape
+    for the span: one block per tile, one thread per span event, the
+    clock a prefix sum, an engaged tile's touches and predictor writes
+    applied in place.
 
 :func:`run_window` and :func:`run_fast_forward` pick between them by the
 tensors' device: CPU tensors take the plain form, CUDA tensors launch
@@ -591,27 +593,6 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"window_walk: {name} is not contiguous")
 
 
-def _check_no_alias(wi: WindowIn) -> None:
-    """Refuse operands where a leaf the walk updates in place
-    (INPLACE_FIELDS) shares storage with any other operand: the byte
-    ranges of the operands, sorted by start, must not overlap where
-    either one is such a leaf."""
-    written = set(INPLACE_FIELDS)
-    spans = sorted(
-        (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), f)
-        for f, t in zip(WindowIn._fields, wi)
-        if t is not None and t.numel() > 0)
-    reach, holder = None, None
-    for start, end, f in spans:
-        if reach is not None and start < reach \
-                and (f in written or holder in written):
-            raise ValueError(
-                f"window_walk: {f} shares storage with {holder}, and the "
-                f"kernel updates {f if f in written else holder} in place")
-        if reach is None or end > reach:
-            reach, holder = end, f
-
-
 def _check_inputs(params: SimParams, wi: WindowIn) -> None:
     """Device, dtype, shape and contiguity of every operand, and no
     storage shared with a leaf the walk updates in place."""
@@ -654,7 +635,7 @@ def _check_inputs(params: SimParams, wi: WindowIn) -> None:
                 ("mq_head", i32, (T,)), ("mq_req", i64, (P, T)),
                 ("mq_delta", i64, (P, T)), ("mq_extra", i64, (P, T))):
             _check(name, getattr(wi, name), dt, shape, dev)
-    _check_no_alias(wi)
+    dispatch.check_no_alias("window_walk", wi, INPLACE_FIELDS)
 
 
 def _alloc_out(params: SimParams, wi: WindowIn) -> WindowOut:
@@ -809,6 +790,10 @@ FF_IN_AXES = dict(
 )
 FF_OUT_AXES = dict(clock=0, n_ret=0, bp_table=0, l1i_word=1, l1d_word=1,
                    ctr_inc=1)
+
+# The operands the CUDA fast-forward walk updates in place and returns as
+# the FFOut leaves of the same names.
+FF_INPLACE_FIELDS = ("bp_table", "l1i_word", "l1d_word")
 
 
 def check_ff_config(params: SimParams) -> None:
@@ -1008,9 +993,8 @@ class _FFArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "meta", "addr", "valid_ev", "tile_active", "clock", "period_ps",
-        "bp_in", "l1i_in", "l1d_in", "boundary", "models_enabled",
-        "stamp_base", "clock_out", "n_ret", "bp_out", "l1i_out", "l1d_out",
-        "ctr_inc")] + [(n, ctypes.c_int64) for n in (
+        "boundary", "models_enabled", "stamp_base", "bp", "l1i", "l1d",
+        "clock_out", "n_ret", "ctr_inc")] + [(n, ctypes.c_int64) for n in (
         "T", "F", "NM", "K", "l1i_assoc", "l1i_sets", "l1d_assoc",
         "l1d_sets", "bp_size", "line_bits", "l1i_cycles", "l1d_cycles",
         "bp_penalty", "col_core", "col_l1i", "col_l1d", "wbound_add",
@@ -1018,7 +1002,8 @@ class _FFArgs(ctypes.Structure):
 
 
 def _check_ff_inputs(params: SimParams, fi: FFIn) -> None:
-    """Device, dtype, shape and contiguity of every operand."""
+    """Device, dtype, shape and contiguity of every operand, and no
+    storage shared with a leaf the walk updates in place."""
     dev = fi.clock.device
     T, F = fi.addr.shape
     if F > MAX_WINDOW:
@@ -1041,20 +1026,21 @@ def _check_ff_inputs(params: SimParams, fi: FFIn) -> None:
                 f"fast_forward_walk: {name} is {t.dtype}{tuple(t.shape)} on "
                 f"{t.device} (contiguous: {t.is_contiguous()}), not "
                 f"{dt}{shape} on {dev}, contiguous")
+    dispatch.check_no_alias("fast_forward_walk", fi, FF_INPLACE_FIELDS)
 
 
 def _ff_alloc_out(fi: FFIn) -> FFOut:
-    """Outputs: fresh tensors, and clones of the arrays the kernel
-    updates in place (the predictor table and both L1 word arrays)."""
+    """Outputs: the operands the kernel updates in place
+    (FF_INPLACE_FIELDS: the predictor table and both L1 word arrays) and
+    fresh tensors for the rest."""
     T = fi.addr.shape[0]
     dev = fi.clock.device
     return FFOut(
         clock=torch.empty(T, dtype=torch.int64, device=dev),
         n_ret=torch.empty(T, dtype=torch.int32, device=dev),
-        bp_table=fi.bp_table.clone(), l1i_word=fi.l1i_word.clone(),
-        l1d_word=fi.l1d_word.clone(),
         ctr_inc=torch.empty((len(WINDOW_CTRS), T), dtype=torch.int64,
-                            device=dev))
+                            device=dev),
+        **{f: getattr(fi, f) for f in FF_INPLACE_FIELDS})
 
 
 def _ff_args(params: SimParams, vp: VariantParams, fi: FFIn,
@@ -1066,14 +1052,12 @@ def _ff_args(params: SimParams, vp: VariantParams, fi: FFIn,
         meta=fi.meta.data_ptr(), addr=fi.addr.data_ptr(),
         valid_ev=fi.valid_ev.data_ptr(),
         tile_active=fi.tile_active.data_ptr(), clock=fi.clock.data_ptr(),
-        period_ps=fi.period_ps.data_ptr(), bp_in=fi.bp_table.data_ptr(),
-        l1i_in=fi.l1i_word.data_ptr(), l1d_in=fi.l1d_word.data_ptr(),
-        boundary=fi.boundary.data_ptr(),
+        period_ps=fi.period_ps.data_ptr(), boundary=fi.boundary.data_ptr(),
         models_enabled=fi.models_enabled.data_ptr(),
-        stamp_base=fi.stamp_base.data_ptr(),
+        stamp_base=fi.stamp_base.data_ptr(), bp=fi.bp_table.data_ptr(),
+        l1i=fi.l1i_word.data_ptr(), l1d=fi.l1d_word.data_ptr(),
         clock_out=out.clock.data_ptr(), n_ret=out.n_ret.data_ptr(),
-        bp_out=out.bp_table.data_ptr(), l1i_out=out.l1i_word.data_ptr(),
-        l1d_out=out.l1d_word.data_ptr(), ctr_inc=out.ctr_inc.data_ptr(),
+        ctr_inc=out.ctr_inc.data_ptr(),
         T=T, F=F, NM=fi.period_ps.shape[1], K=params.block_events,
         l1i_assoc=params.l1i.associativity, l1i_sets=params.l1i.num_sets,
         l1d_assoc=params.l1d.associativity, l1d_sets=params.l1d.num_sets,
@@ -1088,9 +1072,12 @@ def _ff_args(params: SimParams, vp: VariantParams, fi: FFIn,
 
 def fast_forward_walk_cuda(params: SimParams, vp: VariantParams,
                            fi: FFIn) -> FFOut:
-    """Launch csrc/fast_forward_walk.cu on CUDA tensors.  Out of place:
-    the predictor table and both L1 word arrays are cloned and the kernel
-    updates the clones' touched entries of engaged tiles."""
+    """Launch csrc/fast_forward_walk.cu on CUDA tensors.  In place: the
+    kernel updates the operands' predictor table and L1I / L1D word
+    arrays (an engaged tile's touched words and written slots), and the
+    returned FFOut holds those operand tensors (FF_INPLACE_FIELDS); its
+    other leaves are fresh.  A caller that needs the operands unchanged
+    clones them first."""
     check_ff_config(params)
     if fi.clock.device.type != "cuda":
         raise ValueError("fast_forward_walk_cuda takes CUDA tensors")

@@ -42,35 +42,17 @@ from graphite_tpu_torch.params import SimParams
 I, S, O, E, M = (cachemod.I, cachemod.S, cachemod.O, cachemod.E,
                  cachemod.M)
 
-_home_fold = dense.home_fold
+# Line -> home / DRAM site / directory set live in dense.py (where the
+# chain classify kernel's wrapper reaches them); re-exported here.
+home_of_line = dense.home_of_line
+dram_site_of_line = dense.dram_site_of_line
+dir_set_of_line = dense.dir_set_of_line
 _BIG = 2**62
 _oh = dense.onehot
 _sel = dense.sel
 _fcfs_keys = dense.fcfs_keys
 _elect = dense.elect
 _grouped_rank = dense.grouped_rank
-
-
-def home_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
-    """Home (memory-controller/directory) tile of a line."""
-    return _home_fold(line, params.dram.num_controllers) \
-        * params.dram.controller_home_stride
-
-
-def dram_site_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
-    """Memory-controller tile for a line (== home for private L2)."""
-    return _home_fold(line, params.dram.num_controllers) \
-        * params.dram.controller_home_stride
-
-
-def dir_set_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
-    """Directory set within a home tile, XOR-folding the high line bits."""
-    ndsets = params.directory.num_sets
-    nslices = params.dram.num_controllers
-    x = line // nslices
-    bits = ndsets.bit_length() - 1
-    x = x ^ (x >> bits) ^ (x >> (2 * bits)) ^ (x >> (3 * bits))
-    return (x % ndsets).to(torch.int32)
 
 
 def _unblock(state: SimState, mask, completion, sync: bool) -> SimState:
@@ -105,16 +87,15 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
     tiles' served elements) wrote, and installs its line at serve time.
     A chain stops at its first element that needs machinery the replay
     does not carry (``hard_stop``); the conflict rounds serve the rest.
-    Each iteration's classify step is ``kernels/chain.run_chain`` (the
-    CUDA kernel on the card); the head and directory-row gathers, the
-    DRAM queue probe and the apply scatters stay here.  The P iterations
-    always all run (no host poll ends the pass early), so the kernel
-    launches P times per pass."""
+    Each iteration's head gathers, directory-row gathers and classify
+    step are ``kernels/chain.run_chain_step`` (one CUDA kernel launch on
+    the card); the DRAM queue probe and the apply scatters stay here.
+    The P iterations always all run (no host poll ends the pass early),
+    so the kernel launches P times per pass."""
     P = params.miss_chain
     T = params.num_tiles
     A = params.directory.associativity
     W = state.dir_sharers.shape[0] // A
-    ndsets = params.directory.num_sets
     dev = state.clock.device
     rows = torch.arange(T, device=dev)
     head0 = state.mq_head
@@ -147,40 +128,18 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
     for _ in range(P):
         # Each iteration serves every tile's current head: an election
         # loser retries the same element next iteration while the
-        # winner's chain moves on.
-        hsel = torch.clamp(head, 0, P - 1).to(torch.int64)[None, :]
-        req = torch.gather(state.mq_req, 0, hsel)[0]
-        delta = torch.gather(state.mq_delta, 0, hsel)[0]
-        extra = torch.gather(state.mq_extra, 0, hsel)[0]
-        active = (~stopped) & (head < stop_hi)
-        kind = (req & 7).to(torch.int32)
-        line = torch.where(active, req >> 8, 0)
-        is_ex = active & (kind == PEND_EX_REQ)
-        is_if = active & (kind == PEND_IFETCH)
-        home = home_of_line(params, line)
-        dset = dir_set_of_line(params, line)
-        fidx = (home * ndsets + dset).to(torch.int32)
-        fidx64 = fidx.to(torch.int64)
-        # Blocking chain composition: element p's issue point is the
-        # previous element's completion (the carried base) plus its
-        # recorded local delta.
-        issue = base + delta
-        hidx = umod64(dense.fmix64(line), H).to(torch.int32)
-        hidx64 = hidx.to(torch.int64)
-
-        # ---- directory entry rows at (home, dset) — one gather each
-        drow = state.dir_word[:, fidx64].T.contiguous()          # [T, A]
-        dsharers = state.dir_sharers[:, fidx64].reshape(
-            W, A, T).permute(2, 1, 0).contiguous()               # [T, A, W]
-
-        ci = kchain.ChainIn(
-            active=active, is_ex=is_ex, is_if=is_if, line=line,
-            issue=issue, extra=extra, home=home, dset=dset, fidx=fidx,
-            hidx=hidx, drow=drow, dsharers=dsharers,
-            p_net=p_net, p_dir=p_dir, p_l2=p_l2, p_l1d=p_l1d,
-            p_l1i=p_l1i, p_core=p_core,
-            ftbl=None if queue_on else ftbl)
-        co = kchain.run_chain(params, vp, ci, H)
+        # winner's chain moves on.  The head and directory-row gathers
+        # are part of the step (one kernel launch on the card).
+        ch, co = kchain.run_chain_step(params, vp, kchain.ChainStepIn(
+            mq_req=state.mq_req, mq_delta=state.mq_delta,
+            mq_extra=state.mq_extra, head=head, stopped=stopped,
+            stop_hi=stop_hi, base=base, dir_word=state.dir_word,
+            dir_sharers=state.dir_sharers, p_net=p_net, p_dir=p_dir,
+            p_l2=p_l2, p_l1d=p_l1d, p_l1i=p_l1i, p_core=p_core,
+            ftbl=None if queue_on else ftbl), H)
+        line, is_ex, is_if = ch.line, ch.is_ex, ch.is_if
+        issue, extra, home = ch.issue, ch.extra, ch.home
+        fidx64 = ch.fidx.to(torch.int64)
         serve, serve_all = co.serve, co.serve_all
         owner_leg, fan_go = co.owner_leg, co.fan_go
         need_read, dram_wb = co.need_read, co.dram_wb
@@ -353,6 +312,7 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
         # ---- serialization floor for later same-line requests (with
         # the queue model off the kernel already wrote it)
         if queue_on:
+            hidx64 = ch.hidx.to(torch.int64)
             tkey = t_data * T + rows
             tmax_t = scatter(torch.full((H,), -1, dtype=torch.int64,
                                         device=dev), hidx64, tkey, "max",

@@ -6,6 +6,12 @@
     off, and a hash table of size H = 4 that forces collisions at the
     combining tables — and on the operands of the first replay
     iterations of a JAX radix8 chain-12 run.
+  * One replay iteration from the state's own arrays: the plain
+    ``run_chain_step`` (head gathers, directory-row gathers, classify)
+    against the JAX ``chain_classify`` on the ``ChainIn`` that numpy
+    indexing builds from the same arrays, as the JAX ``chain_fast_pass``
+    builds it; the state-level operands cover every case of the step;
+    the fused kernel's exact division and its carved output buffer.
   * The plain ``window_walk`` at P = 12 against the JAX walk, on fuzzed
     windows with a non-empty [P, T] bank and on windows captured from a
     JAX radix8 chain-12 run.
@@ -296,20 +302,192 @@ def test_plain_walk_matches_jax_on_captured_banking_windows(
 
 
 def test_run_chain_dispatches_by_device():
-    """CPU tensors take the plain form and launch nothing; the kernel
+    """CPU tensors take the plain step and launch nothing; the kernel
     entry point refuses anything but CUDA tensors."""
     tp = _torch_params(8, {})
     vp = variant_params(tp)
     H = max(1024, 16 * tp.num_tiles)
-    ci = toperands.chain_in_from_numpy(
-        toperands.random_chain_arrays(tp, H, 5), "cpu")
+    si = toperands.chain_step_in_from_numpy(
+        toperands.random_chain_step_arrays(tp, H, 5), "cpu")
     before = tdispatch.COUNTS["chain_classify"]
-    out = tchain.run_chain(tp, vp, ci, H)
-    ref = tchain.chain_classify(tp, vp, ci, H)
+    head, out = tchain.run_chain_step(tp, vp, si, H)
+    ref_head, ref = tchain.chain_step(tp, vp, si, H)
     assert tdispatch.COUNTS["chain_classify"] == before
+    _assert_fields_equal(ref_head, head)
     _assert_fields_equal(ref, out)
     with pytest.raises(ValueError, match="CUDA"):
-        tchain.chain_classify_cuda(tp, vp, ci, H)
+        tchain.chain_step_cuda(tp, vp, si, H)
+
+
+# ------------------------------- one replay iteration from the state
+
+def _jax_step_in(jp, arrays, H):
+    """The JAX ChainIn's operands that numpy indexing builds from the
+    state-level arrays, exactly as the JAX ``chain_fast_pass`` builds
+    them (graphite_tpu/engine/resolve.py:264-285)."""
+    J = _jax()
+    jnp = J["jnp"]
+    from graphite_tpu.engine import dense as jdense
+    from graphite_tpu.engine import resolve as jresolve
+    from graphite_tpu.engine.state import PEND_EX_REQ, PEND_IFETCH
+    P, T = jp.miss_chain, jp.num_tiles
+    A = jp.directory.associativity
+    W = arrays["dir_sharers"].shape[0] // A
+    head = arrays["head"]
+    hsel = np.clip(head, 0, max(P - 1, 0))[None, :]
+    req = np.take_along_axis(arrays["mq_req"], hsel, axis=0)[0]
+    delta = np.take_along_axis(arrays["mq_delta"], hsel, axis=0)[0]
+    extra = np.take_along_axis(arrays["mq_extra"], hsel, axis=0)[0]
+    active = (~arrays["stopped"]) & (head < arrays["stop_hi"])
+    kind = (req & 7).astype(np.int32)
+    line = np.where(active, req >> 8, 0)
+    home = np.asarray(jresolve.home_of_line(jp, jnp.asarray(line)))
+    dset = np.asarray(jresolve.dir_set_of_line(jp, jnp.asarray(line)))
+    fidx = (home * jp.directory.num_sets + dset).astype(np.int32)
+    hidx = np.asarray((jdense.fmix64(jnp.asarray(line)) % jnp.uint64(H))
+                      .astype(jnp.int32))
+    drow = arrays["dir_word"][:, fidx].T
+    dsharers = arrays["dir_sharers"].view(np.uint64)[:, fidx].reshape(
+        W, A, T).transpose(2, 1, 0)
+    return dict(
+        active=active, is_ex=active & (kind == PEND_EX_REQ),
+        is_if=active & (kind == PEND_IFETCH), line=line,
+        issue=arrays["base"] + delta, extra=extra, home=home, dset=dset,
+        fidx=fidx, hidx=hidx, drow=drow, dsharers=dsharers,
+        **{f: arrays[f] for f in ("p_net", "p_dir", "p_l2", "p_l1d",
+                                  "p_l1i", "p_core", "ftbl")})
+
+
+STEP_CONFIGS = ("fanout_queue", "fanout_noqueue", "nofanout_queue")
+
+
+@pytest.mark.parametrize("config", STEP_CONFIGS)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_chain_step_matches_jax(config, seed):
+    """The plain run_chain_step from the state-level arrays against the
+    JAX chain_classify on the ChainIn the JAX pass gathers from them:
+    every ChainHead field against the gathered head, every ChainOut
+    field against the JAX function's."""
+    J = _jax()
+    jp, tp = _params(8, CONFIGS[config])
+    H = max(1024, 16 * tp.num_tiles)
+    arrays = toperands.random_chain_step_arrays(tp, H, seed)
+    jin = _jax_step_in(jp, arrays, H)
+    jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
+    head, out = tchain.run_chain_step(
+        tp, variant_params(tp), toperands.chain_step_in_from_numpy(
+            arrays, "cpu"), H)
+    _assert_fields_equal(
+        tchain.ChainHead(**{f: jin[f] for f in tchain.ChainHead._fields}),
+        head, f"{config} seed {seed} head")
+    _assert_fields_equal(jout, out, f"{config} seed {seed}")
+
+
+def test_chain_step_operands_cover_the_cases():
+    """Across the state-level sets of the parity test (T = 8, every
+    configuration), each case of the step occurs: a directory hit, an
+    allocation, a victim way a hit excludes, an election loser, an
+    in-pass fan-out, an owner leg, a combining member and a hard stop."""
+    from graphite_tpu_torch.engine import dense as tdense
+    from graphite_tpu_torch.engine.ops import umod64
+    from graphite_tpu_torch.engine.state import dword_stamp, dword_state
+    seen = dict(hit=0, alloc=0, excluded_victim=0, election_loser=0,
+                fan_out=0, owner_leg=0, member=0, hard_stop=0)
+    for config in sorted(CONFIGS):
+        tp = _torch_params(8, CONFIGS[config])
+        vp = variant_params(tp)
+        H = max(1024, 16 * tp.num_tiles)
+        A = tp.directory.associativity
+        for seed in range(3):
+            si = toperands.chain_step_in_from_numpy(
+                toperands.random_chain_step_arrays(tp, H, seed), "cpu")
+            h, co = tchain.chain_step(tp, vp, si, H)
+            act = h.active
+            # Members take their representative's way, which is their
+            # own (same line, same row), so co.way is every row's way.
+            way = co.way.to(torch.int64)
+            drow, _ = tchain.chain_rows(si.dir_word, si.dir_sharers, h.fidx)
+            fh = umod64(tdense.fmix64(h.fidx.to(torch.int64)), H)
+            used = torch.zeros((H, A), dtype=torch.bool)
+            used[fh[co.hit], way[co.hit]] = True
+            lru = torch.argmin(torch.where(dword_state(drow) == 0, -1,
+                                           dword_stamp(drow)), dim=1)
+            am = (h.home.to(torch.int64) * tp.directory.num_sets
+                  + h.dset) * A + way
+            wslot = tdense.elect(act, tdense.fcfs_keys(act, h.issue),
+                                 umod64(tdense.fmix64(am), H), H)
+            seen["hit"] += int(co.hit.sum())
+            seen["alloc"] += int((co.serve & ~co.hit).sum())
+            seen["excluded_victim"] += int((act & ~co.hit
+                                            & used[fh, lru]).sum())
+            seen["election_loser"] += int((act & ~wslot).sum())
+            seen["fan_out"] += int(co.fan_go.sum())
+            seen["owner_leg"] += int(co.owner_leg.sum())
+            seen["member"] += int(co.member.sum())
+            seen["hard_stop"] += int(co.hard_stop.sum())
+    assert all(v > 0 for v in seen.values()), seen
+
+
+def test_fast_divisor_is_exact():
+    """The fused kernel's division without a divide instruction (the
+    magic number and shift of chain.fast_divisor, the kernel's formula
+    here in Python integers) equals uint64 floor division for every
+    divisor kind (1, powers of two, others) at the edges of the range."""
+    rng = np.random.default_rng(0)
+    xs = [0, 1, 2, 2**32 - 1, 2**32, 2**63 - 1, 2**63, 2**64 - 1] \
+        + [int(x) for x in rng.integers(0, 2**64, size=1500,
+                                        dtype=np.uint64)]
+    for d in list(range(1, 130)) + [1000, 1024, 4096, 8192, 12289,
+                                    2**31 - 1, 2**32 + 15]:
+        dd, magic, shift = tchain.fast_divisor(d)
+        assert dd == d and 0 <= magic < 2**64
+        for x in xs + [d - 1, d, d + 1, (2**64 - 1) // d * d]:
+            if dd == 1:
+                q = x
+            else:
+                hi = (magic * x) >> 64
+                q = (((x - hi) >> 1) + hi) >> shift
+            assert q == x // d, (d, x)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("T", [8, 64])
+def test_step_layout_carves_disjoint_leaves(config, T):
+    """The fused kernel's one output buffer: every ChainHead and ChainOut
+    leaf is a view of it with the plain step's dtype and shape, the
+    leaves' byte ranges are disjoint and inside the buffer, the kernel's
+    offsets are theirs, and ChainOut.ftbl is the caller's table."""
+    tp = _torch_params(T, CONFIGS[config])
+    vp = variant_params(tp)
+    H = max(1024, 16 * T)
+    si = toperands.chain_step_in_from_numpy(
+        toperands.random_chain_step_arrays(tp, H, 0), "cpu")
+    ref_head, ref = tchain.chain_step(tp, vp, si, H)
+    layout = tchain.StepLayout(tp, (T + 63) // 64)
+    buf = torch.empty(layout.nbytes, dtype=torch.uint8)
+    head, out = layout.carve(buf, si.ftbl)
+    base = buf.data_ptr()
+    spans = []
+    for got_nt, ref_nt in ((head, ref_head), (out, ref)):
+        for f in ref_nt._fields:
+            g, r = getattr(got_nt, f), getattr(ref_nt, f)
+            assert (g is None) == (r is None), f
+            if g is None:
+                assert f == "ftbl" or layout.offsets[f] == -1, f
+                continue
+            assert g.dtype == r.dtype and g.shape == r.shape, f
+            if f == "ftbl":
+                assert g is si.ftbl
+                continue
+            start = g.data_ptr() - base
+            assert start == layout.offsets[f], f
+            spans.append((start, start + g.numel() * g.element_size(), f))
+    spans.sort()
+    assert spans[0][0] >= 0 and spans[-1][1] <= layout.nbytes
+    for (_, end, f), (start, _, g) in zip(spans, spans[1:]):
+        assert end <= start, (f, g)
+    assert {f for _, _, f in spans} == {
+        n for n, o in layout.offsets.items() if o >= 0}
 
 
 # ------------------------------------------------------------ on the card
@@ -317,23 +495,31 @@ def test_run_chain_dispatches_by_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [8, 64])
 def test_cuda_chain_kernel_matches_plain(T):
-    """chain_classify's CUDA kernel against the plain form on the card:
-    every configuration, the default H and a colliding H = 4."""
+    """The fused chain_classify kernel against the plain step on the
+    card, on the state-level operands: every configuration, the default
+    H, a non-power-of-two H and a colliding H = 4.  The kernel writes the
+    floor table in place, so it runs on a clone of the table."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     for config in sorted(CONFIGS):
         tp = _torch_params(T, CONFIGS[config])
         vp = variant_params(tp)
-        for H in (max(1024, 16 * T), 4):
+        for H in (max(1024, 16 * T), 1000, 4):
             for seed in range(4):
-                ci = toperands.chain_in_from_numpy(
-                    toperands.random_chain_arrays(tp, H, seed), "cuda")
+                si = toperands.chain_step_in_from_numpy(
+                    toperands.random_chain_step_arrays(tp, H, seed), "cuda")
+                work = si._replace(
+                    ftbl=None if si.ftbl is None else si.ftbl.clone())
                 before = tdispatch.COUNTS["chain_classify"]
-                got = tchain.run_chain(tp, vp, ci, H)
+                head, got = tchain.run_chain_step(tp, vp, work, H)
                 assert tdispatch.COUNTS["chain_classify"] == before + 1
-                ref = tchain.chain_classify(tp, vp, ci, H)
+                ref_head, ref = tchain.chain_step(tp, vp, si, H)
                 torch.cuda.synchronize()
-                _assert_fields_equal(ref, got, f"{config} H={H} {seed}")
+                label = f"{config} H={H} {seed}"
+                if work.ftbl is not None:
+                    assert got.ftbl.data_ptr() == work.ftbl.data_ptr()
+                _assert_fields_equal(ref_head, head, label)
+                _assert_fields_equal(ref, got, label)
 
 
 def _clone(nt):

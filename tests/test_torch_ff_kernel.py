@@ -11,7 +11,9 @@
   * The plain ``window_walk`` at the wide width K = 64 against the JAX
     walk, at P = 0 and P = 12, on seeded windows and on a wide window
     captured from a fast-forward run.
-  * ``gpu``: both CUDA kernels against their plain forms on the card.
+  * ``gpu``: both CUDA kernels against their plain forms on the card;
+    both update their operands in place, so the plain forms run on
+    clones taken first.
 
 Every output field must be equal, value and dtype (tolerance 0: the
 functions are all-integer).
@@ -307,12 +309,34 @@ def test_plain_walk_matches_jax_on_captured_wide_window():
 
 # --------------------------------------------------------- on the card
 
+def _clone(nt):
+    return type(nt)(*[t.clone() if t is not None else None for t in nt])
+
+
+def _ff_kernel_against_plain(tp, vp, fi, label):
+    """fast_forward_walk's kernel on ``fi`` (which it updates in place)
+    against the plain form on a clone taken first; the written leaves
+    are the operands' own tensors."""
+    pristine = _clone(fi)
+    before = tdispatch.COUNTS["fast_forward_walk"]
+    got = twin.run_fast_forward(tp, vp, fi)
+    assert tdispatch.COUNTS["fast_forward_walk"] == before + 1
+    ref = twin.fast_forward_walk(tp, vp, pristine)
+    torch.cuda.synchronize()
+    for f in twin.FF_INPLACE_FIELDS:
+        assert getattr(got, f).data_ptr() == getattr(fi, f).data_ptr(), \
+            (label, f)
+    _assert_fields_equal(ref, got, label)
+    return ref
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [8, 64])
 def test_cuda_ff_kernel_matches_plain(T):
     """fast_forward_walk's CUDA kernel against the plain form on the
     card: every seeded configuration, and the analytic rounds of the
-    port's own radix run on the card."""
+    port's own radix run on the card.  The kernel updates its operands
+    in place, so the plain form runs on a clone taken first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     from graphite_tpu_torch.engine.sim import Simulator
@@ -324,12 +348,7 @@ def test_cuda_ff_kernel_matches_plain(T):
         for seed in range(8):
             fi = toperands.ff_in_from_numpy(toperands.random_ff_arrays(
                 tp, tcore._ff_width(tp), seed), "cuda")
-            before = tdispatch.COUNTS["fast_forward_walk"]
-            got = twin.run_fast_forward(tp, vp, fi)
-            assert tdispatch.COUNTS["fast_forward_walk"] == before + 1
-            ref = twin.fast_forward_walk(tp, vp, fi)
-            torch.cuda.synchronize()
-            _assert_fields_equal(ref, got, f"{config} {seed}")
+            ref = _ff_kernel_against_plain(tp, vp, fi, f"{config} {seed}")
             engaged += int((ref.n_ret > 0).sum())
     assert engaged > 0
     tp = _torch_params(T, FF_CONFIGS["f64"])
@@ -337,7 +356,7 @@ def test_cuda_ff_kernel_matches_plain(T):
     orig = tcore.kwindow.run_fast_forward
 
     def rec(params, vp, fi):
-        seen.append(type(fi)(*[t.clone() for t in fi]))
+        seen.append(_clone(fi))
         return orig(params, vp, fi)
 
     tcore.kwindow.run_fast_forward = rec
@@ -349,10 +368,7 @@ def test_cuda_ff_kernel_matches_plain(T):
         tcore.kwindow.run_fast_forward = orig
     assert seen
     for i, fi in enumerate(seen[:16]):
-        got = twin.fast_forward_walk_cuda(tp, variant_params(tp), fi)
-        ref = twin.fast_forward_walk(tp, variant_params(tp), fi)
-        torch.cuda.synchronize()
-        _assert_fields_equal(ref, got, f"captured {i}")
+        _ff_kernel_against_plain(tp, variant_params(tp), fi, f"captured {i}")
 
 
 @pytest.mark.gpu

@@ -118,3 +118,40 @@ def test_engine_under_in_place_walk(name, monkeypatch):
     jsim.run(max_steps=4096)
     _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
                          convert.state_to_numpy(tsim.state))
+
+
+class InPlaceFFWalk:
+    """``run_fast_forward`` as the CUDA kernel behaves: the plain form,
+    with every leaf the kernel writes in place copied into the operand's
+    storage and the operand returned as that leaf."""
+
+    def __init__(self):
+        self.calls = 0
+        self.engaged = 0
+
+    def __call__(self, params, vp, fi):
+        out = twin.fast_forward_walk(params, vp, fi)
+        for f in twin.FF_INPLACE_FIELDS:
+            getattr(fi, f).copy_(getattr(out, f))
+        self.calls += 1
+        self.engaged += int((out.n_ret > 0).any())
+        return out._replace(**{f: getattr(fi, f)
+                               for f in twin.FF_INPLACE_FIELDS})
+
+
+def test_engine_under_in_place_ff_walk(monkeypatch):
+    """radix8 at fast_forward 4, span 200, with both walks in place:
+    every SimState leaf equal to the JAX package."""
+    (fn, kw), over = CASES["radix8_ff4_span200"]
+    jp, tp = _params(kw["num_tiles"], over)
+    walk, ff = InPlaceWalk(), InPlaceFFWalk()
+    monkeypatch.setattr(tcore.kwindow, "run_window", walk)
+    monkeypatch.setattr(tcore.kwindow, "run_fast_forward", ff)
+    tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
+    tsim.run(max_steps=4096)
+    assert walk.calls > 0 and ff.engaged > 0
+    assert bool(tsim.state.done.all())
+    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
+    jsim.run(max_steps=4096)
+    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
+                         convert.state_to_numpy(tsim.state))
