@@ -41,7 +41,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          engaging tiles (timed on a captured round);
        * window_walk at the wide width K = 64, P = 0 and P = 12: random
          and seeded collision operands and wide windows captured from the
-         fast-forward runs (timed: K = 64, P = 0 and P = 12).
+         fast-forward runs (timed: K = 64, P = 0 and P = 12);
+       * one-card scale, T = 1024: window_walk at K = 4 (random, seeded
+         and a window captured from the port's own radix1024 run; timed),
+         and chain_classify's wide form (16 ways, 16 sharer words, H =
+         16,384: tables in its workspace, directory rows read in place)
+         on state-level seeded sets of every configuration at three H
+         (a fan-out whose sharers cross sharer word 8 among them) and on
+         iterations captured from the port's own radix1024 chain-12 run
+         (timed).
      Each kernel's bound counts the bytes the function needs on the
      timed operands (chain_bytes, ff_bytes, window_bytes).  The chain
      wrapper must make one device allocation per call and the
@@ -51,13 +59,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. The golden shapes radix8 and fft8 at miss_chain 0 against
      tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
      (86 engine rounds, completion 8,686.6 ns).
-  5. The chain-off main path at full width: ``gen_radix(64,
-     keys_per_tile=2048, radix=256, seed=0)`` on the default config —
-     all_done, round_ctr 13838, completion 243,651.8 ns, window-kernel
-     launches == ctr_window.
+  5. The chain-off main path at full width and a cut depth:
+     ``gen_radix(64, keys_per_tile=256, radix=256, seed=0)`` on the
+     default config — all_done, every round counter (round_ctr 5309),
+     completion 100,052.2 ns, window-kernel launches == ctr_window (the
+     full depth, keys_per_tile 2048, 13,838 rounds and 243,651.8 ns, is
+     held on the card by tests/test_torch_card_paths.py).
   6. The chain-replay paths at full width, miss_chain 12: the radix64
-     trace at a cut depth, ``gen_radix(64, keys_per_tile=512, radix=256,
-     seed=0)`` (round_ctr 740, completion 133,200.8 ns; the full depth,
+     trace at a cut depth, ``gen_radix(64, keys_per_tile=256, radix=256,
+     seed=0)`` (round_ctr 522, completion 100,173.8 ns; the full depth,
      2,181 rounds and 245,006.6 ns, is held on the card by
      tests/test_torch_card_paths.py) and ``gen_fft(64,
      points_per_tile=64, writeback=True)`` (round_ctr 377, completion
@@ -68,8 +78,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      first replay iterations that serve a fan-out, and chain_classify is
      held against its plain form on each of them.
   7. Profiled stretches of the chain-off and the chain-12 radix64 runs
-     (torch.profiler; 4 quanta and 1 quantum, continuing phase 3's
-     simulations), and of the radix64_ff_span run (4 quanta, continuing
+     (torch.profiler; 2 quanta and 1 quantum, continuing phase 3's
+     simulations), and of the radix64_ff_span run (2 quanta, continuing
      phase 3's fast-forward simulation; it runs after phase 8's
      radix64_ff_span path, whose unprofiled wall it is held against):
      device busy time per round, held against the unprofiled wall time
@@ -77,12 +87,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and each kernel's share.
   8. The fast-forward paths at full width, ``tpu/fast_forward = 8``
      (wide rounds of 64 events):
-       * radix64_ff_span: the radix64 trace at miss_chain 0 and a
-         run-ahead span of 1000 ns (round_ctr 13353, completion
-         243,687.4 ns, ctr_ff 1804, ctr_ffq 356, ff_events 211211,
-         icount 1,844,224); fast_forward_walk launches > 0 and at least
-         the analytic rounds that engaged, window_walk launches ==
-         ctr_window, no chain_classify launch;
+       * radix64_ff_span: phase 5's cut radix64 trace at miss_chain 0
+         and a run-ahead span of 1000 ns (round_ctr 5292, completion
+         100,052.2 ns, ctr_ff 70, ctr_ffq 23, ff_events 15734, icount
+         238,592; the full depth, 13,353 rounds, is held on the card by
+         tests/test_torch_card_paths.py); fast_forward_walk launches > 0
+         and at least the analytic rounds that engaged, window_walk
+         launches == ctr_window, no chain_classify launch;
        * fft64_ff_span: the fft64 trace at miss_chain 12, span 1000, the
          path on which all three kernels run (round_ctr 293, completion
          61,719.4 ns, 1,737 fan-outs, 13 fallbacks);
@@ -93,8 +104,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Chain passes (round_ctr - ctr_window - ctr_complex - ctr_conflict
      - engaged analytic rounds) == ctr_resolve at miss_chain 12 and 0 at
      0; chain_classify launches == 12 x chain passes.
+  9. One-card scale at full width and depth, every round counter and the
+     completion the JAX package's on the CPU (BENCH_r06 gives the same
+     rounds and completions for radix1024 and radix256):
+       * radix1024: ``gen_radix(1024, keys_per_tile=16, radix=64,
+         seed=0)`` at ``tpu/block_events = 4``, miss_chain 0 (round_ctr
+         2912, completion 64,803.2 ns), BASELINE's scored configuration;
+         then a profiled stretch of 2 quanta continuing phase 3's
+         radix1024 simulation, with the device kernels that took the most
+         time;
+       * radix1024_chain12: the same trace at miss_chain 12 (round_ctr
+         632, completion 63,390.0 ns, 20 fan-outs served in-pass);
+         chain_classify launches == 12 x ctr_resolve, all of its wide
+         form;
+       * radix256: ``gen_radix(256, keys_per_tile=96, radix=256,
+         seed=0)`` on the default config (round_ctr 5475, completion
+         116,211.4 ns);
+       * radix512: ``gen_radix(512, keys_per_tile=16, radix=64, seed=0)``
+         at block_events 4 for 8 quanta (the last size with dense one-hot
+         [T, H] tables), for its peak device memory.
 
-Before each path of phases 4 to 6 and 8 every kernel's launch count is
+Before each path of phases 4 to 6, 8 and 9 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -111,23 +141,34 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Values pinned by BENCH_r06's radix64, fft64 and radix8_pallas rows
-# (all-integer engine, so they are device-independent); the JAX package
-# on the CPU gives BENCH_r06's values for radix64_chain12 (2,181 rounds,
-# 245,006.6 ns), fft64, radix64_ff and fft64_ff.
+# Values pinned by BENCH_r06's fft64 and radix8_pallas rows (all-integer
+# engine, so they are device-independent); the JAX package on the CPU
+# gives BENCH_r06's values for radix64 (13,838 rounds, 243,651.8 ns),
+# radix64_chain12 (2,181 rounds, 245,006.6 ns), fft64, radix64_ff and
+# fft64_ff.  Phase 3's captures and phase 7's stretches use the full
+# radix64 trace.
 FULL_KEYS = 2048
-FULL_ROUND_CTR = 13838
-FULL_COMPLETION_PS = 243_651_800
+# Phases 5 and 8 run the radix64 trace at a cut depth, so that the script
+# with phase 9 ends well inside its time limit on a slow host (at full
+# depth radix64 took 143-170 s and radix64_ff_span 132-155 s of
+# host-bound wall on an NVIDIA H100 80GB HBM3 at 700 W;
+# tests/test_torch_card_paths.py holds both full depths on the card).
+# The JAX package on the CPU gives these values for gen_radix(64,
+# keys_per_tile=256, radix=256, seed=0).
+CUT_KEYS = 256
+CUT_CTRS = dict(round_ctr=5309, ctr_window=2460, ctr_complex=1644,
+                ctr_conflict=1205, ctr_resolve=814, ctr_quantum=237)
+CUT_COMPLETION_PS = 100_052_200
+CUT_ICOUNT = 238_592
 CHAIN = 12
 # Phase 6 runs radix64_chain12 at a cut depth, so that the script with
-# phase 8 ends well inside its time limit on a slow host (the full depth
-# took 176-251 s of host-bound wall on an NVIDIA H100 80GB HBM3 at
+# phases 8 and 9 ends well inside its time limit on a slow host (the full
+# depth took 163-251 s of host-bound wall on an NVIDIA H100 80GB HBM3 at
 # 700 W; tests/test_torch_card_paths.py holds it on the card).  The JAX
-# package on the CPU gives these values for gen_radix(64,
-# keys_per_tile=512, radix=256, seed=0) at miss_chain 12.
-CHAIN_KEYS = 512
-CHAIN_CUT_ROUND_CTR = 740
-CHAIN_CUT_COMPLETION_PS = 133_200_800
+# package on the CPU gives these values for the cut trace of phase 5
+# (keys_per_tile 256) at miss_chain 12.
+CHAIN_CUT_ROUND_CTR = 522
+CHAIN_CUT_COMPLETION_PS = 100_173_800
 FFT_ROUND_CTR = 377
 FFT_COMPLETION_PS = 60_677_000
 FFT_FANOUT_SERVED = 1897
@@ -141,11 +182,10 @@ RADIX8_CHAIN_COMPLETION_PS = 8_686_600
 # CPU; the span-0 fft64 row is BENCH_r06's fft64_ff.
 FF = 8
 FF_SPAN_NS = 1000
-FULL_ICOUNT = 1_844_224
-FF_SPAN_CTRS = dict(round_ctr=13353, ctr_window=6548, ctr_complex=3614,
-                    ctr_conflict=2787, ctr_resolve=1711, ctr_quantum=547,
-                    ctr_ff=1804, ctr_ffq=356, ff_events=211211)
-FF_SPAN_COMPLETION_PS = 243_687_400
+FF_SPAN_CTRS = dict(round_ctr=5292, ctr_window=2411, ctr_complex=1651,
+                    ctr_conflict=1205, ctr_resolve=814, ctr_quantum=237,
+                    ctr_ff=70, ctr_ffq=23, ff_events=15734)
+FF_SPAN_COMPLETION_PS = 100_052_200     # keys_per_tile 256, as phase 5
 FFT_FF_SPAN_CTRS = dict(round_ctr=293, ctr_window=92, ctr_complex=27,
                         ctr_conflict=90, ctr_resolve=70, ctr_quantum=31,
                         ctr_ff=79, ctr_ffq=29, ff_events=38318)
@@ -158,6 +198,34 @@ FFT_FF_COMPLETION_PS = 62_347_600
 FFT_FF_FANOUT_SERVED = 1737
 FFT_FF_FALLBACK = 14
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM peak memory rate
+# One-card scale (phases 3 and 9), as the JAX package computes them on
+# the CPU; BENCH_r06's radix256 and radix1024 rows give the same rounds
+# and completions.  The 1024-tile rows run tpu/block_events = 4
+# (bench.py), which puts T * H above the dense-table cap: the conflict
+# rounds take the scatter forms, and chain_classify its wide form.
+SCALE_K = 4
+SCALE_H = 16384                    # max(1024, 16 T) at T = 1024
+RADIX1024_CTRS = dict(round_ctr=2912, ctr_window=1561, ctr_complex=787,
+                      ctr_conflict=564, ctr_resolve=370, ctr_quantum=124)
+RADIX1024_COMPLETION_PS = 64_803_200
+RADIX1024_ICOUNT = 292_832
+RADIX1024_CHAIN12_CTRS = dict(round_ctr=632, ctr_window=442, ctr_complex=86,
+                              ctr_conflict=8, ctr_resolve=96,
+                              ctr_quantum=31)
+RADIX1024_CHAIN12_COMPLETION_PS = 63_390_000
+RADIX1024_CHAIN12_FANOUT = 20
+RADIX256_CTRS = dict(round_ctr=5475, ctr_window=2543, ctr_complex=1710,
+                     ctr_conflict=1222, ctr_resolve=845, ctr_quantum=252)
+RADIX256_COMPLETION_PS = 116_211_400
+RADIX256_ICOUNT = 382_848
+# gen_radix(512, keys_per_tile=16, radix=64, seed=0) at block_events 4,
+# 8 quanta (the last size at which the conflict round's one-hot tables
+# are dense): the JAX package's counters after those quanta.
+RADIX512_QUANTA = 8
+RADIX512_CUT = dict(round_ctr=232, ctr_window=148, ctr_complex=49,
+                    ctr_conflict=35, ctr_resolve=24, ctr_quantum=8,
+                    clock_max=6_764_600, clock_sum=2_237_566_200,
+                    cursor_sum=9848)
 
 
 T_START = time.perf_counter()
@@ -681,11 +749,12 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.6f} ms"
 
 
-def profile_stretch(psim, wall_ms, card, label, names, quanta):
+def profile_stretch(psim, wall_ms, card, label, names, quanta, top=0):
     """torch.profiler over ``quanta`` quantum steps of a simulation
     already past its start-up: device time per round against the
     unprofiled ``wall_ms`` per round, kernels and host polls per round,
-    and each named kernel's time."""
+    each named kernel's time and, with ``top``, the ``top`` device
+    kernels that took the most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from graphite_tpu_torch.engine.quantum import megarun
@@ -704,6 +773,7 @@ def profile_stretch(psim, wall_ms, card, label, names, quanta):
     pq = int(psim.state.ctr_quantum.item()) - q0
     dev_us, n_kernels, ppolls = 0.0, 0, 0
     per = {n: [0.0, 0] for n in names}
+    by_kernel = []
     for evt in prof.key_averages():
         if evt.key == "aten::_local_scalar_dense":     # one per .item()
             ppolls += evt.count
@@ -713,6 +783,7 @@ def profile_stretch(psim, wall_ms, card, label, names, quanta):
                 and "cuda" in str(evt.device_type).lower():
             dev_us += t
             n_kernels += evt.count
+            by_kernel.append((t, evt.count, evt.key))
             for n in names:
                 if n in evt.key:
                     per[n][0] += t
@@ -737,6 +808,10 @@ def profile_stretch(psim, wall_ms, card, label, names, quanta):
           f"ms/round, idle share {1 - busy_ms / wall_ms:.4f}), {n_kernels} "
           f"device kernels ({n_kernels / pr:.1f} per round), host polls "
           f"{ppolls} ({ppolls / pr:.2f} per round); {shares} on {card}")
+    for t, n, key in sorted(by_kernel, reverse=True)[:top]:
+        print(f"profile {label}: top device kernel {key[:90]!r}: "
+              f"{t / 1e3:.3f} ms over {n} launches ({t / 1e3 / pr:.6f} "
+              f"ms/round, {t / dev_us:.4f} of device time)")
 
 
 def main() -> int:
@@ -766,7 +841,7 @@ def main() -> int:
         random_ff_arrays, random_window_arrays, seeded_window_arrays,
         window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
-    from graphite_tpu_torch.engine.quantum import next_boundary
+    from graphite_tpu_torch.engine.quantum import megarun, next_boundary
     from graphite_tpu_torch.engine.sim import Simulator
     from graphite_tpu_torch.engine.vparams import variant_params
     from graphite_tpu_torch.events import synth
@@ -841,8 +916,8 @@ def main() -> int:
           f"leaf equal to the plain form, the written leaves the operands' "
           f"own (max abs err {err_w})")
 
-    def walk_line(label, p, v, wi):
-        ms, dev_ms, plain, ref = walk_times(kwin, p, v, wi, T)
+    def walk_line(label, p, v, wi, s_ids=T):
+        ms, dev_ms, plain, ref = walk_times(kwin, p, v, wi, s_ids)
         moved = window_bytes(p, v, wi, ref)
         bound = moved / HBM_BYTES_PER_S * 1e3
         print(f"kernel window_walk {label}: {ms:.6f} ms/launch (wrapper), "
@@ -1079,6 +1154,117 @@ def main() -> int:
     # with; phase 7 continues cap_sim, csim and fsim.
     del fcsim, rff, rww, rwc, cases, fi_cap, wi, got, ref
 
+    # ---- both kernels at one-card scale, T = 1024
+    T1k = 1024
+    sparams = config(**{"general/total_cores": T1k,
+                        "tpu/block_events": SCALE_K})
+    svp = variant_params(sparams)
+    trace1k = synth.gen_radix(T1k, keys_per_tile=16, radix=64, seed=0)
+    # window_walk at K = 4, as radix1024 runs it (a grid of 1,024 blocks,
+    # 16x radix64's): random and seeded collision operands, and a window
+    # captured from the port's own radix1024 run, whose simulation phase
+    # 9's profiled stretch continues.
+    s1k = Simulator(sparams, trace1k, device=dev)
+    s1k.run(max_steps=1)
+    st = s1k.state._replace(boundary=next_boundary(sparams, s1k.state))
+    _, cap1k = window_operands(sparams, st, s1k.trace)
+    cap1k = clone_operands(cap1k)
+    del st
+    cases = [(f"T=1024 {gen.__name__} seed {seed}", window_in_from_numpy(
+        gen(sparams, SCALE_K, seed), dev))
+        for gen in (random_window_arrays, seeded_window_arrays)
+        for seed in range(2)]
+    cases.append(("captured radix1024 window", cap1k))
+    err_w1k = 0
+    for label, wi in cases:
+        got, ref = walk_pair(kwin, sparams, svp, wi, T1k)
+        torch.cuda.synchronize()
+        err_w1k = max(err_w1k, compare("window_walk", got, ref, label))
+    err_w = max(err_w, err_w1k)
+    print(f"kernel window_walk T=1024 K={SCALE_K}: {len(cases)} operand "
+          f"sets, every output leaf equal to the plain form, the written "
+          f"leaves the operands' own (max abs err {err_w1k})")
+    walk_line(f"T=1024 K={SCALE_K} P=0", sparams, svp, cap1k, T1k)
+
+    # chain_classify's wide form at T = 1024 (16 ways, 16 sharer words,
+    # H = 16,384: the tables in its workspace, the directory rows read
+    # where they lie): state-level seeded sets on a directory of 16 sets
+    # per home (every case of the step, a fan-out whose sharers cross
+    # word 8 among them), and iterations captured at run_chain_step's
+    # inputs in the port's own radix1024 chain-12 run.
+    cases = []
+    for fan in (True, False):
+        for queue in (True, False):
+            p = config(**{"general/total_cores": T1k,
+                          "tpu/miss_chain": CHAIN,
+                          "tpu/fanout_replay": fan,
+                          "dram/queue_model/enabled": queue,
+                          "dram_directory/total_entries": 256})
+            v = variant_params(p)
+            for h, seeds in ((SCALE_H, range(2)), (1000, range(2, 3)),
+                             (4, range(3, 4))):
+                for seed in seeds:
+                    cases.append((p, v, h, f"T=1024 fanout={fan} "
+                                           f"queue={queue} H={h} seed {seed}",
+                                  chain_step_in_from_numpy(
+                                      random_chain_step_arrays(p, h, seed),
+                                      dev)))
+    scparams = config(**{"general/total_cores": T1k,
+                         "tpu/block_events": SCALE_K,
+                         "tpu/miss_chain": CHAIN})
+    scvp = variant_params(scparams)
+    s1kc = Simulator(scparams, trace1k, device=dev)
+    with Recorder(kres.kchain, "run_chain_step", any_head, 3) as rc1k:
+        s1kc.run(max_steps=1)
+    del s1kc
+    check(len(rc1k.seen) == 3,
+          f"captured {len(rc1k.seen)} replay iterations from the radix1024 "
+          f"chain-12 run, want 3")
+    cases += [(scparams, scvp, SCALE_H,
+               f"captured radix1024 chain-12 iteration {i}", si)
+              for i, si in enumerate(rc1k.seen)]
+    err_c1k, past8 = 0, 0
+    for p, v, h, label, si in cases:
+        A = p.directory.associativity
+        check(kchain.chain_step_entry(p, v, h, si.dir_sharers.shape[0] // A)
+              .wide, f"chain_classify {label}: not the wide form")
+        got, ref = step_pair(kchain, p, v, si, h)
+        torch.cuda.synchronize()
+        err_c1k = max(err_c1k, compare_step(got, ref, label))
+        ib = ref[1].inv_bool
+        if ib is not None:
+            past8 += int((ib[:, :512].any(1) & ib[:, 512:].any(1)).sum())
+    err_c = max(err_c, err_c1k)
+    check(past8 > 0, "chain_classify T=1024: no fan-out whose sharers "
+                     "cross sharer word 8")
+    step1k = kchain.chain_step_entry(scparams, scvp, SCALE_H, 16)
+    print(f"kernel chain_classify T=1024 (wide form: {step1k.smem} B of "
+          f"shared memory, a {step1k.ws_bytes} B workspace): {len(cases)} "
+          f"operand sets ({len(rc1k.seen)} captured, {past8} fan-outs "
+          f"across sharer word 8), every ChainHead and ChainOut field and "
+          f"the in-place floor table equal to the plain step (max abs err "
+          f"{err_c1k})")
+    si1k = rc1k.seen[0]
+    ms_c1k = time_cuda(lambda: kchain.chain_step_cuda(scparams, scvp, si1k,
+                                                      SCALE_H),
+                       iters=200, warmup=20)
+    dev_c1k = device_ms(lambda: kchain.chain_step_cuda(scparams, scvp, si1k,
+                                                       SCALE_H),
+                        "chain_classify_kernel")
+    plain_c1k = time_cuda(lambda: kchain.chain_step(scparams, scvp, si1k,
+                                                    SCALE_H),
+                          iters=10, warmup=2)
+    moved_c1k = chain_bytes(scparams, si1k, *kchain.chain_step(
+        scparams, scvp, si1k, SCALE_H))
+    print(f"kernel chain_classify T=1024 (wide form): {ms_c1k:.6f} "
+          f"ms/launch (wrapper), device {fmt_ms(dev_c1k)} per launch, plain "
+          f"{plain_c1k:.6f} ms, bound "
+          f"{moved_c1k / HBM_BYTES_PER_S * 1e3:.9f} ms ({moved_c1k} bytes "
+          f"the function reads and writes on these operands, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: none on "
+          f"{card}")
+    del rc1k, cases, si1k, si, got, ref, cap1k, wi
+
     stamp("phase 3: kernels held against their plain forms")
 
     def round_ctrs(st):
@@ -1139,9 +1325,10 @@ def main() -> int:
 
     stamp("phase 4: golden shapes")
 
-    # ---- 5. the chain-off main path at full width
+    # ---- 5. the chain-off main path at full width (cut depth)
+    cut_trace = synth.gen_radix(64, keys_per_tile=CUT_KEYS, radix=256, seed=0)
     held = peak_reset()
-    sim = Simulator(params, trace, device=dev)
+    sim = Simulator(params, cut_trace, device=dev)
     reset_counts()
     t0 = time.perf_counter()
     s = sim.run()
@@ -1151,17 +1338,19 @@ def main() -> int:
     ctr = round_ctrs(sim.state)
     rounds = ctr["round_ctr"]
     check(bool(s.done.all()), "radix64: not all done")
-    check(rounds == FULL_ROUND_CTR, f"radix64: round_ctr {rounds} != "
-                                    f"{FULL_ROUND_CTR}")
-    check(s.completion_time_ps == FULL_COMPLETION_PS,
+    for k, v in CUT_CTRS.items():
+        check(ctr[k] == v, f"radix64: {k} {ctr[k]} != {v}")
+    check(s.completion_time_ps == CUT_COMPLETION_PS,
           f"radix64: completion {s.completion_time_ps} != "
-          f"{FULL_COMPLETION_PS}")
+          f"{CUT_COMPLETION_PS}")
+    check(s.total_instructions == CUT_ICOUNT,
+          f"radix64: icount {s.total_instructions} != {CUT_ICOUNT}")
     check(launches0 == ctr["ctr_window"] and launches0 > 0,
           f"radix64: kernel launches {launches0} != ctr_window "
           f"{ctr['ctr_window']}")
     check(COUNTS["chain_classify"] == 0, "radix64: chain kernel launched")
     mips = s.total_instructions / wall / 1e6
-    print(f"radix64 keys_per_tile={FULL_KEYS}: all_done, round_ctr "
+    print(f"radix64 keys_per_tile={CUT_KEYS}: all_done, round_ctr "
           f"{rounds}, completion {s.completion_time_ps / 1000:.1f} ns, "
           f"{s.total_instructions} instructions; counters {ctr}")
     print(f"radix64: wall {wall:.3f} s, {rounds / wall:.2f} rounds/s, "
@@ -1213,8 +1402,7 @@ def main() -> int:
         return lw, lc, fan, fb, 1e3 * wall / r
 
     lw12, lc12, _, _, wall_ms12 = chain_run(
-        f"radix64_chain12 keys_per_tile={CHAIN_KEYS}",
-        synth.gen_radix(64, keys_per_tile=CHAIN_KEYS, radix=256, seed=0),
+        f"radix64_chain12 keys_per_tile={CUT_KEYS}", cut_trace,
         CHAIN_CUT_ROUND_CTR, CHAIN_CUT_COMPLETION_PS)
     _, _, fan, fb, _ = chain_run("fft64", fft, FFT_ROUND_CTR,
                                  FFT_COMPLETION_PS)
@@ -1265,7 +1453,7 @@ def main() -> int:
     # grows with the events it records, and a chain-12 round issues about
     # ten times the host ops of a chain-off round.
     profile_stretch(cap_sim, wall_ms0, card, "radix64", ["window_walk"],
-                    quanta=4)
+                    quanta=2)
     stamp("phase 7: chain-off stretch profiled")
     profile_stretch(csim, wall_ms12, card, "radix64_chain12",
                     ["window_walk", "chain_classify"], quanta=1)
@@ -1322,17 +1510,17 @@ def main() -> int:
         return s, lf, lc, fan, fb, 1e3 * wall / r
 
     s, lf_span, lc_f, _, _, wall_ms_ff = ff_run(
-        "radix64_ff_span", fparams, trace, FF_SPAN_CTRS,
-        FF_SPAN_COMPLETION_PS)
+        f"radix64_ff_span keys_per_tile={CUT_KEYS}", fparams, cut_trace,
+        FF_SPAN_CTRS, FF_SPAN_COMPLETION_PS)
     check(lf_span > 0 and lc_f == 0,
           f"radix64_ff_span: fast_forward_walk launches {lf_span}, "
           f"chain_classify launches {lc_f}")
-    check(s.total_instructions == FULL_ICOUNT,
-          f"radix64_ff_span: icount {s.total_instructions} != {FULL_ICOUNT}")
+    check(s.total_instructions == CUT_ICOUNT,
+          f"radix64_ff_span: icount {s.total_instructions} != {CUT_ICOUNT}")
     stamp("phase 8: radix64_ff_span")
     # Phase 7's fast-forward stretch, held against the run just made.
     profile_stretch(fsim, wall_ms_ff, card, "radix64_ff_span",
-                    ["window_walk", "fast_forward_walk"], quanta=4)
+                    ["window_walk", "fast_forward_walk"], quanta=2)
     del fsim
     stamp("phase 7: fast-forward stretch profiled")
     _, lf, lc, fan, fb, _ = ff_run("fft64_ff_span", fcparams, fft,
@@ -1355,6 +1543,100 @@ def main() -> int:
     check(s.to_dict()["ff_rounds"] == FFT_FF_CTRS["ctr_ff"],
           "fft64_ff: summary ff_rounds")
     stamp("phase 8: fft64_ff")
+
+    # ---- 9. one-card scale at full width
+    def scale_run(label, p, ctrace, want, want_ps, want_icount):
+        held = peak_reset()
+        sim = Simulator(p, ctrace, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        s = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+        c = round_ctrs(sim.state)
+        r = c["round_ctr"]
+        check(bool(s.done.all()), f"{label}: not all done")
+        for k, v in want.items():
+            check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
+        check(s.completion_time_ps == want_ps,
+              f"{label}: completion {s.completion_time_ps} != {want_ps}")
+        check(s.total_instructions == want_icount,
+              f"{label}: icount {s.total_instructions} != {want_icount}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{label}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        check(lc == p.miss_chain * c["ctr_resolve"],
+              f"{label}: chain_classify launches {lc} != {p.miss_chain} x "
+              f"{c['ctr_resolve']} chain passes")
+        check(COUNTS["fast_forward_walk"] == 0,
+              f"{label}: fast_forward_walk launched")
+        fan = int(s.counters["chain_fanout_served"].sum())
+        fb = int(s.counters["chain_fallback"].sum())
+        mips = s.total_instructions / wall / 1e6
+        print(f"{label}: all_done, round_ctr {r}, completion "
+              f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
+              f"instructions, chain_fanout_served {fan}, chain_fallback "
+              f"{fb}; counters {c}")
+        print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
+              f"{1e3 * wall / r:.4f} ms/round, simulated MIPS {mips:.6f}, "
+              f"{peak_line(held)}, window_walk launches {lw}, "
+              f"chain_classify launches {lc} on {card}")
+        return sim, lc, fan, 1e3 * wall / r
+
+    sim, _, _, wall_ms1k = scale_run(
+        "radix1024", sparams, trace1k, RADIX1024_CTRS,
+        RADIX1024_COMPLETION_PS, RADIX1024_ICOUNT)
+    del sim
+    stamp("phase 9: radix1024")
+    # The profiled stretch continues phase 3's radix1024 simulation, one
+    # quantum past its start; the top kernels show what the [T, T] and
+    # [T, A, A] work and the directory scatters' copies cost.
+    profile_stretch(s1k, wall_ms1k, card, "radix1024", ["window_walk"],
+                    quanta=2, top=12)
+    del s1k
+    stamp("phase 9: radix1024 stretch profiled")
+    sim, lc1k, fan, _ = scale_run(
+        "radix1024_chain12", scparams, trace1k, RADIX1024_CHAIN12_CTRS,
+        RADIX1024_CHAIN12_COMPLETION_PS, RADIX1024_ICOUNT)
+    check(fan == RADIX1024_CHAIN12_FANOUT and lc1k > 0,
+          f"radix1024_chain12: chain_fanout_served {fan} != "
+          f"{RADIX1024_CHAIN12_FANOUT}")
+    step = kchain.chain_step_entry(scparams, sim.vp, SCALE_H, 16)
+    check(step.wide, "radix1024_chain12: chain_classify did not launch "
+                     "its wide form")
+    print(f"radix1024_chain12: chain_classify launched its wide form "
+          f"({lc1k} launches = {CHAIN} x {RADIX1024_CHAIN12_CTRS['ctr_resolve']} "
+          f"chain passes)")
+    del sim, step
+    stamp("phase 9: radix1024_chain12")
+    p256 = config(**{"general/total_cores": 256})
+    scale_run("radix256", p256,
+              synth.gen_radix(256, keys_per_tile=96, radix=256, seed=0),
+              RADIX256_CTRS, RADIX256_COMPLETION_PS, RADIX256_ICOUNT)
+    stamp("phase 9: radix256")
+    # T = 512, the last size with dense one-hot [T, H] tables (4,194,304
+    # elements each): a cut run, for its peak device memory.
+    p512 = config(**{"general/total_cores": 512, "tpu/block_events": SCALE_K})
+    held = peak_reset()
+    sim = Simulator(p512, synth.gen_radix(512, keys_per_tile=16, radix=64,
+                                          seed=0), device=dev)
+    t0 = time.perf_counter()
+    st512 = megarun(p512, sim.state, sim.trace, RADIX512_QUANTA, vp=sim.vp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = round_ctrs(st512)
+    c.update(clock_max=int(st512.clock.max().item()),
+             clock_sum=int(st512.clock.sum().item()),
+             cursor_sum=int(st512.cursor.to(torch.int64).sum().item()))
+    for k, v in RADIX512_CUT.items():
+        check(c[k] == v, f"radix512 cut: {k} {c[k]} != {v}")
+    print(f"radix512 ({RADIX512_QUANTA} quanta): round_ctr {c['round_ctr']}, "
+          f"counters {c}; wall {wall:.3f} s "
+          f"({1e3 * wall / c['round_ctr']:.4f} ms/round), {peak_line(held)} "
+          f"on {card}")
+    del sim, st512
+    stamp("phase 9: radix512 cut")
 
     kernels = [{
         "name": "window_walk",

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from graphite_tpu_torch.engine.ops import lshr, scatter
+from graphite_tpu_torch.engine.ops import lshr, scatter, scatter_last
 from graphite_tpu_torch.params import SimParams
 
 DENSE_MAX_ELEMS = 1 << 22
@@ -60,14 +60,31 @@ def binmax(oh: torch.Tensor, mask: torch.Tensor, val: torch.Tensor,
                       dim=0)
 
 
+def stacked_max_table(idx: torch.Tensor, vals: torch.Tensor, size: int,
+                      init) -> torch.Tensor:
+    """[F, size] per-bin max of vals[f, r] over the shared idx[r], one
+    scatter for all F fields (graphite_tpu/engine/dense.py
+    stacked_max_table).  Rows are masked by passing ``init`` (the max
+    identity) as their value."""
+    F = vals.shape[0]
+    fr = torch.arange(F, device=vals.device)[:, None]
+    return scatter(torch.full((F, size), init, dtype=vals.dtype,
+                              device=vals.device),
+                   (fr, idx[None, :]), vals, "max")
+
+
 def stacked_set_table(idx: torch.Tensor, mask: torch.Tensor,
                       vals: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     """tbl[f, idx[r]] = vals[f, r] where mask[r], one scatter for all F
-    rows of ``tbl`` ([F, size]).  Callers guarantee at most one masked
-    row per index value, so duplicate-index order never matters."""
+    rows of ``tbl`` ([F, size]).  Where several masked rows share an
+    index value, every field takes the LAST such row's value (the JAX
+    package's CPU scatter order, ops.scatter_last), on the CPU and on
+    CUDA alike.  Duplicates are the normal case at the conflict round's
+    floor-table update above the dense cap: combined shared-read winners
+    of one line share its slot, each with its own availability time."""
     F = tbl.shape[0]
     fr = torch.arange(F, device=tbl.device)[:, None]
-    return scatter(tbl, (fr, idx[None, :]), vals, "set", mask=mask[None, :])
+    return scatter_last(tbl, (fr, idx[None, :]), vals, mask=mask[None, :])
 
 
 BIG = 2**62
@@ -112,17 +129,20 @@ def fcfs_keys(active: torch.Tensor, issue: torch.Tensor) -> torch.Tensor:
 
 
 def elect(active, packed, idx, size):
-    """Min-FCFS election: the earliest active row per ``idx`` value wins
-    (dense [R, size] form; callers check the size cap at construction)."""
+    """Min-FCFS election: the earliest active row per ``idx`` value wins.
+    The dense [R, size] form while R * size fits ``DENSE_MAX_ELEMS``,
+    above it a scatter-min table, as in the JAX package (both forms give
+    the same winners)."""
     R = packed.shape[0]
-    if R * size > DENSE_MAX_ELEMS:
-        raise NotImplementedError(
-            "election tables above the dense cap (T > 512) are ported in "
-            "a later slice")
-    oh = onehot(idx, size)
-    tbl = torch.amin(torch.where(oh & active[:, None], packed[:, None], BIG),
-                     dim=0)
-    return active & (sel(oh, tbl) == packed)
+    if R * size <= DENSE_MAX_ELEMS:
+        oh = onehot(idx, size)
+        tbl = torch.amin(torch.where(oh & active[:, None], packed[:, None],
+                                     BIG), dim=0)
+        return active & (sel(oh, tbl) == packed)
+    tbl = scatter(torch.full((size,), BIG, dtype=torch.int64,
+                             device=packed.device), idx, packed, "min",
+                  mask=active)
+    return active & (tbl[idx.to(torch.int64)] == packed)
 
 
 def grouped_rank(group: torch.Tensor, key: torch.Tensor,

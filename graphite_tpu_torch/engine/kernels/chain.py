@@ -27,7 +27,11 @@ Two forms compute one iteration from the state's own arrays
     iteration: one block, one thread per tile for the per-tile work and
     the whole block for the tables, the directory-row staging and the
     invalidation masks; every output leaf a view of one device buffer
-    (:class:`StepLayout`), the floor table updated in place.
+    (:class:`StepLayout`), the floor table updated in place.  Two forms,
+    chosen from the sizes when the launch is set up (:func:`step_form`):
+    the shared form (T <= 512) holds every table in shared memory; the
+    wide form (T <= 1024) keeps the H-sized tables in a device workspace
+    and reads the directory rows where they lie.
 
 :func:`run_chain_step` picks between them by the tensors' device, like
 ``window.run_window``; the wrapper counts its launches in
@@ -213,8 +217,10 @@ def chain_rows(dir_word: torch.Tensor, dir_sharers: torch.Tensor,
     return drow, dsharers
 
 
-def check_chain_config(params: SimParams) -> None:
-    """The classify step's scope in this slice."""
+def check_chain_config(params: SimParams, device=None) -> None:
+    """The classify step's scope in this slice; for a CUDA ``device``
+    also the kernel's limits, so that a run the card cannot take is
+    refused before it starts and never at its first chain pass."""
     if params.shared_l2:
         raise NotImplementedError(
             "the chain classify under shared-L2 protocols is ported in a "
@@ -223,6 +229,17 @@ def check_chain_config(params: SimParams) -> None:
         raise NotImplementedError(
             f"the chain classify under {params.protocol!r} is ported in a "
             f"later slice (model breadth)")
+    if device is None or torch.device(device).type != "cuda":
+        return
+    T = params.num_tiles
+    A = params.directory.associativity
+    if T > 64 * MAX_WORDS or A > MAX_WAYS:
+        raise NotImplementedError(
+            f"the chain replay on the card takes at most {64 * MAX_WORDS} "
+            f"tiles and {MAX_WAYS} directory ways (chain_classify: one "
+            f"block, one thread per tile, the hit-held ways of a set in one "
+            f"32-bit mask); T = {T}, A = {A} is refused.  Lifting these "
+            f"limits is ROADMAP queue 2 item 2")
 
 
 def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
@@ -453,8 +470,16 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
 
-# Sharer-bitmap words per directory entry the kernel takes (T <= 512).
-MAX_WORDS = 8
+# Sharer-bitmap words per directory entry the kernel takes: T <= 1024,
+# one thread per tile in one block.
+MAX_WORDS = 16
+
+# Directory ways the kernel takes (the hit-held ways of a set are bits of
+# one 32-bit word).
+MAX_WAYS = 32
+
+# Tiles the shared form takes (its block has at most 512 threads).
+SHARED_MAX_TILES = 512
 
 # One fused launch writes every ChainHead and ChainOut leaf into ONE
 # device buffer: the [T] int64 leaves, then the other int64 leaves, the
@@ -540,6 +565,44 @@ class StepLayout:
                 ChainOut._make([leaves[k] for k in self._out]))
 
 
+def _align8(x: int) -> int:
+    return (x + 7) & ~7
+
+
+def step_layout_bytes(T: int, A: int, W: int, H: int, KF: int,
+                      wide: bool):
+    """(shared-memory bytes, workspace bytes) of one launch of either
+    form: the kernel's ``make_layout``, array by array.  The shared form
+    holds everything in shared memory; the wide form keeps the three
+    H-sized tables and the [T, W] invalidation words in the workspace and
+    stages no directory rows."""
+    s = g = 0
+    for nbytes, where in ((8 * H, "big"), (4 * H, "big"), (H, "big"),
+                          (0 if wide else 8 * T * A, "s"), (8 * T, "s"),
+                          (8 * T, "s"), (8 * T * W, "big"), (8, "s"),
+                          (4 * T, "s"), (4 * T, "s"), (4 * T, "s"),
+                          (4 * T, "s"), (4 * T, "s"), (4 * KF, "s"),
+                          (4 * KF, "s"), (4 * KF, "s"), (T, "s")):
+        if where == "big" and wide:
+            g = _align8(g + nbytes)
+        else:
+            s = _align8(s + nbytes)
+    return s + T, g
+
+
+def step_form(T: int, A: int, W: int, H: int, KF: int):
+    """(wide, shared-memory bytes, workspace bytes) of the fused launch:
+    the shared form while T <= 512 and its arrays fit one block's shared
+    memory, else the wide form (whose shared part, the per-row arrays,
+    is under 52 KB at any T <= 1024).  Chosen once, when a launch is set
+    up, never as a fallback after a failed launch."""
+    smem, ws = step_layout_bytes(T, A, W, H, KF, False)
+    if T <= SHARED_MAX_TILES and smem <= MAX_SMEM_BYTES:
+        return False, smem, ws
+    smem, ws = step_layout_bytes(T, A, W, H, KF, True)
+    return True, smem, ws
+
+
 def fast_divisor(d: int):
     """(d, magic, shift) for the kernel's exact uint64 division by d
     without a divide instruction (the branch-free round-up method):
@@ -563,7 +626,7 @@ class _FastDiv(ctypes.Structure):
                 ("shift", ctypes.c_int64)]
 
 
-_IN_PTRS = ChainStepIn._fields + ("out",)
+_IN_PTRS = ChainStepIn._fields + ("out", "ws")
 # The operands one chain pass holds fixed: checked, and their pointers
 # set, when they are new tensors.
 _PASS_FIELDS = ("mq_req", "mq_delta", "mq_extra", "stop_hi", "p_net",
@@ -572,7 +635,7 @@ _SCALARS = ("T", "P", "A", "W", "D", "H", "KF", "fanout", "queue_on",
             "ndsets", "home_stride", "fold_bits", "dset_bits", "mesh_width",
             "net_magic", "hop_cycles", "ser_req", "ser_data",
             "inv_ack_cycles", "dir_cycles", "l2_cycles", "l1d_cycles",
-            "l1i_cycles", "dram_latency_ps", "dram_processing_ps")
+            "l1i_cycles", "dram_latency_ps", "dram_processing_ps", "wide")
 _DIVS = ("div_h", "div_ctrl", "div_dsets")
 
 
@@ -598,34 +661,38 @@ def _check(name, t, dtype, shape, dev):
 
 class _Step:
     """The fused launch at one (params, vp, H, W): the loaded library,
-    the argument struct with every scalar and output offset filled, the
-    output layout and the shared-memory size.  Per call only the
-    pointers are set."""
+    the form (:func:`step_form`), the argument struct with every scalar
+    and output offset filled, the output layout and the wide form's
+    workspace, allocated at the first call and reused by every later
+    one (the kernel clears it itself).  Per call only the pointers are
+    set."""
 
     def __init__(self, params: SimParams, vp: VariantParams, H: int,
                  W: int):
-        check_chain_config(params)
+        check_chain_config(params, "cuda")
         net = params.net_memory
         noc._zero_load_only(net)
         T = params.num_tiles
         A = params.directory.associativity
         KF = min(params.max_inv_fanout_per_round, T)
-        if T > 64 * MAX_WORDS or W != (T + 63) // 64 or A > 32:
+        if W != (T + 63) // 64:
             raise ValueError(
-                f"chain_classify: T = {T}, W = {W}, A = {A} outside the "
-                f"kernel's limits (T <= {64 * MAX_WORDS}, W = ceil(T / "
-                f"64) sharer words per entry, A <= 32 ways)")
+                f"chain_classify: W = {W} sharer words per entry at T = "
+                f"{T}, not ceil(T / 64)")
+        self.wide, self.smem, self.ws_bytes = step_form(T, A, W, H, KF)
         from graphite_tpu_torch.engine.kernels import build
         self.lib = build.load("chain_classify")
-        fn = self.lib.chain_classify_smem_bytes
-        fn.argtypes = [ctypes.c_int64] * 5
+        fn = self.lib.chain_classify_bytes
+        fn.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_size_t
-        self.smem = int(fn(T, A, W, H, KF))
-        if self.smem > MAX_SMEM_BYTES:
-            raise ValueError(
-                f"chain_classify: tables and directory rows need "
-                f"{self.smem} bytes of shared memory, more than "
-                f"{MAX_SMEM_BYTES}")
+        ws = ctypes.c_int64(0)
+        smem = int(fn(T, A, W, H, KF, int(self.wide), ctypes.byref(ws)))
+        if (smem, ws.value) != (self.smem, self.ws_bytes):
+            raise RuntimeError(
+                f"chain_classify: the kernel's layout ({smem}, {ws.value} "
+                f"bytes) is not step_layout_bytes' ({self.smem}, "
+                f"{self.ws_bytes})")
+        self.ws = None
         self.params, self.vp, self.H, self.W = params, vp, H, W
         self.layout = StepLayout(params, W)
         self.pass_ops = None      # the pass operands last checked
@@ -652,7 +719,7 @@ class _Step:
             l1d_cycles=vp.l1d_access_cycles,
             l1i_cycles=vp.l1i_access_cycles,
             dram_latency_ps=vp.dram_latency_ps,
-            dram_processing_ps=vp.dram_processing_ps,
+            dram_processing_ps=vp.dram_processing_ps, wide=int(self.wide),
             div_h=_FastDiv(*fast_divisor(H)),
             div_ctrl=_FastDiv(*fast_divisor(nctrl)),
             div_dsets=_FastDiv(*fast_divisor(ndsets)))
@@ -706,8 +773,12 @@ class _Step:
     def __call__(self, si: ChainStepIn):
         self.bind_pass(si)
         self.check(si)
-        buf = torch.empty(self.layout.nbytes, dtype=torch.uint8,
-                          device=si.base.device)
+        dev = si.base.device
+        if self.wide and (self.ws is None or self.ws.device != dev):
+            self.ws = torch.empty(self.ws_bytes, dtype=torch.uint8,
+                                  device=dev)
+            self.args.ws = self.ws.data_ptr()
+        buf = torch.empty(self.layout.nbytes, dtype=torch.uint8, device=dev)
         a = self.args
         a.head, a.stopped, a.base = (si.head.data_ptr(),
                                      si.stopped.data_ptr(),
@@ -715,7 +786,7 @@ class _Step:
         a.dir_word, a.dir_sharers = (si.dir_word.data_ptr(),
                                      si.dir_sharers.data_ptr())
         a.out = buf.data_ptr()
-        stream = torch.cuda.current_stream(si.base.device).cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = self.lib.chain_classify_launch(self.addr, stream)
         if err != 0:
             from graphite_tpu_torch.engine.kernels import build

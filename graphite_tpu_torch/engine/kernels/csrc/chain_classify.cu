@@ -33,7 +33,8 @@
 // over tiles, so the kernel is ONE block: one thread per tile for the
 // per-tile work, and the whole block (256 threads, or T rounded up to
 // whole warps if larger) for the table initialisation, the staging of
-// the directory rows and the [KF, T] invalidation masks.  Shared memory:
+// the directory rows and the [KF, T] invalidation masks.  Its arrays
+// (make_layout):
 //
 //   tblA  int64[H]   election minimum (BIG empty), later the floor max
 //   tblB  int32[H]   hit-held way bits per set, later the combining
@@ -41,9 +42,22 @@
 //   exa   uint8[H]   "an exclusive request hashes here"
 //   drow  int64[A, T] each head's directory row, way-major (the probe and
 //                    the victim scan read it from here, once each)
-//   per row: FCFS key, line, flat set, home, owner, way, (x, y), the
-//   invalidation bitmap words, two flags; per fan-out slot its row,
-//   target count and farthest hop.
+//   invt  uint64[T, W] each row's invalidation bitmap words
+//   per row: FCFS key, line, flat set, home, owner, way, (x, y), two
+//   flags; per fan-out slot its row, target count and farthest hop.
+//
+// Two forms, chosen by the wrapper from the sizes (chain.py step_form),
+// never as a fallback:
+//   * shared (kWide = false; T <= 512, a block of at most 512 threads):
+//     every array in shared memory, while they fit one block's 227 KB;
+//   * wide (kWide = true; T <= 1024, at most 1024 threads): the H-sized
+//     tables and the invalidation words in a device workspace the wrapper
+//     allocates once and this kernel clears itself (phase 0 and the table
+//     turnovers), the directory rows read where they lie in dir_word and
+//     not staged, the per-row arrays still in shared memory.  Its
+//     atomics are global ones; __syncthreads() orders the block's global
+//     accesses as it does its shared ones.  At T = 1024 and H = 16,384
+//     the tables and staged rows alone would need about 344 KB.
 //
 // Only the chosen way's W sharer words are read from the sharer array
 // (the whole [A, W] row of every head would need T * A * W * 8 bytes, 512
@@ -87,9 +101,11 @@ constexpr int64_t kBig = 1LL << 62;
 constexpr int32_t kNever = 2147483647;
 constexpr int kJOwn = 8;
 constexpr int64_t kKeyClip = 1LL << 40;
-constexpr int kMaxThreads = 512;  // T <= 512
+constexpr int kMaxThreadsShared = 512;  // the shared form: T <= 512
+constexpr int kMaxThreadsWide = 1024;   // the wide form: T <= 1024
 constexpr int kMinThreads = 256;
-constexpr int kMaxWords = 8;      // T <= 512 -> at most 8 bitmap words
+constexpr int kMaxWords = 16;     // T <= 1024 -> at most 16 bitmap words
+constexpr int kMaxWays = 32;      // hit-held ways are bits of one int32
 
 }  // namespace
 
@@ -119,6 +135,7 @@ struct StepArgs {
   const int32_t* p_core;
   int64_t* ftbl;               // [2, H] (queue off, in place) or null
   unsigned char* out;          // one buffer holding every output leaf
+  unsigned char* ws;           // the wide form's workspace (else null)
   // byte offsets of the leaves in `out` (chain.py _LEAVES; -1 absent)
   int64_t off_line, off_issue, off_extra, off_t_dir, off_owner_ps,
       off_inv_ps, off_reply_ps, off_from_dram_ps, off_dram_arrival,
@@ -135,6 +152,7 @@ struct StepArgs {
   int64_t mesh_width, net_magic, hop_cycles, ser_req, ser_data;
   int64_t inv_ack_cycles, dir_cycles, l2_cycles, l1d_cycles, l1i_cycles;
   int64_t dram_latency_ps, dram_processing_ps;
+  int64_t wide;                // 1: the wide form (kWide)
   FastDiv div_h, div_ctrl, div_dsets;
 };
 
@@ -194,12 +212,57 @@ __host__ __device__ __forceinline__ size_t align8(size_t x) {
   return (x + 7) & ~static_cast<size_t>(7);
 }
 
+// Byte offsets of the launch's arrays: in shared memory, except that the
+// wide form keeps the H-sized tables and the invalidation words in its
+// workspace and stages no directory rows.  `smem` and `ws` are the sizes.
+struct Layout {
+  size_t tblA, tblB, exa, drow, packed, line, invt, issue0, fidx, home,
+      owner, way, xy, frrow, kcnt, kmaxh, fan, oact;
+  size_t smem, ws;
+};
+
+__host__ __device__ __forceinline__ size_t take(size_t& off, size_t bytes) {
+  const size_t at = off;
+  off = align8(off + bytes);
+  return at;
+}
+
+__host__ __device__ __forceinline__ Layout make_layout(int64_t T, int64_t A,
+                                                      int64_t W, int64_t H,
+                                                      int64_t KF, bool wide) {
+  Layout L;
+  size_t s = 0, g = 0;
+  size_t& big = wide ? g : s;
+  L.tblA = take(big, sizeof(long long) * H);
+  L.tblB = take(big, sizeof(int32_t) * H);
+  L.exa = take(big, H);
+  L.drow = wide ? 0 : take(s, sizeof(int64_t) * T * A);
+  L.packed = take(s, sizeof(long long) * T);
+  L.line = take(s, sizeof(int64_t) * T);
+  L.invt = take(big, sizeof(uint64_t) * T * W);
+  L.issue0 = take(s, sizeof(long long));
+  L.fidx = take(s, sizeof(int32_t) * T);
+  L.home = take(s, sizeof(int32_t) * T);
+  L.owner = take(s, sizeof(int32_t) * T);
+  L.way = take(s, sizeof(int32_t) * T);
+  L.xy = take(s, sizeof(uint32_t) * T);
+  L.frrow = take(s, sizeof(int32_t) * KF);
+  L.kcnt = take(s, sizeof(int32_t) * KF);
+  L.kmaxh = take(s, sizeof(int32_t) * KF);
+  L.fan = take(s, T);
+  L.oact = s;
+  L.smem = s + T;
+  L.ws = g;
+  return L;
+}
+
 template <typename V>
 __device__ __forceinline__ V* leaf(const StepArgs& a, int64_t off) {
   return reinterpret_cast<V*>(a.out + off);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+template <bool kWide>
+__global__ void __launch_bounds__(kWide ? kMaxThreadsWide : kMaxThreadsShared)
 chain_classify_kernel(StepArgs a) {
   extern __shared__ __align__(8) unsigned char smem[];
   const int T = static_cast<int>(a.T), A = static_cast<int>(a.A);
@@ -208,43 +271,27 @@ chain_classify_kernel(StepArgs a) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
 
-  // ---- shared-memory layout (sizes mirror chain_classify_smem_bytes)
-  size_t off = 0;
-  long long* tblA = reinterpret_cast<long long*>(smem + off);
-  off = align8(off + sizeof(long long) * H);
-  int32_t* tblB = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * H);
-  uint8_t* exa = smem + off;
-  off = align8(off + H);
-  int64_t* drow_s = reinterpret_cast<int64_t*>(smem + off);
-  off = align8(off + sizeof(int64_t) * T * A);
-  long long* packed_s = reinterpret_cast<long long*>(smem + off);
-  off = align8(off + sizeof(long long) * T);
-  int64_t* line_s = reinterpret_cast<int64_t*>(smem + off);
-  off = align8(off + sizeof(int64_t) * T);
-  uint64_t* invt_s = reinterpret_cast<uint64_t*>(smem + off);
-  off = align8(off + sizeof(uint64_t) * T * W);
-  long long* issue0_s = reinterpret_cast<long long*>(smem + off);
-  off = align8(off + sizeof(long long));
-  int32_t* fidx_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * T);
-  int32_t* home_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * T);
-  int32_t* owner_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * T);
-  int32_t* way_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * T);
-  uint32_t* xy_s = reinterpret_cast<uint32_t*>(smem + off);
-  off = align8(off + sizeof(uint32_t) * T);
-  int32_t* frrow_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * KF);
-  int32_t* kcnt_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * KF);
-  int32_t* kmaxh_s = reinterpret_cast<int32_t*>(smem + off);
-  off = align8(off + sizeof(int32_t) * KF);
-  uint8_t* fan_s = smem + off;     // needs the fan-out budget
-  off = align8(off + T);
-  uint8_t* oact_s = smem + off;    // needs the owner-delivery budget
+  // ---- the arrays (make_layout; the wrapper sized both regions)
+  const Layout L = make_layout(T, A, W, H, KF, kWide);
+  unsigned char* big = kWide ? a.ws : smem;
+  long long* tblA = reinterpret_cast<long long*>(big + L.tblA);
+  int32_t* tblB = reinterpret_cast<int32_t*>(big + L.tblB);
+  uint8_t* exa = big + L.exa;
+  uint64_t* invt = reinterpret_cast<uint64_t*>(big + L.invt);
+  int64_t* drow_s = reinterpret_cast<int64_t*>(smem + L.drow);  // shared form
+  long long* packed_s = reinterpret_cast<long long*>(smem + L.packed);
+  int64_t* line_s = reinterpret_cast<int64_t*>(smem + L.line);
+  long long* issue0_s = reinterpret_cast<long long*>(smem + L.issue0);
+  int32_t* fidx_s = reinterpret_cast<int32_t*>(smem + L.fidx);
+  int32_t* home_s = reinterpret_cast<int32_t*>(smem + L.home);
+  int32_t* owner_s = reinterpret_cast<int32_t*>(smem + L.owner);
+  int32_t* way_s = reinterpret_cast<int32_t*>(smem + L.way);
+  uint32_t* xy_s = reinterpret_cast<uint32_t*>(smem + L.xy);
+  int32_t* frrow_s = reinterpret_cast<int32_t*>(smem + L.frrow);
+  int32_t* kcnt_s = reinterpret_cast<int32_t*>(smem + L.kcnt);
+  int32_t* kmaxh_s = reinterpret_cast<int32_t*>(smem + L.kmaxh);
+  uint8_t* fan_s = smem + L.fan;     // needs the fan-out budget
+  uint8_t* oact_s = smem + L.oact;   // needs the owner-delivery budget
 
   // ---- phase 0: tables empty; each tile's chain head
   for (int64_t i = tid; i < H; i += nthr) {
@@ -262,16 +309,24 @@ chain_classify_kernel(StepArgs a) {
   const int t = tid;
   const bool row = t < T;
   bool act = false, isx = false, isf = false;
-  int64_t ln = 0, iss = 0, ext = 0;
+  int64_t ln = 0, iss = 0;
   int32_t hm = 0, ds = 0, fi = 0, hx = 0;
-  uint64_t fhash = 0;
-  int64_t pn = 0, pnh = 0, pdir = 0, pl2 = 0, l1f = 0, pcore = 0;
+  uint32_t fhash = 0;              // H < 2^32: slots fit 32 bits
+  // This row's directory word of way w: staged in shared memory, or (the
+  // wide form) read where it lies.
+  auto dword = [&](int w) -> int64_t {
+    return kWide ? a.dir_word[static_cast<int64_t>(w) * D + fi]
+                 : drow_s[w * T + t];
+  };
+  // The periods and the local cost are read where they are used (phases
+  // 6 and 7), not held across the barriers before: the wide form's
+  // 1,024-thread block leaves each thread 64 registers.
   if (row) {
     const int32_t hd = a.head[t];
     const int64_t hs = hd < 0 ? 0 : (hd > a.P - 1 ? a.P - 1 : hd);
     const int64_t req = a.mq_req[hs * T + t];
     const int64_t delta = a.mq_delta[hs * T + t];
-    ext = a.mq_extra[hs * T + t];
+    const int64_t ext = a.mq_extra[hs * T + t];
     act = a.stopped[t] == 0 && hd < a.stop_hi[t];
     const int64_t kind = req & 7;
     ln = act ? (req >> 8) : 0;
@@ -285,7 +340,8 @@ chain_classify_kernel(StepArgs a) {
     fi = hm * static_cast<int32_t>(a.ndsets) + ds;
     iss = a.base[t] + delta;
     hx = static_cast<int32_t>(fast_mod(fmix64(ul), a.div_h));
-    fhash = fast_mod(fmix64(static_cast<uint64_t>(fi)), a.div_h);
+    fhash = static_cast<uint32_t>(
+        fast_mod(fmix64(static_cast<uint64_t>(fi)), a.div_h));
 
     leaf<uint8_t>(a, a.off_active)[t] = act;
     leaf<uint8_t>(a, a.off_is_ex)[t] = isx;
@@ -304,23 +360,18 @@ chain_classify_kernel(StepArgs a) {
     const uint32_t mw = static_cast<uint32_t>(a.mesh_width);
     xy_s[t] = (static_cast<uint32_t>(t) % mw) |
               ((static_cast<uint32_t>(t) / mw) << 16);
-    // the periods this row reads
-    pn = a.p_net[t];
-    pnh = a.p_net[hm];
-    pdir = a.p_dir[hm];
-    pl2 = a.p_l2[t];
-    pcore = a.p_core[t];
-    l1f = isf ? a.l1i_cycles * static_cast<int64_t>(a.p_l1i[t])
-              : a.l1d_cycles * static_cast<int64_t>(a.p_l1d[t]);
   }
   __syncthreads();
 
   // ---- phase 1: stage the directory rows (whole block, way-major so
-  // that both the stores and the per-row scans are conflict-free); the
-  // earliest active issue; exclusive requests per combining slot
-  for (int i = tid; i < T * A; i += nthr) {
-    const int w = i / T;
-    drow_s[i] = a.dir_word[static_cast<int64_t>(w) * D + fidx_s[i - w * T]];
+  // that both the stores and the per-row scans are conflict-free; not in
+  // the wide form); the earliest active issue; exclusive requests per
+  // combining slot
+  if constexpr (!kWide) {
+    for (int i = tid; i < T * A; i += nthr) {
+      const int w = i / T;
+      drow_s[i] = a.dir_word[static_cast<int64_t>(w) * D + fidx_s[i - w * T]];
+    }
   }
   if (row) {
     if (act) atomicMin(issue0_s, static_cast<long long>(iss));
@@ -334,7 +385,7 @@ chain_classify_kernel(StepArgs a) {
   if (row) {
     bool any = false;
     for (int w = 0; w < A; ++w) {
-      const int64_t word = drow_s[w * T + t];
+      const int64_t word = dword(w);
       if (word_tag(word) == static_cast<int32_t>(ln) &&
           word_state(word) != ST_I) {
         if (!any) hway = w;
@@ -352,19 +403,17 @@ chain_classify_kernel(StepArgs a) {
   // against the chosen way's sharer words
   int way = 0;
   long long packed = 0;
-  uint64_t aidx = 0;
+  uint32_t aidx = 0;
   bool can_alloc = false, vic_dead = false, has_inv = false;
   bool own_act = false;
   int way_state = ST_I, entry_state = ST_I;
   int32_t own_tile = 0;
-  uint64_t own_w = 0;
-  int64_t pno = 0, pl2o = 0;      // the owner's periods (an owner leg)
   if (row) {
     const unsigned used = static_cast<unsigned>(tblB[fhash]);
     int best = 0;
     int32_t best_key = 0;
     for (int w = 0; w < A; ++w) {
-      const int64_t word = drow_s[w * T + t];
+      const int64_t word = dword(w);
       const int32_t key = ((used >> w) & 1u)
                               ? kNever
                               : (word_state(word) == ST_I ? -1
@@ -377,22 +426,19 @@ chain_classify_kernel(StepArgs a) {
     can_alloc = act && !hit && best_key != kNever;
     way = hit ? hway : best;
     const int64_t am = (static_cast<int64_t>(hm) * a.ndsets + ds) * A + way;
-    aidx = fast_mod(fmix64(static_cast<uint64_t>(am)), a.div_h);
+    aidx = static_cast<uint32_t>(
+        fast_mod(fmix64(static_cast<uint64_t>(am)), a.div_h));
     int64_t d = iss - static_cast<int64_t>(issue0_s[0]);
     d = d < 0 ? 0 : (d > kKeyClip ? kKeyClip : d);
     packed = static_cast<long long>(d * T + t);
     if (act) atomicMin(&tblA[aidx], packed);
 
-    const int64_t wword = drow_s[way * T + t];
+    const int64_t wword = dword(way);
     way_state = word_state(wword);
     entry_state = hit ? way_state : ST_I;
     const int entry_owner = hit ? word_owner(wword) : -1;
     own_act = entry_state == ST_M && entry_owner >= 0 && entry_owner != t;
     own_tile = entry_owner < 0 ? 0 : entry_owner;
-    if (own_act) {
-      pno = a.p_net[own_tile];
-      pl2o = a.p_l2[own_tile];
-    }
     const int req_w = t >> 6;
     const uint64_t req_b = 1ULL << (t & 63);
     bool all_zero = true;
@@ -413,10 +459,9 @@ chain_classify_kernel(StepArgs a) {
         nsh = es | rb;
       }
       const uint64_t iv = (isx && entry_state == ST_S) ? (es & ~rb) : 0;
-      invt_s[t * W + k] = iv;
+      invt[t * W + k] = iv;
       has_inv = has_inv || iv != 0;
       delta[k] = static_cast<int64_t>(nsh - er);  // wraps like uint64
-      if (k == req_w) own_w = er;
     }
     vic_dead = way_state == ST_I ||
                ((way_state == ST_S || way_state == ST_O) && all_zero);
@@ -446,9 +491,10 @@ chain_classify_kernel(StepArgs a) {
   int fan_rank = 0, posr = 0;
   bool serve = false, owner_leg = false, fan_go = false, sh_ok = false;
   if (row) {
+    const long long pk = packed_s[t];   // this row's FCFS key, phase 3
     if (need_fan) {
       for (int j = 0; j < T; ++j)
-        if (fan_s[j] && packed_s[j] < packed) ++fan_rank;
+        if (fan_s[j] && packed_s[j] < pk) ++fan_rank;
     }
     const bool cand = a.fanout
                           ? cand0 && (!has_inv || (need_fan && fan_rank < KF))
@@ -456,7 +502,7 @@ chain_classify_kernel(StepArgs a) {
     if (oact) {
       for (int j = 0; j < T; ++j) {
         if (oact_s[j] && owner_s[j] == own_tile &&
-            (packed_s[j] < packed || (packed_s[j] == packed && j < t)))
+            (packed_s[j] < pk || (packed_s[j] == pk && j < t)))
           ++posr;
       }
     }
@@ -474,14 +520,15 @@ chain_classify_kernel(StepArgs a) {
 
   // ---- phase 6: combining members, hard stops, timing legs, the
   // outputs; the fan-out invalidation masks
+  // The timing legs go to their output leaves here and phase 7 reads
+  // them back from there, so none is held across the barrier between.
   bool serve_all = false, need_read = false;
-  int64_t tdir = 0, ops = 0, rps = 0;
   if (row) {
     const int r = tblB[hx];
     const int64_t rep_line = r >= 0 ? line_s[r] : -1;
     const int rep_way = r >= 0 ? way_s[r] : 0;
     const bool member = act && !serve && !isx && sh_ok && !exa[hx] &&
-                        rep_line == ln;
+                        rep_line == line_s[t];
     const int wayf = member ? rep_way : way;
     serve_all = serve || member;
     const bool stop_inv = !a.fanout && has_inv;
@@ -489,18 +536,25 @@ chain_classify_kernel(StepArgs a) {
                       (stop_inv || (can_alloc && !vic_dead) ||
                        (!hit && !can_alloc) || (own_act && posr >= kJOwn));
 
-    const int64_t net_req = unicast(a, xy_s, t, hm, a.ser_req, pn);
-    rps = unicast(a, xy_s, hm, t, a.ser_data, pnh);
-    tdir = iss + net_req + a.dir_cycles * pdir;
+    const int32_t pnh = a.p_net[hm];
+    const int64_t net_req = unicast(a, xy_s, t, hm, a.ser_req, a.p_net[t]);
+    const int64_t rps = unicast(a, xy_s, hm, t, a.ser_data, pnh);
+    const int64_t tdir = leaf<int64_t>(a, a.off_issue)[t] + net_req +
+                         a.dir_cycles * a.p_dir[hm];
+    int64_t ops = 0;
     if (owner_leg) {
       ops = unicast(a, xy_s, hm, own_tile, a.ser_req, pnh) +
-            a.l2_cycles * pl2o + unicast(a, xy_s, own_tile, hm, a.ser_data,
-                                         pno);
+            a.l2_cycles * a.p_l2[own_tile] +
+            unicast(a, xy_s, own_tile, hm, a.ser_data, a.p_net[own_tile]);
     }
     need_read = serve_all && !own_act;
     // A member's way is its representative's (same line, same row), so
-    // its own sharer word is the one phase 3 read.
-    const bool madd = member && (!hit || (own_w & (1ULL << (t & 63))) == 0);
+    // its own sharer word is that of the way phase 3 chose.
+    const bool madd =
+        member &&
+        (!hit || ((static_cast<uint64_t>(
+                       a.dir_sharers[(static_cast<int64_t>(t >> 6) * A + way) *
+                                         D + fi]) >> (t & 63)) & 1ULL) == 0);
 
     leaf<int32_t>(a, a.off_way)[t] = wayf;
     leaf<uint8_t>(a, a.off_hit)[t] = hit;
@@ -526,7 +580,8 @@ chain_classify_kernel(StepArgs a) {
     leaf<int64_t>(a, a.off_reply_ps)[t] = rps;
     leaf<int64_t>(a, a.off_from_dram_ps)[t] = 0;
     leaf<int64_t>(a, a.off_dram_arrival)[t] = tdir + ops;
-    leaf<int64_t>(a, a.off_l1_fill_ps)[t] = l1f;
+    leaf<int64_t>(a, a.off_l1_fill_ps)[t] =
+        isf ? a.l1i_cycles * a.p_l1i[t] : a.l1d_cycles * a.p_l1d[t];
   }
   if (a.fanout) {
     uint8_t* inv_bool = leaf<uint8_t>(a, a.off_inv_bool);
@@ -534,7 +589,7 @@ chain_classify_kernel(StepArgs a) {
       const int k = i / T, j = i - k * T;
       const int r = frrow_s[k];
       const bool bit =
-          r >= 0 && ((invt_s[r * W + (j >> 6)] >> (j & 63)) & 1ULL) != 0;
+          r >= 0 && ((invt[r * W + (j >> 6)] >> (j & 63)) & 1ULL) != 0;
       inv_bool[i] = bit;
       if (bit) {
         atomicAdd(&kcnt_s[k], 1);
@@ -558,13 +613,16 @@ chain_classify_kernel(StepArgs a) {
       icnt = kcnt_s[fan_rank];
       const int64_t mh_ps =
           (!a.net_magic && icnt > 0)
-              ? (kmaxh_s[fan_rank] * a.hop_cycles + a.ser_req) * pnh
+              ? (kmaxh_s[fan_rank] * a.hop_cycles + a.ser_req) *
+                    a.p_net[hm]
               : 0;
-      ips = 2 * mh_ps + a.inv_ack_cycles * pcore;
+      ips = 2 * mh_ps + a.inv_ack_cycles * a.p_core[t];
     }
     leaf<int64_t>(a, a.off_inv_ps)[t] = ips;
     leaf<int64_t>(a, a.off_inv_count)[t] = icnt;
     if (!a.queue_on) {
+      const int64_t tdir = leaf<int64_t>(a, a.off_t_dir)[t];
+      const int64_t ops = leaf<int64_t>(a, a.off_owner_ps)[t];
       const int64_t dstart = need_read ? tdir + ops : 0;
       const int64_t dready = dstart + a.dram_latency_ps +
                              a.dram_processing_ps;
@@ -574,7 +632,9 @@ chain_classify_kernel(StepArgs a) {
       if (a.fanout && tdir + ips > tdata) tdata = tdir + ips;
       leaf<int64_t>(a, a.off_t_data)[t] = tdata;
       leaf<int64_t>(a, a.off_completion)[t] =
-          tdata + rps + a.l2_cycles * pl2 + l1f + ext;
+          tdata + leaf<int64_t>(a, a.off_reply_ps)[t] +
+          a.l2_cycles * a.p_l2[t] + leaf<int64_t>(a, a.off_l1_fill_ps)[t] +
+          leaf<int64_t>(a, a.off_extra)[t];  // all this thread's
       tkey = tdata * T + t;
       if (serve_all) atomicMax(&tblA[hx], static_cast<long long>(tkey));
     }
@@ -584,61 +644,56 @@ chain_classify_kernel(StepArgs a) {
   if (!a.queue_on) {
     __syncthreads();
     if (row && serve_all && tblA[hx] == tkey) {
-      a.ftbl[hx] = ln;
+      a.ftbl[hx] = line_s[t];
       a.ftbl[H + hx] = tdata;
     }
   }
 }
 
-}  // namespace
-
-extern "C" size_t chain_classify_smem_bytes(int64_t T, int64_t A, int64_t W,
-                                            int64_t H, int64_t KF) {
-  size_t off = 0;
-  off = align8(off + sizeof(long long) * H);
-  off = align8(off + sizeof(int32_t) * H);
-  off = align8(off + H);
-  off = align8(off + sizeof(int64_t) * T * A);
-  off = align8(off + sizeof(long long) * T);
-  off = align8(off + sizeof(int64_t) * T);
-  off = align8(off + sizeof(uint64_t) * T * W);
-  off = align8(off + sizeof(long long));
-  off = align8(off + sizeof(int32_t) * T);
-  off = align8(off + sizeof(int32_t) * T);
-  off = align8(off + sizeof(int32_t) * T);
-  off = align8(off + sizeof(int32_t) * T);
-  off = align8(off + sizeof(uint32_t) * T);
-  off = align8(off + sizeof(int32_t) * KF);
-  off = align8(off + sizeof(int32_t) * KF);
-  off = align8(off + sizeof(int32_t) * KF);
-  off = align8(off + T);
-  off += T;
-  return off;
-}
-
-extern "C" int chain_classify_launch(const StepArgs* args, void* stream) {
-  // The wrapper (chain.py _Step) holds T, W and A to the limits of this
-  // kernel and the shared memory to the card's.
-  if (args->T <= 0) return 0;
-  if (args->T > kMaxThreads || args->W > kMaxWords || args->A > 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = chain_classify_smem_bytes(args->T, args->A, args->W,
-                                                args->H, args->KF);
-  static size_t opted = 48 * 1024;
+template <bool kWide>
+cudaError_t launch(const StepArgs& a, size_t smem, cudaStream_t stream) {
+  static size_t opted = 48 * 1024;  // one opt-in per form
   if (smem > opted) {
     // Above 48 KB a block's dynamic shared memory needs an opt-in.
     const cudaError_t err = cudaFuncSetAttribute(
-        chain_classify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+        chain_classify_kernel<kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
     opted = smem;
   }
-  const int64_t warps = (args->T + 31) / 32 * 32;
+  const int64_t warps = (a.T + 31) / 32 * 32;
   const unsigned threads =
       static_cast<unsigned>(warps > kMinThreads ? warps : kMinThreads);
-  chain_classify_kernel<<<1, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  chain_classify_kernel<kWide><<<1, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared-memory bytes of one launch; `ws` (if not null) receives the
+// workspace bytes of the wide form (0 for the shared form).
+extern "C" size_t chain_classify_bytes(int64_t T, int64_t A, int64_t W,
+                                       int64_t H, int64_t KF, int64_t wide,
+                                       int64_t* ws) {
+  const Layout L = make_layout(T, A, W, H, KF, wide != 0);
+  if (ws != nullptr) *ws = static_cast<int64_t>(L.ws);
+  return L.smem;
+}
+
+extern "C" int chain_classify_launch(const StepArgs* args, void* stream) {
+  // The wrapper (chain.py _Step) holds T, W and A to the limits of the
+  // form it chose, and the shared memory to the card's.
+  if (args->T <= 0) return 0;
+  const bool wide = args->wide != 0;
+  if (args->T > (wide ? kMaxThreadsWide : kMaxThreadsShared) ||
+      args->W > kMaxWords || args->A > kMaxWays ||
+      (wide && args->ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = make_layout(args->T, args->A, args->W, args->H,
+                                  args->KF, wide).smem;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(wide ? launch<true>(*args, smem, st)
+                               : launch<false>(*args, smem, st));
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -506,7 +506,8 @@ def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
     or losers), a hit on a shared set's least recently used line beside a
     miss to that set (a victim way the hit excludes), an exclusive
     request on a line other tiles share (a fan-out, or a hard stop
-    without the fan-out replay), a read of a line another tile holds in
+    without the fan-out replay; past 512 tiles its sharers lie below and
+    above sharer word 8), a read of a line another tile holds in
     M (an owner leg) and a miss to a set with an invalid way (an
     allocation)."""
     rng = np.random.default_rng(seed)
@@ -594,6 +595,12 @@ def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
         w, f = resident(excl_rd, S)           # others share the line
         bits[(tl[6] + 1) % T // 64, w, f] |= np.uint64(
             1 << ((tl[6] + 1) % T % 64))
+        if W > 8:
+            # Past 512 tiles: sharers below and above word 8, so the
+            # fan-out's invalidation set crosses it.
+            for lo, hi in ((0, 8), (8, W)):
+                b = int(rng.integers(64 * lo, min(64 * hi, T)))
+                bits[b // 64, w, f] |= np.uint64(1 << (b % 64))
         put_head(tl[6], excl_rd, PEND_EX_REQ)
         f = flat(alloc_rd)                    # a miss, an invalid way
         tags[tags[:, f] == alloc_rd, f] = others[4]

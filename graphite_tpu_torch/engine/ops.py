@@ -8,7 +8,9 @@ each gets ONE deliberate implementation here that every module calls:
     or device-asserts (CUDA).  :func:`scatter` pads the flattened target
     with one scratch element, sends every out-of-range row there, and
     returns a NEW tensor (JAX's ``.at[]`` is functional too).  No host
-    sync: the row mask never becomes a data-dependent shape.
+    sync: the row mask never becomes a data-dependent shape.  Where
+    several rows set one element, :func:`scatter_last` keeps the last
+    row, the order the JAX package's CPU scatter applies.
   * Unsigned 64-bit arithmetic.  Sharer bitmaps and hash keys are
     ``uint64`` in JAX; here they are ``int64`` with the same bits.
     Addition, subtraction, multiplication, ``&``/``|``/``^``/``~`` and
@@ -22,17 +24,12 @@ from __future__ import annotations
 
 import torch
 
-def scatter(t: torch.Tensor, idx, vals, op: str = "set",
-            mask: torch.Tensor = None) -> torch.Tensor:
-    """Functional ``t.at[idx].<op>(vals, mode="drop")``.
 
-    ``idx`` is a tuple of integer index tensors (one per leading axis of
-    ``t``, broadcast together); negative indices wrap once, as in JAX,
-    and rows with any index still outside its axis — or with ``mask``
-    False — are dropped.  ``op`` is ``set`` (callers
-    guarantee one writer per element, or identical values), ``add``,
-    ``max`` or ``min`` (order-free).  Returns a new contiguous tensor.
-    """
+def _flat_index(t: torch.Tensor, idx, mask):
+    """(lin, n): each row's flat index into ``t`` for a drop-scatter at
+    ``idx`` (a tuple of index tensors, broadcast together; negative
+    indices wrap once, as in JAX), with every row outside an axis or
+    masked off sent to the scratch position ``n = t.numel()``."""
     if not isinstance(idx, (tuple, list)):
         idx = (idx,)
     idx = torch.broadcast_tensors(*[i.to(torch.int64) for i in idx])
@@ -52,9 +49,25 @@ def scatter(t: torch.Tensor, idx, vals, op: str = "set",
         lin = lin + ix * strides[d]
     if mask is not None:
         valid = valid & mask
-    lin = torch.where(valid, lin, n).reshape(-1)
+    return torch.where(valid, lin, n), n
+
+
+def scatter(t: torch.Tensor, idx, vals, op: str = "set",
+            mask: torch.Tensor = None) -> torch.Tensor:
+    """Functional ``t.at[idx].<op>(vals, mode="drop")``.
+
+    ``idx`` is a tuple of integer index tensors (one per leading axis of
+    ``t``, broadcast together); negative indices wrap once, as in JAX,
+    and rows with any index still outside its axis — or with ``mask``
+    False — are dropped.  ``op`` is ``set`` (callers
+    guarantee one writer per element, or identical values; otherwise
+    :func:`scatter_last`), ``add``, ``max`` or ``min`` (order-free).
+    Returns a new contiguous tensor.
+    """
+    lin, n = _flat_index(t, idx, mask)
     v = torch.as_tensor(vals, device=t.device).to(t.dtype)
-    v = torch.broadcast_to(v, idx[0].shape).reshape(-1)
+    v = torch.broadcast_to(v, lin.shape).reshape(-1)
+    lin = lin.reshape(-1)
     flat = torch.cat([t.reshape(-1), t.new_zeros(1)])
     if op == "set":
         flat.index_put_((lin,), v)
@@ -70,7 +83,34 @@ def scatter(t: torch.Tensor, idx, vals, op: str = "set",
             flat.scatter_reduce_(0, lin, v, "amax" if op == "max" else "amin")
     else:
         raise ValueError(f"unknown scatter op {op!r}")
-    return flat[:n].view(shape)
+    return flat[:n].view(t.shape)
+
+
+def scatter_last(t: torch.Tensor, idx, vals,
+                 mask: torch.Tensor = None) -> torch.Tensor:
+    """Functional ``t.at[idx].set(vals, mode="drop")`` where several rows
+    may set one element: the LAST of them (the highest position in the
+    broadcast index shape, in C order) wins, the order in which the JAX
+    package's CPU scatter applies its updates.  Each element's winning
+    position is a scatter-max of the positions, and only the winners
+    then write, so the result is the same on the CPU and on CUDA, run
+    after run (a plain ``index_put_`` leaves the order of duplicates
+    undefined).  Indices and ``mask`` as in :func:`scatter`; no host
+    sync; the positions go through a table as large as ``t``, so this
+    is for small tables.  Returns a new contiguous tensor."""
+    lin, n = _flat_index(t, idx, mask)
+    v = torch.as_tensor(vals, device=t.device).to(t.dtype)
+    v = torch.broadcast_to(v, lin.shape).reshape(-1)
+    lin = lin.reshape(-1)
+    pos = torch.arange(lin.numel(), device=t.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=t.device)
+    last.scatter_reduce_(0, lin, pos, "amax")
+    # A row that does not win its element writes to the scratch position,
+    # which is dropped: every kept element has exactly one writer.
+    lin = torch.where(last[lin] == pos, lin, n)
+    flat = torch.cat([t.reshape(-1), t.new_zeros(1)])
+    flat.index_put_((lin,), v)
+    return flat[:n].view(t.shape)
 
 
 def lshr(x: torch.Tensor, s: int) -> torch.Tensor:

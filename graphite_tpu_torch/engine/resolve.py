@@ -365,6 +365,9 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                                vp.net_memory.flit_width_bits)
 
     rstamp = state.round_ctr * STAMP_STRIDE + STAMP_STRIDE - 1
+    # The one-hot [T, H] tables while they fit the dense cap (T <= 512),
+    # real scatters above it, as in the JAX package.
+    dense_tables = T * H <= dense.DENSE_MAX_ELEMS
 
     P = params.miss_chain
     if P > 0:
@@ -399,7 +402,7 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     fidx = (home * ndsets + dset).to(torch.int64)
     packed = _fcfs_keys(unres, issue)
     hidx = umod64(dense.fmix64(line), H)
-    oh_hidx = _oh(hidx, H)
+    oh_hidx = _oh(hidx, H) if dense_tables else None
     p_net_home = p_net[home.to(torch.int64)]
     p_dir_home = p_dir[home.to(torch.int64)]
     net_req = noc.unicast_ps(params.net_memory, rows, home, kchain.CTRL_BYTES,
@@ -412,9 +415,12 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     line_floor = torch.where(ftbl_g[0] == line, ftbl_g[1], 0)
 
     # ---- earliest-per-line election
-    tbl = torch.amin(torch.where(oh_hidx & unres[:, None], packed[:, None],
-                                 _BIG), dim=0)
-    win = unres & (_sel(oh_hidx, tbl) == packed)
+    if dense_tables:
+        tbl = torch.amin(torch.where(oh_hidx & unres[:, None],
+                                     packed[:, None], _BIG), dim=0)
+        win = unres & (_sel(oh_hidx, tbl) == packed)
+    else:
+        win = _elect(unres, packed, hidx, H)
 
     # ---- directory-cache probe at (home, dset)
     drow = state.dir_word[:, fidx].T                     # [T, A]
@@ -541,14 +547,28 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     sh_entry_ok = (entry_state == I) | (entry_state == S)
     ex_unres = unres & is_ex
     rep_sh = win & ~is_ex & sh_entry_ok
-    any_ex = torch.any(oh_hidx & ex_unres[:, None], dim=0)
-    rline = torch.amax(torch.where(oh_hidx & rep_sh[:, None], line[:, None],
-                                   -1), dim=0)
-    rway = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
-                                  way[:, None].to(torch.int64), -1), dim=0)
-    m_any_ex = _sel(oh_hidx, any_ex.to(torch.int32)) > 0
-    m_rline = _sel(oh_hidx, rline)
-    m_rway = _sel(oh_hidx, rway).to(torch.int32)
+    if dense_tables:
+        any_ex = torch.any(oh_hidx & ex_unres[:, None], dim=0)
+        rline = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
+                                       line[:, None], -1), dim=0)
+        rway = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
+                                      way[:, None].to(torch.int64), -1),
+                          dim=0)
+        m_any_ex = _sel(oh_hidx, any_ex.to(torch.int32)) > 0
+        m_rline = _sel(oh_hidx, rline)
+        m_rway = _sel(oh_hidx, rway).to(torch.int32)
+    else:
+        # The three tables over one index in one scatter-max (rep_sh has
+        # at most one winner per slot and the exclusive flag is
+        # monotone; masked rows write the max identity), one gather back.
+        cmb = dense.stacked_max_table(hidx, torch.stack([
+            torch.where(ex_unres, 1, -1).to(torch.int64),
+            torch.where(rep_sh, line, -1),
+            torch.where(rep_sh, way.to(torch.int64), -1)]), H, -1)
+        g_cmb = cmb[:, hidx]
+        m_any_ex = g_cmb[0] > 0
+        m_rline = g_cmb[1]
+        m_rway = g_cmb[2].to(torch.int32)
     combinable = unres & ~win & ~is_ex & sh_entry_ok \
         & ~m_any_ex & (m_rline == line)
     win = win | combinable
@@ -806,11 +826,20 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
 
     # ---- serialization floor for still-pending same-line requests
     t_free = t_data
-    win_oh = oh_hidx & win[:, None]
-    new_line = torch.amax(torch.where(win_oh, line[:, None], -1), dim=0)
-    new_t = torch.amax(torch.where(win_oh, t_free[:, None], 0), dim=0)
-    wrote = win_oh.any(dim=0)
-    ftbl = torch.where(wrote[None, :], torch.stack([new_line, new_t]), ftbl)
+    if dense_tables:
+        win_oh = oh_hidx & win[:, None]
+        new_line = torch.amax(torch.where(win_oh, line[:, None], -1), dim=0)
+        new_t = torch.amax(torch.where(win_oh, t_free[:, None], 0), dim=0)
+        wrote = win_oh.any(dim=0)
+        ftbl = torch.where(wrote[None, :], torch.stack([new_line, new_t]),
+                           ftbl)
+    else:
+        # Combined shared-read winners of one line share its slot, each
+        # with its own availability time: where the dense form takes the
+        # group max, the JAX package's scatter keeps the LAST row's, and
+        # so does stacked_set_table.
+        ftbl = dense.stacked_set_table(hidx, win,
+                                       torch.stack([line, t_free]), ftbl)
     state = state._replace(round_ctr=state.round_ctr + 1,
                            ctr_conflict=state.ctr_conflict + 1)
     return state, ftbl

@@ -21,6 +21,7 @@ import torch
 
 from graphite_tpu_torch.config import Config
 from graphite_tpu_torch.engine.kernels import dispatch
+from graphite_tpu_torch.engine.kernels.chain import check_chain_config
 from graphite_tpu_torch.engine.kernels.window import MAX_WINDOW
 from graphite_tpu_torch.engine.quantum import megarun
 from graphite_tpu_torch.engine.state import SimState, TraceArrays, make_state
@@ -36,13 +37,17 @@ SLICE_OPS = (EventOp.NOP, EventOp.COMPUTE, EventOp.BRANCH, EventOp.MEM_READ,
              EventOp.MEM_WRITE, EventOp.BARRIER_WAIT, EventOp.DONE)
 
 
-def check_slice(params: SimParams, trace: Optional[Trace] = None) -> None:
+def check_slice(params: SimParams, trace: Optional[Trace] = None,
+                device=None) -> None:
     """Refuse, loudly, every configuration and event kind the port does
     not run yet — nothing is mispriced silently.  Admitted: simple cores,
     private L1/L2 under MSI with a full-map directory, zero-load networks,
     the history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with
     the fan-out replay on or off, ``tpu/fast_forward`` at any width and
-    run-ahead span, and the events of ``SLICE_OPS``."""
+    run-ahead span, any tile count the directory's owner field holds
+    (state.py), and the events of ``SLICE_OPS``.  On a CUDA ``device``
+    the chain replay is also held to the classify kernel's limits
+    (kernels/chain.check_chain_config)."""
     def later(what, where="a later slice (model breadth)"):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "
@@ -72,9 +77,8 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None) -> None:
               "the run-lifecycle slice")
     if params.track_miss_types:
         later("miss-type classification ([cache]/track_miss_types)")
-    if 16 * params.num_tiles * max(1024, 16 * params.num_tiles) > 1 << 22:
-        later("more than 512 tiles (election tables above the dense cap)",
-              "the multi-device slice")
+    if params.miss_chain > 0:
+        check_chain_config(params, device)
     if params.block_events > MAX_WINDOW:
         later(f"tpu/block_events > {MAX_WINDOW}")
     if trace is not None:
@@ -297,8 +301,8 @@ class Simulator:
             raise ValueError(
                 f"trace has {trace.num_tiles} streams, params expect "
                 f"at least {params.num_tiles}")
-        check_slice(params, trace)
         self.device = dispatch.resolve_device(device)
+        check_slice(params, trace, self.device)
         self.params = params
         self.vp = variant_params(params)
         self.trace = TraceArrays.from_trace(trace, self.device)

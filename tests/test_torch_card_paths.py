@@ -7,9 +7,23 @@ only at a cut depth.
     radix64_chain12 row, which the JAX package on the CPU reproduces).
     ``chip_smoke.py`` runs this trace at keys_per_tile 512 to stay well
     inside its time limit; this test holds the full depth.
+  * radix64 chain-off and radix64_ff_span (``tpu/fast_forward = 8``,
+    span 1000 ns) at full depth, keys_per_tile 2048: 13,838 rounds and
+    243,651,800 ps (BENCH_r06's radix64 row), and 13,353 rounds and
+    243,687,400 ps (the JAX package on the CPU).  ``chip_smoke.py`` runs
+    both at keys_per_tile 256.
+  * One-card scale (``chip_smoke.py`` phase 9 runs them too): radix256,
+    ``gen_radix(256, keys_per_tile=96, radix=256, seed=0)`` on the
+    default config (5,475 rounds, 116,211,400 ps), and radix1024 and
+    radix1024_chain12, ``gen_radix(1024, keys_per_tile=16, radix=64,
+    seed=0)`` at ``tpu/block_events = 4``, miss_chain 0 (2,912 rounds,
+    64,803,200 ps) and 12 (632 rounds, 63,390,000 ps; chain_classify's
+    wide form).  Every round counter is the JAX package's on the CPU;
+    BENCH_r06 gives the same rounds and completions for radix256 and
+    radix1024.
 
 Run on the card: ``python -m pytest -m gpu --noconftest
-tests/test_torch_card_paths.py -q`` (a few minutes).
+tests/test_torch_card_paths.py -q`` (about ten minutes).
 """
 
 import pytest
@@ -26,6 +40,38 @@ CHAIN = 12
 RADIX64_CHAIN12_CTRS = dict(round_ctr=2181, ctr_window=1412, ctr_complex=67,
                             ctr_conflict=6, ctr_resolve=696, ctr_quantum=123)
 RADIX64_CHAIN12_COMPLETION_PS = 245_006_600
+# name: (tiles, gen_radix kwargs, config, counters, completion in ps)
+FULL64 = {
+    "radix64": (64, dict(keys_per_tile=2048, radix=256), {},
+                dict(round_ctr=13838, ctr_window=7444, ctr_complex=3601,
+                     ctr_conflict=2793, ctr_resolve=1711, ctr_quantum=545),
+                243_651_800),
+    "radix64_ff_span": (64, dict(keys_per_tile=2048, radix=256),
+                        {"tpu/fast_forward": 8,
+                         "tpu/fast_forward_span": 1000},
+                        dict(round_ctr=13353, ctr_window=6548,
+                             ctr_complex=3614, ctr_conflict=2787,
+                             ctr_resolve=1711, ctr_quantum=547, ctr_ff=1804,
+                             ctr_ffq=356, ff_events=211211),
+                        243_687_400),
+}
+SCALE = {
+    "radix256": (256, dict(keys_per_tile=96, radix=256), {},
+                 dict(round_ctr=5475, ctr_window=2543, ctr_complex=1710,
+                      ctr_conflict=1222, ctr_resolve=845, ctr_quantum=252),
+                 116_211_400),
+    "radix1024": (1024, dict(keys_per_tile=16, radix=64),
+                  {"tpu/block_events": 4},
+                  dict(round_ctr=2912, ctr_window=1561, ctr_complex=787,
+                       ctr_conflict=564, ctr_resolve=370, ctr_quantum=124),
+                  64_803_200),
+    "radix1024_chain12": (1024, dict(keys_per_tile=16, radix=64),
+                          {"tpu/block_events": 4, "tpu/miss_chain": CHAIN},
+                          dict(round_ctr=632, ctr_window=442, ctr_complex=86,
+                               ctr_conflict=8, ctr_resolve=96,
+                               ctr_quantum=31),
+                          63_390_000),
+}
 
 
 @pytest.mark.gpu
@@ -52,3 +98,65 @@ def test_radix64_chain12_full_depth_on_card():
     assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
     assert dispatch.COUNTS["chain_classify"] == CHAIN * ctrs["ctr_resolve"]
     assert dispatch.COUNTS["fast_forward_walk"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(FULL64))
+def test_radix64_full_depth_on_card(name):
+    """radix64 at miss_chain 0, without and with the fast-forward leg:
+    every round counter and the completion time exactly; window_walk
+    once per window round, no chain_classify launch, fast_forward_walk
+    launched only with the leg on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    T, kw, over, want, completion_ps = FULL64[name]
+    cfg = load_config()
+    for k, v in over.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, synth.gen_radix(T, seed=0, **kw), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want}
+    assert ctrs == want
+    assert s.completion_time_ps == completion_ps
+    assert s.total_instructions == 1_844_224
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] == 0
+    assert (dispatch.COUNTS["fast_forward_walk"] > 0) == (
+        params.fast_forward > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(SCALE))
+def test_one_card_scale_full_depth_on_card(name):
+    """Every round counter and the completion time exactly at T = 256 and
+    1024; window_walk once per window round, chain_classify (its wide
+    form at T = 1024) P times per chain pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    T, kw, over, want, completion_ps = SCALE[name]
+    cfg = load_config()
+    cfg.set("general/total_cores", T)
+    for k, v in over.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, synth.gen_radix(T, seed=0, **kw), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want}
+    assert ctrs == want
+    assert s.completion_time_ps == completion_ps
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] \
+        == params.miss_chain * ctrs["ctr_resolve"]
+    if params.miss_chain:
+        from graphite_tpu_torch.engine.kernels import chain as kchain
+        assert kchain.chain_step_entry(params, sim.vp, max(1024, 16 * T),
+                                       (T + 63) // 64).wide == (T > 512)

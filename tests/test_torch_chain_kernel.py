@@ -383,49 +383,142 @@ def test_plain_chain_step_matches_jax(config, seed):
     _assert_fields_equal(jout, out, f"{config} seed {seed}")
 
 
+def _step_cases(tp, si, H, seen):
+    """Add to ``seen`` how often each case of the step occurs in the
+    plain step on ``si``: a directory hit, an allocation, a victim way a
+    hit excludes, an election loser, an in-pass fan-out (and one whose
+    invalidation targets lie both below and above tile 512, so its
+    sharer set crosses word 8), an owner leg, a combining member and a
+    hard stop."""
+    from graphite_tpu_torch.engine import dense as tdense
+    from graphite_tpu_torch.engine.ops import umod64
+    from graphite_tpu_torch.engine.state import dword_stamp, dword_state
+    A = tp.directory.associativity
+    h, co = tchain.chain_step(tp, variant_params(tp), si, H)
+    act = h.active
+    # Members take their representative's way, which is their own (same
+    # line, same row), so co.way is every row's way.
+    way = co.way.to(torch.int64)
+    drow, _ = tchain.chain_rows(si.dir_word, si.dir_sharers, h.fidx)
+    fh = umod64(tdense.fmix64(h.fidx.to(torch.int64)), H)
+    used = torch.zeros((H, A), dtype=torch.bool)
+    used[fh[co.hit], way[co.hit]] = True
+    lru = torch.argmin(torch.where(dword_state(drow) == 0, -1,
+                                   dword_stamp(drow)), dim=1)
+    am = (h.home.to(torch.int64) * tp.directory.num_sets + h.dset) * A + way
+    wslot = tdense.elect(act, tdense.fcfs_keys(act, h.issue),
+                         umod64(tdense.fmix64(am), H), H)
+    seen["hit"] += int(co.hit.sum())
+    seen["alloc"] += int((co.serve & ~co.hit).sum())
+    seen["excluded_victim"] += int((act & ~co.hit & used[fh, lru]).sum())
+    seen["election_loser"] += int((act & ~wslot).sum())
+    seen["fan_out"] += int(co.fan_go.sum())
+    if co.inv_bool is not None and "fan_out_past_word_8" in seen:
+        ib = co.inv_bool
+        seen["fan_out_past_word_8"] += int(
+            (ib[:, :512].any(dim=1) & ib[:, 512:].any(dim=1)).sum())
+    seen["owner_leg"] += int(co.owner_leg.sum())
+    seen["member"] += int(co.member.sum())
+    seen["hard_stop"] += int(co.hard_stop.sum())
+
+
 def test_chain_step_operands_cover_the_cases():
     """Across the state-level sets of the parity test (T = 8, every
     configuration), each case of the step occurs: a directory hit, an
     allocation, a victim way a hit excludes, an election loser, an
     in-pass fan-out, an owner leg, a combining member and a hard stop."""
-    from graphite_tpu_torch.engine import dense as tdense
-    from graphite_tpu_torch.engine.ops import umod64
-    from graphite_tpu_torch.engine.state import dword_stamp, dword_state
     seen = dict(hit=0, alloc=0, excluded_victim=0, election_loser=0,
                 fan_out=0, owner_leg=0, member=0, hard_stop=0)
     for config in sorted(CONFIGS):
         tp = _torch_params(8, CONFIGS[config])
-        vp = variant_params(tp)
         H = max(1024, 16 * tp.num_tiles)
-        A = tp.directory.associativity
         for seed in range(3):
-            si = toperands.chain_step_in_from_numpy(
-                toperands.random_chain_step_arrays(tp, H, seed), "cpu")
-            h, co = tchain.chain_step(tp, vp, si, H)
-            act = h.active
-            # Members take their representative's way, which is their
-            # own (same line, same row), so co.way is every row's way.
-            way = co.way.to(torch.int64)
-            drow, _ = tchain.chain_rows(si.dir_word, si.dir_sharers, h.fidx)
-            fh = umod64(tdense.fmix64(h.fidx.to(torch.int64)), H)
-            used = torch.zeros((H, A), dtype=torch.bool)
-            used[fh[co.hit], way[co.hit]] = True
-            lru = torch.argmin(torch.where(dword_state(drow) == 0, -1,
-                                           dword_stamp(drow)), dim=1)
-            am = (h.home.to(torch.int64) * tp.directory.num_sets
-                  + h.dset) * A + way
-            wslot = tdense.elect(act, tdense.fcfs_keys(act, h.issue),
-                                 umod64(tdense.fmix64(am), H), H)
-            seen["hit"] += int(co.hit.sum())
-            seen["alloc"] += int((co.serve & ~co.hit).sum())
-            seen["excluded_victim"] += int((act & ~co.hit
-                                            & used[fh, lru]).sum())
-            seen["election_loser"] += int((act & ~wslot).sum())
-            seen["fan_out"] += int(co.fan_go.sum())
-            seen["owner_leg"] += int(co.owner_leg.sum())
-            seen["member"] += int(co.member.sum())
-            seen["hard_stop"] += int(co.hard_stop.sum())
+            _step_cases(tp, toperands.chain_step_in_from_numpy(
+                toperands.random_chain_step_arrays(tp, H, seed), "cpu"), H,
+                seen)
     assert all(v > 0 for v in seen.values()), seen
+
+
+# T = 1024 (W = 16 sharer words, 16 ways, H = 16,384: the wide form on
+# the card), on a directory of 16 sets per home so that the operands stay
+# small (the default one is 2 GB of sharer words at this T).
+WIDE = {"dram_directory/total_entries": 256}
+WIDE_CONFIGS = ("fanout_queue", "fanout_noqueue", "nofanout_queue")
+
+
+@pytest.mark.parametrize("config", ["fanout_queue", "fanout_noqueue"])
+def test_plain_chain_step_matches_jax_at_1024(config):
+    """The plain step against the JAX chain_classify at T = 1024, where
+    the way-slot election runs its scatter-min table (T * H above the
+    dense cap): every ChainHead and ChainOut field."""
+    J = _jax()
+    jp, tp = _params(1024, {**CONFIGS[config], **WIDE})
+    H = max(1024, 16 * tp.num_tiles)
+    assert tp.num_tiles * H > 1 << 22
+    arrays = toperands.random_chain_step_arrays(tp, H, 0)
+    jin = _jax_step_in(jp, arrays, H)
+    jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
+    head, out = tchain.run_chain_step(
+        tp, variant_params(tp), toperands.chain_step_in_from_numpy(
+            arrays, "cpu"), H)
+    _assert_fields_equal(
+        tchain.ChainHead(**{f: jin[f] for f in tchain.ChainHead._fields}),
+        head, f"{config} head")
+    _assert_fields_equal(jout, out, config)
+
+
+def test_chain_step_operands_cover_the_cases_at_1024():
+    """The state-level sets at T = 1024 that the wide form is held to on
+    the card plant every case of the step, a fan-out whose invalidation
+    set crosses sharer word 8 among them."""
+    seen = dict(hit=0, alloc=0, excluded_victim=0, election_loser=0,
+                fan_out=0, fan_out_past_word_8=0, owner_leg=0, member=0,
+                hard_stop=0)
+    for config in WIDE_CONFIGS:
+        tp = _torch_params(1024, {**CONFIGS[config], **WIDE})
+        H = max(1024, 16 * tp.num_tiles)
+        for seed in range(2):
+            _step_cases(tp, toperands.chain_step_in_from_numpy(
+                toperands.random_chain_step_arrays(tp, H, seed), "cpu"), H,
+                seen)
+    assert all(v > 0 for v in seen.values()), seen
+
+
+def test_step_form_by_size():
+    """The shared form while T <= 512 and its arrays fit one block's
+    shared memory (T = 512 at 16 ways: 224,360 B), the wide form above
+    (T = 512 at 32 ways would need 289,896 B; T = 1024 at 16 ways
+    514,152 B), with the H-sized tables and the invalidation words in
+    its workspace."""
+    assert tchain.step_form(64, 16, 1, 1024, 8) == (False, 24552, 0)
+    assert tchain.step_form(512, 16, 8, 8192, 8) == (False, 224360, 0)
+    assert tchain.step_layout_bytes(512, 32, 8, 8192, 8, False)[0] \
+        == 289896
+    assert tchain.step_form(512, 32, 8, 8192, 8) == (True, 19560, 139264)
+    assert tchain.step_layout_bytes(1024, 16, 16, 16384, 8, False)[0] \
+        == 514152
+    wide, smem, ws = tchain.step_form(1024, 16, 16, 16384, 8)
+    assert wide and smem <= tchain.MAX_SMEM_BYTES
+    assert ws == 16384 * (8 + 4 + 1) + 1024 * 16 * 8
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"dram_directory/associativity": 64}, "32 directory ways"),
+    ({"general/total_cores": 2048}, "1024"),
+])
+def test_chain_limits_refused_at_construction_on_cuda(over, match):
+    """What chain_classify cannot take (more than 32 directory ways, or
+    more than 1,024 tiles) is refused by the construction-time check
+    when the device is CUDA, before any round; the CPU runs it."""
+    from graphite_tpu_torch.engine.sim import check_slice
+    tp = _torch_params(64, over)
+    assert tp.miss_chain == 12
+    with pytest.raises(NotImplementedError, match=match) as exc:
+        check_slice(tp, device=torch.device("cuda"))
+    assert "ROADMAP queue 2 item 2" in str(exc.value)
+    check_slice(tp, device=torch.device("cpu"))
+    tp0 = _torch_params(64, {**over, "tpu/miss_chain": 0})
+    check_slice(tp0, device=torch.device("cuda"))
 
 
 def test_fast_divisor_is_exact():
@@ -513,6 +606,37 @@ def test_cuda_chain_kernel_matches_plain(T):
                 before = tdispatch.COUNTS["chain_classify"]
                 head, got = tchain.run_chain_step(tp, vp, work, H)
                 assert tdispatch.COUNTS["chain_classify"] == before + 1
+                ref_head, ref = tchain.chain_step(tp, vp, si, H)
+                torch.cuda.synchronize()
+                label = f"{config} H={H} {seed}"
+                if work.ftbl is not None:
+                    assert got.ftbl.data_ptr() == work.ftbl.data_ptr()
+                _assert_fields_equal(ref_head, head, label)
+                _assert_fields_equal(ref, got, label)
+
+
+@pytest.mark.gpu
+def test_cuda_chain_kernel_wide_form_matches_plain():
+    """The wide form (T = 1024, 16 ways, 16 sharer words, H = 16,384:
+    tables in the workspace, directory rows read in place) against the
+    plain step on the card, on the state-level operands of every
+    configuration at the default H, a non-power-of-two H and a colliding
+    H = 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    T = 1024
+    for config in sorted(CONFIGS):
+        tp = _torch_params(T, {**CONFIGS[config], **WIDE})
+        vp = variant_params(tp)
+        for H in (max(1024, 16 * T), 1000, 4):
+            step = tchain.chain_step_entry(tp, vp, H, (T + 63) // 64)
+            assert step.wide
+            for seed in range(2):
+                si = toperands.chain_step_in_from_numpy(
+                    toperands.random_chain_step_arrays(tp, H, seed), "cuda")
+                work = si._replace(
+                    ftbl=None if si.ftbl is None else si.ftbl.clone())
+                head, got = tchain.run_chain_step(tp, vp, work, H)
                 ref_head, ref = tchain.chain_step(tp, vp, si, H)
                 torch.cuda.synchronize()
                 label = f"{config} H={H} {seed}"

@@ -2,22 +2,29 @@
 same random inputs (numpy, fixed seeds).  The engine is all-integer, so
 every comparison is exact (tolerance 0), values and dtypes; ``uint64``
 leaves of the JAX package are compared as int64 bit patterns.
+
+``gpu``: the last-row-wins set on CUDA, run after run.  Run on the card
+with ``python -m pytest -m gpu --noconftest tests/test_torch_primitives.py``
+(the card's machine has no jax; there only the ``gpu`` tests run).
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
+try:
+    import jax.numpy as jnp
 
-from graphite_tpu.config import load_config as jax_load_config
-from graphite_tpu.engine import cache as jcache
-from graphite_tpu.engine import dense as jdense
-from graphite_tpu.engine import directory as jdir
-from graphite_tpu.engine import noc as jnoc
-from graphite_tpu.engine import queue_models as jq
-from graphite_tpu.engine import resolve as jresolve
-from graphite_tpu.params import SimParams as JaxSimParams
+    from graphite_tpu.config import load_config as jax_load_config
+    from graphite_tpu.engine import cache as jcache
+    from graphite_tpu.engine import dense as jdense
+    from graphite_tpu.engine import directory as jdir
+    from graphite_tpu.engine import noc as jnoc
+    from graphite_tpu.engine import queue_models as jq
+    from graphite_tpu.engine import resolve as jresolve
+    from graphite_tpu.params import SimParams as JaxSimParams
+except ImportError:     # the card's machine: only the gpu tests run there
+    jnp = None
 from graphite_tpu_torch import load_config
 from graphite_tpu_torch.engine import cache as tcache
 from graphite_tpu_torch.engine import dense as tdense
@@ -104,6 +111,98 @@ def test_elect_and_grouped_rank():
     line = rng.integers(0, 2**31, size=R).astype(np.int64)
     _eq(jdense.home_fold(jnp.asarray(line), 64),
         tdense.home_fold(_t(line), 64))
+
+
+def test_elect_above_the_dense_cap():
+    """R = 1024 rows into 16,384 slots (R * size = 2^24, above the 2^22
+    dense cap: the scatter-min table) with colliding slots and equal
+    issue times, against the JAX election."""
+    rng = np.random.default_rng(11)
+    R, size = 1024, 16384
+    assert R * size > tdense.DENSE_MAX_ELEMS
+    active = rng.random(R) < 0.8
+    issue = rng.integers(0, 50, size=R).astype(np.int64)
+    idx = rng.integers(0, 300, size=R).astype(np.int32)
+    idx[:40] = 7                                   # one crowded slot
+    idx[-3:] = size - 1
+    jk = jdense.fcfs_keys(jnp.asarray(active), jnp.asarray(issue))
+    tk = tdense.fcfs_keys(_t(active), _t(issue))
+    _eq(jk, tk)
+    got = tdense.elect(_t(active), tk, _t(idx), size)
+    _eq(jdense.elect(jnp.asarray(active), jk, jnp.asarray(idx), size), got)
+    assert 0 < int(got.sum()) < int(active.sum())
+
+
+def test_stacked_max_table_matches_jax():
+    """Three fields over one shared index, masked rows writing the max
+    identity, duplicate slots, against the JAX stacked_max_table."""
+    rng = np.random.default_rng(12)
+    size, R = 512, 700
+    idx = rng.integers(0, 96, size=R).astype(np.int64)
+    mask = rng.random(R) < 0.5
+    vals = rng.integers(-1, 1 << 40, size=(3, R)).astype(np.int64)
+    vals = np.where(mask[None, :], vals, -1)
+    _eq(jdense.stacked_max_table(jnp.asarray(idx), jnp.asarray(vals), size,
+                                 jnp.int64(-1)),
+        tdense.stacked_max_table(_t(idx), _t(vals), size, -1))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scatter_last_matches_jax_set(seed):
+    """The last-row-wins set against JAX's .at[].set(mode="drop") on the
+    CPU, whose update order keeps the last row: many rows per element,
+    negative indices that wrap, out-of-range and masked rows."""
+    rng = np.random.default_rng(20 + seed)
+    base = rng.integers(-50, 50, size=(6, 9)).astype(np.int64)
+    n = 400
+    r = rng.integers(-2, 8, size=n)
+    c = rng.integers(-1, 11, size=n)
+    v = rng.integers(-100, 100, size=n).astype(np.int64)
+    mask = rng.random(n) < 0.7
+    rr = np.where(mask, r, 6)                      # masked rows: dropped
+    j = jnp.asarray(base).at[jnp.asarray(rr), jnp.asarray(c)].set(
+        jnp.asarray(v), mode="drop")
+    _eq(j, ops.scatter_last(_t(base), (_t(r), _t(c)), _t(v), mask=_t(mask)))
+
+
+def test_stacked_set_table_takes_the_last_row_like_jax():
+    """Duplicate indices among the masked rows: every field from the last
+    such row, as the JAX stacked_set_table on the CPU leaves it."""
+    rng = np.random.default_rng(8)
+    H, R = 64, 300
+    idx = rng.integers(0, 20, size=R).astype(np.int64)
+    mask = rng.random(R) < 0.6
+    vals = rng.integers(-5, 1 << 40, size=(2, R)).astype(np.int64)
+    tbl = rng.integers(-1, 1 << 30, size=(2, H)).astype(np.int64)
+    got = tdense.stacked_set_table(_t(idx), _t(mask), _t(vals), _t(tbl))
+    _eq(jdense.stacked_set_table(jnp.asarray(idx), jnp.asarray(mask),
+                                 jnp.asarray(vals), jnp.asarray(tbl)), got)
+    last = {}
+    for r in range(R):
+        if mask[r]:
+            last[int(idx[r])] = r
+    for slot, r in last.items():
+        assert got[:, slot].tolist() == vals[:, r].tolist()
+
+
+@pytest.mark.gpu
+def test_scatter_last_is_deterministic_on_cuda():
+    """The last-row-wins set on CUDA, 100 times over heavy duplicates
+    (2^16 rows into 64 elements of each of two fields): the same table
+    every time, and the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    H, R = 64, 1 << 16
+    idx = torch.from_numpy(rng.integers(0, H, size=R))
+    mask = torch.from_numpy(rng.random(R) < 0.9)
+    vals = torch.from_numpy(rng.integers(0, 1 << 40, size=(2, R)))
+    tbl = torch.full((2, H), -1, dtype=torch.int64)
+    want = tdense.stacked_set_table(idx, mask, vals, tbl)
+    cu = [x.cuda() for x in (idx, mask, vals, tbl)]
+    for _ in range(100):
+        got = tdense.stacked_set_table(*cu)
+        assert torch.equal(got.cpu(), want)
 
 
 def _params(T=8, **over):

@@ -1,0 +1,252 @@
+"""PyTorch port at one-card scale: T = 1024 and T = 256 against the JAX
+package on the CPU.
+
+T = 1024 is the smallest tile count at which the conflict round leaves
+its one-hot [T, H] tables (H = max(1024, 16 T); the dense form holds
+while T * H <= 2^22, i.e. T <= 512): the per-line election goes through
+``dense.elect``'s scatter-min table, the shared-read combining tables
+through one ``dense.stacked_max_table`` and the floor table through
+``dense.stacked_set_table``, where combined shared-read winners of one
+line write one slot and the LAST row's value stays (the JAX package's
+CPU scatter order).  The chain pass's plain form runs its election above
+the cap too.
+
+The tier-1 cases are cut runs (a fixed number of quanta in both
+packages, every SimState leaf equal, tolerance 0: the engine is
+all-integer) on a small directory, ``dram_directory/total_entries =
+1024`` (64 sets of 16 ways, so ``dir_sharers`` is 128 MB at T = 1024
+instead of the default 2 GB, whose every drop-scatter copy makes a CPU
+round take seconds):
+
+  * ``gen_radix(1024, keys_per_tile=1, radix=64)`` at
+    ``tpu/block_events = 4``, miss_chain 0 and 12;
+  * ``gen_shared_readers(1024, lines=64, passes=2)``, whose conflict
+    rounds write floor-table slots from two or more rows with different
+    availability times, so the dense group-max form gives another table
+    (the radix cut writes one such slot, from 1,024 rows whose last row
+    also holds the largest time; the test counts both from the rounds'
+    own masks);
+  * a carry-across: the JAX state of the chain-12 cut, opened into its
+    next quantum and cut after the local advance, through one resolve
+    pass in both packages;
+  * T = 256 on the default config (the dense tables), a few quanta.
+
+Under ``slow``: the whole keys-1 runs on the default directory, pinned at
+the JAX package's CPU values (1,537 rounds, 57,500,000 ps at miss_chain
+0; 336 rounds, 56,706,000 ps at miss_chain 12).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from graphite_tpu.config import load_config as jax_load_config
+from graphite_tpu.engine import core as jcore
+from graphite_tpu.engine import dense as jdense
+from graphite_tpu.engine import quantum as jquantum
+from graphite_tpu.engine import resolve as jresolve
+from graphite_tpu.engine.sim import Simulator as JaxSimulator
+from graphite_tpu.events import synth as jax_synth
+from graphite_tpu.params import SimParams as JaxSimParams
+from graphite_tpu_torch import convert, load_config
+from graphite_tpu_torch.engine import dense as tdense
+from graphite_tpu_torch.engine import quantum as tquantum
+from graphite_tpu_torch.engine import resolve as tresolve
+from graphite_tpu_torch.engine.sim import Simulator, check_slice
+from graphite_tpu_torch.events import synth
+from graphite_tpu_torch.params import SimParams
+
+SMALL_DIR = {"dram_directory/total_entries": 1024}
+K4 = {"tpu/block_events": 4}
+RADIX1 = ("gen_radix", dict(keys_per_tile=1, radix=64, seed=0))
+# name: (T, (generator, kwargs), config overrides, quanta)
+CASES = {
+    "radix1024_chain0": (1024, RADIX1, {**SMALL_DIR, **K4}, 4),
+    # Seven quanta: the first six serve every chain in the replay pass,
+    # the seventh has conflict rounds at miss_chain 12.
+    "radix1024_chain12": (1024, RADIX1, {**SMALL_DIR, **K4,
+                                         "tpu/miss_chain": 12}, 7),
+    "shared_readers1024": (1024, ("gen_shared_readers",
+                                  dict(lines=64, passes=2)),
+                           SMALL_DIR, 2),
+    "radix256_dense": (256, ("gen_radix", dict(keys_per_tile=8, radix=64,
+                                               seed=0)), {}, 4),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The engine's CPU path is thousands of tiny ops: one intra-op
+    thread per test worker is faster than contending for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _params(T, over):
+    cj, ct = jax_load_config(), load_config()
+    for c in (cj, ct):
+        c.set("general/total_cores", T)
+        for k, v in over.items():
+            c.set(k, v)
+    return JaxSimParams.from_config(cj), SimParams.from_config(ct)
+
+
+def _assert_leaves_equal(jleaves, tleaves):
+    assert set(jleaves) == set(tleaves)
+    for name in sorted(jleaves):
+        a, b = np.asarray(jleaves[name]), np.asarray(tleaves[name])
+        assert a.dtype == b.dtype and a.shape == b.shape, \
+            (name, a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+class _JaxCut:
+    """One case's JAX run: the params, the simulator and the state after
+    the case's quanta (megarun, jitted)."""
+
+    def __init__(self, name):
+        T, (fn, kw), over, quanta = CASES[name]
+        self.jp, self.tp = _params(T, over)
+        self.trace_kw = (fn, dict(num_tiles=T, **kw))
+        self.sim = JaxSimulator(self.jp, getattr(jax_synth, fn)(
+            **self.trace_kw[1]))
+        self.quanta = quanta
+        self.state = jax.device_get(jquantum.megarun(
+            self.jp, self.sim.state, self.sim.trace, quanta))
+
+
+@pytest.fixture(scope="module")
+def jax_cut():
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            runs[name] = _JaxCut(name)
+        return runs[name]
+    return get
+
+
+def _port_cut(cut):
+    fn, kw = cut.trace_kw
+    tsim = Simulator(cut.tp, getattr(synth, fn)(**kw), device="cpu")
+    return tquantum.megarun(cut.tp, tsim.state, tsim.trace, cut.quanta)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cut_run_matches_jax(name, jax_cut):
+    cut = jax_cut(name)
+    T = cut.tp.num_tiles
+    H = max(1024, 16 * T)
+    dense_tables = T * H <= tdense.DENSE_MAX_ELEMS
+    assert dense_tables == (T <= 512)
+    tst = _port_cut(cut)
+    assert int(tst.ctr_quantum) == cut.quanta
+    assert not bool(tst.done.all())
+    _assert_leaves_equal(convert.leaves_to_numpy(cut.state),
+                         convert.state_to_numpy(tst))
+    if name != "radix1024_chain12":
+        assert int(tst.ctr_conflict) > 0
+    else:
+        assert int(tst.ctr_conflict) > 0 and int(tst.ctr_resolve) > 0
+
+
+def test_floor_table_duplicates_take_last_row(jax_cut, monkeypatch):
+    """The shared-readers cut at T = 1024 writes floor-table slots from
+    two or more rows in one conflict round, and on some of them the last
+    row's availability time is not the group's largest: the dense
+    form's group max would leave another table.  Counted from each
+    round's own (hidx, win, [line, t]) operands, on which the port's
+    table must equal the JAX function's.  The table lives for one
+    resolve pass, and no later round of these passes reads a slot whose
+    value the order decides, so the leaves alone would not show the
+    order; they must equal the JAX package's all the same."""
+    cut = jax_cut("shared_readers1024")
+    rounds = []
+    orig = tdense.stacked_set_table
+
+    def record(idx, mask, vals, tbl):
+        out = orig(idx, mask, vals, tbl)
+        rounds.append((idx, mask, vals, tbl, out))
+        return out
+
+    monkeypatch.setattr(tdense, "stacked_set_table", record)
+    tst = _port_cut(cut)
+    assert len(rounds) == int(tst.ctr_conflict) > 0   # one per round
+    dup_slots = differ_rounds = 0
+    for idx, mask, vals, tbl, out in rounds:
+        slots, count = torch.unique(idx[mask], return_counts=True)
+        dup_slots += int((count > 1).sum())
+        # The dense form: per slot the max line and the max time of the
+        # rows that write it.
+        H = tbl.shape[1]
+        oh = tdense.onehot(idx, H) & mask[:, None]
+        group = torch.stack([
+            torch.amax(torch.where(oh, vals[0][:, None], -1), dim=0),
+            torch.amax(torch.where(oh, vals[1][:, None], 0), dim=0)])
+        dense_tbl = torch.where(oh.any(dim=0)[None, :], group, tbl)
+        differ_rounds += int(not torch.equal(dense_tbl, out))
+        want = jdense.stacked_set_table(
+            jnp.asarray(idx.numpy()), jnp.asarray(mask.numpy()),
+            jnp.asarray(vals.numpy()), jnp.asarray(tbl.numpy()))
+        np.testing.assert_array_equal(np.asarray(want), out.numpy())
+    assert dup_slots > 0 and differ_rounds > 0, (dup_slots, differ_rounds)
+    _assert_leaves_equal(convert.leaves_to_numpy(cut.state),
+                         convert.state_to_numpy(tst))
+
+
+def test_carry_across_resolve_t1024(jax_cut):
+    """The JAX chain-12 cut, opened into its next quantum and cut after
+    the local advance (banked chains no resolve pass has served), goes
+    through one resolve pass in both packages."""
+    cut = jax_cut("radix1024_chain12")
+    jp, tp = cut.jp, cut.tp
+    st = jax.device_put(cut.state)
+    st = st._replace(boundary=jquantum.next_boundary(jp, st),
+                     ctr_quantum=st.ctr_quantum + 1)
+    mid = jax.device_get(jax.jit(
+        lambda s: jcore.local_advance(jp, s, cut.sim.trace))(st))
+    assert (np.asarray(mid.mq_count) > 0).any(), "the cut holds no chain"
+    leaves = convert.leaves_to_numpy(mid)
+    tst = convert.state_from_numpy(tp, leaves, "cpu")
+    jres = jax.jit(lambda s: jresolve.resolve(jp, s))(jax.device_put(mid))
+    tres = tresolve.resolve(tp, tst)
+    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jres)),
+                         convert.state_to_numpy(tres))
+
+
+@pytest.mark.parametrize("T", [256, 512, 1024])
+def test_check_slice_admits_one_card_tile_counts(T):
+    """No tile cap but the directory owner field's (8,191 tiles): the
+    default config at T = 256, 512 and 1024, chain replay off and on, on
+    the CPU and (for the construction check alone) on CUDA."""
+    for chain in (0, 12):
+        cfg = load_config()
+        cfg.set("general/total_cores", T)
+        cfg.set("tpu/miss_chain", chain)
+        params = SimParams.from_config(cfg)
+        for device in ("cpu", "cuda"):
+            check_slice(params, device=torch.device(device))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("chain,rounds,completion_ps", [
+    (0, 1537, 57_500_000), (12, 336, 56_706_000)])
+def test_radix1024_keys1_whole_run(chain, rounds, completion_ps):
+    """The whole keys-1 run on the default directory (2 GB of sharer
+    words), pinned at the JAX package's CPU values."""
+    cfg = load_config()
+    cfg.set("general/total_cores", 1024)
+    cfg.set("tpu/block_events", 4)
+    cfg.set("tpu/miss_chain", chain)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, synth.gen_radix(1024, keys_per_tile=1, radix=64,
+                                            seed=0), device="cpu")
+    s = sim.run()
+    assert bool(s.done.all())
+    assert int(sim.state.round_ctr) == rounds
+    assert s.completion_time_ps == completion_ps
