@@ -49,7 +49,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          on state-level seeded sets of every configuration at three H
          (a fan-out whose sharers cross sharer word 8 among them) and on
          iterations captured from the port's own radix1024 chain-12 run
-         (timed).
+         (timed);
+       * the coherence protocols (MOSI, shared-L2 MSI, shared-L2 MESI):
+         window_walk at K = 16 and 64, P = 0 and 12, on random and seeded
+         operands (E lines written and touched again, shared-L2 banked
+         fills of one L1 set, pending banks on L1 sets; no L2 operand
+         with shared L2); chain_classify on state-level seeded sets of
+         every configuration with the DRAM controllers on every tile and
+         on a quarter of them (chain heads whose DRAM site is not their
+         slice), each protocol's own cases (O entries read, written and
+         evicted, E grants, fan-outs), and its wide form at T = 1024
+         under shared-L2 MESI; fast_forward_walk under shared-L2 MESI
+         (the sticky E->M upgrade) — eight sets per protocol and kernel
+         at least.
      Each kernel's bound counts the bytes the function needs on the
      timed operands (chain_bytes, ff_bytes, window_bytes).  The chain
      wrapper must make one device allocation per call and the
@@ -60,14 +72,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
      (86 engine rounds, completion 8,686.6 ns).
   5. The chain-off main path at full width and a cut depth:
-     ``gen_radix(64, keys_per_tile=256, radix=256, seed=0)`` on the
-     default config — all_done, every round counter (round_ctr 5309),
-     completion 100,052.2 ns, window-kernel launches == ctr_window (the
+     ``gen_radix(64, keys_per_tile=128, radix=256, seed=0)`` on the
+     default config — all_done, every round counter (round_ctr 4115),
+     completion 81,960.8 ns, window-kernel launches == ctr_window (the
      full depth, keys_per_tile 2048, 13,838 rounds and 243,651.8 ns, is
      held on the card by tests/test_torch_card_paths.py).
   6. The chain-replay paths at full width, miss_chain 12: the radix64
-     trace at a cut depth, ``gen_radix(64, keys_per_tile=256, radix=256,
-     seed=0)`` (round_ctr 522, completion 100,173.8 ns; the full depth,
+     trace at a cut depth, ``gen_radix(64, keys_per_tile=128, radix=256,
+     seed=0)`` (round_ctr 419, completion 82,581.2 ns; the full depth,
      2,181 rounds and 245,006.6 ns, is held on the card by
      tests/test_torch_card_paths.py) and ``gen_fft(64,
      points_per_tile=64, writeback=True)`` (round_ctr 377, completion
@@ -88,9 +100,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   8. The fast-forward paths at full width, ``tpu/fast_forward = 8``
      (wide rounds of 64 events):
        * radix64_ff_span: phase 5's cut radix64 trace at miss_chain 0
-         and a run-ahead span of 1000 ns (round_ctr 5292, completion
-         100,052.2 ns, ctr_ff 70, ctr_ffq 23, ff_events 15734, icount
-         238,592; the full depth, 13,353 rounds, is held on the card by
+         and a run-ahead span of 1000 ns (round_ctr 4102, completion
+         81,960.8 ns, ctr_ff 40, ctr_ffq 14, ff_events 4706, icount
+         123,904; the full depth, 13,353 rounds, is held on the card by
          tests/test_torch_card_paths.py); fast_forward_walk launches > 0
          and at least the analytic rounds that engaged, window_walk
          launches == ctr_window, no chain_classify launch;
@@ -124,7 +136,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          at block_events 4 for 8 quanta (the last size with dense one-hot
          [T, H] tables), for its peak device memory.
 
-Before each path of phases 4 to 6, 8 and 9 every kernel's launch count is
+  10. The coherence protocols at full width (64 tiles, the default
+      config), each exact against the JAX package's values on the CPU:
+       * radix64_shl2_mesi_ff_span: phase 5's cut trace under
+         ``pr_l1_sh_l2_mesi`` at miss_chain 12 and
+         ``tpu/fast_forward = 8``, span 1000 ns (round_ctr 480,
+         completion 73,766.0 ns): all three kernels on their protocol
+         branches, each launched (the full depth, 1,633 rounds, is held
+         on the card by tests/test_torch_card_paths.py);
+       * fft64_mosi: ``gen_fft(64, points_per_tile=64, writeback=True)``
+         under MOSI at miss_chain 12 (round_ctr 354, completion 48,966.2
+         ns, 1,855 fan-outs, 94 fallbacks);
+       * fft64_shl2_msi: the same trace under ``pr_l1_sh_l2_msi`` at
+         miss_chain 12 with the DRAM controllers on 8 of the 64 tiles, so
+         that a slice miss's controller is often another tile (round_ctr
+         371, completion 37,856.6 ns, 282 fan-outs, 41 fallbacks).
+     Each path records (clones of) the operands of its first window
+     walks, replay iterations and analytic rounds; once its launch
+     counts are read, each kernel is held against its plain form on
+     them and timed (device time per launch under each protocol; the
+     fast-forward walk on a recorded round where some tile engages,
+     else on phase 3's seeded set with the most engaged tiles).
+
+Before each path of phases 4 to 6 and 8 to 10 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -154,21 +188,22 @@ FULL_KEYS = 2048
 # host-bound wall on an NVIDIA H100 80GB HBM3 at 700 W;
 # tests/test_torch_card_paths.py holds both full depths on the card).
 # The JAX package on the CPU gives these values for gen_radix(64,
-# keys_per_tile=256, radix=256, seed=0).
-CUT_KEYS = 256
-CUT_CTRS = dict(round_ctr=5309, ctr_window=2460, ctr_complex=1644,
-                ctr_conflict=1205, ctr_resolve=814, ctr_quantum=237)
-CUT_COMPLETION_PS = 100_052_200
-CUT_ICOUNT = 238_592
+# keys_per_tile=128, radix=256, seed=0) (since phase 10 was added; at
+# keys_per_tile 256, 5,309 rounds and 100,052.2 ns).
+CUT_KEYS = 128
+CUT_CTRS = dict(round_ctr=4115, ctr_window=1896, ctr_complex=1285,
+                ctr_conflict=934, ctr_resolve=653, ctr_quantum=186)
+CUT_COMPLETION_PS = 81_960_800
+CUT_ICOUNT = 123_904
 CHAIN = 12
 # Phase 6 runs radix64_chain12 at a cut depth, so that the script with
 # phases 8 and 9 ends well inside its time limit on a slow host (the full
 # depth took 163-251 s of host-bound wall on an NVIDIA H100 80GB HBM3 at
 # 700 W; tests/test_torch_card_paths.py holds it on the card).  The JAX
 # package on the CPU gives these values for the cut trace of phase 5
-# (keys_per_tile 256) at miss_chain 12.
-CHAIN_CUT_ROUND_CTR = 522
-CHAIN_CUT_COMPLETION_PS = 100_173_800
+# (keys_per_tile 128) at miss_chain 12.
+CHAIN_CUT_ROUND_CTR = 419
+CHAIN_CUT_COMPLETION_PS = 82_581_200
 FFT_ROUND_CTR = 377
 FFT_COMPLETION_PS = 60_677_000
 FFT_FANOUT_SERVED = 1897
@@ -182,10 +217,10 @@ RADIX8_CHAIN_COMPLETION_PS = 8_686_600
 # CPU; the span-0 fft64 row is BENCH_r06's fft64_ff.
 FF = 8
 FF_SPAN_NS = 1000
-FF_SPAN_CTRS = dict(round_ctr=5292, ctr_window=2411, ctr_complex=1651,
-                    ctr_conflict=1205, ctr_resolve=814, ctr_quantum=237,
-                    ctr_ff=70, ctr_ffq=23, ff_events=15734)
-FF_SPAN_COMPLETION_PS = 100_052_200     # keys_per_tile 256, as phase 5
+FF_SPAN_CTRS = dict(round_ctr=4102, ctr_window=1866, ctr_complex=1289,
+                    ctr_conflict=934, ctr_resolve=653, ctr_quantum=186,
+                    ctr_ff=40, ctr_ffq=14, ff_events=4706)
+FF_SPAN_COMPLETION_PS = 81_960_800      # keys_per_tile 128, as phase 5
 FFT_FF_SPAN_CTRS = dict(round_ctr=293, ctr_window=92, ctr_complex=27,
                         ctr_conflict=90, ctr_resolve=70, ctr_quantum=31,
                         ctr_ff=79, ctr_ffq=29, ff_events=38318)
@@ -226,6 +261,33 @@ RADIX512_CUT = dict(round_ctr=232, ctr_window=148, ctr_complex=49,
                     ctr_conflict=35, ctr_resolve=24, ctr_quantum=8,
                     clock_max=6_764_600, clock_sum=2_237_566_200,
                     cursor_sum=9848)
+
+
+# The coherence protocols (phases 3 and 10), as the JAX package computes
+# them on the CPU.
+MOSI = "pr_l1_pr_l2_dram_directory_mosi"
+SH_MSI = "pr_l1_sh_l2_msi"
+SH_MESI = "pr_l1_sh_l2_mesi"
+PROTOCOLS = (MOSI, SH_MSI, SH_MESI)
+SHL2_MESI_FF = {"caching_protocol/type": SH_MESI, "tpu/miss_chain": CHAIN,
+                "tpu/fast_forward": FF, "tpu/fast_forward_span": FF_SPAN_NS}
+# radix64_shl2_mesi_ff_span on phase 5's cut trace (keys_per_tile 128;
+# at 256, 570 rounds and 90,567.6 ns).
+SHL2_MESI_FF_CTRS = dict(round_ctr=480, ctr_window=200, ctr_complex=30,
+                         ctr_conflict=51, ctr_resolve=193, ctr_quantum=35,
+                         ctr_ff=90, ctr_ffq=35, ff_events=29498)
+SHL2_MESI_FF_COMPLETION_PS = 73_766_000
+FFT_MOSI_CTRS = dict(round_ctr=354, ctr_window=171, ctr_complex=19,
+                     ctr_conflict=100, ctr_resolve=64, ctr_quantum=25)
+FFT_MOSI_COMPLETION_PS = 48_966_200
+FFT_MOSI_FANOUT, FFT_MOSI_FALLBACK = 1855, 94
+# fft64 under shared-L2 MSI with the controllers on 8 tiles (stride 8).
+SHL2_CTRL = 8
+FFT_SHL2_CTRS = dict(round_ctr=371, ctr_window=190, ctr_complex=30,
+                     ctr_conflict=67, ctr_resolve=84, ctr_quantum=19)
+FFT_SHL2_COMPLETION_PS = 37_856_600
+FFT_SHL2_FANOUT, FFT_SHL2_FALLBACK = 282, 41
+FFT_ICOUNT = 557_056
 
 
 T_START = time.perf_counter()
@@ -302,9 +364,12 @@ def chain_bytes(params, si, head, out) -> int:
     way is its representative's, in the same row).  Periods: each tile
     its L1 side (the fill time of every row) and, without a magic
     network, its network period; each distinct home its directory
-    period and network period; each served owner leg's owner its L2 and
-    network periods; each fan-out row its core period; with the DRAM
-    queue model off each tile its L2 period.  Writes: every ChainHead
+    period and network period; each served owner leg's owner its L2
+    (with shared L2: L1D) and network periods; each fan-out row its core
+    period; with the DRAM queue model off each tile its L2 period (none
+    with shared L2); with shared L2 and a network that is not magic, each
+    distinct memory controller that a DRAM read reaches from another
+    slice its network period.  Writes: every ChainHead
     and ChainOut element, and with the queue model off each floor-table
     slot a served row wins (line and time), once."""
     import torch
@@ -329,8 +394,13 @@ def chain_bytes(params, si, head, out) -> int:
     if legs.numel():
         moved += 4 * distinct(legs) * (1 + int(net))  # L2, network
     moved += 4 * int(out.fan_go.sum()) if out.inv_bool is not None else 0
+    sites = out.need_read & (out.from_dram_ps > 0)
+    if bool(sites.any()):
+        from graphite_tpu_torch.engine import dense
+        moved += 4 * distinct(dense.dram_site_of_line(
+            params, head.line[sites]))               # controller network
     if out.ftbl is not None:
-        moved += 4 * T                               # L2 period
+        moved += 0 if params.shared_l2 else 4 * T    # L2 period
         won = head.hidx[out.serve_all]
         moved += 16 * (distinct(won) if won.numel() else 0)
     return moved + nbytes(head) + nbytes(t for f, t in zip(out._fields, out)
@@ -421,7 +491,8 @@ def window_bytes(params, vp, wi, out) -> int:
     flag, its op where valid, and its address where its kind uses it
     (COMPUTE, MEM, STALL and SYNC; BRANCH with a predictor).  A COMPUTE
     probes its L1I row, a MEM its L1D row, and either one its L2 row where
-    the L1 does not serve it (A words a row, each distinct row once); a
+    the L1 does not serve it (A words a row, each distinct row once; no
+    L2 row with shared L2, where the L2 period is not read either); a
     branch reads its predictor entry (once per distinct slot); at P > 0 a
     tile whose examined events probe reads its pending bank slots.  Every
     tile reads its active flag, clock and core period (and its id and
@@ -468,10 +539,17 @@ def window_bytes(params, vp, wi, out) -> int:
 
     pI = probe(wi.l1i_word, wi.l1i_rr, params.l1i)
     pD = probe(wi.l1d_word, wi.l1d_rr, params.l1d)
-    p2 = probe(wi.l2_word, wi.l2_rr, params.l2)
-    l1_ok = pD.hit & (is_rd | (pD.state >= cachemod.M))
-    mem_l2 = is_mem & ~l1_ok & p2.hit & (is_rd | (p2.state == cachemod.M))
-    comp_l2 = is_comp & ~pI.hit & p2.hit
+    shared = params.shared_l2
+    writable = cachemod.E if params.protocol_kind == "sh_l2_mesi" \
+        else cachemod.M
+    l1_ok = pD.hit & (is_rd | (pD.state >= writable))
+    if shared:
+        mem_l2 = comp_l2 = torch.zeros_like(l1_ok)
+    else:
+        p2 = probe(wi.l2_word, wi.l2_rr, params.l2)
+        mem_l2 = is_mem & ~l1_ok & p2.hit \
+            & (is_rd | (p2.state == cachemod.M))
+        comp_l2 = is_comp & ~pI.hit & p2.hit
     rows = torch.arange(T, device=dev)[:, None].expand(T, K)
     bidx = wi.addr % params.core.bp_size
 
@@ -488,13 +566,14 @@ def window_bytes(params, vp, wi, out) -> int:
     moved += 8 * (params.l1i.associativity
                   * distinct(is_comp, rows, pI.set_idx)
                   + params.l1d.associativity
-                  * distinct(is_mem, rows, pD.set_idx)
-                  + params.l2.associativity * distinct(
-                      (is_comp & ~pI.hit) | (is_mem & ~l1_ok), rows,
-                      p2.set_idx))
+                  * distinct(is_mem, rows, pD.set_idx))
+    if not shared:
+        moved += 8 * params.l2.associativity * distinct(
+            (is_comp & ~pI.hit) | (is_mem & ~l1_ok), rows, p2.set_idx)
     if bp:
         moved += distinct(is_br, rows, bidx)                  # entries read
-    moved += T * (1 + 8 + 4) + 3 * 4 * count(act) + 8 + 1 + 4
+    moved += T * (1 + 8 + 4) + (2 if shared else 3) * 4 * count(act) \
+        + 8 + 1 + 4
     if params.net_user.model != "magic":
         moved += T * (4 + 4)                                  # id, period
     moved += T * (8 + 4 + 12 * 8) + T * K * (1 + 4 + 8)       # fresh
@@ -506,7 +585,9 @@ def window_bytes(params, vp, wi, out) -> int:
                       + count(fill))
         if cp.replacement == "round_robin":
             moved += 8 * count(fill & ~pr.hit)
-    moved += 8 * distinct(r & (mem_l2 | comp_l2), rows, p2.set_idx, p2.way)
+    if not shared:
+        moved += 8 * distinct(r & (mem_l2 | comp_l2), rows, p2.set_idx,
+                              p2.way)
     if bp:
         moved += distinct(r & is_br, rows, bidx)              # entries set
     if P > 0:
@@ -1264,6 +1345,120 @@ def main() -> int:
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: none on "
           f"{card}")
     del rc1k, cases, si1k, si, got, ref, cap1k, wi
+    stamp("phase 3: one-card scale")
+
+    # ---- the coherence protocols: every kernel's protocol branches, on
+    # eight seeded sets per protocol and kernel (phase 10 adds operands
+    # captured from each protocol path)
+    for proto in PROTOCOLS:
+        short = proto.replace("pr_l1_pr_l2_dram_directory_", "").replace(
+            "pr_l1_", "")
+        # window_walk: K = 16 and 64, P = 0 and 12, random and seeded
+        nw = 0
+        for P in (0, CHAIN):
+            p = config(**{"caching_protocol/type": proto,
+                          "tpu/miss_chain": P})
+            v = variant_params(p)
+            for Kw in (K, 64):
+                for gen in (random_window_arrays, seeded_window_arrays):
+                    for seed in (nw % 4,):
+                        wi = window_in_from_numpy(gen(p, Kw, seed), dev)
+                        check((wi.l2_word is None) == p.shared_l2,
+                              f"{short}: L2 operands present under "
+                              f"{proto}")
+                        got, ref = walk_pair(kwin, p, v, wi, T)
+                        torch.cuda.synchronize()
+                        err_w = max(err_w, compare(
+                            "window_walk", got, ref, f"{short} P={P} "
+                            f"K={Kw} {gen.__name__} seed {seed}"))
+                        nw += 1
+        # chain_classify: every configuration, the controllers on every
+        # tile (H = 1024) and on a quarter of them (a colliding H = 4)
+        nc, legs = 0, 0
+        for fan in (True, False):
+            for queue in (True, False):
+                for ctrl in ("ALL", T // 4):
+                    p = config(**{"caching_protocol/type": proto,
+                                  "tpu/miss_chain": CHAIN,
+                                  "tpu/fanout_replay": fan,
+                                  "dram/queue_model/enabled": queue,
+                                  "dram/num_controllers": ctrl})
+                    v = variant_params(p)
+                    for h, seed in ((H if ctrl == "ALL" else 4, nc),):
+                        si = chain_step_in_from_numpy(
+                            random_chain_step_arrays(p, h, seed), dev)
+                        got, ref = step_pair(kchain, p, v, si, h)
+                        torch.cuda.synchronize()
+                        err_c = max(err_c, compare_step(
+                            got, ref, f"{short} fanout={fan} queue={queue} "
+                            f"ctrl={ctrl} H={h} seed {seed}"))
+                        legs += int((ref[1].need_read
+                                     & (ref[1].from_dram_ps > 0)).sum())
+                        nc += 1
+        check((legs > 0) == (proto != MOSI),
+              f"{short}: {legs} DRAM reads from another slice's controller")
+        print(f"kernel window_walk {short}: {nw} operand sets, every output "
+              f"leaf equal to the plain form (max abs err {err_w}); kernel "
+              f"chain_classify {short}: {nc} operand sets ({legs} slice "
+              f"misses whose controller is another tile), every ChainHead "
+              f"and ChainOut field equal to the plain step (max abs err "
+              f"{err_c})")
+    # chain_classify's wide form at T = 1024 under shared-L2 MESI (32-set
+    # slices of 8 ways, 16 sharer words)
+    nc = 0
+    for fan in (True, False):
+        for queue in (True, False):
+            p = config(**{"general/total_cores": T1k,
+                          "caching_protocol/type": SH_MESI,
+                          "tpu/miss_chain": CHAIN, "tpu/fanout_replay": fan,
+                          "dram/queue_model/enabled": queue,
+                          "dram/num_controllers": 64,
+                          "l2_cache/T1/cache_size": 16})
+            v = variant_params(p)
+            for h in ((SCALE_H,) if fan else (4,)):
+                check(kchain.chain_step_entry(p, v, h, 16).wide,
+                      "chain_classify T=1024 shared-L2 MESI: not the wide "
+                      "form")
+                si = chain_step_in_from_numpy(
+                    random_chain_step_arrays(p, h, nc), dev)
+                got, ref = step_pair(kchain, p, v, si, h)
+                torch.cuda.synchronize()
+                err_c = max(err_c, compare_step(
+                    got, ref, f"T=1024 sh_l2_mesi fanout={fan} "
+                              f"queue={queue} H={h}"))
+                nc += 1
+    print(f"kernel chain_classify T=1024 sh_l2_mesi (wide form): {nc} "
+          f"operand sets, every field equal to the plain step (max abs err "
+          f"{err_c})")
+    # fast_forward_walk under shared-L2 MESI (the sticky E->M upgrade)
+    nf = upg = 0
+    fi_best, eng_best = None, -1      # the set with the most engaged tiles
+    for label, over in (("span 1000", {}),
+                        ("chain 12 span 300", {"tpu/miss_chain": CHAIN,
+                                               "tpu/fast_forward_span": 300})):
+        p = config(**{**SHL2_MESI_FF, "tpu/miss_chain": 0, **over})
+        v = variant_params(p)
+        for seed in range(8):
+            fi = ff_in_from_numpy(random_ff_arrays(p, F, seed), dev)
+            fp = kwin.ff_price(p, v, fi)
+            upg += int((fp.commit0 & fp.engage[:, None] & fp.is_wr
+                        & (fp.pD.state == 3)).sum())
+            if label == "span 1000" and int(fp.engage.sum()) > eng_best:
+                fi_best, eng_best = clone_operands(fi), int(fp.engage.sum())
+            got, ref = ff_pair(kwin, p, v, fi)
+            torch.cuda.synchronize()
+            err_f = max(err_f, compare("fast_forward_walk", got, ref,
+                                       f"sh_l2_mesi {label} seed {seed}"))
+            nf += 1
+    check(upg > 0, "fast_forward_walk sh_l2_mesi: no committed write to an "
+                   "E line")
+    print(f"kernel fast_forward_walk sh_l2_mesi: {nf} operand sets ({upg} "
+          f"committed writes to E lines), every output field equal to the "
+          f"plain form (max abs err {err_f})")
+    stamp("phase 3: protocol operand sets")
+
+    ff_seeded = (config(**{**SHL2_MESI_FF, "tpu/miss_chain": 0}), fi_best)
+    del got, ref, si, wi, fi_best
 
     stamp("phase 3: kernels held against their plain forms")
 
@@ -1326,7 +1521,8 @@ def main() -> int:
     stamp("phase 4: golden shapes")
 
     # ---- 5. the chain-off main path at full width (cut depth)
-    cut_trace = synth.gen_radix(64, keys_per_tile=CUT_KEYS, radix=256, seed=0)
+    cut_trace = synth.gen_radix(64, keys_per_tile=CUT_KEYS, radix=256,
+                                seed=0)
     held = peak_reset()
     sim = Simulator(params, cut_trace, device=dev)
     reset_counts()
@@ -1637,6 +1833,151 @@ def main() -> int:
           f"on {card}")
     del sim, st512
     stamp("phase 9: radix512 cut")
+
+    # ---- 10. the coherence protocols at full width
+    def proto_run(label, p, ptrace, want, want_ps, want_icount):
+        """One protocol path, exact against its pins; the run records
+        (clones of) the operands of its first window walks, replay
+        iterations and analytic rounds, on which each kernel is held
+        against its plain form and timed once the launch counts are
+        read."""
+        held = peak_reset()
+        sim = Simulator(p, ptrace, device=dev)
+        reset_counts()
+        with Recorder(kcore.kwindow, "run_window",
+                      lambda wi: bool(wi.tile_active.any()), 2) as rwp, \
+                Recorder(kres.kchain, "run_chain_step", any_head, 4) as rcp, \
+                Recorder(kcore.kwindow, "run_fast_forward",
+                         lambda fi: bool(fi.tile_active.any()), 2) as rfp:
+            t0 = time.perf_counter()
+            s = sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+        lf, engaged = COUNTS["fast_forward_walk"], COUNTS["ff_engaged"]
+        c = round_ctrs(sim.state)
+        r = c["round_ctr"]
+        passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
+            - engaged
+        check(bool(s.done.all()), f"{label}: not all done")
+        for k, v in want.items():
+            check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
+        check(s.completion_time_ps == want_ps,
+              f"{label}: completion {s.completion_time_ps} != {want_ps}")
+        check(s.total_instructions == want_icount,
+              f"{label}: icount {s.total_instructions} != {want_icount}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{label}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        check(passes == c["ctr_resolve"] and lc == p.miss_chain * passes
+              and lc > 0, f"{label}: chain_classify launches {lc} != "
+                          f"{p.miss_chain} x {passes} chain passes")
+        check(lf >= engaged, f"{label}: fast_forward_walk launches {lf} < "
+                             f"{engaged} engaged analytic rounds")
+        fan = int(s.counters["chain_fanout_served"].sum())
+        fb = int(s.counters["chain_fallback"].sum())
+        mips = s.total_instructions / wall / 1e6
+        print(f"{label}: all_done, round_ctr {r}, completion "
+              f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
+              f"instructions, chain_fanout_served {fan}, chain_fallback "
+              f"{fb}, dram_reads {int(s.counters['dram_reads'].sum())}, "
+              f"l2_access {int(s.counters['l2_access'].sum())}, l2_miss "
+              f"{int(s.counters['l2_miss'].sum())}; counters {c}, analytic "
+              f"rounds that engaged {engaged}, chain passes {passes}")
+        print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
+              f"{1e3 * wall / r:.4f} ms/round, simulated MIPS {mips:.6f}, "
+              f"{peak_line(held)}, window_walk launches {lw}, "
+              f"chain_classify launches {lc}, fast_forward_walk launches "
+              f"{lf} on {card}")
+        del sim
+        proto_kernels(label, p, rwp.seen, rcp.seen, rfp.seen)
+        return lw, lc, lf, fan, fb
+
+    def proto_kernels(label, p, windows, iterations, rounds):
+        """Each kernel against its plain form on the operands a protocol
+        path recorded, and its time on the card on the last of them (the
+        fast-forward walk on a recorded round where some tile engages,
+        else on phase 3's seeded set with the most engaged tiles)."""
+        nonlocal err_w, err_c, err_f
+        v = variant_params(p)
+        check(bool(windows) and bool(iterations),
+              f"{label}: recorded {len(windows)} windows and "
+              f"{len(iterations)} replay iterations")
+        for i, wi in enumerate(windows):
+            got, ref = walk_pair(kwin, p, v, wi, T)
+            torch.cuda.synchronize()
+            err_w = max(err_w, compare("window_walk", got, ref,
+                                       f"{label} window {i}"))
+        for i, si in enumerate(iterations):
+            got, ref = step_pair(kchain, p, v, si, H)
+            torch.cuda.synchronize()
+            err_c = max(err_c, compare_step(got, ref,
+                                            f"{label} iteration {i}"))
+        for i, fi in enumerate(rounds):
+            got, ref = ff_pair(kwin, p, v, fi)
+            torch.cuda.synchronize()
+            err_f = max(err_f, compare("fast_forward_walk", got, ref,
+                                       f"{label} analytic round {i}"))
+        wms, wdev, wplain, wref = walk_times(kwin, p, v, windows[-1], T)
+        wbound = window_bytes(p, v, windows[-1], wref) \
+            / HBM_BYTES_PER_S * 1e3
+        si = iterations[0]
+        cms = time_cuda(lambda: kchain.chain_step_cuda(p, v, si, H),
+                        iters=300, warmup=30)
+        cdev = device_ms(lambda: kchain.chain_step_cuda(p, v, si, H),
+                         "chain_classify_kernel")
+        cplain = time_cuda(lambda: kchain.chain_step(p, v, si, H),
+                           iters=20, warmup=3)
+        cbound = chain_bytes(p, si, *kchain.chain_step(p, v, si, H)) \
+            / HBM_BYTES_PER_S * 1e3
+        line = (f"kernel times {label} (recorded in the run): window_walk "
+                f"K={windows[-1].addr.shape[1]} {wms:.6f} ms/launch "
+                f"(wrapper), device {fmt_ms(wdev)}, plain {wplain:.6f} ms, "
+                f"bound {wbound:.9f} ms; chain_classify {cms:.6f} ms/launch "
+                f"(wrapper), device {fmt_ms(cdev)}, plain {cplain:.6f} ms, "
+                f"bound {cbound:.9f} ms")
+        if rounds:
+            eng = [fi for fi in rounds
+                   if bool(kwin.ff_price(p, v, fi).engage.any())]
+            fpp, fpv, fi_t = (p, v, eng[-1]) if eng else (
+                ff_seeded[0], variant_params(ff_seeded[0]), ff_seeded[1])
+            fms, fdev, fplain = ff_times(kwin, fpp, fpv, fi_t)
+            fbound = ff_bytes(fpp, fpv, fi_t) / HBM_BYTES_PER_S * 1e3
+            kind = "a recorded" if eng else "the seeded"
+            line += (f"; fast_forward_walk ({kind} round) {fms:.6f} "
+                     f"ms/launch (wrapper), device "
+                     f"{fmt_ms(fdev)}, plain {fplain:.6f} ms, bound "
+                     f"{fbound:.9f} ms")
+        print(f"{line}; library call: none; every recorded operand set "
+              f"equal to the plain forms (max abs err window {err_w}, "
+              f"chain {err_c}, ff {err_f}) on {card}")
+
+    lw, lc, lf, _, _ = proto_run(
+        f"radix64_shl2_mesi_ff_span keys_per_tile={CUT_KEYS}",
+        config(**SHL2_MESI_FF), cut_trace, SHL2_MESI_FF_CTRS,
+        SHL2_MESI_FF_COMPLETION_PS, CUT_ICOUNT)
+    check(lw > 0 and lc > 0 and lf > 0,
+          f"radix64_shl2_mesi_ff_span: launches window_walk {lw}, "
+          f"chain_classify {lc}, fast_forward_walk {lf}: each kernel must "
+          f"run on its protocol branches")
+    stamp("phase 10: radix64_shl2_mesi_ff_span")
+    _, _, _, fan, fb = proto_run(
+        "fft64_mosi", config(**{"caching_protocol/type": MOSI,
+                                "tpu/miss_chain": CHAIN}), fft,
+        FFT_MOSI_CTRS, FFT_MOSI_COMPLETION_PS, FFT_ICOUNT)
+    check(fan == FFT_MOSI_FANOUT and fb == FFT_MOSI_FALLBACK,
+          f"fft64_mosi: chain_fanout_served {fan} / chain_fallback {fb} != "
+          f"{FFT_MOSI_FANOUT} / {FFT_MOSI_FALLBACK}")
+    stamp("phase 10: fft64_mosi")
+    _, _, _, fan, fb = proto_run(
+        "fft64_shl2_msi", config(**{"caching_protocol/type": SH_MSI,
+                                    "tpu/miss_chain": CHAIN,
+                                    "dram/num_controllers": SHL2_CTRL}), fft,
+        FFT_SHL2_CTRS, FFT_SHL2_COMPLETION_PS, FFT_ICOUNT)
+    check(fan == FFT_SHL2_FANOUT and fb == FFT_SHL2_FALLBACK,
+          f"fft64_shl2_msi: chain_fanout_served {fan} / chain_fallback {fb} "
+          f"!= {FFT_SHL2_FANOUT} / {FFT_SHL2_FALLBACK}")
+    stamp("phase 10: fft64_shl2_msi")
 
     kernels = [{
         "name": "window_walk",

@@ -73,6 +73,12 @@ def with_stamp(word, stamp):
         | ((_i64(stamp, word.device) & _STAMP_FIELD) << _STAMP_SHIFT)
 
 
+def meta_state(meta):
+    """The state field of a packed word or of the JAX package's [A, T,
+    sets] ``meta`` view (its low bits are the state)."""
+    return (meta & _STATE_MASK).to(torch.int32)
+
+
 class CacheArrays(NamedTuple):
     """One cache level for all tiles: [assoc, T, sets] packed words."""
 
@@ -222,6 +228,32 @@ def downgrade_lines(cache: CacheArrays, tiles: torch.Tensor,
         word_state(cur), down_state.to(torch.int32)))
     return cache._replace(word=scatter(
         cache.word, (way, tiles, sidx), new_word, "min", mask=hit))
+
+
+def raise_line_state(cache: CacheArrays, tiles: torch.Tensor,
+                     lines: torch.Tensor, valid: torch.Tensor,
+                     up_state, num_sets: int) -> CacheArrays:
+    """Raise a resident line's state in place (scatter-max on the packed
+    word: tag and stamp unchanged, so a raise never loses to a
+    concurrent touch of the same line).  A line a racing coherence
+    delivery already invalidated is not found, and its raise is
+    dropped."""
+    sidx = set_index(lines, num_sets)
+    tiles = tiles.to(torch.int64)
+    flat = tiles * num_sets + sidx
+    A = cache.word.shape[0]
+    row = cache.word.reshape(A, -1)[:, flat]          # [A, R]
+    st_row = word_state(row)
+    match = (word_tag(row) == lines[None].to(torch.int32)) \
+        & (st_row != I) & valid[None]
+    hit = match.any(dim=0)
+    way = first_true(match, 0)
+    cur = row_word(row, way)
+    new_word = with_state(cur, torch.maximum(
+        word_state(cur), torch.as_tensor(up_state, dtype=torch.int32,
+                                         device=cur.device)))
+    return cache._replace(word=scatter(
+        cache.word, (way, tiles, sidx), new_word, "max", mask=hit))
 
 
 def invalidate_by_value(cache: CacheArrays, lines: torch.Tensor,

@@ -1,16 +1,17 @@
 """Local (intra-tile) event processing — the per-quantum core phase.
 
 Counterpart of ``graphite_tpu/engine/core.py`` on the port's path
-(simple cores, private L2, ``tpu/miss_chain`` 0 to 256,
-``tpu/fast_forward`` on or off):
+(simple cores under the four coherence protocols, ``tpu/miss_chain`` 0
+to 256, ``tpu/fast_forward`` on or off):
 
   * ``_block_retire`` — every round takes the next ``block_events``
     events of every tile as one [T, K] window (from the resident window
     cache) and retires the leading run of simple events through the
     window walk (engine/kernels/window.py: the CUDA kernel on the card,
-    the plain form on the CPU).  At P > 0 misses past the local L2 bank
-    into the tile's [P, T] chain instead of ending the window.  At
-    ``tpu/fast_forward`` > 0 the rounds are wide: K = ``_ff_width``.
+    the plain form on the CPU).  At P > 0 misses past the local L2 (past
+    the L1 under shared L2) bank into the tile's [P, T] chain instead of
+    ending the window.  At ``tpu/fast_forward`` > 0 the rounds are wide:
+    K = ``_ff_width``.
   * ``_fast_forward_guarded`` — at ``tpu/fast_forward`` > 0 and a
     run-ahead span above 0, analytic rounds through the fast-forward
     walk (the CUDA kernel on the card) before the detailed machinery:
@@ -172,7 +173,8 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
         clock=st.clock, period_ps=st.period_ps, bp_table=st.bp_table,
         l1i_word=st.l1i.word, l1i_rr=st.l1i.rr_ptr,
         l1d_word=st.l1d.word, l1d_rr=st.l1d.rr_ptr,
-        l2_word=st.l2.word, l2_rr=st.l2.rr_ptr,
+        l2_word=None if params.shared_l2 else st.l2.word,
+        l2_rr=None if params.shared_l2 else st.l2.rr_ptr,
         boundary=st.boundary, models_enabled=st.models_enabled,
         stamp_base=_stamp_base(st),
         **({f: getattr(st, f) for f in kwindow.CHAIN_IN_FIELDS}
@@ -206,7 +208,8 @@ def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
         cursor=st.cursor + out.n_ret,
         l1i=st.l1i._replace(word=out.l1i_word, rr_ptr=out.l1i_rr),
         l1d=st.l1d._replace(word=out.l1d_word, rr_ptr=out.l1d_rr),
-        l2=st.l2._replace(word=out.l2_word, rr_ptr=out.l2_rr),
+        l2=st.l2 if params.shared_l2
+        else st.l2._replace(word=out.l2_word, rr_ptr=out.l2_rr),
         bp_table=out.bp_table,
         spawned_at=spawned_at,
         round_ctr=st.round_ctr + 1,
@@ -353,10 +356,13 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     l2_tag_ps = _lat(vp.l2_tags_access_cycles, p_l2)
     cycle_ps = _lat(1, p_core)
 
+    shared_l2 = params.shared_l2
     line = addr >> line_bits
     pI = cachemod.probe(st.l1i, line, params.l1i.num_sets)
     pD = cachemod.probe(st.l1d, line, params.l1d.num_sets)
-    pL2 = cachemod.probe(st.l2, line, params.l2.num_sets)
+    # Shared L2: no private L2, an L1 miss goes to the home slice.
+    pL2 = None if shared_l2 else cachemod.probe(st.l2, line,
+                                                params.l2.num_sets)
 
     stamp = _stamp_base(st) + STAMP_STRIDE - 2
 
@@ -368,9 +374,15 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         // params.line_size, min=1)
     cost_ps = _lat(torch.clamp(arg, min=0), p_core)
     fetch_ps = icount_ev * l1i_ps
-    comp_l2path = is_comp & ~pI.hit & pL2.hit & en
-    comp_block = is_comp & ~pI.hit & ~pL2.hit & en
-    dt_comp = cost_ps + fetch_ps + torch.where(~pI.hit, n_lines * l2_ps, 0)
+    if shared_l2:
+        comp_l2path = torch.zeros_like(is_comp)
+        comp_block = is_comp & ~pI.hit & en
+        dt_comp = cost_ps + fetch_ps
+    else:
+        comp_l2path = is_comp & ~pI.hit & pL2.hit & en
+        comp_block = is_comp & ~pI.hit & ~pL2.hit & en
+        dt_comp = cost_ps + fetch_ps \
+            + torch.where(~pI.hit, n_lines * l2_ps, 0)
     comp_ok = is_comp & ~comp_block
 
     # ------------------------------------------------------- BRANCH
@@ -394,12 +406,19 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     is_rd = op == EventOp.MEM_READ
     is_wr = op == EventOp.MEM_WRITE
     is_mem = is_rd | is_wr
-    writable = pD.state >= M
+    # Writable states: M, and under shared-L2 MESI also E (the exclusive
+    # owner upgrades E->M locally without telling the home slice).
+    mesi_local = params.protocol_kind == "sh_l2_mesi"
+    writable = pD.state >= (E if mesi_local else M)
     l1_ok = pD.hit & (is_rd | writable)
     mem_l1 = is_mem & l1_ok & en
-    l2_ok = pL2.hit & (is_rd | (pL2.state == M))
-    mem_l2 = is_mem & ~l1_ok & l2_ok & en
-    mem_rem = is_mem & ~l1_ok & ~l2_ok & en
+    if shared_l2:
+        mem_l2 = torch.zeros_like(mem_l1)
+        mem_rem = is_mem & ~l1_ok & en
+    else:
+        l2_ok = pL2.hit & (is_rd | (pL2.state == M))
+        mem_l2 = is_mem & ~l1_ok & l2_ok & en
+        mem_rem = is_mem & ~l1_ok & ~l2_ok & en
     dt_mem_l1 = l1d_ps
     dt_mem_l2 = l1d_ps + l2_ps
 
@@ -440,7 +459,9 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     pend_addr = torch.where(
         is_bar, arg.to(torch.int64),
         torch.where(blocked, addr, st.pend_addr))
-    miss_tags_ps = l2_tag_ps
+    # The miss is found after the local tag checks: L1 only with shared
+    # L2 (there is no private L2 tag array to consult).
+    miss_tags_ps = cycle_ps if shared_l2 else l2_tag_ps
     issue = clk + torch.where(
         comp_block, l1i_ps + miss_tags_ps,
         torch.where(mem_rem, l1d_ps + miss_tags_ps, cycle_ps))
@@ -449,8 +470,9 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     pend_aux = torch.where(blocked,
                            torch.where(mem_rem, mdreg << 8, arg2),
                            st.pend_aux)
-    extra = torch.where(comp_block, cost_ps + fetch_ps + (n_lines - 1) * l2_ps,
-                        0)
+    extra = torch.where(
+        comp_block,
+        cost_ps + fetch_ps + (0 if shared_l2 else (n_lines - 1) * l2_ps), 0)
     pend_extra = torch.where(blocked, extra, st.pend_extra)
 
     if P > 0:
@@ -470,20 +492,32 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     # ------------------------------------------------- cache updates
     l1i = cachemod.touch(st.l1i, pI.set_idx, pI.way, is_comp & pI.hit & en,
                          cachemod.row_word(pI.row, pI.way), stamp)
-    fI = cachemod.fill(l1i, line, torch.full((T,), S, dtype=torch.int32,
-                                             device=dev),
-                       comp_l2path, params.l1i.num_sets,
-                       params.l1i.replacement, stamp)
-    l1i = fI.cache
-    l2 = cachemod.touch(st.l2, pL2.set_idx, pL2.way,
-                        (comp_l2path | mem_l2),
-                        cachemod.row_word(pL2.row, pL2.way), stamp)
-    l1d = cachemod.touch(st.l1d, pD.set_idx, pD.way, mem_l1,
-                         cachemod.row_word(pD.row, pD.way), stamp)
-    fD = cachemod.fill(l1d, line, torch.where(is_wr, M, S).to(torch.int32),
-                       mem_l2, params.l1d.num_sets,
-                       params.l1d.replacement, stamp)
-    l1d = fD.cache
+    if shared_l2:
+        l2 = st.l2
+        d_word = cachemod.row_word(pD.row, pD.way)
+        if mesi_local:
+            # Silent E->M upgrade on a store hit to an E-granted line.
+            d_word = cachemod.with_state(
+                d_word, torch.where(mem_l1 & is_wr & (pD.state == E),
+                                    M, pD.state))
+        l1d = cachemod.touch(st.l1d, pD.set_idx, pD.way, mem_l1, d_word,
+                             stamp)
+    else:
+        fI = cachemod.fill(l1i, line, torch.full((T,), S, dtype=torch.int32,
+                                                 device=dev),
+                           comp_l2path, params.l1i.num_sets,
+                           params.l1i.replacement, stamp)
+        l1i = fI.cache
+        l2 = cachemod.touch(st.l2, pL2.set_idx, pL2.way,
+                            (comp_l2path | mem_l2),
+                            cachemod.row_word(pL2.row, pL2.way), stamp)
+        l1d = cachemod.touch(st.l1d, pD.set_idx, pD.way, mem_l1,
+                             cachemod.row_word(pD.row, pD.way), stamp)
+        fD = cachemod.fill(l1d, line,
+                           torch.where(is_wr, M, S).to(torch.int32),
+                           mem_l2, params.l1d.num_sets,
+                           params.l1d.replacement, stamp)
+        l1d = fD.cache
 
     # ------------------------------------------------------- counters
     def add(x, mask, val=1):
@@ -501,9 +535,12 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         l1d_read_miss=add(c.l1d_read_miss, is_rd & ~l1_ok),
         l1d_write=add(c.l1d_write, is_wr),
         l1d_write_miss=add(c.l1d_write_miss, is_wr & ~l1_ok),
-        l2_access=add(c.l2_access, mem_l2 | mem_rem | comp_l2path
-                      | comp_block),
-        l2_miss=add(c.l2_miss, mem_rem | comp_block),
+        # Under shared L2 the slice accesses are counted at the home tile
+        # by the resolve pass, not here.
+        l2_access=c.l2_access if shared_l2 else add(
+            c.l2_access, mem_l2 | mem_rem | comp_l2path | comp_block),
+        l2_miss=c.l2_miss if shared_l2 else add(
+            c.l2_miss, mem_rem | comp_block),
         branches=add(c.branches, is_br),
         mispredicts=add(c.mispredicts, is_br & ~correct),
         barriers=add(c.barriers, is_bar),

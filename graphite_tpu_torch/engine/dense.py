@@ -99,21 +99,30 @@ def home_fold(line: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def home_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
-    """Home (memory-controller/directory) tile of a line."""
+    """Home tile of a line's coherence requests: with private L2 the
+    memory-controller / directory tile (lines folded over the
+    controllers, spread with the controllers' stride); with shared L2
+    its L2 slice (lines folded over every tile)."""
+    if params.shared_l2:
+        return home_fold(line, params.num_tiles)
     return home_fold(line, params.dram.num_controllers) \
         * params.dram.controller_home_stride
 
 
 def dram_site_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
-    """Memory-controller tile for a line (== home for private L2)."""
+    """Memory-controller tile for a line (== home with private L2; with
+    shared L2 the slice and the controller may be different tiles)."""
     return home_fold(line, params.dram.num_controllers) \
         * params.dram.controller_home_stride
 
 
 def dir_set_of_line(params: SimParams, line: torch.Tensor) -> torch.Tensor:
-    """Directory set within a home tile, XOR-folding the high line bits."""
+    """Directory (or slice) set within a home tile, XOR-folding the high
+    line bits; the lines interleave over the controllers, or over every
+    tile's slice with shared L2."""
     ndsets = params.directory.num_sets
-    nslices = params.dram.num_controllers
+    nslices = params.num_tiles if params.shared_l2 \
+        else params.dram.num_controllers
     x = line // nslices
     bits = ndsets.bit_length() - 1
     x = x ^ (x >> bits) ^ (x >> (2 * bits)) ^ (x >> (3 * bits))

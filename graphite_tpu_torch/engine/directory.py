@@ -1,11 +1,14 @@
-"""Directory coherence: sharer bitmaps and the MSI transition function.
+"""Directory coherence: sharer bitmaps and the protocol transition
+functions.
 
-Counterpart of ``graphite_tpu/engine/directory.py`` for the full-map MSI
-directory (reference: pr_l1_pr_l2_dram_directory_msi/
-dram_directory_cntlr.cc).  Sharer bitmaps are ``uint64`` words in JAX and
-``int64`` words with the same bits here; bit 63 is the sign bit, which
-``&``/``|``/``~`` and the ``(x >> s) & 1`` extraction never notice.
-The MOSI and shared-L2 FSMs belong to a later slice of the port.
+Counterpart of ``graphite_tpu/engine/directory.py`` for the full-map
+directory under the four protocol families: MSI and MOSI with private
+L2 (reference: pr_l1_pr_l2_dram_directory_{msi,mosi}/
+dram_directory_cntlr.cc), and the shared-L2 slice FSM under MSI and
+MESI (pr_l1_sh_l2_{msi,mesi}/l2_cache_cntlr.cc).  Sharer bitmaps are
+``uint64`` words in JAX and ``int64`` words with the same bits here; bit
+63 is the sign bit, which ``&``/``|``/``~`` and the ``(x >> s) & 1``
+extraction never notice.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from graphite_tpu_torch.engine.cache import I, M, S
+from graphite_tpu_torch.engine.cache import E, I, M, O, S
 
 # ------------------------------------------------------------- bitmaps
 
@@ -55,11 +58,15 @@ class MsiActions(NamedTuple):
 
 def transition(protocol_kind: str, is_ex, requester, state, owner, sharers,
                num_words: int, is_ifetch=None) -> MsiActions:
-    """Dispatch the directory FSM by protocol kind (MSI in this slice)."""
-    if protocol_kind != "msi":
-        raise NotImplementedError(
-            f"directory protocol {protocol_kind!r} is ported in a later "
-            f"slice (model breadth)")
+    """Dispatch the directory FSM by protocol kind ('msi', 'mosi',
+    'sh_l2_msi' or 'sh_l2_mesi')."""
+    if protocol_kind == "mosi":
+        return mosi_transition(is_ex, requester, state, owner, sharers,
+                               num_words)
+    if protocol_kind in ("sh_l2_msi", "sh_l2_mesi"):
+        return sh_l2_transition(protocol_kind == "sh_l2_mesi", is_ex,
+                                requester, state, owner, sharers, num_words,
+                                no_e_grant=is_ifetch)
     return msi_transition(is_ex, requester, state, owner, sharers,
                           num_words)
 
@@ -110,4 +117,92 @@ def msi_transition(is_ex: torch.Tensor, requester: torch.Tensor,
         inv_targets=inv_targets,
         dram_read=~owner_leg,
         dram_write=owner_leg,
+    )
+
+
+def mosi_transition(is_ex: torch.Tensor, requester: torch.Tensor,
+                    state: torch.Tensor, owner: torch.Tensor,
+                    sharers: torch.Tensor, num_words: int) -> MsiActions:
+    """The MOSI directory FSM.  Against MSI: SH_REQ on M or O keeps the
+    owner, which downgrades to O and forwards the data (no DRAM at all);
+    EX_REQ on O flushes the owner and invalidates the other sharers;
+    the owner upgrading its own O line moves no data.  Dirty data
+    reaches DRAM only when an M or O line is evicted."""
+    req_bit = make_tile_bit(requester, num_words)
+    own_bit = make_tile_bit(torch.clamp(owner, min=0), num_words)
+    owned = (state == M) | (state == O)
+    has_live_owner = owned & (owner >= 0)
+    has_owner = has_live_owner & (owner != requester)
+    req_is_owner = has_live_owner & (owner == requester)
+
+    sh_state = torch.where(state == I, S, torch.where(owned, O, S))
+    sh_owner = torch.where(owned, owner, -1)
+    sh_sharers = torch.where((state == M)[:, None], own_bit | req_bit,
+                             sharers | req_bit)
+
+    inv_targets = torch.where(
+        (is_ex & ((state == S) | (state == O)))[:, None],
+        sharers & ~req_bit & ~torch.where(has_owner[:, None], own_bit, 0),
+        torch.zeros_like(sharers))
+
+    new_state = torch.where(is_ex, M, sh_state)
+    new_owner = torch.where(is_ex, requester.to(torch.int32), sh_owner)
+    new_sharers = torch.where(is_ex[:, None], req_bit, sh_sharers)
+    return MsiActions(
+        new_state=new_state.to(torch.int32),
+        new_owner=new_owner.to(torch.int32),
+        new_sharers=new_sharers,
+        owner_leg=has_owner,
+        owner_tile=torch.clamp(owner, min=0).to(torch.int32),
+        owner_downgrade_to=torch.where(is_ex, I, O).to(torch.int32),
+        inv_targets=inv_targets,
+        dram_read=~has_owner & ~req_is_owner,
+        dram_write=torch.zeros_like(has_owner),
+    )
+
+
+def sh_l2_transition(mesi: bool, is_ex: torch.Tensor,
+                     requester: torch.Tensor, state: torch.Tensor,
+                     owner: torch.Tensor, sharers: torch.Tensor,
+                     num_words: int,
+                     no_e_grant: torch.Tensor = None) -> MsiActions:
+    """The shared-L2 slice FSM: the entry IS the slice line (I: not in
+    the slice, the only case that reads DRAM; S: clean; O: dirty in the
+    slice with no L1 owner; E: clean with one exclusive L1 owner, the
+    MESI first-reader grant; M: owned dirty by one L1).  A downgraded E
+    owner may have upgraded silently, so its entry becomes O like M's.
+    Instruction fetches never take E (``no_e_grant``)."""
+    req_bit = make_tile_bit(requester, num_words)
+    own_bit = make_tile_bit(torch.clamp(owner, min=0), num_words)
+    owned = (state == M) | (state == E)
+    has_owner = owned & (owner >= 0) & (owner != requester)
+    miss = state == I
+
+    grant_e = miss & mesi
+    if no_e_grant is not None:
+        grant_e = grant_e & ~no_e_grant
+    sh_miss_state = torch.where(grant_e, E, S)
+    sh_state = torch.where(miss, sh_miss_state,
+                           torch.where(owned, O, state))
+    sh_owner = torch.where(grant_e, requester.to(torch.int32), -1)
+    sh_sharers = torch.where(owned[:, None], own_bit | req_bit,
+                             sharers | req_bit)
+
+    inv_targets = torch.where(
+        (is_ex & ((state == S) | (state == O)))[:, None],
+        sharers & ~req_bit, torch.zeros_like(sharers))
+
+    new_state = torch.where(is_ex, M, sh_state)
+    new_owner = torch.where(is_ex, requester.to(torch.int32), sh_owner)
+    new_sharers = torch.where(is_ex[:, None], req_bit, sh_sharers)
+    return MsiActions(
+        new_state=new_state.to(torch.int32),
+        new_owner=new_owner.to(torch.int32),
+        new_sharers=new_sharers,
+        owner_leg=has_owner,
+        owner_tile=torch.clamp(owner, min=0).to(torch.int32),
+        owner_downgrade_to=torch.where(is_ex, I, S).to(torch.int32),
+        inv_targets=inv_targets,
+        dram_read=miss,
+        dram_write=torch.zeros_like(has_owner),
     )

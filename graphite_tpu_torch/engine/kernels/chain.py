@@ -5,12 +5,13 @@ and the classify step, in plain PyTorch and as one CUDA kernel.
 ``resolve.chain_fast_pass`` runs for every tile's current chain head:
 the directory probe and victim way, the (home, dset, way) FCFS election,
 the fan-out and owner delivery budgets, shared-read combining over a
-hash table of size H, the MSI transition, the zero-load NoC and DRAM
-timing legs and, with the DRAM queue model off, the completion time and
-the per-line floor write.  It is the counterpart of
-``graphite_tpu/engine/kernels/chain.py:134``, transliterated for this
-slice's configuration: simple cores, private L1/L2 under MSI, a
-full-map directory, zero-load networks.  The JAX package gathers each
+hash table of size H, the protocol's directory transition, the
+zero-load NoC and DRAM timing legs and, with the DRAM queue model off,
+the completion time and the per-line floor write.  It is the
+counterpart of ``graphite_tpu/engine/kernels/chain.py:134``,
+transliterated for this slice's configuration: simple cores, a full-map
+directory under MSI or MOSI with private L2 or the per-tile L2 slices
+under shared-L2 MSI or MESI, zero-load networks.  The JAX package gathers each
 iteration's heads and directory rows outside its Pallas kernel
 (``graphite_tpu/engine/resolve.py:264-285``); here they are part of the
 step (:func:`chain_head`, :func:`chain_rows`).
@@ -217,18 +218,28 @@ def chain_rows(dir_word: torch.Tensor, dir_sharers: torch.Tensor,
     return drow, dsharers
 
 
+def slice_dram_legs(params: SimParams, vp: VariantParams, line, home,
+                    p_net):
+    """With shared L2, a line's memory controller (``dram_site_of_line``)
+    may be another tile than its slice ``home``: (the controller, the
+    slice->controller request leg, the data leg back), the legs [T]
+    int64 ps, zero where the controller is the slice's own tile."""
+    dsite = dense.dram_site_of_line(params, line)
+    local = home == dsite
+    to_dram = torch.where(local, 0, noc.unicast_ps(
+        params.net_memory, home, dsite, CTRL_BYTES,
+        p_net[home.to(torch.int64)], params.mesh_width, vnet=vp.net_memory))
+    from_dram = torch.where(local, 0, noc.unicast_ps(
+        params.net_memory, dsite, home, params.line_size + CTRL_BYTES,
+        p_net[dsite.to(torch.int64)], params.mesh_width,
+        vnet=vp.net_memory))
+    return dsite, to_dram, from_dram
+
+
 def check_chain_config(params: SimParams, device=None) -> None:
-    """The classify step's scope in this slice; for a CUDA ``device``
-    also the kernel's limits, so that a run the card cannot take is
-    refused before it starts and never at its first chain pass."""
-    if params.shared_l2:
-        raise NotImplementedError(
-            "the chain classify under shared-L2 protocols is ported in a "
-            "later slice (model breadth)")
-    if params.protocol_kind != "msi":
-        raise NotImplementedError(
-            f"the chain classify under {params.protocol!r} is ported in a "
-            f"later slice (model breadth)")
+    """For a CUDA ``device``, the classify kernel's limits, so that a run
+    the card cannot take is refused before it starts and never at its
+    first chain pass (the plain form takes any size)."""
     if device is None or torch.device(device).type != "cuda":
         return
     T = params.num_tiles
@@ -247,8 +258,11 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
     """One replay iteration's classification — the plain PyTorch form, a
     transliteration of the JAX function (see
     graphite_tpu/engine/kernels/chain.py and resolve.chain_fast_pass for
-    the semantics commentary)."""
-    check_chain_config(params)
+    the semantics commentary), under every coherence protocol: the
+    transition is ``directory.transition``'s; with shared L2 an owner
+    looks the line up in its L1D, a slice miss whose memory controller
+    is another tile adds the slice->controller legs, and the requester
+    fills no private L2."""
     T = params.num_tiles
     A = params.directory.associativity
     W = ci.dsharers.shape[2]
@@ -257,6 +271,7 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
     rows = torch.arange(T, device=dev)
     fanout = params.fanout_replay
     KF = min(params.max_inv_fanout_per_round, T)
+    shared_l2 = params.shared_l2
 
     active, is_ex, is_if = ci.active, ci.is_ex, ci.is_if
     line, issue = ci.line, ci.issue
@@ -335,6 +350,8 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
     # scatter applies updates in row order, so the LAST such row's line
     # and way survive — a scatter-max of row indices picks that row.
     sh_ok_e = (entry_state == I) | (entry_state == S)
+    if shared_l2:
+        sh_ok_e = sh_ok_e & (entry_state != I)
     hidx64 = hidx.to(torch.int64)
     ex_any_t = scatter(torch.zeros(H, dtype=torch.bool, device=dev),
                        hidx64, True, "set", mask=active & is_ex)
@@ -368,7 +385,10 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
     t_dir = arrive + dir_ps
     owner64 = owner.to(torch.int64)
     p_net_own = p_net[owner64]
-    l2_own_ps = _lat(vp.l2_access_cycles, ci.p_l2[owner64])
+    if shared_l2:
+        l2_own_ps = _lat(vp.l1d_access_cycles, ci.p_l1d[owner64])
+    else:
+        l2_own_ps = _lat(vp.l2_access_cycles, ci.p_l2[owner64])
     leg_ps = noc.unicast_ps(params.net_memory, home, owner,
                             CTRL_BYTES, p_net_home,
                             params.mesh_width, vnet=vp.net_memory) \
@@ -407,8 +427,13 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
         inv_ps = torch.zeros(T, dtype=torch.int64, device=dev)
         inv_count = torch.zeros(T, dtype=torch.int64, device=dev)
     need_read = serve_all & act.dram_read
-    from_dram_ps = torch.zeros(T, dtype=torch.int64, device=dev)
-    dram_arrival = t_dir + owner_ps
+    if shared_l2:
+        _, to_dram_ps, from_dram_ps = slice_dram_legs(params, vp, line, home,
+                                                      p_net)
+    else:
+        to_dram_ps = 0
+        from_dram_ps = torch.zeros(T, dtype=torch.int64, device=dev)
+    dram_arrival = t_dir + owner_ps + to_dram_ps
     dram_wb = act.dram_write & serve_all
     l1_fill_ps = torch.where(
         is_if, _lat(vp.l1i_access_cycles, ci.p_l1i),
@@ -433,9 +458,9 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
                                torch.where(need_read, dram_ready, 0))
         if fanout:
             t_data = torch.maximum(t_data, t_dir + inv_ps)
-        reply_done = t_data + reply_ps
-        completion = reply_done \
-            + _lat(vp.l2_access_cycles, ci.p_l2) + l1_fill_ps + ci.extra
+        completion = t_data + reply_ps + l1_fill_ps + ci.extra
+        if not shared_l2:
+            completion = completion + _lat(vp.l2_access_cycles, ci.p_l2)
         tkey = t_data * T + rows
         tmax_t = scatter(torch.full((H,), -1, dtype=torch.int64,
                                     device=dev), hidx64, tkey, "max",
@@ -632,22 +657,35 @@ _IN_PTRS = ChainStepIn._fields + ("out", "ws")
 _PASS_FIELDS = ("mq_req", "mq_delta", "mq_extra", "stop_hi", "p_net",
                 "p_dir", "p_l2", "p_l1d", "p_l1i", "p_core", "ftbl")
 _SCALARS = ("T", "P", "A", "W", "D", "H", "KF", "fanout", "queue_on",
-            "ndsets", "home_stride", "fold_bits", "dset_bits", "mesh_width",
-            "net_magic", "hop_cycles", "ser_req", "ser_data",
-            "inv_ack_cycles", "dir_cycles", "l2_cycles", "l1d_cycles",
-            "l1i_cycles", "dram_latency_ps", "dram_processing_ps", "wide")
-_DIVS = ("div_h", "div_ctrl", "div_dsets")
+            "ndsets", "home_stride", "home_bits", "site_stride",
+            "site_bits", "dset_bits", "mesh_width", "net_magic",
+            "hop_cycles", "ser_req", "ser_data", "inv_ack_cycles",
+            "dir_cycles", "l2_cycles", "l1d_cycles", "l1i_cycles",
+            "dram_latency_ps", "dram_processing_ps", "wide", "proto")
+# The divisors: H; the homes a line folds over (the controllers, or every
+# tile's slice with shared L2), which also divide it for its directory
+# set; the controllers (the DRAM site); the directory sets.
+_DIVS = ("div_h", "div_home", "div_site", "div_dsets")
+# The kernel's protocol codes (csrc/chain_classify.cu Proto).
+PROTO_CODES = {"msi": 0, "mosi": 1, "sh_l2_msi": 2, "sh_l2_mesi": 3}
+
+
+# The kernel's array offsets and region sizes (struct Layout in
+# csrc/chain_classify.cu), which its launch function computes on the host.
+_LAYOUT_WORDS = 20
 
 
 class _StepArgs(ctypes.Structure):
     """Mirror of ``struct StepArgs`` in csrc/chain_classify.cu: pointers,
-    the output offsets, int64 scalars, then the divisors — every field 8
-    bytes, so the layout has no padding."""
+    the output offsets, int64 scalars, the divisors, then the array
+    layout that the launch function fills in — every field 8 bytes, so
+    the layout has no padding."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in _IN_PTRS] \
         + [("off_" + n, ctypes.c_int64) for n in _LEAVES] \
         + [(n, ctypes.c_int64) for n in _SCALARS] \
-        + [(n, _FastDiv) for n in _DIVS]
+        + [(n, _FastDiv) for n in _DIVS] \
+        + [("lay", ctypes.c_uint64 * _LAYOUT_WORDS)]
 
 
 def _check(name, t, dtype, shape, dev):
@@ -697,6 +735,7 @@ class _Step:
         self.layout = StepLayout(params, W)
         self.pass_ops = None      # the pass operands last checked
         nctrl = params.dram.num_controllers
+        nhome = T if params.shared_l2 else nctrl
         ndsets = params.directory.num_sets
         fw = vp.net_memory.flit_width_bits
         a = _StepArgs(
@@ -704,8 +743,12 @@ class _Step:
             T=T, P=params.miss_chain, A=A, W=W, D=T * ndsets, H=H, KF=KF,
             fanout=int(params.fanout_replay),
             queue_on=int(params.dram.queue_model_enabled),
-            ndsets=ndsets, home_stride=params.dram.controller_home_stride,
-            fold_bits=max(nctrl.bit_length() - 1, 1),
+            ndsets=ndsets,
+            home_stride=1 if params.shared_l2
+            else params.dram.controller_home_stride,
+            home_bits=max(nhome.bit_length() - 1, 1),
+            site_stride=params.dram.controller_home_stride,
+            site_bits=max(nctrl.bit_length() - 1, 1),
             dset_bits=ndsets.bit_length() - 1,
             mesh_width=params.mesh_width,
             net_magic=int(net.model == "magic"),
@@ -720,8 +763,10 @@ class _Step:
             l1i_cycles=vp.l1i_access_cycles,
             dram_latency_ps=vp.dram_latency_ps,
             dram_processing_ps=vp.dram_processing_ps, wide=int(self.wide),
+            proto=PROTO_CODES[params.protocol_kind],
             div_h=_FastDiv(*fast_divisor(H)),
-            div_ctrl=_FastDiv(*fast_divisor(nctrl)),
+            div_home=_FastDiv(*fast_divisor(nhome)),
+            div_site=_FastDiv(*fast_divisor(nctrl)),
             div_dsets=_FastDiv(*fast_divisor(ndsets)))
         self.args, self.addr = a, ctypes.addressof(a)
 

@@ -12,19 +12,27 @@
 // `chain_head` + `chain_rows` + `chain_classify` (what `run_chain_step`
 // runs on CPU tensors); both must agree on every output element.
 //
-// Scope: private L1/L2 under MSI, full-map directory, zero-load memory
+// Scope: a full-map directory under every coherence protocol of the
+// engine (`proto`: MSI or MOSI with private L2; shared-L2 MSI or MESI,
+// where the directory is the per-tile L2 slice), zero-load memory
 // network (magic or emesh_hop_counter), fan-out replay on or off, the
 // DRAM queue model on (the caller prices the queue) or off (this kernel
 // computes the completion and writes the per-line floor table IN PLACE).
-// The wrapper refuses anything else.
+// The wrapper refuses anything else.  The protocol's transition is one
+// device function (`transition`, engine/directory.py's four FSMs); with
+// shared L2 a line's home is its slice (the fold over every tile), an
+// owner looks the line up in its L1D, a slice miss whose memory
+// controller is another tile adds the slice->controller legs, and the
+// completion has no private-L2 fill.
 //
 // Operands by pointer.  Each tile's thread reads its chain head
 // mq_*[clamp(head, 0, P - 1), t], and derives line, kind, home, directory
 // set, flat set and hash slot itself (home_fold, the XOR fold and fmix64
 // copied from engine/dense.py).  Lines are non-negative, so C's / and %
 // equal the floor forms of the plain code.  No division instruction on
-// the hot path: every runtime divisor (H, the controller count, the
-// directory sets) comes with a magic number computed on the host
+// the hot path: every runtime divisor (H, the homes a line folds over,
+// the controller count, the directory sets) comes with a magic number
+// computed on the host
 // (chain.py fast_divisor), and tile coordinates come from a per-tile
 // (x, y) table built once in shared memory with 32-bit arithmetic.
 //
@@ -70,14 +78,16 @@
 //   1  whole block: stage the directory rows; issue minimum, exclusive
 //      flags;
 //   2  per tile: the probe, hit-held ways;
-//   3  per tile: victim way, FCFS key, election (atomicMin), the MSI
-//      transition against the chosen way's sharer words, delta out;
-//   4  per tile: election result, fan-out and owner-budget flags (an
-//      owner leg needs an M entry, which has no invalidations, so its
-//      candidacy needs no fan-out rank);
-//   5  per tile: fan-out rank and per-owner rank (loops over the staged
-//      rows), serve, combining representatives (atomicMax of the row:
-//      the JAX package's CPU scatter lets the LAST row win);
+//   3  per tile: victim way, FCFS key, election (atomicMin), the
+//      protocol's transition against the chosen way's sharer words,
+//      delta out;
+//   4  per tile: election result, the fan-out flags;
+//   5  per tile: fan-out rank (a loop over the staged rows), candidacy,
+//      the owner-budget flags (under MOSI an O entry has an owner leg
+//      AND invalidations, so the flag waits for the fan-out rank);
+//   5b per tile: per-owner rank, serve, combining representatives
+//      (atomicMax of the row: the JAX package's CPU scatter lets the
+//      LAST row win);
 //   6  per tile: members, hard stops, timing legs, outputs; whole block:
 //      the [KF, T] masks, one thread per (slot, tile), with counts and
 //      farthest hops by shared-memory atomics (fan-out only);
@@ -95,7 +105,20 @@
 
 namespace {
 
-constexpr int ST_I = 0, ST_S = 1, ST_O = 2, ST_M = 4;
+constexpr int ST_I = 0, ST_S = 1, ST_O = 2, ST_E = 3, ST_M = 4;
+// Protocols (chain.py PROTO_CODES).
+constexpr int64_t P_MSI = 0, P_MOSI = 1, P_SH_MSI = 2, P_SH_MESI = 3;
+// A row's flags, kept in one register across the block's barriers (the
+// wide form's 1,024 threads leave each one 64 registers).
+constexpr uint32_t R_ACT = 1u << 0, R_ISX = 1u << 1, R_ISF = 1u << 2,
+                   R_HIT = 1u << 3, R_CANALLOC = 1u << 4,
+                   R_VICDEAD = 1u << 5, R_HASINV = 1u << 6,
+                   R_OWNACT = 1u << 7, R_SHOK = 1u << 8,
+                   R_WAYLIVE = 1u << 9, R_CAND0 = 1u << 10,
+                   R_NEEDFAN = 1u << 11, R_CAND = 1u << 12,
+                   R_SERVE = 1u << 13, R_OWNERLEG = 1u << 14,
+                   R_FANGO = 1u << 15, R_SERVEALL = 1u << 16,
+                   R_NEEDREAD = 1u << 17;
 constexpr int64_t PEND_EX_REQ = 2, PEND_IFETCH = 3;
 constexpr int64_t kBig = 1LL << 62;
 constexpr int32_t kNever = 2147483647;
@@ -114,6 +137,15 @@ constexpr int kMaxWays = 32;      // hit-held ways are bits of one int32
 struct FastDiv {
   uint64_t d, magic;
   int64_t shift;
+};
+
+// Byte offsets of the launch's arrays: in shared memory, except that the
+// wide form keeps the H-sized tables and the invalidation words in its
+// workspace and stages no directory rows.  `smem` and `ws` are the sizes.
+struct Layout {
+  size_t tblA, tblB, exa, drow, packed, line, invt, issue0, fidx, home,
+      owner, way, xy, frrow, kcnt, kmaxh, fan, oact;
+  size_t smem, ws;
 };
 
 struct StepArgs {
@@ -148,12 +180,20 @@ struct StepArgs {
       off_need_read, off_dram_wb, off_inv_bool;
   // geometry and timing
   int64_t T, P, A, W, D, H, KF;
-  int64_t fanout, queue_on, ndsets, home_stride, fold_bits, dset_bits;
+  int64_t fanout, queue_on, ndsets, home_stride, home_bits, site_stride,
+      site_bits, dset_bits;
   int64_t mesh_width, net_magic, hop_cycles, ser_req, ser_data;
   int64_t inv_ack_cycles, dir_cycles, l2_cycles, l1d_cycles, l1i_cycles;
   int64_t dram_latency_ps, dram_processing_ps;
   int64_t wide;                // 1: the wide form (kWide)
-  FastDiv div_h, div_ctrl, div_dsets;
+  int64_t proto;               // P_MSI, P_MOSI, P_SH_MSI or P_SH_MESI
+  // H; the homes (controllers, or every slice with shared L2); the
+  // controllers (the DRAM site); the directory sets
+  FastDiv div_h, div_home, div_site, div_dsets;
+  // The arrays' offsets (make_layout), filled in by chain_classify_launch
+  // on the host: the kernel reads them from its parameters where it uses
+  // them and holds none in a register.
+  Layout lay;
 };
 
 namespace {
@@ -166,6 +206,13 @@ __device__ __forceinline__ uint64_t fast_div(uint64_t x, const FastDiv& f) {
 
 __device__ __forceinline__ uint64_t fast_mod(uint64_t x, const FastDiv& f) {
   return x - fast_div(x, f) * f.d;
+}
+
+__device__ __forceinline__ bool on(uint32_t fl, uint32_t f) {
+  return (fl & f) != 0;
+}
+__device__ __forceinline__ uint32_t flag(bool b, uint32_t f) {
+  return b ? f : 0u;
 }
 
 __device__ __forceinline__ uint64_t fmix64(uint64_t x) {
@@ -208,18 +255,62 @@ __device__ __forceinline__ int64_t unicast(const StepArgs& a,
   return (hops(xy, s, d) * a.hop_cycles + ser) * period;
 }
 
+// One request's directory transition (engine/directory.py transition):
+// against the entry's state `st` and owner `own` (I and -1 on a miss),
+// the entry after it, the owner leg, the DRAM traffic and how the new
+// sharer words and the invalidation targets are made from the entry's.
+struct Trans {
+  int32_t new_state, new_owner, down_to;
+  bool owner_leg;      // a flush / downgrade round trip to the owner
+  bool dram_read, dram_write;
+  bool own_keep;       // SH on an owned entry: sharers = {owner, req}
+  bool inv_on;         // EX on a shared entry: invalidate the sharers
+  bool inv_skip_owner; // ... but the owner, which the flush leg reaches
+};
+
+__device__ __forceinline__ Trans transition(int64_t proto, bool isx,
+                                            bool isf, int t, int st,
+                                            int own) {
+  Trans r;
+  const bool mosi = proto == P_MOSI;
+  const bool shared = proto == P_SH_MSI || proto == P_SH_MESI;
+  // The states in which the entry has a live owner.
+  const bool owned = st == ST_M || (mosi && st == ST_O) ||
+                     (shared && st == ST_E);
+  const bool live = owned && own >= 0;
+  r.owner_leg = live && own != t;
+  r.down_to = isx ? ST_I : (mosi ? ST_O : ST_S);
+  r.own_keep = !isx && (shared ? owned : st == ST_M);
+  r.inv_on = isx && (st == ST_S || ((mosi || shared) && st == ST_O));
+  r.inv_skip_owner = mosi && r.owner_leg;
+  r.dram_write = proto == P_MSI && r.owner_leg;
+  if (shared) {
+    // The slice line: a miss (I) is the only DRAM read; MESI grants E to
+    // a sole first reader that is no instruction fetch.
+    const bool miss = st == ST_I;
+    const bool grant_e = miss && proto == P_SH_MESI && !isf;
+    r.dram_read = miss;
+    r.new_state = isx ? ST_M
+                      : (miss ? (grant_e ? ST_E : ST_S)
+                              : (owned ? ST_O : st));
+    r.new_owner = (isx || grant_e) ? t : -1;
+  } else if (mosi) {
+    // The owner keeps an O copy and forwards; no DRAM when an owner
+    // (or the requester itself) holds the data.
+    r.dram_read = !r.owner_leg && !(live && own == t);
+    r.new_state = isx ? ST_M : (owned ? ST_O : ST_S);
+    r.new_owner = isx ? t : (owned ? own : -1);
+  } else {
+    r.dram_read = !r.owner_leg;
+    r.new_state = isx ? ST_M : ST_S;
+    r.new_owner = isx ? t : -1;
+  }
+  return r;
+}
+
 __host__ __device__ __forceinline__ size_t align8(size_t x) {
   return (x + 7) & ~static_cast<size_t>(7);
 }
-
-// Byte offsets of the launch's arrays: in shared memory, except that the
-// wide form keeps the H-sized tables and the invalidation words in its
-// workspace and stages no directory rows.  `smem` and `ws` are the sizes.
-struct Layout {
-  size_t tblA, tblB, exa, drow, packed, line, invt, issue0, fidx, home,
-      owner, way, xy, frrow, kcnt, kmaxh, fan, oact;
-  size_t smem, ws;
-};
 
 __host__ __device__ __forceinline__ size_t take(size_t& off, size_t bytes) {
   const size_t at = off;
@@ -271,8 +362,9 @@ chain_classify_kernel(StepArgs a) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
 
-  // ---- the arrays (make_layout; the wrapper sized both regions)
-  const Layout L = make_layout(T, A, W, H, KF, kWide);
+  // ---- the arrays (make_layout, computed on the host; the wrapper sized
+  // both regions)
+  const Layout& L = a.lay;
   unsigned char* big = kWide ? a.ws : smem;
   long long* tblA = reinterpret_cast<long long*>(big + L.tblA);
   int32_t* tblB = reinterpret_cast<int32_t*>(big + L.tblB);
@@ -308,9 +400,9 @@ chain_classify_kernel(StepArgs a) {
 
   const int t = tid;
   const bool row = t < T;
-  bool act = false, isx = false, isf = false;
-  int64_t ln = 0, iss = 0;
-  int32_t hm = 0, ds = 0, fi = 0, hx = 0;
+  // This row's flags (R_*), one register across the block's barriers.
+  uint32_t fl = 0;
+  int32_t fi = 0, hx = 0;
   uint32_t fhash = 0;              // H < 2^32: slots fit 32 bits
   // This row's directory word of way w: staged in shared memory, or (the
   // wide form) read where it lies.
@@ -319,26 +411,28 @@ chain_classify_kernel(StepArgs a) {
                  : drow_s[w * T + t];
   };
   // The periods and the local cost are read where they are used (phases
-  // 6 and 7), not held across the barriers before: the wide form's
-  // 1,024-thread block leaves each thread 64 registers.
+  // 6 and 7), and the line, issue, home, set, FCFS key and owner from
+  // where this thread wrote them, not held across the barriers before:
+  // the wide form's 1,024-thread block leaves each thread 64 registers.
   if (row) {
     const int32_t hd = a.head[t];
     const int64_t hs = hd < 0 ? 0 : (hd > a.P - 1 ? a.P - 1 : hd);
     const int64_t req = a.mq_req[hs * T + t];
     const int64_t delta = a.mq_delta[hs * T + t];
     const int64_t ext = a.mq_extra[hs * T + t];
-    act = a.stopped[t] == 0 && hd < a.stop_hi[t];
+    const bool act = a.stopped[t] == 0 && hd < a.stop_hi[t];
     const int64_t kind = req & 7;
-    ln = act ? (req >> 8) : 0;
-    isx = act && kind == PEND_EX_REQ;
-    isf = act && kind == PEND_IFETCH;
+    const int64_t ln = act ? (req >> 8) : 0;
+    const bool isx = act && kind == PEND_EX_REQ;
+    const bool isf = act && kind == PEND_IFETCH;
+    fl = flag(act, R_ACT) | flag(isx, R_ISX) | flag(isf, R_ISF);
     const uint64_t ul = static_cast<uint64_t>(ln);
-    hm = static_cast<int32_t>(fast_mod(fold(ul, a.fold_bits), a.div_ctrl) *
-                              a.home_stride);
-    ds = static_cast<int32_t>(
-        fast_mod(fold(fast_div(ul, a.div_ctrl), a.dset_bits), a.div_dsets));
+    const int32_t hm = static_cast<int32_t>(
+        fast_mod(fold(ul, a.home_bits), a.div_home) * a.home_stride);
+    const int32_t ds = static_cast<int32_t>(
+        fast_mod(fold(fast_div(ul, a.div_home), a.dset_bits), a.div_dsets));
     fi = hm * static_cast<int32_t>(a.ndsets) + ds;
-    iss = a.base[t] + delta;
+    const int64_t iss = a.base[t] + delta;
     hx = static_cast<int32_t>(fast_mod(fmix64(ul), a.div_h));
     fhash = static_cast<uint32_t>(
         fast_mod(fmix64(static_cast<uint64_t>(fi)), a.div_h));
@@ -353,6 +447,11 @@ chain_classify_kernel(StepArgs a) {
     leaf<int32_t>(a, a.off_dset)[t] = ds;
     leaf<int32_t>(a, a.off_fidx)[t] = fi;
     leaf<int32_t>(a, a.off_hidx)[t] = hx;
+    // The line's memory controller (with shared L2 it may be another
+    // tile than the slice), parked in the from_dram_ps leaf until phase
+    // 6 prices the slice->controller legs.
+    leaf<int64_t>(a, a.off_from_dram_ps)[t] = static_cast<int64_t>(
+        fast_mod(fold(ul, a.site_bits), a.div_site) * a.site_stride);
 
     fidx_s[t] = fi;
     line_s[t] = ln;
@@ -374,41 +473,41 @@ chain_classify_kernel(StepArgs a) {
     }
   }
   if (row) {
-    if (act) atomicMin(issue0_s, static_cast<long long>(iss));
-    if (isx) exa[hx] = 1;
+    if (on(fl, R_ACT))
+      atomicMin(issue0_s,
+                static_cast<long long>(leaf<int64_t>(a, a.off_issue)[t]));
+    if (on(fl, R_ISX)) exa[hx] = 1;
   }
   __syncthreads();
 
   // ---- phase 2: the probe at (home, dset); hit-held ways per set
-  bool hit = false;
   int hway = 0;
   if (row) {
     bool any = false;
+    const int32_t tag = static_cast<int32_t>(line_s[t]);
     for (int w = 0; w < A; ++w) {
       const int64_t word = dword(w);
-      if (word_tag(word) == static_cast<int32_t>(ln) &&
+      if (word_tag(word) == tag &&
           word_state(word) != ST_I) {
         if (!any) hway = w;
         any = true;
       }
     }
-    hit = any && act;
-    if (hit) atomicOr(reinterpret_cast<unsigned int*>(&tblB[fhash]),
-                      1u << hway);
+    fl |= flag(any && on(fl, R_ACT), R_HIT);
+    if (on(fl, R_HIT))
+      atomicOr(reinterpret_cast<unsigned int*>(&tblB[fhash]), 1u << hway);
   }
   __syncthreads();
 
   // ---- phase 3: victim way (invalid first, then stamp-LRU, hit-held
-  // ways excluded), FCFS key, way-slot election; the MSI transition
-  // against the chosen way's sharer words
+  // ways excluded), FCFS key, way-slot election; the protocol's
+  // transition against the chosen way's sharer words (its entry and DRAM
+  // leaves are written here and read back where they are needed)
   int way = 0;
-  long long packed = 0;
   uint32_t aidx = 0;
-  bool can_alloc = false, vic_dead = false, has_inv = false;
-  bool own_act = false;
-  int way_state = ST_I, entry_state = ST_I;
-  int32_t own_tile = 0;
   if (row) {
+    const bool act = on(fl, R_ACT), isx = on(fl, R_ISX);
+    const bool hit = on(fl, R_HIT);
     const unsigned used = static_cast<unsigned>(tblB[fhash]);
     int best = 0;
     int32_t best_key = 0;
@@ -423,25 +522,41 @@ chain_classify_kernel(StepArgs a) {
         best = w;
       }
     }
-    can_alloc = act && !hit && best_key != kNever;
+    fl |= flag(act && !hit && best_key != kNever, R_CANALLOC);
     way = hit ? hway : best;
-    const int64_t am = (static_cast<int64_t>(hm) * a.ndsets + ds) * A + way;
+    const int64_t am = static_cast<int64_t>(fi) * A + way;
     aidx = static_cast<uint32_t>(
         fast_mod(fmix64(static_cast<uint64_t>(am)), a.div_h));
-    int64_t d = iss - static_cast<int64_t>(issue0_s[0]);
+    int64_t d = leaf<int64_t>(a, a.off_issue)[t] -
+                static_cast<int64_t>(issue0_s[0]);
     d = d < 0 ? 0 : (d > kKeyClip ? kKeyClip : d);
-    packed = static_cast<long long>(d * T + t);
+    const long long packed = static_cast<long long>(d * T + t);
     if (act) atomicMin(&tblA[aidx], packed);
+    packed_s[t] = packed;
 
     const int64_t wword = dword(way);
-    way_state = word_state(wword);
-    entry_state = hit ? way_state : ST_I;
+    const int way_state = word_state(wword);
+    const int entry_state = hit ? way_state : ST_I;
     const int entry_owner = hit ? word_owner(wword) : -1;
-    own_act = entry_state == ST_M && entry_owner >= 0 && entry_owner != t;
-    own_tile = entry_owner < 0 ? 0 : entry_owner;
+    const Trans tr = transition(a.proto, isx, on(fl, R_ISF), t,
+                                entry_state, entry_owner);
+    const int32_t own_tile = entry_owner < 0 ? 0 : entry_owner;
+    owner_s[t] = own_tile;
+    // Combining takes I / S entries, with shared L2 S entries only (the
+    // slice fills an uncached line once).
+    fl |= flag(tr.owner_leg, R_OWNACT) | flag(way_state != ST_I, R_WAYLIVE) |
+          flag(entry_state == ST_S ||
+                   (entry_state == ST_I && a.proto != P_SH_MSI &&
+                    a.proto != P_SH_MESI),
+               R_SHOK);
+    leaf<int32_t>(a, a.off_down_to)[t] = tr.down_to;
+    leaf<int32_t>(a, a.off_new_state)[t] = tr.new_state;
+    leaf<int32_t>(a, a.off_new_owner)[t] = tr.new_owner;
+    leaf<uint8_t>(a, a.off_dram_read)[t] = tr.dram_read;
+    leaf<uint8_t>(a, a.off_dram_write)[t] = tr.dram_write;
     const int req_w = t >> 6;
     const uint64_t req_b = 1ULL << (t & 63);
-    bool all_zero = true;
+    bool all_zero = true, has_inv = false;
     const int64_t* sh = a.dir_sharers + static_cast<int64_t>(way) * D + fi;
     int64_t* delta = leaf<int64_t>(a, a.off_delta_sh) + t * W;
     for (int k = 0; k < W; ++k) {
@@ -450,67 +565,73 @@ chain_classify_kernel(StepArgs a) {
       all_zero = all_zero && er == 0;
       const uint64_t es = hit ? er : 0;
       const uint64_t rb = k == req_w ? req_b : 0;
-      uint64_t nsh;
-      if (isx) {
-        nsh = rb;
-      } else if (entry_state == ST_M) {
-        nsh = ((own_tile >> 6) == k ? (1ULL << (own_tile & 63)) : 0) | rb;
-      } else {
-        nsh = es | rb;
-      }
-      const uint64_t iv = (isx && entry_state == ST_S) ? (es & ~rb) : 0;
+      const uint64_t ob =
+          (own_tile >> 6) == k ? (1ULL << (own_tile & 63)) : 0;
+      const uint64_t nsh = isx ? rb : ((tr.own_keep ? ob : es) | rb);
+      const uint64_t iv =
+          tr.inv_on ? (es & ~rb & ~(tr.inv_skip_owner ? ob : 0)) : 0;
       invt[t * W + k] = iv;
       has_inv = has_inv || iv != 0;
       delta[k] = static_cast<int64_t>(nsh - er);  // wraps like uint64
     }
-    vic_dead = way_state == ST_I ||
-               ((way_state == ST_S || way_state == ST_O) && all_zero);
-    packed_s[t] = packed;
-    owner_s[t] = own_tile;
+    fl |= flag(has_inv, R_HASINV) |
+          flag(way_state == ST_I ||
+                   ((way_state == ST_S || way_state == ST_O) && all_zero),
+               R_VICDEAD);
   }
   __syncthreads();
 
-  // ---- phase 4: the election's result; which rows need the fan-out and
-  // the owner-delivery budgets.  An owner leg needs an M entry, and an M
-  // entry has no invalidation targets, so its candidacy is cand0.
-  bool cand0 = false, need_fan = false, oact = false;
+  // ---- phase 4: the election's result; which rows need the fan-out
+  // budget
   if (row) {
-    const bool wslot = act && tblA[aidx] == packed;
-    cand0 = wslot && (hit || (can_alloc && vic_dead));
-    need_fan = a.fanout && cand0 && has_inv;
-    oact = cand0 && own_act;
+    const bool wslot = on(fl, R_ACT) && tblA[aidx] == packed_s[t];
+    const bool cand0 = wslot && (on(fl, R_HIT) || (on(fl, R_CANALLOC) &&
+                                                   on(fl, R_VICDEAD)));
+    const bool need_fan = a.fanout && cand0 && on(fl, R_HASINV);
+    fl |= flag(cand0, R_CAND0) | flag(need_fan, R_NEEDFAN);
     fan_s[t] = need_fan;
-    oact_s[t] = oact;
   }
   // tblB becomes the combining representative table
   for (int64_t i = tid; i < H; i += nthr) tblB[i] = -1;
   __syncthreads();
 
-  // ---- phase 5: fan-out rank and per-owner rank (FCFS, over the staged
-  // rows), serve, combining representatives
+  // ---- phase 5: fan-out rank (FCFS, over the staged rows), candidacy,
+  // which rows need the owner-delivery budget
   int fan_rank = 0, posr = 0;
-  bool serve = false, owner_leg = false, fan_go = false, sh_ok = false;
   if (row) {
     const long long pk = packed_s[t];   // this row's FCFS key, phase 3
+    const bool need_fan = on(fl, R_NEEDFAN), has_inv = on(fl, R_HASINV);
     if (need_fan) {
       for (int j = 0; j < T; ++j)
         if (fan_s[j] && packed_s[j] < pk) ++fan_rank;
     }
-    const bool cand = a.fanout
-                          ? cand0 && (!has_inv || (need_fan && fan_rank < KF))
-                          : cand0 && !has_inv;
-    if (oact) {
+    const bool cand = on(fl, R_CAND0) &&
+                      (a.fanout ? (!has_inv || (need_fan && fan_rank < KF))
+                                : !has_inv);
+    fl |= flag(cand, R_CAND);
+    oact_s[t] = cand && on(fl, R_OWNACT);
+  }
+  __syncthreads();
+
+  // ---- phase 5b: per-owner rank (FCFS, over the staged rows), serve,
+  // combining representatives
+  if (row) {
+    const long long pk = packed_s[t];
+    const int32_t own_tile = owner_s[t];
+    const bool own_act = on(fl, R_OWNACT);
+    if (on(fl, R_CAND) && own_act) {
       for (int j = 0; j < T; ++j) {
         if (oact_s[j] && owner_s[j] == own_tile &&
             (packed_s[j] < pk || (packed_s[j] == pk && j < t)))
           ++posr;
       }
     }
-    serve = cand && !(own_act && posr >= kJOwn);
-    owner_leg = own_act && serve;
-    fan_go = serve && has_inv;
-    sh_ok = entry_state == ST_I || entry_state == ST_S;
-    if (serve && !isx && sh_ok) atomicMax(&tblB[hx], t);
+    const bool serve = on(fl, R_CAND) && !(own_act && posr >= kJOwn);
+    const bool fan_go = serve && on(fl, R_HASINV);
+    fl |= flag(serve, R_SERVE) | flag(own_act && serve, R_OWNERLEG) |
+          flag(fan_go, R_FANGO);
+    if (serve && !on(fl, R_ISX) && on(fl, R_SHOK))
+      atomicMax(&tblB[hx], t);
     if (fan_go) frrow_s[fan_rank] = t;
     way_s[t] = way;
   }
@@ -522,32 +643,71 @@ chain_classify_kernel(StepArgs a) {
   // outputs; the fan-out invalidation masks
   // The timing legs go to their output leaves here and phase 7 reads
   // them back from there, so none is held across the barrier between.
-  bool serve_all = false, need_read = false;
   if (row) {
+    const bool serve = on(fl, R_SERVE), hit = on(fl, R_HIT);
     const int r = tblB[hx];
     const int64_t rep_line = r >= 0 ? line_s[r] : -1;
     const int rep_way = r >= 0 ? way_s[r] : 0;
-    const bool member = act && !serve && !isx && sh_ok && !exa[hx] &&
-                        rep_line == line_s[t];
+    const bool member = on(fl, R_ACT) && !serve && !on(fl, R_ISX) &&
+                        on(fl, R_SHOK) && !exa[hx] && rep_line == line_s[t];
     const int wayf = member ? rep_way : way;
-    serve_all = serve || member;
-    const bool stop_inv = !a.fanout && has_inv;
-    const bool hard = act && !serve_all &&
-                      (stop_inv || (can_alloc && !vic_dead) ||
-                       (!hit && !can_alloc) || (own_act && posr >= kJOwn));
+    const bool serve_all = serve || member;
+    fl |= flag(serve_all, R_SERVEALL);
+    const bool stop_inv = !a.fanout && on(fl, R_HASINV);
+    const bool can_alloc = on(fl, R_CANALLOC);
+    leaf<int32_t>(a, a.off_way)[t] = wayf;
+    leaf<uint8_t>(a, a.off_hit)[t] = hit;
+    leaf<uint8_t>(a, a.off_serve)[t] = serve;
+    leaf<uint8_t>(a, a.off_serve_all)[t] = serve_all;
+    leaf<uint8_t>(a, a.off_member)[t] = member;
+    leaf<uint8_t>(a, a.off_hard_stop)[t] =
+        on(fl, R_ACT) && !serve_all &&
+        (stop_inv || (can_alloc && !on(fl, R_VICDEAD)) ||
+         (!hit && !can_alloc) || (on(fl, R_OWNACT) && posr >= kJOwn));
+    leaf<uint8_t>(a, a.off_fan_go)[t] = on(fl, R_FANGO);
+    leaf<uint8_t>(a, a.off_owner_leg)[t] = on(fl, R_OWNERLEG);
+    leaf<uint8_t>(a, a.off_evicting)[t] =
+        serve && !hit && on(fl, R_WAYLIVE);
+    const int32_t own_tile = owner_s[t];
+    leaf<int32_t>(a, a.off_owner)[t] = own_tile;
+    leaf<int32_t>(a, a.off_ow_slot)[t] = posr < kJOwn - 1 ? posr : kJOwn - 1;
 
+    const bool shared = a.proto == P_SH_MSI || a.proto == P_SH_MESI;
+    const int32_t hm = home_s[t];
     const int32_t pnh = a.p_net[hm];
     const int64_t net_req = unicast(a, xy_s, t, hm, a.ser_req, a.p_net[t]);
-    const int64_t rps = unicast(a, xy_s, hm, t, a.ser_data, pnh);
+    leaf<int64_t>(a, a.off_reply_ps)[t] =
+        unicast(a, xy_s, hm, t, a.ser_data, pnh);
     const int64_t tdir = leaf<int64_t>(a, a.off_issue)[t] + net_req +
                          a.dir_cycles * a.p_dir[hm];
     int64_t ops = 0;
-    if (owner_leg) {
+    if (on(fl, R_OWNERLEG)) {
+      // The owner looks the line up in its private L2, or with shared L2
+      // in its L1D.
       ops = unicast(a, xy_s, hm, own_tile, a.ser_req, pnh) +
-            a.l2_cycles * a.p_l2[own_tile] +
+            (shared ? a.l1d_cycles * a.p_l1d[own_tile]
+                    : a.l2_cycles * a.p_l2[own_tile]) +
             unicast(a, xy_s, own_tile, hm, a.ser_data, a.p_net[own_tile]);
     }
-    need_read = serve_all && !own_act;
+    const bool need_read =
+        serve_all && leaf<uint8_t>(a, a.off_dram_read)[t] != 0;
+    fl |= flag(need_read, R_NEEDREAD);
+    leaf<int64_t>(a, a.off_t_dir)[t] = tdir;
+    leaf<int64_t>(a, a.off_owner_ps)[t] = ops;
+    // With shared L2 the line's memory controller (phase 0) may be
+    // another tile than its slice: the slice->controller request and
+    // data legs.
+    {
+      const int ds_t =
+          static_cast<int>(leaf<int64_t>(a, a.off_from_dram_ps)[t]);
+      int64_t to_dram = 0, from_dram = 0;
+      if (shared && ds_t != hm) {
+        to_dram = unicast(a, xy_s, hm, ds_t, a.ser_req, pnh);
+        from_dram = unicast(a, xy_s, ds_t, hm, a.ser_data, a.p_net[ds_t]);
+      }
+      leaf<int64_t>(a, a.off_from_dram_ps)[t] = from_dram;
+      leaf<int64_t>(a, a.off_dram_arrival)[t] = tdir + ops + to_dram;
+    }
     // A member's way is its representative's (same line, same row), so
     // its own sharer word is that of the way phase 3 chose.
     const bool madd =
@@ -556,32 +716,12 @@ chain_classify_kernel(StepArgs a) {
                        a.dir_sharers[(static_cast<int64_t>(t >> 6) * A + way) *
                                          D + fi]) >> (t & 63)) & 1ULL) == 0);
 
-    leaf<int32_t>(a, a.off_way)[t] = wayf;
-    leaf<uint8_t>(a, a.off_hit)[t] = hit;
-    leaf<uint8_t>(a, a.off_serve)[t] = serve;
-    leaf<uint8_t>(a, a.off_serve_all)[t] = serve_all;
-    leaf<uint8_t>(a, a.off_member)[t] = member;
     leaf<uint8_t>(a, a.off_member_add)[t] = madd;
-    leaf<uint8_t>(a, a.off_hard_stop)[t] = hard;
-    leaf<uint8_t>(a, a.off_fan_go)[t] = fan_go;
-    leaf<uint8_t>(a, a.off_owner_leg)[t] = owner_leg;
-    leaf<uint8_t>(a, a.off_evicting)[t] = serve && !hit && way_state != ST_I;
-    leaf<int32_t>(a, a.off_owner)[t] = own_tile;
-    leaf<int32_t>(a, a.off_ow_slot)[t] = posr < kJOwn - 1 ? posr : kJOwn - 1;
-    leaf<int32_t>(a, a.off_down_to)[t] = isx ? ST_I : ST_S;
-    leaf<int32_t>(a, a.off_new_state)[t] = isx ? ST_M : ST_S;
-    leaf<int32_t>(a, a.off_new_owner)[t] = isx ? t : -1;
-    leaf<uint8_t>(a, a.off_dram_read)[t] = !own_act;
-    leaf<uint8_t>(a, a.off_dram_write)[t] = own_act;
     leaf<uint8_t>(a, a.off_need_read)[t] = need_read;
-    leaf<uint8_t>(a, a.off_dram_wb)[t] = own_act && serve_all;
-    leaf<int64_t>(a, a.off_t_dir)[t] = tdir;
-    leaf<int64_t>(a, a.off_owner_ps)[t] = ops;
-    leaf<int64_t>(a, a.off_reply_ps)[t] = rps;
-    leaf<int64_t>(a, a.off_from_dram_ps)[t] = 0;
-    leaf<int64_t>(a, a.off_dram_arrival)[t] = tdir + ops;
+    leaf<uint8_t>(a, a.off_dram_wb)[t] =
+        serve_all && leaf<uint8_t>(a, a.off_dram_write)[t] != 0;
     leaf<int64_t>(a, a.off_l1_fill_ps)[t] =
-        isf ? a.l1i_cycles * a.p_l1i[t] : a.l1d_cycles * a.p_l1d[t];
+        on(fl, R_ISF) ? a.l1i_cycles * a.p_l1i[t] : a.l1d_cycles * a.p_l1d[t];
   }
   if (a.fanout) {
     uint8_t* inv_bool = leaf<uint8_t>(a, a.off_inv_bool);
@@ -609,12 +749,12 @@ chain_classify_kernel(StepArgs a) {
   int64_t tdata = 0, tkey = 0;
   if (row) {
     int64_t ips = 0, icnt = 0;
-    if (a.fanout && fan_go) {
+    if (a.fanout && on(fl, R_FANGO)) {
       icnt = kcnt_s[fan_rank];
       const int64_t mh_ps =
           (!a.net_magic && icnt > 0)
               ? (kmaxh_s[fan_rank] * a.hop_cycles + a.ser_req) *
-                    a.p_net[hm]
+                    a.p_net[home_s[t]]
               : 0;
       ips = 2 * mh_ps + a.inv_ack_cycles * a.p_core[t];
     }
@@ -623,27 +763,34 @@ chain_classify_kernel(StepArgs a) {
     if (!a.queue_on) {
       const int64_t tdir = leaf<int64_t>(a, a.off_t_dir)[t];
       const int64_t ops = leaf<int64_t>(a, a.off_owner_ps)[t];
-      const int64_t dstart = need_read ? tdir + ops : 0;
+      const bool need_read = on(fl, R_NEEDREAD);
+      const int64_t dstart =
+          need_read ? leaf<int64_t>(a, a.off_dram_arrival)[t] : 0;
       const int64_t dready = dstart + a.dram_latency_ps +
-                             a.dram_processing_ps;
+                             a.dram_processing_ps +
+                             leaf<int64_t>(a, a.off_from_dram_ps)[t];
       tdata = tdir + ops;
       if (need_read && dready > tdata) tdata = dready;
       if (!need_read && tdata < 0) tdata = 0;
       if (a.fanout && tdir + ips > tdata) tdata = tdir + ips;
       leaf<int64_t>(a, a.off_t_data)[t] = tdata;
+      // (no fill through a private L2 with shared L2)
+      const bool shared = a.proto == P_SH_MSI || a.proto == P_SH_MESI;
       leaf<int64_t>(a, a.off_completion)[t] =
           tdata + leaf<int64_t>(a, a.off_reply_ps)[t] +
-          a.l2_cycles * a.p_l2[t] + leaf<int64_t>(a, a.off_l1_fill_ps)[t] +
+          (shared ? 0 : a.l2_cycles * a.p_l2[t]) +
+          leaf<int64_t>(a, a.off_l1_fill_ps)[t] +
           leaf<int64_t>(a, a.off_extra)[t];  // all this thread's
       tkey = tdata * T + t;
-      if (serve_all) atomicMax(&tblA[hx], static_cast<long long>(tkey));
+      if (on(fl, R_SERVEALL))
+        atomicMax(&tblA[hx], static_cast<long long>(tkey));
     }
   }
 
   // ---- phase 8: the floor write by each slot's single winner, in place
   if (!a.queue_on) {
     __syncthreads();
-    if (row && serve_all && tblA[hx] == tkey) {
+    if (row && on(fl, R_SERVEALL) && tblA[hx] == tkey) {
       a.ftbl[hx] = line_s[t];
       a.ftbl[H + hx] = tdata;
     }
@@ -689,11 +836,11 @@ extern "C" int chain_classify_launch(const StepArgs* args, void* stream) {
       args->W > kMaxWords || args->A > kMaxWays ||
       (wide && args->ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = make_layout(args->T, args->A, args->W, args->H,
-                                  args->KF, wide).smem;
+  StepArgs a = *args;
+  a.lay = make_layout(a.T, a.A, a.W, a.H, a.KF, wide);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(wide ? launch<true>(*args, smem, st)
-                               : launch<false>(*args, smem, st));
+  return static_cast<int>(wide ? launch<true>(a, a.lay.smem, st)
+                               : launch<false>(a, a.lay.smem, st));
 }
 
 extern "C" const char* kernel_error_string(int err) {

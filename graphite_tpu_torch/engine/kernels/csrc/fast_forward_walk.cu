@@ -10,8 +10,9 @@
 //
 // What it computes.  For each candidate tile, the longest prefix of its
 // F-event span whose events are all eligible — COMPUTE with an L1I hit,
-// BRANCH, MEM_READ with an L1D hit, MEM_WRITE with a writable (M) L1D
-// hit — and whose pre-clock stays under the fast-forward bound
+// BRANCH, MEM_READ with an L1D hit, MEM_WRITE with a writable L1D hit
+// (M, or E under sh_l2_mesi) — and whose pre-clock stays under the
+// fast-forward bound
 // (boundary + the spanning quantum + tpu/fast_forward_span).  The tile
 // engages when that prefix is longer than one window round (n > K) and
 // some committed event starts at or past the window's own bound; an
@@ -19,9 +20,14 @@
 // writes, counters), a declined one returns its clock, n_ret = 0, zero
 // counters and untouched rows.
 //
-// Scope: simple cores under MSI; the wrapper refuses sh_l2_mesi (whose
-// sticky E->M upgrade this kernel does not model) and iocoom cores.
-// bp_size = 0 means no predictor: every branch is predicted correctly.
+// Scope: simple cores under every coherence protocol; the wrapper refuses
+// iocoom cores.  bp_size = 0 means no predictor: every branch is
+// predicted correctly.  Under sh_l2_mesi (`mesi`) a committed write to
+// an E line upgrades it to M, sticky for the rest of the span: each
+// committed touch of a line that some committed write at or before it
+// wrote carries M (the earliest such write is a per-line position each
+// thread finds from the span's staged lines and write flags; commits are
+// a prefix, so every event before a committed one is committed).
 //
 // Design: one block per tile, one thread per span event (F <= 64 events,
 // one or two warps), no serial recurrence — the span's clock is a plain
@@ -86,11 +92,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int OP_NOP = 0, OP_COMPUTE = 1, OP_MEM_READ = 2, OP_MEM_WRITE = 3,
               OP_BRANCH = 4;
 // Coherence states (engine/cache.py).
-constexpr int ST_I = 0, ST_M = 4;
+constexpr int ST_I = 0, ST_E = 3, ST_M = 4;
+constexpr int64_t kStateMask = 7;
 constexpr int64_t kStampField = (1LL << 29) - 1;
 constexpr int64_t kStampMask = kStampField << 3;
 // Per-event branch flags, in shared memory for the later events.
-constexpr uint8_t B_BR = 1, B_TAKEN = 2;
+constexpr uint8_t B_BR = 1, B_TAKEN = 2, B_WR = 4;
 
 }  // namespace
 
@@ -123,6 +130,7 @@ struct FFArgs {
   int64_t col_core, col_l1i, col_l1d;
   int64_t wbound_add;             // window bound = boundary + wbound_add
   int64_t span_add;               // ff bound = window bound + span_add
+  int64_t mesi;                   // E lines writable, sticky upgrades
 };
 
 namespace {
@@ -155,6 +163,7 @@ fast_forward_walk_kernel(FFArgs a) {
 
   __shared__ int32_t s_slot[kMaxSpan];
   __shared__ uint8_t s_br[kMaxSpan];
+  __shared__ int64_t s_line[kMaxSpan];
   __shared__ uint32_t s_inel[kWarps], s_commit[kWarps], s_cross[kWarps];
   __shared__ long long s_wsum[kWarps];
   __shared__ uint32_t s_ctr[kWarps][kCtrs];
@@ -195,8 +204,8 @@ fast_forward_walk_kernel(FFArgs a) {
   int pstate = ST_I;
   int64_t* arr = nullptr;
   int64_t widx = 0, word = 0;
+  const int64_t line = addr >> a.line_bits;
   if (is_comp || is_mem) {
-    const int64_t line = addr >> a.line_bits;
     const int64_t S = is_comp ? a.l1i_sets : a.l1d_sets;
     const int A = static_cast<int>(is_comp ? a.l1i_assoc : a.l1d_assoc);
     arr = is_comp ? a.l1i : a.l1d;
@@ -217,8 +226,9 @@ fast_forward_walk_kernel(FFArgs a) {
       }
     }
   }
-  const bool elig = (is_comp && hit) || is_br ||
-                    (is_mem && hit && (is_rd || pstate >= ST_M));
+  const bool elig =
+      (is_comp && hit) || is_br ||
+      (is_mem && hit && (is_rd || pstate >= (a.mesi ? ST_E : ST_M)));
   const bool taken = arg != 0;
   int32_t slot = 0;
   bool pred = false;
@@ -229,7 +239,9 @@ fast_forward_walk_kernel(FFArgs a) {
   }
   if (live) {
     s_slot[j] = slot;
-    s_br[j] = (is_br ? B_BR : 0) | (taken ? B_TAKEN : 0);
+    s_br[j] = (is_br ? B_BR : 0) | (taken ? B_TAKEN : 0) |
+              (is_wr ? B_WR : 0);
+    s_line[j] = line;
   }
   __syncthreads();
 
@@ -293,6 +305,15 @@ fast_forward_walk_kernel(FFArgs a) {
 #pragma unroll
   for (int k = 0; k < kCtrs; ++k) c[k] = 0;
   if (commit) {
+    if (is_mem && a.mesi) {
+      // the touch word carries the probe's state, or M after a committed
+      // write of the line at or before this event
+      bool upgraded = false;
+      for (int i = 0; i <= j; ++i)
+        if ((s_br[i] & B_WR) && s_line[i] == line) upgraded = true;
+      word = (word & ~kStateMask) |
+             ((upgraded && pstate == ST_E) ? ST_M : pstate);
+    }
     if (is_comp || is_mem)
       atomicMax(reinterpret_cast<long long*>(arr + widx),
                 static_cast<long long>(

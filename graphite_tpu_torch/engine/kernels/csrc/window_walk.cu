@@ -8,11 +8,23 @@
 // graphite_tpu_torch/engine/kernels/window.py `window_walk`; both must
 // agree on every output element.
 //
-// Scope: simple in-order cores, private L1I / L1D / L2 under MSI, miss
-// chains off (P = 0) or on (P = tpu/miss_chain > 0, with or without the
-// fan-out replay's forwarding and boundary spanning), one-bit or no
+// Scope: simple in-order cores under every coherence protocol of the
+// engine: private L1I / L1D / L2 (MSI, MOSI), or private L1s and no
+// private L2 (shared-L2 MSI and MESI: `shared_l2`, the L2 pointer null),
+// miss chains off (P = 0) or on (P = tpu/miss_chain > 0, with or without
+// the fan-out replay's forwarding and boundary spanning), one-bit or no
 // branch predictor, LRU or round-robin L1 replacement.  The wrapper
-// refuses shared-L2 protocols, iocoom cores and windows wider than 64.
+// refuses iocoom cores and windows wider than 64.
+//
+// Shared L2: an L1 miss goes to the home slice (no L2 probe, fill,
+// touch or counter; the miss is issued after the L1 tag check alone),
+// and at P > 0 a banked element will fill the L1 directly, so the
+// banked-fill and pending-bank hazards are on L1 sets (L1D for a data
+// element, L1I for a fetch) where the private form's are on L2 sets.
+// MESI (`mesi`): an E line is writable; a write to it upgrades the line
+// to M in its touch (the state edited into the word before the
+// atomicMax, above which the stamp sits), and a later access to its L1D
+// set waits, as behind a fill.
 //
 // Design: the JAX walk's own three steps, one block per tile and one
 // thread per event of the tile's window (K <= 64 events, so one or two
@@ -83,11 +95,14 @@ constexpr int64_t PEND_SH_REQ = 1, PEND_EX_REQ = 2, PEND_IFETCH = 3;
 // Per-event flags, in shared memory for the other events' rules.
 constexpr uint16_t F_FILL_D = 1, F_TOUCH_D = 2, F_FILL_I = 4, F_TOUCH_I = 8,
                    F_MBANK0 = 16, F_CBANK0 = 32, F_WR = 64, F_BR = 128,
-                   F_TAKEN = 256;
+                   F_TAKEN = 256, F_UPG_D = 512;
+// Banked elements after forwarding, for the later events' fill hazards.
+constexpr uint8_t B_MEM = 1, B_COMP = 2;
 // Retire classes, for the recurrence.
 constexpr uint8_t OK_REL = 1, OK_ABS = 2, OK_BANK = 4;
 // Coherence states (engine/cache.py).
-constexpr int ST_I = 0, ST_S = 1, ST_M = 4;
+constexpr int ST_I = 0, ST_S = 1, ST_E = 3, ST_M = 4;
+constexpr int64_t kStateMask = 7;
 constexpr int64_t kStampField = (1LL << 29) - 1;
 constexpr int64_t kStampMask = kStampField << 3;
 constexpr int64_t kNegFloor = -(1LL << 62);
@@ -114,7 +129,7 @@ struct WalkArgs {
   int32_t* l1i_rr;                // [T, Si]
   int64_t* l1d;                   // [Ad, T, Sd]
   int32_t* l1d_rr;                // [T, Sd]
-  int64_t* l2;                    // [A2, T, S2]
+  int64_t* l2;                    // [A2, T, S2] (null with shared L2)
   // fresh outputs
   int64_t* clock_out;             // [T]
   int32_t* n_ret;                 // [T]
@@ -148,6 +163,8 @@ struct WalkArgs {
   int64_t qps;                    // quantum, ps: mid-chain overrun credit
   int64_t wbound_add;             // boundary span for empty chains
   int64_t l2_tags_cycles;
+  int64_t shared_l2;              // no private L2 (pr_l1_sh_l2_*)
+  int64_t mesi;                   // E lines writable (pr_l1_sh_l2_mesi)
 };
 
 namespace {
@@ -267,7 +284,7 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   __shared__ int32_t s_set_d[kMaxWindow], s_set_i[kMaxWindow],
       s_set_2[kMaxWindow], s_bidx[kMaxWindow];
   __shared__ uint16_t s_flags[kMaxWindow];
-  __shared__ uint8_t s_l2fill[kMaxWindow], s_ok[kMaxWindow];
+  __shared__ uint8_t s_bank[kMaxWindow], s_ok[kMaxWindow];
   __shared__ int64_t s_dt[kMaxWindow], s_floor[kMaxWindow];
   __shared__ int64_t s_clk[kMaxWindow], s_base[kMaxWindow];
   __shared__ int16_t s_slot[kMaxWindow];
@@ -334,6 +351,7 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   const int64_t l1d_ps = a.l1d_cycles * per[a.col_l1d];
   const int64_t l2_ps = a.l2_cycles * per[a.col_l2];
   const bool wfwd = P > 0 && a.wfwd != 0;
+  const bool shared = a.shared_l2 != 0;
 
   const int64_t line = addr >> a.line_bits;
   const bool is_comp = op == OP_COMPUTE, is_br = op == OP_BRANCH;
@@ -350,12 +368,12 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   if (is_mem || is_comp) {
     const int64_t* rowI = a.l1i + t * a.l1i_sets + pI.set;
     const int64_t* rowD = a.l1d + t * a.l1d_sets + pD.set;
-    const int64_t* row2 = a.l2 + t * a.l2_sets + pL2.set;
+    const int64_t* row2 = shared ? nullptr : a.l2 + t * a.l2_sets + pL2.set;
     const int64_t stI = T * a.l1i_sets, stD = T * a.l1d_sets,
                   st2 = T * a.l2_sets;
     const int Ai = static_cast<int>(a.l1i_assoc);
     const int Ad = static_cast<int>(a.l1d_assoc);
-    const int A2 = static_cast<int>(a.l2_assoc);
+    const int A2 = shared ? 0 : static_cast<int>(a.l2_assoc);
     const int amax = max(Ai, max(Ad, A2));
 #pragma unroll 4
     for (int w = 0; w < amax; ++w) {
@@ -367,12 +385,15 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
       if (w < A2) probe_way(pL2, w, w2);
     }
   }
-  const bool l1_ok = pD.hit && (is_rd || pD.state >= ST_M);
+  const bool l1_ok =
+      pD.hit && (is_rd || pD.state >= (a.mesi ? ST_E : ST_M));
   const bool mem_l2 =
       is_mem && !l1_ok && pL2.hit && (is_rd || pL2.state == ST_M);
   const bool comp_l2 = is_comp && !pI.hit && pL2.hit;
   const bool fill_d = mem_l2, fill_i = comp_l2;
   const bool touch_d = is_mem && l1_ok, touch_i = is_comp && pI.hit;
+  // MESI: a write to an E line upgrades it to M in its touch.
+  const bool upg_d = a.mesi && touch_d && is_wr && pD.state == ST_E;
   // Bankable misses (P > 0): past the local L2.
   const bool mem_bank0 = P > 0 && is_mem && !l1_ok && !mem_l2;
   const bool comp_bank0 = P > 0 && is_comp && !pI.hit && !comp_l2;
@@ -394,16 +415,21 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
                  (fill_i ? F_FILL_I : 0) | (touch_i ? F_TOUCH_I : 0) |
                  (mem_bank0 ? F_MBANK0 : 0) | (comp_bank0 ? F_CBANK0 : 0) |
                  (is_wr ? F_WR : 0) | (is_br ? F_BR : 0) |
-                 (taken ? F_TAKEN : 0);
+                 (taken ? F_TAKEN : 0) | (upg_d ? F_UPG_D : 0);
   }
-  // The chain bank before this window (slots [mq_head, mq_count)).
+  // The chain bank before this window (slots [mq_head, mq_count)), with
+  // the set each element will fill: its L2 set, or with shared L2 its
+  // L1I set (a fetch) or L1D set.
   const int npend = static_cast<int>(nm0 > phead ? nm0 - phead : 0);
   if (P > 0) {
     for (int s = j; s < npend; s += blockDim.x) {
       const int64_t req = a.mq_req[(phead + s) * T + t];
+      const bool p_if = (req & 7) == PEND_IFETCH;
+      const int64_t fs = shared ? (p_if ? a.l1i_sets : a.l1d_sets)
+                                : a.l2_sets;
       s_pline[s] = req >> 8;
-      s_pset[s] = static_cast<int32_t>(fmod_pos(req >> 8, a.l2_sets));
-      s_pif[s] = (req & 7) == PEND_IFETCH;
+      s_pset[s] = static_cast<int32_t>(fmod_pos(req >> 8, fs));
+      s_pif[s] = p_if;
     }
   }
   __syncthreads();
@@ -418,7 +444,7 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
       if (is_br && (f & F_BR) && s_bidx[i] == bidx)
         pred = (f & F_TAKEN) != 0;       // the last earlier branch wins
       if (s_set_d[i] == pD.set) {
-        if (is_mem && (f & F_FILL_D)) hazard = true;
+        if (is_mem && (f & (F_FILL_D | F_UPG_D))) hazard = true;
         if (fill_d && (f & (F_FILL_D | F_TOUCH_D))) hazard = true;
       }
       if (s_set_i[i] == pI.set) {
@@ -449,7 +475,14 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
         if (cpi) fwd_i = true;
         if (is_mem && lm && !cpd) hazard = true;
         if (is_comp && lm && !cpi) hazard = true;
-        if (!(cpd || cpi) && s_pset[s] == pL2.set) hazard = true;
+        if (!(cpd || cpi)) {
+          if (!shared) {
+            if (s_pset[s] == pL2.set) hazard = true;
+          } else if (p_if ? (is_comp && s_pset[s] == pI.set)
+                          : (is_mem && s_pset[s] == pD.set)) {
+            hazard = true;
+          }
+        }
       }
     }
   }
@@ -457,14 +490,25 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   const bool comp_fwd = comp_bank0 && fwd_i;
   const bool mem_bank = mem_bank0 && !mem_fwd;
   const bool comp_bank = comp_bank0 && !comp_fwd;
-  if (live) s_l2fill[j] = mem_bank || comp_bank;
+  if (live) s_bank[j] = (mem_bank ? B_MEM : 0) | (comp_bank ? B_COMP : 0);
   __syncthreads();
 
-  // ---- phase B2: banked-miss L2 hazards (the set a banked element will
-  // fill), then the event's price
+  // ---- phase B2: banked-miss fill hazards (the set a banked element
+  // will fill: its L2 set, or with shared L2 its L1 set), then the
+  // event's price
   if (live && P > 0 && (is_mem || is_comp)) {
     for (int i = 0; i < j; ++i) {
-      if (!s_l2fill[i] || s_set_2[i] != pL2.set) continue;
+      const uint8_t bk = s_bank[i];
+      if (!bk) continue;
+      if (shared) {
+        // another line's banked fill of this event's L1 set
+        if (s_line[i] != line &&
+            ((is_mem && (bk & B_MEM) && s_set_d[i] == pD.set) ||
+             (is_comp && (bk & B_COMP) && s_set_i[i] == pI.set)))
+          hazard = true;
+        continue;
+      }
+      if (s_set_2[i] != pL2.set) continue;
       const uint16_t f = s_flags[i];
       const bool mb0 = f & F_MBANK0, cb0 = f & F_CBANK0;
       const bool cover =
@@ -561,7 +605,13 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   if (ret) {
     const int64_t stamp = stamp_base + j;
     if (touch_i) touch(a.l1i, T, a.l1i_sets, t, pI, stamp);
-    if (touch_d) touch(a.l1d, T, a.l1d_sets, t, pD, stamp);
+    if (touch_d) {
+      Probe pw = pD;
+      if (a.mesi)    // the touch word carries the probe's state, or M
+        pw.word = (pw.word & ~kStateMask) |
+                  ((is_wr && pD.state == ST_E) ? ST_M : pD.state);
+      touch(a.l1d, T, a.l1d_sets, t, pw, stamp);
+    }
     if (mem_l2 || comp_l2) touch(a.l2, T, a.l2_sets, t, pL2, stamp);
     if (fill_d)
       apply_fill(a.l1d, a.l1d_rr, a.l1d_assoc, T, a.l1d_sets,
@@ -584,12 +634,17 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
         // cost owed at completion
         const int64_t kind = is_comp ? PEND_IFETCH
                              : (is_wr ? PEND_EX_REQ : PEND_SH_REQ);
-        const int64_t off_ps = (is_comp ? l1i_ps : l1d_ps) +
-                               a.l2_tags_cycles * per[a.col_l2];
+        // (the miss is found after the L2 tag check, or with shared L2
+        // after the L1's alone)
+        const int64_t off_ps =
+            (is_comp ? l1i_ps : l1d_ps) +
+            (shared ? p_core : a.l2_tags_cycles * per[a.col_l2]);
         a.mq_req[slot * T + t] = kind | (line << 8);
         a.mq_delta[slot * T + t] = s_base[j] + off_ps;
         a.mq_extra[slot * T + t] =
-            is_comp ? cost_ps + fetch_ps + (n_lines - 1) * l2_ps : 0;
+            is_comp ? cost_ps + fetch_ps +
+                          (shared ? 0 : (n_lines - 1) * l2_ps)
+                    : 0;
       }
     }
     // counters (WINDOW_CTRS order); a window's sums fit in 32 bits
@@ -603,8 +658,8 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
     c[4] = is_rd && !l1_ok && !mem_fwd;
     c[5] = is_wr;
     c[6] = is_wr && !l1_ok && !mem_fwd;
-    c[7] = mem_l2 || comp_l2 || mem_bank || comp_bank;
-    c[8] = mem_bank || comp_bank;
+    c[7] = !shared && (mem_l2 || comp_l2 || mem_bank || comp_bank);
+    c[8] = !shared && (mem_bank || comp_bank);
     c[9] = is_br;
     c[10] = is_br && !correct;
     c[11] = is_spawn;

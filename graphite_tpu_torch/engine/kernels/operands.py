@@ -23,7 +23,12 @@ from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
 from graphite_tpu_torch.isa import DVFSModule, EventOp
 from graphite_tpu_torch.params import SimParams
 
-I, S, M = cachemod.I, cachemod.S, cachemod.M
+I, S, O, E, M = cachemod.I, cachemod.S, cachemod.O, cachemod.E, cachemod.M
+
+# The states window operands plant their lines in, by protocol: O lines
+# under MOSI, E lines (writable under MESI) with shared L2.
+_PLANT = {"msi": [1, 4, 4], "mosi": [1, 2, 4, 4], "sh_l2_msi": [1, 3, 4, 4],
+          "sh_l2_mesi": [1, 3, 4, 4]}
 
 
 
@@ -33,7 +38,8 @@ def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
     other.  Cache words are valid packed words whose tags come from the
     same small line pool as the window's addresses, so probes hit, miss,
     alias sets and collide on predictor slots; every event kind the walk
-    classifies appears."""
+    classifies appears.  Under the shared-L2 protocols there is no
+    private L2: ``l2_word`` and ``l2_rr`` are None."""
     rng = np.random.default_rng(seed)
     T = params.num_tiles
     lb = params.line_size.bit_length() - 1
@@ -78,7 +84,7 @@ def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
                     ln = int(line[t, j])
                     w[rng.integers(0, A), t, ln % S] = \
                         (ln << 32) | (int(rng.integers(0, 1 << 29)) << 3) \
-                        | int(rng.choice([1, 4, 4]))
+                        | int(rng.choice(_PLANT[params.protocol_kind]))
         return w
 
     A1, S1 = params.l1i.associativity, params.l1i.num_sets
@@ -104,6 +110,8 @@ def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
         models_enabled=np.bool_(rng.random() < 0.9),
         stamp_base=np.int32(64 * int(rng.integers(0, 100_000))),
     )
+    if params.shared_l2:
+        out["l2_word"] = out["l2_rr"] = None
     P = params.miss_chain
     if P > 0:
         # A bank from earlier rounds: some tiles empty, some mid-chain
@@ -129,9 +137,13 @@ def random_window_arrays(params: SimParams, K: int, seed: int) -> dict:
 
 
 # The per-tile cases of :func:`seeded_window_arrays`, in the order tile t
-# of seed s draws them ((t + s) % len).
+# of seed s draws them ((t + s) % len); with shared L2 (no L2 to fill
+# from) the E->M upgrade and the banked fills of one L1 set take the
+# place of the L2 fills.
 WINDOW_CASES = ("touch", "branch", "cut0", "cutlast", "inactive",
                 "fullbank", "pending", "fill", "random")
+SHARED_WINDOW_CASES = ("touch", "branch", "cut0", "cutlast", "inactive",
+                       "fullbank", "pending", "upgrade", "l1bank", "random")
 
 
 def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
@@ -157,7 +169,16 @@ def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
       * fill — L2 hits that fill L1I and L1D (one line fetched and then
         read: two touches of its L2 word), then an access to a filled
         L1D set;
+      * upgrade (shared L2) — a line resident in E, written (under MESI
+        an E->M upgrade in its touch, under MSI a miss) and read again
+        around hits to other lines: an access to the upgraded set waits;
+      * l1bank (shared L2) — misses to two lines of one L1D set, or two
+        fetches of one L1I set, between hits: at P > 0 the second waits
+        on the first's banked fill of that L1 set;
       * random — the tile as :func:`random_window_arrays` draws it.
+
+    With shared L2 the pending case's other line is one of a pending
+    element's L1D set, or of a pending fetch's L1I set.
 
     The lines the cases use lie above every line of the random pool, so
     they are resident exactly where a case puts them.  Models are
@@ -200,8 +221,10 @@ def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
         arg2[t, j] = int(rng.integers(0, 4)) if o == COMP \
             else int(rng.choice([0, 0, 1]))
 
+    shared = params.shared_l2
+    cases = SHARED_WINDOW_CASES if shared else WINDOW_CASES
     for t in range(T):
-        case = WINDOW_CASES[(t + seed) % len(WINDOW_CASES)]
+        case = cases[(t + seed) % len(cases)]
         if case == "random":
             continue
         base = (1 << 30) + 4096 * t          # this tile's case lines
@@ -251,10 +274,14 @@ def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
                     event(t, j, RD, int(rng.choice(sh)))
                 elif r < 0.45 and ifl:
                     event(t, j, COMP, ifl[0])
-            if (t // len(WINDOW_CASES) + seed) % 2 == 0:
+            alt = (t // len(cases) + seed) % (3 if shared else 2)
+            if alt == 0:
                 event(t, cut, WR, sh[-1])        # write on a pending SH
-            else:                                # same L2 set, other line
-                event(t, cut, RD, plines[0] + S2 * (1 + t))
+            elif alt == 1:                       # same fill set, other line
+                event(t, cut, RD, plines[0] + (Sd if shared else S2)
+                      * (1 + t))
+            else:                                # a pending fetch's L1I set
+                event(t, cut, COMP, ifl[0] + Si * (1 + t))
         elif case == "fill":
             lc, le = base + 2, base + 3
             for ln in (lc, le, le + Sd):
@@ -264,6 +291,28 @@ def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
             event(t, 2, WR, le)                  # L2 hit (M): fills L1D
             event(t, min(3 + int(rng.integers(0, K - 3)), K - 1), RD,
                   le + Sd)                       # the filled L1D set
+        elif case == "upgrade":
+            # la becomes an E line stamped below the window, so the
+            # upgrading touch is the set's newest word; an empty bank.
+            w = a["l1d_word"]
+            way = int(np.flatnonzero((w[:, t, la % Sd] >> 32) == la)[0])
+            w[way, t, la % Sd] = (la << 32) | (int(rng.integers(
+                0, int(a["stamp_base"]))) << 3) | E
+            if P > 0:
+                a["mq_count"][t] = a["mq_head"][t] = 0
+                a["chain_rel"][t] = 0
+            w = int(rng.integers(0, max(K - 2, 1)))
+            event(t, w, WR, la)                  # E -> M (MESI) or a miss
+            event(t, min(w + 1 + int(rng.integers(0, 3)), K - 1), RD, la)
+        elif case == "l1bank":
+            j1 = int(rng.integers(0, max(K - 2, 1)))
+            j2 = min(j1 + 1 + int(rng.integers(0, 3)), K - 1)
+            if rng.random() < 0.5:               # two lines, one L1D set
+                event(t, j1, RD, base + 16)
+                event(t, j2, WR, base + 16 + Sd)
+            else:                                # two lines, one L1I set
+                event(t, j1, COMP, base + 32)
+                event(t, j2, COMP, base + 32 + Si)
     a["meta"] = np.stack([op, arg, arg2]).astype(np.int32)
     a["addr"] = addr.astype(np.int64)
     return a
@@ -273,8 +322,9 @@ def window_in_from_numpy(arrays: dict, device) -> WindowIn:
     """A :class:`WindowIn` on ``device`` from numpy operands."""
     dev = torch.device(device)
     return WindowIn(**{
-        f: torch.from_numpy(np.array(arrays[f])).to(dev)
-        for f in WindowIn._fields if arrays.get(f) is not None})
+        f: (torch.from_numpy(np.array(arrays[f])).to(dev)
+            if arrays.get(f) is not None else None)
+        for f in WindowIn._fields})
 
 
 
@@ -487,6 +537,79 @@ def _flat_sets(params: SimParams, lines: np.ndarray) -> np.ndarray:
             + dir_set_of_line(params, lt)).numpy()
 
 
+# The directory states of :func:`random_chain_step_arrays`, by protocol,
+# and the states in which an entry has an owner.
+_STEP_STATES = {"msi": [I, S, S, S, M], "mosi": [I, S, S, O, M],
+                "sh_l2_msi": [I, S, S, O, M], "sh_l2_mesi": [I, S, E, O, M]}
+_OWNED = {"msi": [M], "mosi": [M, O], "sh_l2_msi": [M],
+          "sh_l2_mesi": [M, E]}
+# The per-protocol cases of :func:`random_chain_step_arrays` (T >= 16):
+#   owned_read — a read of a line another tile owns in O (MOSI: the
+#     owner forwards) or E (MESI: the owner is downgraded), or of a
+#     slice-dirty O line with no owner (shared MSI);
+#   owned_write — a write to such a line that other tiles share: an
+#     owner leg AND invalidations (MOSI), or invalidations alone;
+#   own_upgrade — the owner itself writes its O (MOSI) or S line: no
+#     owner leg, the other sharers invalidated;
+#   dead_victim / live_victim — a miss to a set with no invalid way whose
+#     least recently used way is an O entry with no sharers left (it is
+#     evicted) or with sharers (the chain stops);
+#   fetch_miss / read_miss — an instruction fetch and a data read that
+#     miss (with shared L2 a slice miss: DRAM, no E grant to the fetch,
+#     an E grant to the read under MESI).
+PROTO_STEP_CASES = ("owned_read", "owned_write", "own_upgrade",
+                    "dead_victim", "live_victim", "fetch_miss", "read_miss")
+
+
+def _proto_step_cases(proto, rng, tl, T, st, owner, stamp, bits, flat,
+                      resident, put_head):
+    """Plant :data:`PROTO_STEP_CASES` on the heads of tiles ``tl`` (eight
+    distinct tiles; the directory arrays are updated in place)."""
+    owned_st = O if proto == "mosi" else (E if proto == "sh_l2_mesi"
+                                          else O)
+
+    def add_bit(w, f, tile):
+        bits[tile // 64, w, f] |= np.uint64(1 << (tile % 64))
+
+    def fresh():
+        return int(rng.integers(1 << 24, 1 << 25))
+
+    def other(t):
+        return (t + 1 + int(rng.integers(0, T - 1))) % T
+
+    ln = fresh()                              # owned_read
+    w, f = resident(ln, owned_st)
+    owner[w, f] = other(tl[0]) if proto != "sh_l2_msi" else -1
+    put_head(tl[0], ln, PEND_SH_REQ)
+    ln = fresh()                              # owned_write
+    w, f = resident(ln, O)
+    owner[w, f] = other(tl[1]) if proto == "mosi" else -1
+    for _ in range(3):
+        add_bit(w, f, other(tl[1]))
+    put_head(tl[1], ln, PEND_EX_REQ)
+    ln = fresh()                              # own_upgrade
+    w, f = resident(ln, O if proto == "mosi" else S)
+    owner[w, f] = tl[2] if proto == "mosi" else -1
+    add_bit(w, f, tl[2])
+    add_bit(w, f, other(tl[2]))
+    put_head(tl[2], ln, PEND_EX_REQ)
+    for t, live in ((tl[3], False), (tl[4], True)):   # the O victims
+        ln = fresh()
+        f = flat(ln)
+        A = st.shape[0]
+        st[:, f] = S
+        stamp[:, f] = rng.integers(1000, 1 << 17, size=A)
+        v = int(rng.integers(0, A))
+        st[v, f], stamp[v, f] = O, 0
+        owner[v, f] = other(t) if proto == "mosi" and live else -1
+        bits[:, v, f] = 0
+        if live:
+            add_bit(v, f, other(t))
+        put_head(t, ln, PEND_SH_REQ)
+    put_head(tl[5], fresh(), PEND_IFETCH)     # the misses
+    put_head(tl[6], fresh(), PEND_SH_REQ)
+
+
 def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
     """Random operands of one replay iteration as the state holds them
     (field name -> numpy array, :class:`ChainStepIn`'s fields), for
@@ -509,12 +632,19 @@ def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
     without the fan-out replay; past 512 tiles its sharers lie below and
     above sharer word 8), a read of a line another tile holds in
     M (an owner leg) and a miss to a set with an invalid way (an
-    allocation)."""
+    allocation).
+
+    Under the other protocols the entries take their states too, each
+    owned state with its owner (MOSI: O entries, the owner's bit among
+    the sharers; shared-L2 MESI: E entries, the owner's bit alone;
+    shared L2: O entries with no owner), and further tiles carry the
+    protocol's own cases (``PROTO_STEP_CASES``)."""
     rng = np.random.default_rng(seed)
     T, P = params.num_tiles, params.miss_chain
     A = params.directory.associativity
     W = (T + 63) // 64
     D = T * params.directory.num_sets
+    proto = params.protocol_kind
 
     # The pool: the lines of two or three shared sets (three lines each)
     # and as many random lines.
@@ -538,11 +668,13 @@ def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
     head = (rng.random(T) * (count + 1)).astype(np.int64)
     stopped = rng.random(T) < 0.1
 
-    st = rng.choice([I, S, S, S, M], size=(A, D))
+    st = rng.choice(_STEP_STATES[proto], size=(A, D))
     st[rng.random((A, D)) < 0.2] = I
     tags = rng.choice(others, size=(A, D))
     stamp = rng.integers(1, 1 << 17, size=(A, D))
-    owner = np.where(st == M, rng.integers(0, T, size=(A, D)), -1)
+    owned_st = _OWNED[proto]
+    owner = np.where(np.isin(st, owned_st), rng.integers(0, T, size=(A, D)),
+                     -1)
     bits = rng.integers(0, 1 << 64, size=(W, A, D), dtype=np.uint64)
     if W == 1 and T < 64:
         bits &= np.uint64((1 << T) - 1)
@@ -565,7 +697,8 @@ def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
     # time, and its third line never.
     for g in groups:
         f = flat(g[0])
-        st[:, f] = rng.choice([S, S, M], size=A)
+        st[:, f] = rng.choice([S, S, M] if proto == "msi" else [S, O, M],
+                              size=A)
         tags[:, f] = rng.choice(others, size=A)
         w0, w1 = rng.choice(A, size=2, replace=False)
         resident(g[0], S, w0)
@@ -606,17 +739,27 @@ def random_chain_step_arrays(params: SimParams, H: int, seed: int) -> dict:
         tags[tags[:, f] == alloc_rd, f] = others[4]
         st[int(rng.integers(0, A)), f] = I
         put_head(tl[7], alloc_rd, PEND_SH_REQ)
+        if proto != "msi" and T >= 16:
+            _proto_step_cases(proto, rng, tl[8:16], T, st, owner, stamp,
+                              bits, flat, resident, put_head)
 
-    owner = np.where(st == M, np.where(owner < 0, 0, owner), -1)
+    # M and E entries always have an owner (an O entry may have none).
+    owned = np.isin(st, owned_st)
+    alone = (st == M) | (st == E)
+    owner = np.where(owned, np.where(alone & (owner < 0), 0, owner), -1)
     word = (tags.astype(np.int64) << 33) | (stamp << 16) \
         | ((owner + 1) << 3) | st
     bits[np.broadcast_to((st == I)[None], bits.shape)] = 0
     k = np.arange(W)[:, None, None]
     own_bit = np.left_shift(np.uint64(1),
                             np.maximum(owner, 0).astype(np.uint64) % 64)
-    bits = np.where((st == M)[None], np.where(
-        k == np.maximum(owner, 0)[None] // 64, own_bit[None], 0),
-        bits).astype(np.uint64)
+    own_word = np.where(k == np.maximum(owner, 0)[None] // 64,
+                        own_bit[None], 0).astype(np.uint64)
+    # M (and E) entries: the owner's bit alone; MOSI's O entries: the
+    # owner's bit among the sharers.
+    bits = np.where(alone[None], own_word, np.where(
+        (owned & ~alone & (owner >= 0))[None], bits | own_word,
+        bits)).astype(np.uint64)
 
     def periods():
         return rng.integers(250, 1200, size=T).astype(np.int32)

@@ -7,10 +7,12 @@ max-plus clock prefix, chain banking into the [P, T] ``mq_*`` arrays at
 ``tpu/miss_chain = P > 0`` (with forwarding onto pending fills), LRU
 touches and fills, and counter accumulation.  It is the counterpart of
 ``graphite_tpu/engine/kernels/window.py:163``, transliterated for this
-slice's configuration: simple in-order cores, private L1/L2 under MSI,
-miss chains off or on, narrow windows (K = ``block_events``) and the
-wide windows of ``tpu/fast_forward`` (K = ``core._ff_width``, at most
-64).  Shared-L2 protocols and iocoom cores are refused (later slices).
+slice's configuration: simple in-order cores under every coherence
+protocol (private L1/L2 under MSI or MOSI; private L1s and no private L2
+under shared-L2 MSI or MESI), miss chains off or on, narrow windows (K =
+``block_events``) and the wide windows of ``tpu/fast_forward`` (K =
+``core._ff_width``, at most 64).  iocoom cores are refused (a later
+slice).
 
 The module also holds the fast-forward walk, ``fast_forward_walk``: the
 closed-form pricing of each candidate tile's longest hit/compute-only
@@ -73,7 +75,8 @@ def _lat(cycles, period_ps):
 
 class WindowIn(NamedTuple):
     """Window-walk operands (the JAX WindowIn's fields that exist with
-    private L2 and simple cores; the chain fields only at P > 0)."""
+    simple cores; the L2 fields None under the shared-L2 protocols, the
+    chain fields only at P > 0)."""
 
     meta: torch.Tensor           # [3, T, K] int32 (op, arg, arg2)
     addr: torch.Tensor           # [T, K] int64
@@ -87,8 +90,8 @@ class WindowIn(NamedTuple):
     l1i_rr: torch.Tensor         # [T, sets] int32
     l1d_word: torch.Tensor
     l1d_rr: torch.Tensor
-    l2_word: torch.Tensor
-    l2_rr: torch.Tensor
+    l2_word: Optional[torch.Tensor]  # None with shared L2
+    l2_rr: Optional[torch.Tensor]
     boundary: torch.Tensor       # [] int64
     models_enabled: torch.Tensor  # [] bool
     stamp_base: torch.Tensor     # [] int32 (round_ctr * STAMP_STRIDE)
@@ -108,7 +111,8 @@ CHAIN_OUT_FIELDS = ("chain_rel", "mq_count", "mq_req", "mq_delta",
 # The WindowIn leaves the CUDA walk updates in place and returns as the
 # WindowOut leaves of the same name (the chain bank only at P > 0; the
 # round-robin pointers move only under round_robin replacement, L2's
-# never).  Every other WindowOut leaf is a fresh tensor.
+# never; the L2 leaves are None under the shared-L2 protocols).  Every
+# other WindowOut leaf is a fresh tensor.
 INPLACE_FIELDS = ("bp_table", "l1i_word", "l1i_rr", "l1d_word", "l1d_rr",
                   "l2_word", "l2_rr", "mq_req", "mq_delta", "mq_extra")
 
@@ -129,8 +133,8 @@ class WindowOut(NamedTuple):
     l1i_rr: torch.Tensor
     l1d_word: torch.Tensor
     l1d_rr: torch.Tensor
-    l2_word: torch.Tensor
-    l2_rr: torch.Tensor
+    l2_word: Optional[torch.Tensor]  # None with shared L2
+    l2_rr: Optional[torch.Tensor]
     ctr_inc: torch.Tensor        # [len(WINDOW_CTRS), T] int64
     spawn_mask: torch.Tensor     # [T, K] bool (is_spawn & retired)
     spawn_child: torch.Tensor    # [T, K] int32 clipped stream id
@@ -173,9 +177,6 @@ def check_window_config(params: SimParams) -> None:
     if params.core.model != "simple":
         raise NotImplementedError(
             "the window walk for iocoom cores is ported in a later slice")
-    if params.shared_l2:
-        raise NotImplementedError(
-            "shared-L2 protocols are ported in a later slice")
     if params.block_events > MAX_WINDOW:
         raise NotImplementedError(
             f"block_events > {MAX_WINDOW} is not supported by the kernel")
@@ -184,10 +185,12 @@ def check_window_config(params: SimParams) -> None:
 def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
                 s_ids: int) -> WindowOut:
     """Classify + retire one [T, K] window — the plain PyTorch form, a
-    transliteration of the JAX walk for private L2 and simple cores, at
-    any P (see graphite_tpu/engine/kernels/window.py and engine/core.py
+    transliteration of the JAX walk for simple cores, at any P (see graphite_tpu/engine/kernels/window.py and engine/core.py
     for the semantics commentary).  Pure: reads only ``wi``, returns
-    every effect."""
+    every effect.  With shared L2 there is no private L2 (its operands
+    and outputs are None): an L1 miss goes to the home slice, and under
+    MESI an E line is writable, a write to it upgrading the line to M
+    in its touch."""
     check_window_config(params)
     K = wi.addr.shape[1]
     TL = wi.clock.shape[0]
@@ -196,10 +199,13 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     line_bits = params.line_size.bit_length() - 1
     rows = torch.arange(TL, device=dev)
     wbound = _spanned_bound(params, vp, wi.boundary)
+    shared_l2 = params.shared_l2
+    mesi_local = params.protocol_kind == "sh_l2_mesi"
 
     l1i = cachemod.CacheArrays(word=wi.l1i_word, rr_ptr=wi.l1i_rr)
     l1d = cachemod.CacheArrays(word=wi.l1d_word, rr_ptr=wi.l1d_rr)
-    l2 = cachemod.CacheArrays(word=wi.l2_word, rr_ptr=wi.l2_rr)
+    l2 = None if shared_l2 else cachemod.CacheArrays(word=wi.l2_word,
+                                                     rr_ptr=wi.l2_rr)
 
     valid_ev = wi.valid_ev
     meta, addr = wi.meta, wi.addr
@@ -229,17 +235,21 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     # ---- probes against window-start state
     pI = cachemod.probe(l1i, line, params.l1i.num_sets)
     pD = cachemod.probe(l1d, line, params.l1d.num_sets)
-    pL2 = cachemod.probe(l2, line, params.l2.num_sets)
 
-    writable = pD.state >= M
+    writable = pD.state >= (E if mesi_local else M)
     l1_ok = pD.hit & (is_rd | writable)
-    mem_l2 = is_mem & ~l1_ok & pL2.hit & (is_rd | (pL2.state == M))
-    comp_l2 = is_comp & ~pI.hit & pL2.hit
+    none = torch.zeros_like(l1_ok)
+    if shared_l2:
+        pL2 = None
+        mem_l2 = comp_l2 = none
+    else:
+        pL2 = cachemod.probe(l2, line, params.l2.num_sets)
+        mem_l2 = is_mem & ~l1_ok & pL2.hit & (is_rd | (pL2.state == M))
+        comp_l2 = is_comp & ~pI.hit & pL2.hit
     mem_simple = is_mem & (l1_ok | mem_l2)
     comp_simple = is_comp & (pI.hit | comp_l2)
     fill_d = mem_l2                           # L1D fill from local L2 hit
     fill_i = comp_l2                          # L1I fill from local L2 hit
-    none = torch.zeros_like(l1_ok)
 
     # Bankable misses (P > 0): a miss past the local L2 banks as a chain
     # element instead of ending the window.
@@ -297,10 +307,22 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
 
     touch_d = is_mem & l1_ok
     touch_i = is_comp & pI.hit
-    haz_d = _hazard(fill_d, is_mem, pD.set_idx) \
+    # Under MESI a write to an E line upgrades it in its touch: a later
+    # access to that set waits, as behind a fill.
+    upg_d = touch_d & is_wr & (pD.state == E) if mesi_local else none
+    haz_d = _hazard(fill_d | upg_d, is_mem, pD.set_idx) \
         | _hazard(touch_d | fill_d, fill_d, pD.set_idx)
     haz_i = _hazard(fill_i, is_comp, pI.set_idx) \
         | _hazard(touch_i | fill_i, fill_i, pI.set_idx)
+    if P > 0 and shared_l2:
+        # With no private L2 a banked element fills the L1 directly: an
+        # access to the L1 set it will fill (another line) waits.
+        ssD = pD.set_idx[:, :, None] == pD.set_idx[:, None, :]
+        haz_d = haz_d | (is_mem & (
+            earlier & ssD & ~same_line_w & mem_bank[:, None, :]).any(dim=2))
+        ssI = pI.set_idx[:, :, None] == pI.set_idx[:, None, :]
+        haz_i = haz_i | (is_comp & (
+            earlier & ssI & ~same_line_w & comp_bank[:, None, :]).any(dim=2))
     if P > 0:
         # Same-line accesses behind a bank its forwarding does not cover.
         bank_w_uncov = (mem_bank0 & ~is_wr) if wfwd else mem_bank0
@@ -316,7 +338,7 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     # Banked-miss L2 hazards: an access to the L2 set a banked element
     # will fill (other than the line it covers) waits.
     l2_fill_cand = mem_bank | comp_bank
-    if P > 0:
+    if P > 0 and not shared_l2:
         l2ss = pL2.set_idx[:, :, None] == pL2.set_idx[:, None, :]
         l2_cover = same_line_w & (
             (is_mem[:, :, None] & mem_bank0[:, None, :]
@@ -331,16 +353,29 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
             & l2_fill_cand[:, None, :]).any(dim=2))
 
     # Pending-chain hazards (stall-on-use across rounds) against the
-    # elements banked in earlier rounds.
+    # elements banked in earlier rounds: the same line uncovered, or the
+    # set the element will fill (the L2 set, or with shared L2 its L1
+    # set).
     if P > 0:
         pvT = pvalid.T[:, None, :]
         haz_pend = (is_mem & torch.any(
             linematch_p & pvT & ~cover_pd, dim=2)) \
             | (is_comp & torch.any(linematch_p & pvT & ~cover_pi, dim=2))
-        p2_set = cachemod.set_index(pline, params.l2.num_sets).T
-        haz_pend = haz_pend | ((is_mem | is_comp) & torch.any(
-            pvT & ~(cover_pd | cover_pi)
-            & (pL2.set_idx[:, :, None] == p2_set[:, None, :]), dim=2))
+        if shared_l2:
+            pd_set = cachemod.set_index(pline, params.l1d.num_sets).T
+            pi_set = cachemod.set_index(pline, params.l1i.num_sets).T
+            haz_pend = haz_pend | (is_mem & torch.any(
+                pend_memT & ~cover_pd
+                & (pD.set_idx[:, :, None] == pd_set[:, None, :]), dim=2)) \
+                | (is_comp & torch.any(
+                    pend_ifT & ~cover_pi
+                    & (pI.set_idx[:, :, None] == pi_set[:, None, :]),
+                    dim=2))
+        else:
+            p2_set = cachemod.set_index(pline, params.l2.num_sets).T
+            haz_pend = haz_pend | ((is_mem | is_comp) & torch.any(
+                pvT & ~(cover_pd | cover_pi)
+                & (pL2.set_idx[:, :, None] == p2_set[:, None, :]), dim=2))
         hazard = hazard | haz_pend
 
     base_ok = valid_ev & ~hazard & en
@@ -393,8 +428,11 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     # previous element's still-unknown completion) and the tile runs on
     # a relative clock ``rel`` until the resolve pass drains the chain.
     qps = vp.quantum_ps
-    issue_off = torch.where(is_comp, l1i_ps, l1d_ps) \
-        + _lat(vp.l2_tags_access_cycles, p_l2)
+    # The miss is found after the local tag checks (the L1 alone with
+    # shared L2).
+    miss_tags_ps = cycle_ps if shared_l2 \
+        else _lat(vp.l2_tags_access_cycles, p_l2)
+    issue_off = torch.where(is_comp, l1i_ps, l1d_ps) + miss_tags_ps
     clk = wi.clock
     rel = wi.chain_rel if P > 0 else None
     nm = wi.mq_count if P > 0 else None
@@ -446,12 +484,16 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     l1i = cachemod.touch(l1i, pI.set_idx, pI.way,
                          touch_i & retired & enb,
                          cachemod.row_word(pI.row, pI.way), stamp)
+    d_word = cachemod.row_word(pD.row, pD.way)
+    if mesi_local:
+        d_word = cachemod.with_state(
+            d_word, torch.where(is_wr & (pD.state == E), M, pD.state))
     l1d = cachemod.touch(l1d, pD.set_idx, pD.way,
-                         touch_d & retired & enb,
-                         cachemod.row_word(pD.row, pD.way), stamp)
-    l2 = cachemod.touch(l2, pL2.set_idx, pL2.way,
-                        (mem_l2 | comp_l2) & retired & enb,
-                        cachemod.row_word(pL2.row, pL2.way), stamp)
+                         touch_d & retired & enb, d_word, stamp)
+    if not shared_l2:
+        l2 = cachemod.touch(l2, pL2.set_idx, pL2.way,
+                            (mem_l2 | comp_l2) & retired & enb,
+                            cachemod.row_word(pL2.row, pL2.way), stamp)
 
     def _apply_fills(cache, fills, probe, fill_state, cp):
         act = fills & retired & enb
@@ -479,11 +521,13 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
             "set", mask=act))
         return cache
 
-    l1d = _apply_fills(l1d, fill_d, pD,
-                       torch.where(is_wr, M, S).to(torch.int32), params.l1d)
-    l1i = _apply_fills(l1i, fill_i, pI,
-                       torch.full((TL, K), S, dtype=torch.int32, device=dev),
-                       params.l1i)
+    if not shared_l2:
+        l1d = _apply_fills(l1d, fill_d, pD,
+                           torch.where(is_wr, M, S).to(torch.int32),
+                           params.l1d)
+        l1i = _apply_fills(l1i, fill_i, pI,
+                           torch.full((TL, K), S, dtype=torch.int32,
+                                      device=dev), params.l1i)
 
     # ---- branch-predictor table: last retired write per slot wins
     bp_table = wi.bp_table
@@ -512,8 +556,9 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         msum(is_rd & ~l1_ok & ~mem_fwd),                     # l1d_read_miss
         msum(is_wr),                                         # l1d_write
         msum(is_wr & ~l1_ok & ~mem_fwd),                     # l1d_write_miss
-        msum(mem_l2 | comp_l2 | l2_fill_cand),               # l2_access
-        msum(l2_fill_cand) if P > 0 else zero,               # l2_miss
+        zero if shared_l2
+        else msum(mem_l2 | comp_l2 | l2_fill_cand),          # l2_access
+        zero if shared_l2 or P == 0 else msum(l2_fill_cand),  # l2_miss
         msum(is_br),                                         # branches
         msum(is_br & ~correct),                              # mispredicts
         msum(is_spawn),                                      # spawns
@@ -529,9 +574,10 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         kind_ev = torch.where(is_comp, PEND_IFETCH,
                               torch.where(is_wr, PEND_EX_REQ, PEND_SH_REQ))
         req_val = kind_ev.to(torch.int64) | (line << 8)
-        extra_val = torch.where(is_comp,
-                                cost_ps + fetch_ps + (n_lines - 1) * l2_ps,
-                                0)
+        extra_val = torch.where(
+            is_comp,
+            cost_ps + fetch_ps + (0 if shared_l2 else (n_lines - 1) * l2_ps),
+            0)
         slot_oh = (bank_slot[None] == torch.arange(
             P, device=dev)[:, None, None]) & bank_mark[None]   # [P, T, K]
         anyb = slot_oh.any(dim=2)
@@ -550,7 +596,8 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         clock=clk, n_ret=n_ret, bp_table=bp_table,
         l1i_word=l1i.word, l1i_rr=l1i.rr_ptr,
         l1d_word=l1d.word, l1d_rr=l1d.rr_ptr,
-        l2_word=l2.word, l2_rr=l2.rr_ptr,
+        l2_word=None if shared_l2 else l2.word,
+        l2_rr=None if shared_l2 else l2.rr_ptr,
         ctr_inc=ctr_inc,
         spawn_mask=spawn_mask, spawn_child=child.to(torch.int32),
         spawn_land=spawn_land, **chain,
@@ -577,7 +624,7 @@ class _WalkArgs(ctypes.Structure):
         "l2_cycles", "bp_penalty", "col_core", "col_l1i", "col_l1d",
         "col_l2", "col_nu", "s_ids", "num_tiles", "mesh_width", "nu_magic",
         "nu_hop_cycles", "nu_ser_cycles", "P", "wfwd", "qps", "wbound_add",
-        "l2_tags_cycles")]
+        "l2_tags_cycles", "shared_l2", "mesi")]
 
 
 def _check(name, t, dtype, shape, dev):
@@ -618,12 +665,19 @@ def _check_inputs(params: SimParams, wi: WindowIn) -> None:
             ("l1i_rr", wi.l1i_rr, i32, (T, Si)),
             ("l1d_word", wi.l1d_word, i64, (Ad, T, Sd)),
             ("l1d_rr", wi.l1d_rr, i32, (T, Sd)),
-            ("l2_word", wi.l2_word, i64, (A2, T, S2)),
-            ("l2_rr", wi.l2_rr, i32, (T, S2)),
             ("boundary", wi.boundary, i64, ()),
             ("models_enabled", wi.models_enabled, b, ()),
             ("stamp_base", wi.stamp_base, i32, ())):
         _check(name, t, dt, shape, dev)
+    # The private L2, absent (None) under the shared-L2 protocols.
+    for name, dt, shape in (("l2_word", i64, (A2, T, S2)),
+                            ("l2_rr", i32, (T, S2))):
+        t = getattr(wi, name)
+        if (t is None) != params.shared_l2:
+            raise ValueError(f"window_walk: {name} is given iff the L2 is "
+                             f"private")
+        if t is not None:
+            _check(name, t, dt, shape, dev)
     P = params.miss_chain
     for name in CHAIN_IN_FIELDS:
         if (getattr(wi, name) is None) != (P == 0):
@@ -688,7 +742,7 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
         stamp_base=wi.stamp_base.data_ptr(),
         bp=wi.bp_table.data_ptr(), l1i=wi.l1i_word.data_ptr(),
         l1i_rr=wi.l1i_rr.data_ptr(), l1d=wi.l1d_word.data_ptr(),
-        l1d_rr=wi.l1d_rr.data_ptr(), l2=wi.l2_word.data_ptr(),
+        l1d_rr=wi.l1d_rr.data_ptr(), l2=ptr(wi.l2_word),
         clock_out=out.clock.data_ptr(), n_ret=out.n_ret.data_ptr(),
         ctr_inc=out.ctr_inc.data_ptr(), spawn_mask=out.spawn_mask.data_ptr(),
         spawn_child=out.spawn_child.data_ptr(),
@@ -711,7 +765,9 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
         nu_magic=int(nu.model == "magic"),
         nu_hop_cycles=vp.net_user.router_delay_cycles
         + vp.net_user.link_delay_cycles,
-        nu_ser_cycles=max(flits - 1, 0))
+        nu_ser_cycles=max(flits - 1, 0),
+        shared_l2=int(params.shared_l2),
+        mesi=int(params.protocol_kind == "sh_l2_mesi"))
 
 
 def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
@@ -797,16 +853,11 @@ FF_INPLACE_FIELDS = ("bp_table", "l1i_word", "l1d_word")
 
 
 def check_ff_config(params: SimParams) -> None:
-    """The fast-forward walk's scope: simple cores under MSI.  The sticky
-    E->M upgrade of ``sh_l2_mesi`` is not ported; refusing it keeps a
-    span from being mispriced."""
+    """The fast-forward walk's scope: simple cores (the leg is off under
+    iocoom in the JAX package too)."""
     if params.core.model != "simple":
         raise NotImplementedError(
             "the fast-forward leg is disabled under iocoom cores")
-    if params.protocol_kind == "sh_l2_mesi":
-        raise NotImplementedError(
-            "the fast-forward walk under sh_l2_mesi (sticky E->M upgrades) "
-            "is ported in a later slice")
 
 
 class FFPrice(NamedTuple):
@@ -834,7 +885,8 @@ def ff_price(params: SimParams, vp: VariantParams, fi: FFIn) -> FFPrice:
     """Classify and price every event of the span against span-start
     state (the first half of :func:`fast_forward_walk`).  Eligible
     events are COMPUTE with an L1I hit, BRANCH, and MEM reads / writes
-    with a readable / writable L1D hit: pure hits install no lines, so
+    with a readable / writable L1D hit (writable: M, or E under
+    ``sh_l2_mesi``): pure hits install no lines, so
     span-start probes give the hits the window rounds would see event by
     event, and the clock prefix is a cumulative sum."""
     check_ff_config(params)
@@ -865,7 +917,9 @@ def ff_price(params: SimParams, vp: VariantParams, fi: FFIn) -> FFPrice:
 
     pI = cachemod.probe(l1i, line, params.l1i.num_sets)
     pD = cachemod.probe(l1d, line, params.l1d.num_sets)
-    l1_ok = pD.hit & (is_rd | (pD.state >= M))
+    writable = pD.state >= (E if params.protocol_kind == "sh_l2_mesi"
+                             else M)
+    l1_ok = pD.hit & (is_rd | writable)
     elig = ((is_comp & pI.hit) | is_br | (is_mem & l1_ok)) \
         & valid_ev & fi.tile_active[:, None] & en
     lead = torch.cumsum((~elig).to(torch.int32), dim=1) == 0
@@ -926,7 +980,11 @@ def fast_forward_walk(params: SimParams, vp: VariantParams,
     commits its prefix: clock, cursor increment, LRU-touch scatter-max
     (stamps ``stamp_base + j``), the predictor table's last committed
     write per slot, and the window's counters with every miss, L2 and
-    spawn row zero.  A declined tile is returned untouched.  Pure."""
+    spawn row zero.  Under ``sh_l2_mesi`` a committed write to an E line
+    upgrades it to M, sticky for the rest of the span: every later
+    committed touch of that line writes M, as a window probe after the
+    upgrade would see it.  A declined tile is returned untouched.
+    Pure."""
     fp = ff_price(params, vp, fi)
     TL, F = fi.addr.shape
     dev = fi.clock.device
@@ -944,10 +1002,18 @@ def fast_forward_walk(params: SimParams, vp: VariantParams,
         cachemod.CacheArrays(word=fi.l1i_word, rr_ptr=None),
         fp.pI.set_idx, fp.pI.way, fp.is_comp & commit,
         cachemod.row_word(fp.pI.row, fp.pI.way), stamp)
+    d_word = cachemod.row_word(fp.pD.row, fp.pD.way)
+    if params.protocol_kind == "sh_l2_mesi":
+        # Any committed write of the line at or before the touch.
+        ge = ar[None, :, None] >= ar[None, None, :]
+        same_line = fp.line[:, :, None] == fp.line[:, None, :]
+        upgraded = (ge & same_line & (commit & fp.is_wr)[:, None, :]
+                    ).any(dim=2) & (fp.pD.state == E)
+        d_word = cachemod.with_state(
+            d_word, torch.where(is_mem & upgraded, M, fp.pD.state))
     l1d = cachemod.touch(
         cachemod.CacheArrays(word=fi.l1d_word, rr_ptr=None),
-        fp.pD.set_idx, fp.pD.way, is_mem & commit,
-        cachemod.row_word(fp.pD.row, fp.pD.way), stamp)
+        fp.pD.set_idx, fp.pD.way, is_mem & commit, d_word, stamp)
 
     bp_table = fi.bp_table
     if fp.bidx is not None:
@@ -998,7 +1064,7 @@ class _FFArgs(ctypes.Structure):
         "T", "F", "NM", "K", "l1i_assoc", "l1i_sets", "l1d_assoc",
         "l1d_sets", "bp_size", "line_bits", "l1i_cycles", "l1d_cycles",
         "bp_penalty", "col_core", "col_l1i", "col_l1d", "wbound_add",
-        "span_add")]
+        "span_add", "mesi")]
 
 
 def _check_ff_inputs(params: SimParams, fi: FFIn) -> None:
@@ -1067,7 +1133,8 @@ def _ff_args(params: SimParams, vp: VariantParams, fi: FFIn,
         bp_penalty=vp.bp_mispredict_penalty,
         col_core=int(DVFSModule.CORE), col_l1i=int(DVFSModule.L1_ICACHE),
         col_l1d=int(DVFSModule.L1_DCACHE), wbound_add=wbound_add,
-        span_add=int(_ff_bound(params, vp, 0)) - wbound_add)
+        span_add=int(_ff_bound(params, vp, 0)) - wbound_add,
+        mesi=int(params.protocol_kind == "sh_l2_mesi"))
 
 
 def fast_forward_walk_cuda(params: SimParams, vp: VariantParams,

@@ -1,8 +1,9 @@
 """Cross-tile resolution of pending requests.
 
 Counterpart of ``graphite_tpu/engine/resolve.py`` on this slice's path:
-``resolve_memory`` (private L1/L2, full-map MSI directory, zero-load mesh,
-the history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
+``resolve_memory`` (a full-map directory under MSI or MOSI with private
+L2, or the per-tile L2 slices under shared-L2 MSI or MESI; zero-load
+mesh; the history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
 the blocking chain replay ``chain_fast_pass`` in front of its conflict
 rounds, and ``resolve_barrier``.  Every parked request (or chain head) of
 every tile is priced and applied at once; same-line races are serialised
@@ -103,12 +104,16 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
     fanout = params.fanout_replay
     KF = min(params.max_inv_fanout_per_round, T)
     queue_on = params.dram.queue_model_enabled
+    shared_l2 = params.shared_l2
 
     # Per-tile constants of the pass (clock periods change only in a
-    # complex slot, never mid-resolve), contiguous for the kernel.
+    # complex slot, never mid-resolve), contiguous for the kernel.  With
+    # shared L2 the "directory" access is the slice's cache access,
+    # clocked by the L2 domain.
     p_net, p_dir, p_l2, p_l1d, p_l1i, p_core = (
         _period(state, m).contiguous() for m in (
-            DVFSModule.NETWORK_MEMORY, DVFSModule.DIRECTORY,
+            DVFSModule.NETWORK_MEMORY,
+            DVFSModule.L2_CACHE if shared_l2 else DVFSModule.DIRECTORY,
             DVFSModule.L2_CACHE, DVFSModule.L1_DCACHE,
             DVFSModule.L1_ICACHE, DVFSModule.CORE))
     dram_access_ps = vp.dram_latency_ps
@@ -148,8 +153,9 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
 
         # ---- DRAM queue + completion (the loop-carried stretch the
         # kernel hands back; with the queue model off the kernel already
-        # produced completion / t_data and wrote the floors)
-        dsite = home
+        # produced completion / t_data and wrote the floors).  With shared
+        # L2 the memory controller need not be the slice's tile.
+        dsite = dram_site_of_line(params, line) if shared_l2 else home
         if queue_on:
             # record_split: one batch mixes tiles at very different
             # simulated times; split busy records stop one tile's
@@ -173,8 +179,9 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
             if fanout:
                 # The data grant waits on the last invalidation ack.
                 t_data = torch.maximum(t_data, t_dir + co.inv_ps)
-            completion = t_data + co.reply_ps \
-                + _lat(vp.l2_access_cycles, p_l2) + co.l1_fill_ps + extra
+            completion = t_data + co.reply_ps + co.l1_fill_ps + extra
+            if not shared_l2:
+                completion = completion + _lat(vp.l2_access_cycles, p_l2)
         else:
             t_data, completion, ftbl = co.t_data, co.completion, co.ftbl
 
@@ -230,41 +237,14 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
 
         # ---- requester-side fills at serve time + victim notify / DRAM
         # writeback occupancy
-        f2 = cachemod.fill(state.l2, line,
-                           torch.where(is_ex, M, S).to(torch.int32),
-                           serve_all, params.l2.num_sets,
-                           params.l2.replacement, rstamp)
-        state = state._replace(l2=f2.cache)
-        vt1, vs1 = f2.victim_tag, f2.victim_state
-        # Inclusion: the L2 victim's L1D copy drops with it.
-        state = state._replace(l1d=cachemod.invalidate_by_value(
-            state.l1d, vt1[:, None], (serve_all & (vs1 != I))[:, None],
-            torch.full((T, 1), I, dtype=torch.int32, device=dev)))
-        fd = cachemod.fill(state.l1d, line,
-                           torch.where(is_ex, M, S).to(torch.int32),
-                           serve_all & ~is_if, params.l1d.num_sets,
-                           params.l1d.replacement, rstamp)
-        fi = cachemod.fill(state.l1i, line,
-                           torch.full((T,), S, dtype=torch.int32,
-                                      device=dev),
-                           serve_all & is_if, params.l1i.num_sets,
-                           params.l1i.replacement, rstamp)
-        state = state._replace(l1d=fd.cache, l1i=fi.cache)
-        victim_dirty = serve_all & ((vs1 == M) | (vs1 == O))
-        victim_live = serve_all & (vs1 != I)
-        victim_home = dram_site_of_line(params, vt1)
-        if queue_on:
-            r3 = queue_models.occupy(
-                params.dram.queue_model_type,
-                state.dram_ring_start, state.dram_ring_end,
-                state.dram_ring_ptr, state.dram_qacc,
-                victim_home, t_dir, dram_service_ps, victim_dirty,
-                ma_window=params.dram.basic_ma_window)
-            state = state._replace(dram_ring_start=r3[0],
-                                   dram_ring_end=r3[1],
-                                   dram_ring_ptr=r3[2], dram_qacc=r3[3])
-        state = _dir_evict_notify(params, state, rows, vt1, vs1,
-                                  victim_live)
+        if shared_l2:
+            state, victim_dirty = _sh_l2_fills(
+                params, state, rows, line, is_ex, is_if,
+                serve & ~is_ex & (co.new_state == E), serve_all, rstamp)
+        else:
+            state, victim_dirty, victim_home = _private_fills(
+                params, state, rows, line, is_ex, is_if, serve_all, t_dir,
+                dram_service_ps, rstamp)
 
         # ---- counters (home-binned tallies via one stacked scatter)
         def b(m):
@@ -279,15 +259,22 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
             torch.where(serve_all, flits_data, 0)
             + inv_count * flits_req,              # net_mem_flits @home
             inv_count,                            # dir_invalidations
-            b(need_read), b(dram_wb),             # dram_reads/writes
         ]
-        vic_wr = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
-                         victim_home, 1, "add", mask=victim_dirty)
-        hstack = torch.stack(home_cols, dim=1)
-        ncol = hstack.shape[1]
-        hb = scatter(torch.zeros((T, ncol), dtype=torch.int64, device=dev),
-                     (home[:, None], torch.arange(ncol, device=dev)[None, :]),
-                     hstack, "add")
+        if shared_l2:
+            # Slice accesses and misses, at the home tile; the DRAM-site
+            # tallies on their own index; a dirty L1 victim flushes into
+            # the slice, not DRAM.
+            home_cols += [b(serve_all), b(serve_all & ~co.hit)]
+            db = _binsum(dsite, torch.stack([b(need_read), b(dram_wb)],
+                                            dim=1))
+            vic_wr = 0
+        else:
+            home_cols += [b(need_read), b(dram_wb)]   # dram_reads/writes
+            vic_wr = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
+                             victim_home, 1, "add", mask=victim_dirty)
+        hb = _binsum(home, torch.stack(home_cols, dim=1))
+        if not shared_l2:
+            db = hb[:, 8:10]
         c = state.counters
         c = c._replace(
             dir_sh_req=c.dir_sh_req + hb[:, 0],
@@ -296,8 +283,10 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
             dir_writebacks=c.dir_writebacks + hb[:, 3],
             dir_forwards=c.dir_forwards + hb[:, 4],
             dir_invalidations=c.dir_invalidations + hb[:, 7],
-            dram_reads=c.dram_reads + hb[:, 8],
-            dram_writes=c.dram_writes + hb[:, 9] + vic_wr,
+            dram_reads=c.dram_reads + db[:, 0],
+            dram_writes=c.dram_writes + db[:, 1] + vic_wr,
+            l2_access=c.l2_access + (hb[:, 8] if shared_l2 else 0),
+            l2_miss=c.l2_miss + (hb[:, 9] if shared_l2 else 0),
             net_mem_pkts=c.net_mem_pkts + b(serve_all) + b(victim_dirty)
             + hb[:, 5],
             net_mem_flits=c.net_mem_flits + b(serve_all) * flits_req
@@ -338,6 +327,85 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
     return state, ftbl
 
 
+def _binsum(idx: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """[T, n] rows summed into [T, n] bins by a [T] tile index (one
+    stacked scatter-add)."""
+    n = cols.shape[1]
+    return scatter(torch.zeros_like(cols), (idx[:, None], torch.arange(
+        n, device=cols.device)[None, :]), cols, "add")
+
+
+def _private_fills(params: SimParams, state: SimState, rows, line, is_ex,
+                   is_if, win, t_dir, dram_service_ps, rstamp):
+    """The served requests' fills with private L2, at serve time: the L2
+    fill, its victim's L1D copy dropped with it (inclusion), the L1D or
+    L1I fill; a dirty L2 victim occupies its controller's queue (off the
+    critical path) and every live one notifies its home directory.
+    Returns (state, victim_dirty, victim_home)."""
+    T = params.num_tiles
+    dev = line.device
+    f2 = cachemod.fill(state.l2, line,
+                       torch.where(is_ex, M, S).to(torch.int32),
+                       win, params.l2.num_sets, params.l2.replacement,
+                       rstamp)
+    state = state._replace(l2=f2.cache)
+    vt1, vs1 = f2.victim_tag, f2.victim_state
+    state = state._replace(l1d=cachemod.invalidate_by_value(
+        state.l1d, vt1[:, None], (win & (vs1 != I))[:, None],
+        torch.full((T, 1), I, dtype=torch.int32, device=dev)))
+    fd = cachemod.fill(state.l1d, line,
+                       torch.where(is_ex, M, S).to(torch.int32),
+                       win & ~is_if, params.l1d.num_sets,
+                       params.l1d.replacement, rstamp)
+    fi = cachemod.fill(state.l1i, line,
+                       torch.full((T,), S, dtype=torch.int32, device=dev),
+                       win & is_if, params.l1i.num_sets,
+                       params.l1i.replacement, rstamp)
+    state = state._replace(l1d=fd.cache, l1i=fi.cache)
+    victim_dirty = win & ((vs1 == M) | (vs1 == O))
+    victim_home = dram_site_of_line(params, vt1)
+    if params.dram.queue_model_enabled:
+        r3 = queue_models.occupy(
+            params.dram.queue_model_type,
+            state.dram_ring_start, state.dram_ring_end,
+            state.dram_ring_ptr, state.dram_qacc,
+            victim_home, t_dir, dram_service_ps, victim_dirty,
+            ma_window=params.dram.basic_ma_window)
+        state = state._replace(dram_ring_start=r3[0], dram_ring_end=r3[1],
+                               dram_ring_ptr=r3[2], dram_qacc=r3[3])
+    state = _dir_evict_notify(params, state, rows, vt1, vs1,
+                              win & (vs1 != I))
+    return state, victim_dirty, victim_home
+
+
+def _sh_l2_fills(params: SimParams, state: SimState, rows, line, is_ex,
+                 is_if, granted_e, win, rstamp):
+    """The served requests' fills with shared L2, at serve time: the L1D
+    fill (M for a write, E for a MESI first-reader grant, else S) or the
+    L1I fill; each live L1 victim reports to its home slice (a dirty
+    one flushes its data there: a line-size packet, off the critical
+    path).  Returns (state, victim_dirty)."""
+    T = params.num_tiles
+    dev = line.device
+    l1_state = torch.where(is_ex, M, torch.where(granted_e, E, S)).to(
+        torch.int32)
+    fd = cachemod.fill(state.l1d, line, l1_state, win & ~is_if,
+                       params.l1d.num_sets, params.l1d.replacement, rstamp)
+    fi = cachemod.fill(state.l1i, line,
+                       torch.full((T,), S, dtype=torch.int32, device=dev),
+                       win & is_if, params.l1i.num_sets,
+                       params.l1i.replacement, rstamp)
+    state = state._replace(l1d=fd.cache, l1i=fi.cache)
+    vs1 = torch.where(win & ~is_if, fd.victim_state, I)
+    vlive1 = win & (vs1 != I)
+    state = _sh_l1_evict_notify(params, state, rows, fd.victim_tag, vs1,
+                                vlive1)
+    state = _sh_l1_evict_notify(
+        params, state, rows, fi.victim_tag, fi.victim_state,
+        win & is_if & (fi.victim_state != I))
+    return state, vlive1 & (vs1 == M)
+
+
 def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                   ftbl: torch.Tensor):
     """One conflict round of resolve_memory (the JAX ``round_body``)."""
@@ -350,9 +418,13 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     rows = torch.arange(T, device=dev)
     line_bits = params.line_size.bit_length() - 1
     ndsets = params.directory.num_sets
+    shared_l2 = params.shared_l2
 
+    # With shared L2 the "directory" access is the slice's cache access,
+    # clocked by the L2 domain.
     p_net = _period(state, DVFSModule.NETWORK_MEMORY)
-    p_dir = _period(state, DVFSModule.DIRECTORY)
+    p_dir = _period(state, DVFSModule.L2_CACHE if shared_l2
+                    else DVFSModule.DIRECTORY)
     p_l2 = _period(state, DVFSModule.L2_CACHE)
     p_l1 = _period(state, DVFSModule.L1_DCACHE)
     p_core = _period(state, DVFSModule.CORE)
@@ -483,7 +555,16 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     vtag = dword_tag(way_word).to(torch.int64)
     vstate = torch.where(evicting, way_state, I)
     vowner = way_owner
-    evict_m = evicting & (vstate == M) & (vowner >= 0)
+    # Owner-flush victims: M, and under shared-L2 MESI E too (the
+    # exclusive owner may have upgraded silently, so its flush is priced
+    # and written back like a dirty one).  O victims (MOSI) carry their
+    # owner in the sharer bitmap: one multicast reaches owner and
+    # sharers, and the owner's dirty data also reaches DRAM.
+    if params.protocol_kind == "sh_l2_mesi":
+        evict_m = evicting & ((vstate == M) | (vstate == E)) \
+            & (vowner >= 0)
+    else:
+        evict_m = evicting & (vstate == M) & (vowner >= 0)
     evict_s = evicting & ((vstate == S) | (vstate == O)) \
         & (vsharers != 0).any(dim=1)
 
@@ -540,11 +621,15 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                       "set", mask=put)
 
     # ---- shared-read combining (full_map): concurrent SH_REQs against an
-    # I/S entry all win beside the elected representative.
+    # I/S entry all win beside the elected representative.  With shared
+    # L2 only against an S entry: the slice fills an uncached line once
+    # (and the MESI E grant needs a sole first reader).
     req_word = (rows // 64).to(torch.int64)
     req_bit1 = torch.ones(T, dtype=torch.int64, device=dev) \
         << (rows % 64).to(torch.int64)
     sh_entry_ok = (entry_state == I) | (entry_state == S)
+    if shared_l2:
+        sh_entry_ok = sh_entry_ok & (entry_state != I)
     ex_unres = unres & is_ex
     rep_sh = win & ~is_ex & sh_entry_ok
     if dense_tables:
@@ -613,7 +698,12 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     evict_ps = torch.where(evict_s, torch.sum(
         torch.where(oh_sr, vic_ps_k[:, None], 0), dim=0), 0)
     p_net_vown = p_net[vown_c]
-    l2_vown_ps = _lat(vp.l2_access_cycles, p_l2[vown_c])
+    # The owner looks the line up in its private L2, or with shared L2 in
+    # its L1D.
+    if shared_l2:
+        l2_vown_ps = _lat(vp.l1d_access_cycles, p_l1[vown_c])
+    else:
+        l2_vown_ps = _lat(vp.l2_access_cycles, p_l2[vown_c])
 
     # ---- latency assembly (zero-load legs)
     arrive = torch.maximum(issue + net_req, line_floor)
@@ -626,12 +716,20 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
             params.line_size + kchain.CTRL_BYTES,
             p_net_vown, params.mesh_width, vnet=vp.net_memory)
     evict_ps = torch.where(evict_m, evict_m_ps, evict_ps)
+    if params.protocol_kind == "mosi":
+        # An O victim: the sharer multicast and the owner's dirty-data
+        # flush, whichever ends later.
+        evict_ps = torch.where(evict_o, torch.maximum(evict_ps, evict_m_ps),
+                               evict_ps)
 
     t_dir = arrive + dir_ps + torch.where(evicting, evict_ps, 0)
 
     owner64 = owner.to(torch.int64)
     p_net_own = p_net[owner64]
-    l2_own_ps = _lat(vp.l2_access_cycles, p_l2[owner64])
+    if shared_l2:
+        l2_own_ps = _lat(vp.l1d_access_cycles, p_l1[owner64])
+    else:
+        l2_own_ps = _lat(vp.l2_access_cycles, p_l2[owner64])
     leg_ps = noc.unicast_ps(params.net_memory, home, owner,
                             kchain.CTRL_BYTES, p_net_home,
                             params.mesh_width, vnet=vp.net_memory) \
@@ -642,8 +740,15 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     owner_ps = torch.where(owner_leg, leg_ps, 0)
 
     need_read = win & act.dram_read
-    dsite = home
-    dram_arrival = t_dir + owner_ps
+    if shared_l2:
+        # The slice and the memory controller can be different tiles: a
+        # slice miss adds the slice->controller request and data legs.
+        dsite, to_dram_ps, from_dram_ps = kchain.slice_dram_legs(
+            params, vp, line, home, p_net)
+    else:
+        dsite = home
+        to_dram_ps = from_dram_ps = 0
+    dram_arrival = t_dir + owner_ps + to_dram_ps
     dram_wb = (act.dram_write & win) | evict_m | evict_o
     if params.dram.queue_model_enabled:
         svc = torch.full((T,), dram_service_ps, dtype=torch.int64,
@@ -661,7 +766,8 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         dram_start = torch.where(need_read, q_start, 0)
     else:
         dram_start = torch.where(need_read, dram_arrival, 0)
-    dram_ready = dram_start + dram_access_ps + dram_service_ps
+    dram_ready = dram_start + dram_access_ps + dram_service_ps \
+        + from_dram_ps
 
     t_data = t_dir + owner_ps
     t_data = torch.maximum(t_data, torch.where(need_read, dram_ready, 0))
@@ -673,8 +779,10 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         is_if, _lat(vp.l1i_access_cycles,
                     _period(state, DVFSModule.L1_ICACHE)),
         _lat(vp.l1d_access_cycles, p_l1))
-    l2_fill_ps = _lat(vp.l2_access_cycles, p_l2)
-    completion = reply_done + l2_fill_ps + l1_fill_ps + extra
+    completion = reply_done + l1_fill_ps + extra
+    if not shared_l2:
+        # The fill through the requester's private L2.
+        completion = completion + _lat(vp.l2_access_cycles, p_l2)
 
     # ---- apply directory entry updates
     state = state._replace(
@@ -712,40 +820,14 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
             state.l1d, dlv_lines, dlv_valid, dlv_tgt))
 
     # ---- requester-side fills / victims (install at serve time)
-    f2 = cachemod.fill(state.l2, line,
-                       torch.where(is_ex, M, S).to(torch.int32),
-                       win, params.l2.num_sets,
-                       params.l2.replacement, rstamp)
-    state = state._replace(l2=f2.cache)
-    vt1, vs1 = f2.victim_tag, f2.victim_state
-    state = state._replace(l1d=cachemod.invalidate_by_value(
-        state.l1d, f2.victim_tag[:, None],
-        (win & (f2.victim_state != I))[:, None],
-        torch.full((T, 1), I, dtype=torch.int32, device=dev)))
-    fd = cachemod.fill(state.l1d, line,
-                       torch.where(is_ex, M, S).to(torch.int32),
-                       win & ~is_if, params.l1d.num_sets,
-                       params.l1d.replacement, rstamp)
-    state = state._replace(l1d=fd.cache)
-    fi = cachemod.fill(state.l1i, line,
-                       torch.full((T,), S, dtype=torch.int32, device=dev),
-                       win & is_if, params.l1i.num_sets,
-                       params.l1i.replacement, rstamp)
-    state = state._replace(l1i=fi.cache)
-
-    victim_dirty = win & ((vs1 == M) | (vs1 == O))
-    victim_live = win & (vs1 != I)
-    victim_home = dram_site_of_line(params, vt1)
-    if params.dram.queue_model_enabled:
-        r3 = queue_models.occupy(
-            params.dram.queue_model_type,
-            state.dram_ring_start, state.dram_ring_end,
-            state.dram_ring_ptr, state.dram_qacc,
-            victim_home, t_dir, dram_service_ps, victim_dirty,
-            ma_window=params.dram.basic_ma_window)
-        state = state._replace(dram_ring_start=r3[0], dram_ring_end=r3[1],
-                               dram_ring_ptr=r3[2], dram_qacc=r3[3])
-    state = _dir_evict_notify(params, state, rows, vt1, vs1, victim_live)
+    if shared_l2:
+        state, victim_dirty = _sh_l2_fills(
+            params, state, rows, line, is_ex, is_if,
+            win & ~is_ex & (act.new_state == E), win, rstamp)
+    else:
+        state, victim_dirty, victim_home = _private_fills(
+            params, state, rows, line, is_ex, is_if, win, t_dir,
+            dram_service_ps, rstamp)
 
     # ---- counters (home-binned tallies via one stacked scatter-add)
     kcnt_inv = torch.sum(inv_bool, dim=1).to(torch.int64)  # [K]
@@ -770,16 +852,21 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         torch.where(win, flits_data, 0)
         + inv_flits * flits_req,                  # net_mem_flits @home
         b(alloc_defer | fan_defer | ow_defer),    # dir_deferrals
-        b(need_read), b(dram_wb),                 # dram_reads/writes
     ]
-    vic_wr = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
-                     victim_home, b(victim_dirty), "add")
-    hstack = torch.stack(home_cols, dim=1)
-    ncol = hstack.shape[1]
-    hb = scatter(torch.zeros((T, ncol), dtype=torch.int64, device=dev),
-                 (home[:, None], torch.arange(ncol, device=dev)[None, :]),
-                 hstack, "add")
-    db = hb[:, 9:11]
+    if shared_l2:
+        # Slice accesses and misses at the home tile; the DRAM-site
+        # tallies on their own index; a dirty L1 victim flushes into the
+        # slice (its packet is counted below), not DRAM.
+        home_cols += [b(win), b(win & ~hit)]
+        db = _binsum(dsite, torch.stack([b(need_read), b(dram_wb)], dim=1))
+        vic_wr = 0
+    else:
+        home_cols += [b(need_read), b(dram_wb)]   # dram_reads/writes
+        vic_wr = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
+                         victim_home, b(victim_dirty), "add")
+    hb = _binsum(home, torch.stack(home_cols, dim=1))
+    if not shared_l2:
+        db = hb[:, 9:11]
     c = c._replace(
         dir_sh_req=c.dir_sh_req + hb[:, 0],
         dir_ex_req=c.dir_ex_req + hb[:, 1],
@@ -789,6 +876,8 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         dir_evictions=c.dir_evictions + hb[:, 5],
         dram_reads=c.dram_reads + db[:, 0],
         dram_writes=c.dram_writes + db[:, 1] + vic_wr,
+        l2_access=c.l2_access + (hb[:, 9] if shared_l2 else 0),
+        l2_miss=c.l2_miss + (hb[:, 10] if shared_l2 else 0),
         net_mem_pkts=c.net_mem_pkts
         + torch.where(win, 1, 0)
         + torch.where(victim_dirty, 1, 0)
@@ -928,6 +1017,15 @@ class _VictimProbe:
             state.dir_word, (self.way, self.vfidx), new, "set",
             mask=mask_a | mask_b))
 
+    def clear_bit(self, state: SimState, mask):
+        """Clear the dropping tile's sharer bit where ``mask`` (a guarded
+        modular subtract: distinct sharers of one entry may clear in one
+        batch)."""
+        return state._replace(dir_sharers=scatter(
+            state.dir_sharers, (self.word * self.assoc + self.way,
+                                self.vfidx), -self.bit, "add",
+            mask=mask & self.has_bit))
+
 
 def _dir_evict_notify(params: SimParams, state: SimState, tiles, vtag,
                       vstate, valid) -> SimState:
@@ -959,6 +1057,20 @@ def _dir_evict_notify(params: SimParams, state: SimState, tiles, vtag,
     vals2 = torch.cat([(-p.esharers.T).reshape(-1), -p.bit])
     return state._replace(dir_sharers=scatter(
         state.dir_sharers, (rows2, cols2), vals2, "add", mask=mask2))
+
+
+def _sh_l1_evict_notify(params: SimParams, state: SimState, tiles, vtag,
+                        vstate, valid) -> SimState:
+    """Report an L1 victim to its home L2 slice (shared-L2 protocols): an
+    M victim flushes its data into the slice (the entry drops its owner
+    and becomes O, slice-dirty), an E victim releases ownership (entry
+    S), and the tile's sharer bit clears in every case.  The slice line
+    stays resident: entries never drop to I here."""
+    p = _VictimProbe(params, state, tiles, vtag, valid)
+    own_drop = p.found & (p.eowner == tiles) & ((p.est == M) | (p.est == E))
+    state = p.set_meta2(state, own_drop & (vstate == M), O, -1,
+                        own_drop & (vstate != M), S, -1)
+    return p.clear_bit(state, p.found)
 
 
 # ====================================================================== sync

@@ -41,7 +41,8 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
                 device=None) -> None:
     """Refuse, loudly, every configuration and event kind the port does
     not run yet — nothing is mispriced silently.  Admitted: simple cores,
-    private L1/L2 under MSI with a full-map directory, zero-load networks,
+    every coherence protocol (private L1/L2 under MSI or MOSI, shared L2
+    under MSI or MESI) with a full-map directory, zero-load networks,
     the history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with
     the fan-out replay on or off, ``tpu/fast_forward`` at any width and
     run-ahead span, any tile count the directory's owner field holds
@@ -61,8 +62,6 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
     if params.segment_events > 0:
         later("streaming trace ingest (trace/segment_events > 0)",
               "the run-lifecycle slice")
-    if params.protocol_kind != "msi":
-        later(f"the {params.protocol!r} coherence protocol")
     if params.directory.directory_type != "full_map":
         later(f"the {params.directory.directory_type!r} directory scheme")
     for name, net in (("memory", params.net_memory),

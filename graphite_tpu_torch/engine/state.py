@@ -516,6 +516,18 @@ def _win_cache_width(params: SimParams) -> int:
     return 0
 
 
+def _dummy_cache(num_tiles: int, device) -> cachemod.CacheArrays:
+    """The private-L2 placeholder of the shared-L2 protocols (the slice
+    lives in the directory arrays): a [1, T, 1] word array and a [T, 1]
+    round-robin pointer, as in the JAX package.  Never probed: the engine
+    takes its shared-L2 branches on ``params.shared_l2``."""
+    return cachemod.CacheArrays(
+        word=torch.zeros((1, num_tiles, 1), dtype=torch.int64,
+                         device=device),
+        rr_ptr=torch.zeros((num_tiles, 1), dtype=torch.int32,
+                           device=device))
+
+
 def make_state(params: SimParams, device,
                max_mutexes: int = 64,
                max_barriers: int = 16,
@@ -571,7 +583,8 @@ def make_state(params: SimParams, device,
         bp_table=z((T, params.core.bp_size), torch.bool),
         l1i=cachemod.make_cache(T, params.l1i, dev),
         l1d=cachemod.make_cache(T, params.l1d, dev),
-        l2=cachemod.make_cache(T, params.l2, dev),
+        l2=(_dummy_cache(T, dev) if params.shared_l2
+            else cachemod.make_cache(T, params.l2, dev)),
         period_ps=torch.from_numpy(init_periods(params)).to(dev),
         dir_word=z(d_shape, i64),
         dir_sharers=z((W * d_shape[0], d_shape[1]), i64),

@@ -5,13 +5,13 @@ only at a cut depth.
     radix=256, seed=0)`` at miss_chain 12 on the default config, 2,181
     engine rounds and a completion of 245,006,600 ps (BENCH_r06's
     radix64_chain12 row, which the JAX package on the CPU reproduces).
-    ``chip_smoke.py`` runs this trace at keys_per_tile 512 to stay well
+    ``chip_smoke.py`` runs this trace at keys_per_tile 128 to stay well
     inside its time limit; this test holds the full depth.
   * radix64 chain-off and radix64_ff_span (``tpu/fast_forward = 8``,
     span 1000 ns) at full depth, keys_per_tile 2048: 13,838 rounds and
     243,651,800 ps (BENCH_r06's radix64 row), and 13,353 rounds and
     243,687,400 ps (the JAX package on the CPU).  ``chip_smoke.py`` runs
-    both at keys_per_tile 256.
+    both at keys_per_tile 128.
   * One-card scale (``chip_smoke.py`` phase 9 runs them too): radix256,
     ``gen_radix(256, keys_per_tile=96, radix=256, seed=0)`` on the
     default config (5,475 rounds, 116,211,400 ps), and radix1024 and
@@ -128,6 +128,54 @@ def test_radix64_full_depth_on_card(name):
     assert dispatch.COUNTS["chain_classify"] == 0
     assert (dispatch.COUNTS["fast_forward_walk"] > 0) == (
         params.fast_forward > 0)
+
+
+# radix64 under shared-L2 MESI at miss_chain 12 and tpu/fast_forward = 8,
+# span 1000 ns: the path on which all three kernels take their protocol
+# branches (chip_smoke.py phase 10 runs it at keys_per_tile 128); the JAX
+# package's values on the CPU.
+SHL2_MESI = {"caching_protocol/type": "pr_l1_sh_l2_mesi",
+             "tpu/miss_chain": CHAIN, "tpu/fast_forward": 8,
+             "tpu/fast_forward_span": 1000}
+RADIX64_SHL2_MESI_CTRS = dict(round_ctr=1633, ctr_window=669, ctr_complex=63,
+                              ctr_conflict=97, ctr_resolve=657,
+                              ctr_quantum=117, ctr_ff=686, ctr_ffq=117,
+                              ff_events=528982)
+RADIX64_SHL2_MESI_COMPLETION_PS = 236_662_000
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+def test_radix64_shl2_mesi_ff_span_full_depth_on_card():
+    """Every round counter and the completion time exactly; every kernel
+    launched: window_walk once per window round, chain_classify P times
+    per chain pass, fast_forward_walk at least once per analytic round
+    that engaged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    cfg = load_config()
+    for k, v in SHL2_MESI.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, synth.gen_radix(64, keys_per_tile=2048,
+                                            radix=256, seed=0),
+                    device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item())
+            for k in RADIX64_SHL2_MESI_CTRS}
+    assert ctrs == RADIX64_SHL2_MESI_CTRS
+    assert s.completion_time_ps == RADIX64_SHL2_MESI_COMPLETION_PS
+    assert s.total_instructions == 1_844_224
+    engaged = dispatch.COUNTS["ff_engaged"]
+    passes = ctrs["round_ctr"] - ctrs["ctr_window"] - ctrs["ctr_complex"] \
+        - ctrs["ctr_conflict"] - engaged
+    assert passes == ctrs["ctr_resolve"]
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] == CHAIN * passes > 0
+    assert dispatch.COUNTS["fast_forward_walk"] >= engaged > 0
 
 
 @pytest.mark.gpu

@@ -646,6 +646,74 @@ def test_cuda_chain_kernel_wide_form_matches_plain():
                 _assert_fields_equal(ref, got, label)
 
 
+PROTOCOLS = {"mosi": "pr_l1_pr_l2_dram_directory_mosi",
+             "sh_l2_msi": "pr_l1_sh_l2_msi",
+             "sh_l2_mesi": "pr_l1_sh_l2_mesi"}
+
+
+def _step_kernel_against_plain(tp, vp, si, H, label):
+    """The fused kernel on ``si`` (the floor table on a clone) against
+    the plain step: every ChainHead and ChainOut field."""
+    work = si._replace(ftbl=None if si.ftbl is None else si.ftbl.clone())
+    head, got = tchain.run_chain_step(tp, vp, work, H)
+    ref_head, ref = tchain.chain_step(tp, vp, si, H)
+    torch.cuda.synchronize()
+    if work.ftbl is not None:
+        assert got.ftbl.data_ptr() == work.ftbl.data_ptr()
+    _assert_fields_equal(ref_head, head, label)
+    _assert_fields_equal(ref, got, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [16, 64])
+def test_cuda_chain_kernel_matches_plain_under_protocols(T):
+    """The fused kernel against the plain step on the card under MOSI
+    and the shared-L2 protocols: every configuration, with the DRAM
+    controllers on a quarter of the tiles (a shared-L2 slice miss whose
+    controller is another tile), at the default H, a non-power-of-two H
+    and a colliding H = 4; each protocol's own cases (O and E entries
+    read and written, O victims, E grants, fan-outs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    for proto in sorted(PROTOCOLS):
+        for config in sorted(CONFIGS):
+            for ctrl in ("ALL", T // 4):
+                tp = _torch_params(T, {**CONFIGS[config],
+                                       "caching_protocol/type":
+                                       PROTOCOLS[proto],
+                                       "dram/num_controllers": ctrl,
+                                       "l2_cache/T1/cache_size": 64})
+                vp = variant_params(tp)
+                for H in (max(1024, 16 * T), 1000, 4):
+                    for seed in range(2):
+                        si = toperands.chain_step_in_from_numpy(
+                            toperands.random_chain_step_arrays(tp, H, seed),
+                            "cuda")
+                        _step_kernel_against_plain(
+                            tp, vp, si, H, f"{proto} {config} ctrl={ctrl} "
+                            f"H={H} {seed}")
+
+
+@pytest.mark.gpu
+def test_cuda_chain_kernel_wide_form_under_shared_mesi():
+    """The wide form at T = 1024 under shared-L2 MESI (8-way slices of
+    32 sets, 16 sharer words) against the plain step on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    T = 1024
+    for config in sorted(CONFIGS):
+        tp = _torch_params(T, {**CONFIGS[config],
+                               "caching_protocol/type": PROTOCOLS["sh_l2_mesi"],
+                               "dram/num_controllers": 64,
+                               "l2_cache/T1/cache_size": 16})
+        vp = variant_params(tp)
+        for H in (max(1024, 16 * T), 4):
+            assert tchain.chain_step_entry(tp, vp, H, 16).wide
+            si = toperands.chain_step_in_from_numpy(
+                toperands.random_chain_step_arrays(tp, H, 0), "cuda")
+            _step_kernel_against_plain(tp, vp, si, H, f"{config} H={H}")
+
+
 def _clone(nt):
     return type(nt)(*[t.clone() if t is not None else None for t in nt])
 

@@ -19,7 +19,6 @@ Every output field must be equal, value and dtype (tolerance 0: the
 functions are all-integer).
 """
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -251,13 +250,24 @@ def test_run_fast_forward_dispatches_by_device():
         twin.fast_forward_walk_cuda(tp, vp, fi)
 
 
-def test_ff_walk_refuses_sticky_mesi():
-    tp = _torch_params(8, FF_CONFIGS["f64"])
-    fi = toperands.ff_in_from_numpy(toperands.random_ff_arrays(tp, 64, 1),
-                                    "cpu")
-    mesi = dataclasses.replace(tp, protocol="pr_l1_sh_l2_mesi")
-    with pytest.raises(NotImplementedError, match="sh_l2_mesi"):
-        twin.fast_forward_walk(mesi, variant_params(tp), fi)
+MESI = {"caching_protocol/type": "pr_l1_sh_l2_mesi"}
+
+
+def test_ff_walk_sticky_mesi_matches_jax():
+    """Under shared-L2 MESI an E line is writable, and a committed write
+    to it upgrades the line to M for every later touch of the span: the
+    plain walk against the JAX walk on seeded spans, some of whose
+    engaged tiles commit writes to E lines."""
+    jp, tp = _params(8, {**FF_CONFIGS["f64"], **MESI})
+    upgrades = 0
+    for seed in range(6):
+        arrays = toperands.random_ff_arrays(tp, tcore._ff_width(tp), seed)
+        _ff_both(jp, tp, arrays)
+        fp = twin.ff_price(tp, variant_params(tp),
+                           toperands.ff_in_from_numpy(arrays, "cpu"))
+        upgrades += int((fp.commit0 & fp.engage[:, None] & fp.is_wr
+                         & (fp.pD.state == 3)).sum())
+    assert upgrades > 0
 
 
 # ------------------------------------------------ window_walk at K = 64
@@ -369,6 +379,22 @@ def test_cuda_ff_kernel_matches_plain(T):
     assert seen
     for i, fi in enumerate(seen[:16]):
         _ff_kernel_against_plain(tp, variant_params(tp), fi, f"captured {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 64])
+def test_cuda_ff_kernel_matches_plain_sticky_mesi(T):
+    """fast_forward_walk's CUDA kernel against the plain form under
+    shared-L2 MESI (E lines writable, the sticky E->M upgrade)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    for config in ("f64", "f64_chain12", "f32"):
+        tp = _torch_params(T, {**FF_CONFIGS[config], **MESI})
+        vp = variant_params(tp)
+        for seed in range(8):
+            fi = toperands.ff_in_from_numpy(toperands.random_ff_arrays(
+                tp, tcore._ff_width(tp), seed), "cuda")
+            _ff_kernel_against_plain(tp, vp, fi, f"{config} {seed}")
 
 
 @pytest.mark.gpu

@@ -132,19 +132,17 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("over,trace_fn", [
     # The chain replay itself is admitted; its miss-type branch is not.
     ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True}, None),
-    # Fast-forward is admitted; the shared-L2 MESI protocol is still
-    # refused at fast_forward > 0 (as at 0: the refusal is the protocol's).
-    # The walk's own refusal of its sticky E->M branch is tested in
-    # test_torch_ff_kernel.py.
-    ({"tpu/fast_forward": 4, "tpu/fast_forward_span": 1000,
-      "caching_protocol/type": "pr_l1_sh_l2_mesi"}, None),
+    # Every coherence protocol is admitted; the directory schemes other
+    # than full_map are not, under private or shared L2.
+    ({"dram_directory/directory_type": "ackwise"}, None),
     ({"tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
-    ({"caching_protocol/type": "pr_l1_pr_l2_dram_directory_mosi"}, None),
+    ({"caching_protocol/type": "pr_l1_sh_l2_msi",
+      "l2_directory/directory_type": "limited_no_broadcast"}, None),
     ({"dram/queue_model/type": "basic"}, None),
     ({"network/memory": "emesh_hop_by_hop"}, None),
     ({}, lambda: synth.gen_lock_contention(num_tiles=4, acquisitions=2)),
     ({}, lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
-], ids=["miss_chain", "fast_forward", "iocoom", "mosi", "basic_queue",
+], ids=["miss_chain", "ackwise", "iocoom", "sh_l2_limited", "basic_queue",
         "hop_by_hop", "mutex_events", "capi_events"])
 def test_outside_slice_refused_at_construction(over, trace_fn):
     cfg = load_config()

@@ -472,6 +472,38 @@ def test_cuda_kernel_matches_plain_walk(T):
     _kernel_against_plain(tp, sim.vp, _clone(wi), T, "radix")
 
 
+PROTOCOLS = {"mosi": "pr_l1_pr_l2_dram_directory_mosi",
+             "sh_l2_msi": "pr_l1_sh_l2_msi",
+             "sh_l2_mesi": "pr_l1_sh_l2_mesi"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 64])
+def test_cuda_kernel_matches_plain_walk_under_protocols(T):
+    """The CUDA kernel against the plain form on the card under MOSI and
+    the shared-L2 protocols (no private L2: the L2 operands absent),
+    K = 16 and 64, P = 0 and 12, random and seeded operands (E lines
+    written and then touched again, banked fills of one L1 set, pending
+    banks on L1 sets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    for proto in sorted(PROTOCOLS):
+        for P in (0, 12):
+            tp = _torch_params(T, {"caching_protocol/type": PROTOCOLS[proto],
+                                   "tpu/miss_chain": P})
+            vp = variant_params(tp)
+            for gen in (toperands.random_window_arrays,
+                        toperands.seeded_window_arrays):
+                for K in (16, 64):
+                    for seed in range(4):
+                        wi = toperands.window_in_from_numpy(
+                            gen(tp, K, seed), "cuda")
+                        assert (wi.l2_word is None) == tp.shared_l2
+                        _kernel_against_plain(
+                            tp, vp, wi, T, f"{proto} P={P} "
+                            f"{gen.__name__} K={K} seed {seed}")
+
+
 def test_kernel_refuses_operands_that_share_storage():
     """A leaf the kernel writes in place may share storage with no other
     operand; operands it only reads may."""
