@@ -72,23 +72,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      tests/data/chain_off_golden.json, exactly; radix8 at miss_chain 12
      (86 engine rounds, completion 8,686.6 ns).
   5. The chain-off main path at full width and a cut depth:
-     ``gen_radix(64, keys_per_tile=128, radix=256, seed=0)`` on the
-     default config — all_done, every round counter (round_ctr 4115),
-     completion 81,960.8 ns, window-kernel launches == ctr_window (the
+     ``gen_radix(64, keys_per_tile=64, radix=256, seed=0)`` on the
+     default config — all_done, every round counter (round_ctr 3516),
+     completion 72,044.6 ns, window-kernel launches == ctr_window (the
      full depth, keys_per_tile 2048, 13,838 rounds and 243,651.8 ns, is
      held on the card by tests/test_torch_card_paths.py).
   6. The chain-replay paths at full width, miss_chain 12: the radix64
-     trace at a cut depth, ``gen_radix(64, keys_per_tile=128, radix=256,
-     seed=0)`` (round_ctr 419, completion 82,581.2 ns; the full depth,
+     trace at a cut depth, ``gen_radix(64, keys_per_tile=64, radix=256,
+     seed=0)`` (round_ctr 347, completion 72,082.6 ns; the full depth,
      2,181 rounds and 245,006.6 ns, is held on the card by
      tests/test_torch_card_paths.py) and ``gen_fft(64,
      points_per_tile=64, writeback=True)`` (round_ctr 377, completion
      60,677.0 ns, 1,897 fan-outs served in-pass, 17 fallbacks).
      chain_classify launches == 12 x chain passes (round_ctr - ctr_window
-     - ctr_complex - ctr_conflict), window launches == ctr_window.  An
-     untimed second fft64 run records, at run_chain_step's inputs, its
-     first replay iterations that serve a fan-out, and chain_classify is
-     held against its plain form on each of them.
+     - ctr_complex - ctr_conflict), window launches == ctr_window.  The
+     fft64 run records, at run_chain_step's inputs, its first replay
+     iterations that serve a fan-out, and chain_classify is held against
+     its plain form on each of them once the run's counts are read.
   7. Profiled stretches of the chain-off and the chain-12 radix64 runs
      (torch.profiler; 2 quanta and 1 quantum, continuing phase 3's
      simulations), and of the radix64_ff_span run (2 quanta, continuing
@@ -100,9 +100,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   8. The fast-forward paths at full width, ``tpu/fast_forward = 8``
      (wide rounds of 64 events):
        * radix64_ff_span: phase 5's cut radix64 trace at miss_chain 0
-         and a run-ahead span of 1000 ns (round_ctr 4102, completion
-         81,960.8 ns, ctr_ff 40, ctr_ffq 14, ff_events 4706, icount
-         123,904; the full depth, 13,353 rounds, is held on the card by
+         and a run-ahead span of 1000 ns, for its first 60 quanta, in
+         which every analytic round of the run engages (round_ctr 1293,
+         latest clock 27,141.8 ns, ctr_ff 23, ctr_ffq 9, ff_events 828,
+         icount 30,640, and the clocks' and cursors' sums; the full
+         depth, 13,353 rounds, is held on the card by
          tests/test_torch_card_paths.py); fast_forward_walk launches > 0
          and at least the analytic rounds that engaged, window_walk
          launches == ctr_window, no chain_classify launch;
@@ -116,9 +118,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Chain passes (round_ctr - ctr_window - ctr_complex - ctr_conflict
      - engaged analytic rounds) == ctr_resolve at miss_chain 12 and 0 at
      0; chain_classify launches == 12 x chain passes.
-  9. One-card scale at full width and depth, every round counter and the
+  9. One-card scale at full width, every round counter and the
      completion the JAX package's on the CPU (BENCH_r06 gives the same
-     rounds and completions for radix1024 and radix256):
+     rounds and completions for radix1024 and the full-depth radix256):
        * radix1024: ``gen_radix(1024, keys_per_tile=16, radix=64,
          seed=0)`` at ``tpu/block_events = 4``, miss_chain 0 (round_ctr
          2912, completion 64,803.2 ns), BASELINE's scored configuration;
@@ -130,8 +132,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          chain_classify launches == 12 x ctr_resolve, all of its wide
          form;
        * radix256: ``gen_radix(256, keys_per_tile=96, radix=256,
-         seed=0)`` on the default config (round_ctr 5475, completion
-         116,211.4 ns);
+         seed=0)`` on the default config for its first 24 quanta
+         (round_ctr 542, latest clock 12,225.8 ns, the clocks' and
+         cursors' sums; the whole run, 5,475 rounds, is held on the card
+         by tests/test_torch_card_paths.py);
        * radix512: ``gen_radix(512, keys_per_tile=16, radix=64, seed=0)``
          at block_events 4 for 8 quanta (the last size with dense one-hot
          [T, H] tables), for its peak device memory.
@@ -140,8 +144,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       config), each exact against the JAX package's values on the CPU:
        * radix64_shl2_mesi_ff_span: phase 5's cut trace under
          ``pr_l1_sh_l2_mesi`` at miss_chain 12 and
-         ``tpu/fast_forward = 8``, span 1000 ns (round_ctr 480,
-         completion 73,766.0 ns): all three kernels on their protocol
+         ``tpu/fast_forward = 8``, span 1000 ns, for its first 12
+         quanta (round_ctr 176, latest clock 25,301.2 ns, the clocks'
+         and cursors' sums): all three kernels on their protocol
          branches, each launched (the full depth, 1,633 rounds, is held
          on the card by tests/test_torch_card_paths.py);
        * fft64_mosi: ``gen_fft(64, points_per_tile=64, writeback=True)``
@@ -157,8 +162,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      them and timed (device time per launch under each protocol; the
      fast-forward walk on a recorded round where some tile engages,
      else on phase 3's seeded set with the most engaged tiles).
+  11. The network models:
+       * chain_classify's network legs on seeded state-level sets at T =
+         64 under the default emesh_hop_counter, ATAC (cluster size 4,
+         cluster-based, star; cluster size 16, distance-based, btree)
+         and emesh_hop_by_hop with its queue model off, with the fan-out
+         replay and the DRAM queue both on and both off (fan-out targets
+         in the home's cluster and in others); under ATAC with shared-L2
+         MSI and the controllers on a quarter of the tiles (slice misses
+         whose controller sits in another cluster); the wide form at T =
+         1024 under both routings; device time per launch of each
+         network beside emesh's, and the bound;
+       * window_walk with a quarter of its events SPAWNs (children on
+         every tile) under each user network, K = 16 and 64, P = 0 and
+         12 (spawns across ATAC clusters); device time per launch;
+       * fft64_atac_chain12: ``gen_fft(64, points_per_tile=64,
+         writeback=True)`` at miss_chain 12 with ATAC on both networks
+         (round_ctr 367, completion 59,469.0 ns, 1,909 fan-outs, 19
+         fallbacks);
+       * fft64_hbh_contended: the same trace under emesh_hop_by_hop with
+         its queue model on, for its first 40 quanta (round_ctr 710,
+         latest clock 88,225.6 ns, 3,217,312,800 ps of link wait, the
+         clocks' and cursors' sums; the whole run, 1,759 rounds, is held
+         on the card by tests/test_torch_card_paths.py): the chain pass
+         stands down (no chain_classify launch), the window walk banks
+         and the conflict rounds fly every leg.
+     Each path is pinned from the JAX package on the CPU and records its
+     first window walks and replay iterations, on which the kernels are
+     held against their plain forms once the launch counts are read.
 
-Before each path of phases 4 to 6 and 8 to 10 every kernel's launch count is
+Before each path of phases 4 to 6 and 8 to 11 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -167,6 +200,7 @@ device, or without the port's sources beside this file, the script exits
 non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -188,22 +222,24 @@ FULL_KEYS = 2048
 # host-bound wall on an NVIDIA H100 80GB HBM3 at 700 W;
 # tests/test_torch_card_paths.py holds both full depths on the card).
 # The JAX package on the CPU gives these values for gen_radix(64,
-# keys_per_tile=128, radix=256, seed=0) (since phase 10 was added; at
-# keys_per_tile 256, 5,309 rounds and 100,052.2 ns).
-CUT_KEYS = 128
-CUT_CTRS = dict(round_ctr=4115, ctr_window=1896, ctr_complex=1285,
-                ctr_conflict=934, ctr_resolve=653, ctr_quantum=186)
-CUT_COMPLETION_PS = 81_960_800
-CUT_ICOUNT = 123_904
+# keys_per_tile=64, radix=256, seed=0) (since phase 11 was added; at
+# keys_per_tile 128, 4,115 rounds and 81,960.8 ns; at 256, 5,309 rounds
+# and 100,052.2 ns).
+CUT_KEYS = 64
+CUT_CTRS = dict(round_ctr=3516, ctr_window=1630, ctr_complex=1115,
+                ctr_conflict=771, ctr_resolve=569, ctr_quantum=165)
+CUT_COMPLETION_PS = 72_044_600
+CUT_ICOUNT = 66_560
 CHAIN = 12
 # Phase 6 runs radix64_chain12 at a cut depth, so that the script with
 # phases 8 and 9 ends well inside its time limit on a slow host (the full
 # depth took 163-251 s of host-bound wall on an NVIDIA H100 80GB HBM3 at
 # 700 W; tests/test_torch_card_paths.py holds it on the card).  The JAX
 # package on the CPU gives these values for the cut trace of phase 5
-# (keys_per_tile 128) at miss_chain 12.
-CHAIN_CUT_ROUND_CTR = 419
-CHAIN_CUT_COMPLETION_PS = 82_581_200
+# (keys_per_tile 64; at 128, 419 rounds and 82,581.2 ns) at miss_chain
+# 12.
+CHAIN_CUT_ROUND_CTR = 347
+CHAIN_CUT_COMPLETION_PS = 72_082_600
 FFT_ROUND_CTR = 377
 FFT_COMPLETION_PS = 60_677_000
 FFT_FANOUT_SERVED = 1897
@@ -217,10 +253,16 @@ RADIX8_CHAIN_COMPLETION_PS = 8_686_600
 # CPU; the span-0 fft64 row is BENCH_r06's fft64_ff.
 FF = 8
 FF_SPAN_NS = 1000
-FF_SPAN_CTRS = dict(round_ctr=4102, ctr_window=1866, ctr_complex=1289,
-                    ctr_conflict=934, ctr_resolve=653, ctr_quantum=186,
-                    ctr_ff=40, ctr_ffq=14, ff_events=4706)
-FF_SPAN_COMPLETION_PS = 81_960_800      # keys_per_tile 128, as phase 5
+# radix64_ff_span runs phase 5's cut trace for 60 quanta (a cut run; the
+# whole keys-64 run takes 3,506 rounds to 72,044.6 ns, every analytic
+# round that engages within the first 60 quanta).
+FF_SPAN_QUANTA = 60
+FF_SPAN_CTRS = dict(round_ctr=1293, ctr_window=593, ctr_complex=409,
+                    ctr_conflict=284, ctr_resolve=196, ctr_quantum=60,
+                    ctr_ff=23, ctr_ffq=9, ff_events=828)
+FF_SPAN_COMPLETION_PS = 27_141_800      # the latest clock at the cut
+FF_SPAN_CUT = dict(clock_sum=995_889_200, cursor_sum=16_899)
+FF_SPAN_ICOUNT = 30_640
 FFT_FF_SPAN_CTRS = dict(round_ctr=293, ctr_window=92, ctr_complex=27,
                         ctr_conflict=90, ctr_resolve=70, ctr_quantum=31,
                         ctr_ff=79, ctr_ffq=29, ff_events=38318)
@@ -249,10 +291,16 @@ RADIX1024_CHAIN12_CTRS = dict(round_ctr=632, ctr_window=442, ctr_complex=86,
                               ctr_quantum=31)
 RADIX1024_CHAIN12_COMPLETION_PS = 63_390_000
 RADIX1024_CHAIN12_FANOUT = 20
-RADIX256_CTRS = dict(round_ctr=5475, ctr_window=2543, ctr_complex=1710,
-                     ctr_conflict=1222, ctr_resolve=845, ctr_quantum=252)
-RADIX256_COMPLETION_PS = 116_211_400
-RADIX256_ICOUNT = 382_848
+# radix256 (BENCH_r06's trace, keys_per_tile 96) for its first 24
+# quanta, since phase 11 was added (the whole run, 5,475 rounds and
+# 116,211.4 ns as in BENCH_r06, is held on the card by
+# tests/test_torch_card_paths.py).
+RADIX256_QUANTA = 24
+RADIX256_CTRS = dict(round_ctr=542, ctr_window=258, ctr_complex=151,
+                     ctr_conflict=133, ctr_resolve=71, ctr_quantum=24)
+RADIX256_COMPLETION_PS = 12_225_800     # the latest clock at the cut
+RADIX256_CUT = dict(clock_sum=2_752_533_600, cursor_sum=72_559)
+RADIX256_ICOUNT = 145_147
 # gen_radix(512, keys_per_tile=16, radix=64, seed=0) at block_events 4,
 # 8 quanta (the last size at which the conflict round's one-hot tables
 # are dense): the JAX package's counters after those quanta.
@@ -271,12 +319,15 @@ SH_MESI = "pr_l1_sh_l2_mesi"
 PROTOCOLS = (MOSI, SH_MSI, SH_MESI)
 SHL2_MESI_FF = {"caching_protocol/type": SH_MESI, "tpu/miss_chain": CHAIN,
                 "tpu/fast_forward": FF, "tpu/fast_forward_span": FF_SPAN_NS}
-# radix64_shl2_mesi_ff_span on phase 5's cut trace (keys_per_tile 128;
-# at 256, 570 rounds and 90,567.6 ns).
-SHL2_MESI_FF_CTRS = dict(round_ctr=480, ctr_window=200, ctr_complex=30,
-                         ctr_conflict=51, ctr_resolve=193, ctr_quantum=35,
-                         ctr_ff=90, ctr_ffq=35, ff_events=29498)
-SHL2_MESI_FF_COMPLETION_PS = 73_766_000
+# radix64_shl2_mesi_ff_span on phase 5's cut trace for 12 quanta (a cut
+# run, in which all three kernels launch; the whole keys-64 run takes
+# 426 rounds to 65,174.8 ns; at keys 128, 480 rounds and 73,766.0 ns).
+SHL2_MESI_FF_QUANTA = 12
+SHL2_MESI_FF_CTRS = dict(round_ctr=176, ctr_window=79, ctr_complex=9,
+                         ctr_conflict=8, ctr_resolve=78, ctr_quantum=12,
+                         ctr_ff=26, ctr_ffq=12, ff_events=8263)
+SHL2_MESI_FF_COMPLETION_PS = 25_301_200   # the latest clock at the cut
+SHL2_MESI_FF_CUT = dict(clock_sum=903_868_400, cursor_sum=16_859)
 FFT_MOSI_CTRS = dict(round_ctr=354, ctr_window=171, ctr_complex=19,
                      ctr_conflict=100, ctr_resolve=64, ctr_quantum=25)
 FFT_MOSI_COMPLETION_PS = 48_966_200
@@ -288,6 +339,24 @@ FFT_SHL2_CTRS = dict(round_ctr=371, ctr_window=190, ctr_complex=30,
 FFT_SHL2_COMPLETION_PS = 37_856_600
 FFT_SHL2_FANOUT, FFT_SHL2_FALLBACK = 282, 41
 FFT_ICOUNT = 557_056
+# The network models (phase 11): gen_fft(64, points_per_tile=
+# NET_FFT_POINTS, writeback=True) at miss_chain 12 under ATAC on both
+# networks (default AtacParams) and under the contended hop-by-hop mesh,
+# as the JAX package computes them on the CPU.
+NET_FFT_POINTS = 64
+FFT_ATAC_CTRS = dict(round_ctr=367, ctr_window=186, ctr_complex=27,
+                     ctr_conflict=86, ctr_resolve=68, ctr_quantum=30)
+FFT_ATAC_COMPLETION_PS = 59_469_000
+FFT_ATAC_FANOUT, FFT_ATAC_FALLBACK = 1909, 19
+# fft64_hbh_contended runs its first 40 quanta (a cut run: 710 of its
+# 1,759 rounds; the whole run, 209,377.8 ns and 8,595,738,800 ps of link
+# wait, is held on the card by tests/test_torch_card_paths.py).
+FFT_HBH_QUANTA = 40
+FFT_HBH_CTRS = dict(round_ctr=710, ctr_window=218, ctr_complex=11,
+                    ctr_conflict=481, ctr_resolve=136, ctr_quantum=40)
+FFT_HBH_COMPLETION_PS = 88_225_600      # the latest clock at the cut
+FFT_HBH_CUT = dict(clock_sum=5_421_584_800, cursor_sum=31_002)
+FFT_HBH_LINK_WAIT_PS = 3_217_312_800
 
 
 T_START = time.perf_counter()
@@ -369,7 +438,8 @@ def chain_bytes(params, si, head, out) -> int:
     period; with the DRAM queue model off each tile its L2 period (none
     with shared L2); with shared L2 and a network that is not magic, each
     distinct memory controller that a DRAM read reaches from another
-    slice its network period.  Writes: every ChainHead
+    slice its network period; under atac the two per-tile tables
+    (cluster and access-point hops), once.  Writes: every ChainHead
     and ChainOut element, and with the queue model off each floor-table
     slot a served row wins (line and time), once."""
     import torch
@@ -385,6 +455,8 @@ def chain_bytes(params, si, head, out) -> int:
 
     moved = T * (4 + 1 + 4 + 8)                     # head, stopped, count,
     #                                                 base
+    if params.net_memory.model == "atac":
+        moved += T * (4 + 4)                         # cluster_of, ap_hops
     moved += T * (8 + 8) + 8 * int(head.active.sum())  # delta, extra, req
     moved += 8 * A * distinct(head.fidx)             # directory rows
     moved += 8 * W * distinct(head.fidx, out.way)    # sharer words
@@ -496,7 +568,8 @@ def window_bytes(params, vp, wi, out) -> int:
     branch reads its predictor entry (once per distinct slot); at P > 0 a
     tile whose examined events probe reads its pending bank slots.  Every
     tile reads its active flag, clock and core period (and its id and
-    network period without a magic network); a retiring tile its L1I,
+    network period without a magic network, and under atac the two
+    per-tile tables, cluster and access-point hops); a retiring tile its L1I,
     L1D and L2 periods; at P > 0 every tile its bank count and relative
     clock, a retiring one its bank head.  Writes: the fresh outputs, each
     distinct word the retired prefix touches, each fill word (and its
@@ -576,6 +649,8 @@ def window_bytes(params, vp, wi, out) -> int:
         + 8 + 1 + 4
     if params.net_user.model != "magic":
         moved += T * (4 + 4)                                  # id, period
+    if params.net_user.model == "atac":
+        moved += T * (4 + 4)                                  # atac tables
     moved += T * (8 + 4 + 12 * 8) + T * K * (1 + 4 + 8)       # fresh
     r = ret & act[:, None]
     for hit_touch, fill, pr, cp in (
@@ -618,18 +693,29 @@ def compare(kind, got, ref, label) -> int:
 
 class Recorder:
     """Wraps a kernel entry point of the engine so that a run hands over
-    (clones of) the operands of its first calls that ``keep`` accepts."""
+    (clones of) the operands of its first calls that ``keep`` accepts:
+    ``keep(operands)``, or with ``after`` ``keep(result)`` (the operands
+    cloned before the call, which may update them in place)."""
 
-    def __init__(self, module, name, keep, limit):
+    def __init__(self, module, name, keep, limit, after=False):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.keep, self.limit, self.seen = keep, limit, []
+        self.after = after
 
     def __enter__(self):
         def rec(params, vp, operands, *rest):
-            if len(self.seen) < self.limit and self.keep(operands):
-                self.seen.append(clone_operands(operands))
-            return self.orig(params, vp, operands, *rest)
+            if len(self.seen) >= self.limit:
+                return self.orig(params, vp, operands, *rest)
+            if not self.after:
+                if self.keep(operands):
+                    self.seen.append(clone_operands(operands))
+                return self.orig(params, vp, operands, *rest)
+            kept = clone_operands(operands)
+            out = self.orig(params, vp, operands, *rest)
+            if self.keep(out):
+                self.seen.append(kept)
+            return out
         setattr(self.module, self.name, rec)
         return self
 
@@ -783,10 +869,8 @@ def walk_times(kwin, p, v, wi, T, iters=200, warmup=20):
     """One window_walk case, every launch from the window-start state of
     ``wi`` (which no launch touches): the wrapper's time per call (CUDA
     events over calls on fresh copies of the leaves the kernel writes),
-    the kernel's device time per launch (torch.profiler; each launch
-    after a device copy that restores those leaves, so the rows it reads
-    are warm in L2, as in the engine where the round's other ops have
-    just touched them), the plain form's time and the plain result."""
+    the kernel's device time per launch (:func:`walk_device_ms`), the
+    plain form's time and the plain result."""
     written = [f for f in kwin.INPLACE_FIELDS if getattr(wi, f) is not None]
 
     def fresh():
@@ -796,18 +880,28 @@ def walk_times(kwin, p, v, wi, T, iters=200, warmup=20):
     ms = time_cuda(lambda: kwin.window_walk_cuda(p, v, next(pool), T),
                    iters=iters, warmup=warmup)
     del pool
-    work = fresh()
+    dev = walk_device_ms(kwin, p, v, wi, T)
+    big = wi.addr.shape[1] > 16 and p.miss_chain > 0
+    plain = time_cuda(lambda: kwin.window_walk(p, v, wi, T),
+                      iters=20 if big else 50, warmup=3 if big else 5)
+    return ms, dev, plain, kwin.window_walk(p, v, wi, T)
+
+
+def walk_device_ms(kwin, p, v, wi, T, launches: int = 100):
+    """window_walk's device time per launch (torch.profiler), each launch
+    from the window-start state of ``wi``: a device copy restores the
+    leaves the kernel writes before it, so the rows it reads are warm in
+    L2, as in the engine where the round's other ops have just touched
+    them."""
+    written = [f for f in kwin.INPLACE_FIELDS if getattr(wi, f) is not None]
+    work = wi._replace(**{f: getattr(wi, f).clone() for f in written})
 
     def restore_and_launch():
         for f in written:
             getattr(work, f).copy_(getattr(wi, f))
         kwin.window_walk_cuda(p, v, work, T)
 
-    dev = device_ms(restore_and_launch, "window_walk_kernel")
-    big = wi.addr.shape[1] > 16 and p.miss_chain > 0
-    plain = time_cuda(lambda: kwin.window_walk(p, v, wi, T),
-                      iters=20 if big else 50, warmup=3 if big else 5)
-    return ms, dev, plain, kwin.window_walk(p, v, wi, T)
+    return device_ms(restore_and_launch, "window_walk_kernel", launches)
 
 
 def peak_reset() -> int:
@@ -911,6 +1005,7 @@ def main() -> int:
 
     from graphite_tpu_torch import load_config
     from graphite_tpu_torch.engine import core as kcore
+    from graphite_tpu_torch.engine import dense, noc_atac
     from graphite_tpu_torch.engine import resolve as kres
     from graphite_tpu_torch.engine.core import window_operands
     from graphite_tpu_torch.engine.kernels import build
@@ -920,12 +1015,13 @@ def main() -> int:
     from graphite_tpu_torch.engine.kernels.operands import (
         chain_step_in_from_numpy, ff_in_from_numpy, random_chain_step_arrays,
         random_ff_arrays, random_window_arrays, seeded_window_arrays,
-        window_in_from_numpy)
+        spawn_window_arrays, window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
     from graphite_tpu_torch.engine.quantum import megarun, next_boundary
-    from graphite_tpu_torch.engine.sim import Simulator
+    from graphite_tpu_torch.engine.sim import Simulator, SimSummary
     from graphite_tpu_torch.engine.vparams import variant_params
     from graphite_tpu_torch.events import synth
+    from graphite_tpu_torch.isa import EventOp
     from graphite_tpu_torch.params import SimParams
 
     dev = torch.device("cuda")
@@ -1467,6 +1563,40 @@ def main() -> int:
             "ctr_quantum", "ctr_window", "ctr_complex", "ctr_conflict",
             "ctr_resolve", "round_ctr", "ctr_ff", "ctr_ffq", "ff_events")}
 
+    def advance(sim, quanta=None):
+        """Run ``sim`` to its end, or (a cut run) for ``quanta`` quanta;
+        returns its summary and the wall seconds."""
+        t0 = time.perf_counter()
+        if quanta is None:
+            s = sim.run()
+        else:
+            sim.state = megarun(sim.params, sim.state, sim.trace, quanta,
+                                vp=sim.vp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if quanta is not None:
+            s = SimSummary(sim.params, sim.state, wall, 0)
+        return s, wall
+
+    def end_word(quanta):
+        return "all_done" if quanta is None else f"cut at {quanta} quanta"
+
+    def check_end(label, sim, s, want_ps, cut=None):
+        """A whole run: every stream done, the completion; a cut run
+        (``cut``): the latest clock (its completion so far), the clocks'
+        sum and the trace cursors' sum, the JAX package's after as many
+        quanta."""
+        check(s.completion_time_ps == want_ps,
+              f"{label}: completion {s.completion_time_ps} != {want_ps}")
+        if cut is None:
+            check(bool(s.done.all()), f"{label}: not all done")
+            return
+        got = dict(clock_sum=int(sim.state.clock.sum().item()),
+                   cursor_sum=int(sim.state.cursor.to(torch.int64).sum()
+                                  .item()))
+        for k, v in cut.items():
+            check(got[k] == v, f"{label}: {k} {got[k]} != {v}")
+
     # ---- 4. golden shapes, exactly
     gold = json.load(open(os.path.join(HERE, "tests", "data",
                                        "chain_off_golden.json")))
@@ -1560,14 +1690,15 @@ def main() -> int:
     stamp("phase 5: chain-off radix64")
 
     # ---- 6. the chain-replay paths at full width
-    def chain_run(label, ctrace, want_rounds, want_ps):
+    def chain_run(label, ctrace, want_rounds, want_ps, rec=None):
         held = peak_reset()
         sim = Simulator(cparams, ctrace, device=dev)
         reset_counts()
-        t0 = time.perf_counter()
-        s = sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with rec or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            s = sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         c = round_ctrs(sim.state)
         r = c["round_ctr"]
@@ -1600,28 +1731,19 @@ def main() -> int:
     lw12, lc12, _, _, wall_ms12 = chain_run(
         f"radix64_chain12 keys_per_tile={CUT_KEYS}", cut_trace,
         CHAIN_CUT_ROUND_CTR, CHAIN_CUT_COMPLETION_PS)
+    # The radix run serves no fan-out, so phase 3's captured iterations
+    # leave the fan-out rank, the [KF, T] invalidation masks and the
+    # max-hop legs to the seeded operands: the fft64 run records its
+    # first iterations that serve a fan-out (the kernel's own result
+    # says), and the kernel is held against the plain form on each.
+    rf = Recorder(kres.kchain, "run_chain_step",
+                  lambda out: bool(out[1].fan_go.any()), FFT_CAPTURED,
+                  after=True)
     _, _, fan, fb, _ = chain_run("fft64", fft, FFT_ROUND_CTR,
-                                 FFT_COMPLETION_PS)
+                                 FFT_COMPLETION_PS, rec=rf)
     check(fan == FFT_FANOUT_SERVED and fb == FFT_FALLBACK,
           f"fft64: chain_fanout_served {fan} / chain_fallback {fb} != "
           f"{FFT_FANOUT_SERVED} / {FFT_FALLBACK}")
-
-    # The radix run serves no fan-out, so phase 3's captured iterations
-    # leave the fan-out rank, the [KF, T] invalidation masks and the
-    # max-hop legs to the seeded operands.  An untimed second fft64 run,
-    # stopped once it has them, records its first iterations that serve a
-    # fan-out (the plain form picks them), and the kernel is held against
-    # the plain form on each.
-    with Recorder(kres.kchain, "run_chain_step",
-                  lambda si: bool(kchain.chain_step(
-                      cparams, cvp, si, H)[1].fan_go.any()),
-                  FFT_CAPTURED) as rf:
-        fsim2 = Simulator(cparams, fft, device=dev)
-        for step in range(1, FFT_ROUND_CTR):
-            if len(rf.seen) == FFT_CAPTURED or bool(fsim2.state.done.all()):
-                break
-            fsim2.run(max_steps=step)
-        del fsim2
     check(len(rf.seen) == FFT_CAPTURED,
           f"fft64: captured {len(rf.seen)} fan-out iterations, want "
           f"{FFT_CAPTURED}")
@@ -1656,14 +1778,11 @@ def main() -> int:
     stamp("phase 7: chain-12 stretch profiled")
 
     # ---- 8. the fast-forward paths at full width
-    def ff_run(label, p, ctrace, want, want_ps):
+    def ff_run(label, p, ctrace, want, want_ps, quanta=None, cut=None):
         held = peak_reset()
         sim = Simulator(p, ctrace, device=dev)
         reset_counts()
-        t0 = time.perf_counter()
-        s = sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        s, wall = advance(sim, quanta)
         lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         lf = COUNTS["fast_forward_walk"]
         engaged = COUNTS["ff_engaged"]
@@ -1674,11 +1793,9 @@ def main() -> int:
         # analytic round in which some tile engaged.
         passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
             - engaged
-        check(bool(s.done.all()), f"{label}: not all done")
+        check_end(label, sim, s, want_ps, cut)
         for k, v in want.items():
             check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
-        check(s.completion_time_ps == want_ps,
-              f"{label}: completion {s.completion_time_ps} != {want_ps}")
         check(lw == c["ctr_window"] and lw > 0,
               f"{label}: window_walk launches {lw} != ctr_window "
               f"{c['ctr_window']}")
@@ -1693,7 +1810,7 @@ def main() -> int:
         fan = int(s.counters["chain_fanout_served"].sum())
         fb = int(s.counters["chain_fallback"].sum())
         mips = s.total_instructions / wall / 1e6
-        print(f"{label}: all_done, round_ctr {r}, completion "
+        print(f"{label}: {end_word(quanta)}, round_ctr {r}, completion "
               f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
               f"instructions, chain_fanout_served {fan}, chain_fallback "
               f"{fb}; counters {c}, analytic rounds that engaged {engaged}, "
@@ -1707,12 +1824,14 @@ def main() -> int:
 
     s, lf_span, lc_f, _, _, wall_ms_ff = ff_run(
         f"radix64_ff_span keys_per_tile={CUT_KEYS}", fparams, cut_trace,
-        FF_SPAN_CTRS, FF_SPAN_COMPLETION_PS)
+        FF_SPAN_CTRS, FF_SPAN_COMPLETION_PS, quanta=FF_SPAN_QUANTA,
+        cut=FF_SPAN_CUT)
     check(lf_span > 0 and lc_f == 0,
           f"radix64_ff_span: fast_forward_walk launches {lf_span}, "
           f"chain_classify launches {lc_f}")
-    check(s.total_instructions == CUT_ICOUNT,
-          f"radix64_ff_span: icount {s.total_instructions} != {CUT_ICOUNT}")
+    check(s.total_instructions == FF_SPAN_ICOUNT,
+          f"radix64_ff_span: icount {s.total_instructions} != "
+          f"{FF_SPAN_ICOUNT}")
     stamp("phase 8: radix64_ff_span")
     # Phase 7's fast-forward stretch, held against the run just made.
     profile_stretch(fsim, wall_ms_ff, card, "radix64_ff_span",
@@ -1741,22 +1860,18 @@ def main() -> int:
     stamp("phase 8: fft64_ff")
 
     # ---- 9. one-card scale at full width
-    def scale_run(label, p, ctrace, want, want_ps, want_icount):
+    def scale_run(label, p, ctrace, want, want_ps, want_icount,
+                  quanta=None, cut=None):
         held = peak_reset()
         sim = Simulator(p, ctrace, device=dev)
         reset_counts()
-        t0 = time.perf_counter()
-        s = sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        s, wall = advance(sim, quanta)
         lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         c = round_ctrs(sim.state)
         r = c["round_ctr"]
-        check(bool(s.done.all()), f"{label}: not all done")
+        check_end(label, sim, s, want_ps, cut)
         for k, v in want.items():
             check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
-        check(s.completion_time_ps == want_ps,
-              f"{label}: completion {s.completion_time_ps} != {want_ps}")
         check(s.total_instructions == want_icount,
               f"{label}: icount {s.total_instructions} != {want_icount}")
         check(lw == c["ctr_window"] and lw > 0,
@@ -1770,7 +1885,7 @@ def main() -> int:
         fan = int(s.counters["chain_fanout_served"].sum())
         fb = int(s.counters["chain_fallback"].sum())
         mips = s.total_instructions / wall / 1e6
-        print(f"{label}: all_done, round_ctr {r}, completion "
+        print(f"{label}: {end_word(quanta)}, round_ctr {r}, completion "
               f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
               f"instructions, chain_fanout_served {fan}, chain_fallback "
               f"{fb}; counters {c}")
@@ -1809,7 +1924,8 @@ def main() -> int:
     p256 = config(**{"general/total_cores": 256})
     scale_run("radix256", p256,
               synth.gen_radix(256, keys_per_tile=96, radix=256, seed=0),
-              RADIX256_CTRS, RADIX256_COMPLETION_PS, RADIX256_ICOUNT)
+              RADIX256_CTRS, RADIX256_COMPLETION_PS, RADIX256_ICOUNT,
+              quanta=RADIX256_QUANTA, cut=RADIX256_CUT)
     stamp("phase 9: radix256")
     # T = 512, the last size with dense one-hot [T, H] tables (4,194,304
     # elements each): a cut run, for its peak device memory.
@@ -1835,7 +1951,8 @@ def main() -> int:
     stamp("phase 9: radix512 cut")
 
     # ---- 10. the coherence protocols at full width
-    def proto_run(label, p, ptrace, want, want_ps, want_icount):
+    def proto_run(label, p, ptrace, want, want_ps, want_icount,
+                  quanta=None, cut=None):
         """One protocol path, exact against its pins; the run records
         (clones of) the operands of its first window walks, replay
         iterations and analytic rounds, on which each kernel is held
@@ -1849,22 +1966,17 @@ def main() -> int:
                 Recorder(kres.kchain, "run_chain_step", any_head, 4) as rcp, \
                 Recorder(kcore.kwindow, "run_fast_forward",
                          lambda fi: bool(fi.tile_active.any()), 2) as rfp:
-            t0 = time.perf_counter()
-            s = sim.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            s, wall = advance(sim, quanta)
         lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         lf, engaged = COUNTS["fast_forward_walk"], COUNTS["ff_engaged"]
         c = round_ctrs(sim.state)
         r = c["round_ctr"]
         passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
             - engaged
-        check(bool(s.done.all()), f"{label}: not all done")
+        check_end(label, sim, s, want_ps, cut)
         for k, v in want.items():
             check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
-        check(s.completion_time_ps == want_ps,
-              f"{label}: completion {s.completion_time_ps} != {want_ps}")
-        check(s.total_instructions == want_icount,
+        check(want_icount is None or s.total_instructions == want_icount,
               f"{label}: icount {s.total_instructions} != {want_icount}")
         check(lw == c["ctr_window"] and lw > 0,
               f"{label}: window_walk launches {lw} != ctr_window "
@@ -1877,7 +1989,7 @@ def main() -> int:
         fan = int(s.counters["chain_fanout_served"].sum())
         fb = int(s.counters["chain_fallback"].sum())
         mips = s.total_instructions / wall / 1e6
-        print(f"{label}: all_done, round_ctr {r}, completion "
+        print(f"{label}: {end_word(quanta)}, round_ctr {r}, completion "
               f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
               f"instructions, chain_fanout_served {fan}, chain_fallback "
               f"{fb}, dram_reads {int(s.counters['dram_reads'].sum())}, "
@@ -1955,7 +2067,8 @@ def main() -> int:
     lw, lc, lf, _, _ = proto_run(
         f"radix64_shl2_mesi_ff_span keys_per_tile={CUT_KEYS}",
         config(**SHL2_MESI_FF), cut_trace, SHL2_MESI_FF_CTRS,
-        SHL2_MESI_FF_COMPLETION_PS, CUT_ICOUNT)
+        SHL2_MESI_FF_COMPLETION_PS, None, quanta=SHL2_MESI_FF_QUANTA,
+        cut=SHL2_MESI_FF_CUT)
     check(lw > 0 and lc > 0 and lf > 0,
           f"radix64_shl2_mesi_ff_span: launches window_walk {lw}, "
           f"chain_classify {lc}, fast_forward_walk {lf}: each kernel must "
@@ -1978,6 +2091,252 @@ def main() -> int:
           f"fft64_shl2_msi: chain_fanout_served {fan} / chain_fallback {fb} "
           f"!= {FFT_SHL2_FANOUT} / {FFT_SHL2_FALLBACK}")
     stamp("phase 10: fft64_shl2_msi")
+
+    # ---- 11. the network models: each kernel's network branch on seeded
+    # sets (ATAC under both routings and receive networks, at cluster
+    # sizes 4 and 16; the hop-by-hop mesh with its queue model off; the
+    # default emesh_hop_counter beside them for time), then two full-width
+    # paths, each exact against its JAX pins
+    def atac(net, cs=4, routing="cluster_based", rnet="star"):
+        return {f"network/{net}": "atac", "network/atac/cluster_size": cs,
+                "network/atac/global_routing_strategy": routing,
+                "network/atac/receive_network_type": rnet}
+
+    def clusters(p, net):
+        return noc_atac.geometry(getattr(p, f"net_{net}").atac, dev)[0]
+
+    net_cases = {
+        "emesh": {},
+        "atac_cs4": atac("memory"),
+        "atac_cs16_distance_btree": atac("memory", 16, "distance_based",
+                                         "btree"),
+        "hbh_queue_off": {"network/memory": "emesh_hop_by_hop"},
+    }
+    net_times = {}
+    nc = fan_same = fan_other = 0
+    for name, over in net_cases.items():
+        # the fan-out replay and the DRAM queue both on (H = 1,024) and
+        # both off (a colliding H = 4)
+        for fan, h in ((True, H), (False, 4)):
+            p = config(**{**over, "tpu/miss_chain": CHAIN,
+                          "tpu/fanout_replay": fan,
+                          "dram/queue_model/enabled": fan})
+            v = variant_params(p)
+            si = chain_step_in_from_numpy(
+                random_chain_step_arrays(p, h, nc), dev)
+            got, ref = step_pair(kchain, p, v, si, h)
+            torch.cuda.synchronize()
+            err_c = max(err_c, compare_step(
+                got, ref, f"{name} fanout={fan} queue={fan} H={h} "
+                          f"seed {nc}"))
+            nc += 1
+            if p.net_memory.model == "atac" and fan:
+                head, out = ref
+                cl = clusters(p, "memory")
+                for k in range(out.inv_bool.shape[0]):
+                    rows = torch.nonzero(out.fan_go & (
+                        head.line == out.line_fr[k]))
+                    if rows.numel() and bool(out.inv_bool[k].any()):
+                        hc = cl[head.home[rows[0, 0]]]
+                        tc = cl[out.inv_bool[k]]
+                        fan_same += int((tc == hc).sum())
+                        fan_other += int((tc != hc).sum())
+            if fan:
+                # timed on a set of its own, as phase 3 times its sets
+                st = chain_step_in_from_numpy(
+                    random_chain_step_arrays(p, H, 0), dev)
+                net_times[("chain_classify", name)] = device_ms(
+                    lambda: kchain.chain_step_cuda(p, v, st, H),
+                    "chain_classify_kernel")
+                if name != "emesh":
+                    net_times[("chain_bound", name)] = chain_bytes(
+                        p, st, *kchain.chain_step(p, v, st, H)) \
+                        / HBM_BYTES_PER_S * 1e3
+    check(fan_same > 0 and fan_other > 0,
+          f"chain_classify atac: fan-out targets in the home's cluster "
+          f"{fan_same}, in others {fan_other}")
+    # shared-L2 slice misses whose controller sits in another cluster,
+    # and the wide form at T = 1024 under both routings (one operand set:
+    # the arrays do not depend on the network)
+    far = 0
+    wide_arrays = None
+    for routing in ("cluster_based", "distance_based"):
+        p = config(**{**atac("memory", 16, routing), "tpu/miss_chain": CHAIN,
+                      "caching_protocol/type": SH_MSI,
+                      "dram/queue_model/enabled": False,
+                      "dram/num_controllers": T // 4})
+        v = variant_params(p)
+        cl = clusters(p, "memory")
+        for seed in range(2):
+            si = chain_step_in_from_numpy(
+                random_chain_step_arrays(p, H, seed), dev)
+            got, ref = step_pair(kchain, p, v, si, H)
+            torch.cuda.synchronize()
+            err_c = max(err_c, compare_step(got, ref, f"atac {routing} "
+                                            f"shared L2 seed {seed}"))
+            head, out = ref
+            m = out.need_read & (out.from_dram_ps > 0)
+            site = dense.dram_site_of_line(p, head.line[m]).to(torch.int64)
+            far += int((cl[site] != cl[head.home[m].to(torch.int64)]).sum())
+            nc += 1
+        # (phase 3's small directory: its arrays are quick to make)
+        pw = config(**{**atac("memory", 16, routing), "tpu/miss_chain": CHAIN,
+                       "general/total_cores": T1k,
+                       "dram_directory/total_entries": 256})
+        vw = variant_params(pw)
+        check(kchain.chain_step_entry(pw, vw, SCALE_H, 16).wide,
+              "chain_classify T=1024 atac: not the wide form")
+        if wide_arrays is None:
+            wide_arrays = random_chain_step_arrays(pw, SCALE_H, 0)
+        si = chain_step_in_from_numpy(wide_arrays, dev)
+        got, ref = step_pair(kchain, pw, vw, si, SCALE_H)
+        torch.cuda.synchronize()
+        err_c = max(err_c, compare_step(got, ref, f"T=1024 atac {routing}"))
+        nc += 1
+    check(far > 0, "chain_classify atac shared L2: no slice miss whose "
+                   "controller sits in another cluster")
+    stamp("phase 11: chain_classify network sets")
+    # window_walk: SPAWN rows under each user network
+    walk_nets = {
+        "emesh": {},
+        "atac_cs4": atac("user"),
+        "atac_cs16_distance_btree": atac("user", 16, "distance_based",
+                                         "btree"),
+        "hbh": {"network/user": "emesh_hop_by_hop"},
+    }
+    nw = crossing = 0
+    for name, over in walk_nets.items():
+        for P in (0, CHAIN):
+            p = config(**{**over, "tpu/miss_chain": P})
+            v = variant_params(p)
+            for Kw in (K, 64):
+                for seed in (nw % 4,):
+                    wi = window_in_from_numpy(
+                        spawn_window_arrays(p, Kw, seed), dev)
+                    got, ref = walk_pair(kwin, p, v, wi, T)
+                    torch.cuda.synchronize()
+                    err_w = max(err_w, compare(
+                        "window_walk", got, ref, f"{name} P={P} K={Kw} "
+                                                 f"spawn seed {seed}"))
+                    nw += 1
+                    if p.net_user.model == "atac":
+                        cl = clusters(p, "user")
+                        src = wi.tile_ids.to(torch.int64)[:, None].expand(
+                            T, Kw)
+                        dst = ref.spawn_child.to(torch.int64) % T
+                        crossing += int(((wi.meta[0] == EventOp.SPAWN)
+                                         & (cl[src] != cl[dst])).sum())
+            if P == 0:
+                wi = window_in_from_numpy(spawn_window_arrays(p, K, 0), dev)
+                net_times[("window_walk", name)] = walk_device_ms(
+                    kwin, p, v, wi, T, launches=50)
+                if name != "emesh":
+                    net_times[("window_bound", name)] = window_bytes(
+                        p, v, wi, kwin.window_walk(p, v, wi, T)) \
+                        / HBM_BYTES_PER_S * 1e3
+    check(crossing > 0, "window_walk atac: no SPAWN across clusters")
+    print(f"kernel chain_classify networks: {nc} operand sets (fan-out "
+          f"targets in the home's cluster {fan_same}, in others "
+          f"{fan_other}; {far} shared-L2 slice misses whose controller sits "
+          f"in another cluster; the wide form at T = 1024 under both "
+          f"routings), every ChainHead and ChainOut field equal to the "
+          f"plain step (max abs err {err_c}); kernel window_walk networks: "
+          f"{nw} operand sets with SPAWN rows ({crossing} across ATAC "
+          f"clusters), every output equal to the plain form (max abs err "
+          f"{err_w})")
+    for (kname, name), ms in sorted(net_times.items()):
+        what = (f"bound {ms:.9f} ms" if kname.endswith("bound")
+                else f"device {fmt_ms(ms)}")
+        print(f"kernel network time {kname} {name}: {what} per launch on "
+              f"{card}")
+    stamp("phase 11: network operand sets")
+
+    def net_run(label, p, ptrace, want, want_ps, want_wait, contended,
+                quanta=None, cut=None):
+        """One network path, exact against its pins; the run records the
+        operands of its first window walks and replay iterations, on which
+        the kernels are held against their plain forms once the launch
+        counts are read."""
+        nonlocal err_w, err_c
+        held = peak_reset()
+        sim = Simulator(p, ptrace, device=dev)
+        reset_counts()
+        with Recorder(kcore.kwindow, "run_window",
+                      lambda wi: bool(wi.tile_active.any()), 2) as rwp, \
+                Recorder(kres.kchain, "run_chain_step", any_head, 4) as rcp:
+            s, wall = advance(sim, quanta)
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+        c = round_ctrs(sim.state)
+        r = c["round_ctr"]
+        passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"]
+        wait = int(s.counters["net_link_wait_ps"].sum())
+        check_end(label, sim, s, want_ps, cut)
+        for k, v in want.items():
+            check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
+        check(wait == want_wait, f"{label}: net_link_wait_ps {wait} != "
+                                 f"{want_wait}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{label}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        if contended:
+            # the chain pass stands down; the window walk banks and the
+            # conflict rounds fly every leg
+            check(lc == 0 and passes == 0 and wait > 0,
+                  f"{label}: chain_classify launches {lc}, chain passes "
+                  f"{passes}, link wait {wait}")
+        else:
+            check(passes == c["ctr_resolve"] and lc == p.miss_chain * passes
+                  and lc > 0, f"{label}: chain_classify launches {lc} != "
+                              f"{p.miss_chain} x {passes} chain passes")
+        fan = int(s.counters["chain_fanout_served"].sum())
+        fb = int(s.counters["chain_fallback"].sum())
+        print(f"{label}: {end_word(quanta)}, round_ctr {r}, completion "
+              f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
+              f"instructions, net_link_wait_ps {wait}, chain_fanout_served "
+              f"{fan}, chain_fallback {fb}; counters {c}")
+        print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
+              f"{1e3 * wall / r:.4f} ms/round, simulated MIPS "
+              f"{s.total_instructions / wall / 1e6:.6f}, {peak_line(held)}, "
+              f"window_walk launches {lw}, chain_classify launches {lc} on "
+              f"{card}")
+        del sim
+        v = variant_params(p)
+        check(bool(rwp.seen) and (contended or bool(rcp.seen)),
+              f"{label}: recorded {len(rwp.seen)} windows and "
+              f"{len(rcp.seen)} replay iterations")
+        for i, wi in enumerate(rwp.seen):
+            got, ref = walk_pair(kwin, p, v, wi, T)
+            torch.cuda.synchronize()
+            err_w = max(err_w, compare("window_walk", got, ref,
+                                       f"{label} window {i}"))
+        for i, si in enumerate(rcp.seen):
+            got, ref = step_pair(kchain, p, v, si, H)
+            torch.cuda.synchronize()
+            err_c = max(err_c, compare_step(got, ref,
+                                            f"{label} iteration {i}"))
+        print(f"{label}: kernels held on the run's recorded operands "
+              f"({len(rwp.seen)} windows, {len(rcp.seen)} replay "
+              f"iterations), max abs err window {err_w}, chain {err_c}")
+        return lw, lc, fan, fb
+
+    fft_net = synth.gen_fft(64, points_per_tile=NET_FFT_POINTS,
+                            writeback=True)
+    _, _, fan, fb = net_run(
+        f"fft64_atac_chain12 points_per_tile={NET_FFT_POINTS}",
+        config(**{"network/memory": "atac", "network/user": "atac",
+                  "tpu/miss_chain": CHAIN}), fft_net,
+        FFT_ATAC_CTRS, FFT_ATAC_COMPLETION_PS, 0, contended=False)
+    check(fan == FFT_ATAC_FANOUT and fb == FFT_ATAC_FALLBACK,
+          f"fft64_atac_chain12: chain_fanout_served {fan} / chain_fallback "
+          f"{fb} != {FFT_ATAC_FANOUT} / {FFT_ATAC_FALLBACK}")
+    stamp("phase 11: fft64_atac_chain12")
+    net_run(f"fft64_hbh_contended points_per_tile={NET_FFT_POINTS}",
+            config(**{"network/memory": "emesh_hop_by_hop",
+                      "network/emesh_hop_by_hop/queue_model/enabled": True,
+                      "tpu/miss_chain": CHAIN}), fft_net,
+            FFT_HBH_CTRS, FFT_HBH_COMPLETION_PS, FFT_HBH_LINK_WAIT_PS,
+            contended=True, quanta=FFT_HBH_QUANTA, cut=FFT_HBH_CUT)
+    stamp("phase 11: fft64_hbh_contended")
 
     kernels = [{
         "name": "window_walk",

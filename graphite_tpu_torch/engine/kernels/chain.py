@@ -11,7 +11,9 @@ the completion time and the per-line floor write.  It is the
 counterpart of ``graphite_tpu/engine/kernels/chain.py:134``,
 transliterated for this slice's configuration: simple cores, a full-map
 directory under MSI or MOSI with private L2 or the per-tile L2 slices
-under shared-L2 MSI or MESI, zero-load networks.  The JAX package gathers each
+under shared-L2 MSI or MESI, every memory-network model in its zero-load
+form (the mesh, and ATAC's ENet / ONet legs by cluster; the pass stands
+down when the hop-by-hop mesh's links contend).  The JAX package gathers each
 iteration's heads and directory rows outside its Pallas kernel
 (``graphite_tpu/engine/resolve.py:264-285``); here they are part of the
 step (:func:`chain_head`, :func:`chain_rows`).
@@ -51,6 +53,7 @@ from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import dense
 from graphite_tpu_torch.engine import directory as dirmod
 from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine import noc_atac
 from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.ops import first_true, scatter, umod64
 from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
@@ -651,15 +654,16 @@ class _FastDiv(ctypes.Structure):
                 ("shift", ctypes.c_int64)]
 
 
-_IN_PTRS = ChainStepIn._fields + ("out", "ws")
+_IN_PTRS = ChainStepIn._fields + ("out", "ws", "cluster_of", "ap_hops")
 # The operands one chain pass holds fixed: checked, and their pointers
 # set, when they are new tensors.
 _PASS_FIELDS = ("mq_req", "mq_delta", "mq_extra", "stop_hi", "p_net",
                 "p_dir", "p_l2", "p_l1d", "p_l1i", "p_core", "ftbl")
 _SCALARS = ("T", "P", "A", "W", "D", "H", "KF", "fanout", "queue_on",
             "ndsets", "home_stride", "home_bits", "site_stride",
-            "site_bits", "dset_bits", "mesh_width", "net_magic",
-            "hop_cycles", "ser_req", "ser_data", "inv_ack_cycles",
+            "site_bits", "dset_bits", "mesh_width", "net_kind",
+            "hop_cycles", "ser_req", "ser_data", "onet_cycles", "atac_dist",
+            "atac_thresh", "inv_ack_cycles",
             "dir_cycles", "l2_cycles", "l1d_cycles", "l1i_cycles",
             "dram_latency_ps", "dram_processing_ps", "wide", "proto")
 # The divisors: H; the homes a line folds over (the controllers, or every
@@ -668,6 +672,7 @@ _SCALARS = ("T", "P", "A", "W", "D", "H", "KF", "fanout", "queue_on",
 _DIVS = ("div_h", "div_home", "div_site", "div_dsets")
 # The kernel's protocol codes (csrc/chain_classify.cu Proto).
 PROTO_CODES = {"msi": 0, "mosi": 1, "sh_l2_msi": 2, "sh_l2_mesi": 3}
+
 
 
 # The kernel's array offsets and region sizes (struct Layout in
@@ -709,7 +714,6 @@ class _Step:
                  W: int):
         check_chain_config(params, "cuda")
         net = params.net_memory
-        noc._zero_load_only(net)
         T = params.num_tiles
         A = params.directory.associativity
         KF = min(params.max_inv_fanout_per_round, T)
@@ -731,6 +735,7 @@ class _Step:
                 f"bytes) is not step_layout_bytes' ({self.smem}, "
                 f"{self.ws_bytes})")
         self.ws = None
+        self.tables = None        # the atac tables on the pass's device
         self.params, self.vp, self.H, self.W = params, vp, H, W
         self.layout = StepLayout(params, W)
         self.pass_ops = None      # the pass operands last checked
@@ -751,7 +756,7 @@ class _Step:
             site_bits=max(nctrl.bit_length() - 1, 1),
             dset_bits=ndsets.bit_length() - 1,
             mesh_width=params.mesh_width,
-            net_magic=int(net.model == "magic"),
+            **noc_atac.kernel_scalars(net, vp.net_memory),
             hop_cycles=vp.net_memory.router_delay_cycles
             + vp.net_memory.link_delay_cycles,
             ser_req=max(noc.num_flits(CTRL_BYTES, fw) - 1, 0),
@@ -794,6 +799,9 @@ class _Step:
             _check("ftbl", si.ftbl, torch.int64, (2, self.H), dev)
         for n, t in zip(_PASS_FIELDS, fixed):
             setattr(self.args, n, t.data_ptr() if t is not None else None)
+        self.tables = noc_atac.kernel_tables(p.net_memory, dev)
+        self.args.cluster_of, self.args.ap_hops = (
+            t.data_ptr() if t is not None else None for t in self.tables)
         self.pass_ops = fixed
 
     def check(self, si: ChainStepIn) -> None:

@@ -14,8 +14,12 @@
 //
 // Scope: a full-map directory under every coherence protocol of the
 // engine (`proto`: MSI or MOSI with private L2; shared-L2 MSI or MESI,
-// where the directory is the per-tile L2 slice), zero-load memory
-// network (magic or emesh_hop_counter), fan-out replay on or off, the
+// where the directory is the per-tile L2 slice), every memory-network
+// model in its zero-load form (`net_kind`: magic; the electrical mesh of
+// emesh_hop_counter and of emesh_hop_by_hop, which prices as the hop
+// counter wherever the chain pass runs; atac, whose unicast legs take
+// the ENet or the ONet by the sender's and receiver's clusters, from the
+// per-tile `cluster_of` and `ap_hops` tables), fan-out replay on or off, the
 // DRAM queue model on (the caller prices the queue) or off (this kernel
 // computes the completion and writes the per-line floor table IN PLACE).
 // The wrapper refuses anything else.  The protocol's transition is one
@@ -52,7 +56,8 @@
 //                    the victim scan read it from here, once each)
 //   invt  uint64[T, W] each row's invalidation bitmap words
 //   per row: FCFS key, line, flat set, home, owner, way, (x, y), two
-//   flags; per fan-out slot its row, target count and farthest hop.
+//   flags; per fan-out slot its row, target count and the network
+//   cycles to its farthest target.
 //
 // Two forms, chosen by the wrapper from the sizes (chain.py step_form),
 // never as a fallback:
@@ -90,7 +95,10 @@
 //      LAST row win);
 //   6  per tile: members, hard stops, timing legs, outputs; whole block:
 //      the [KF, T] masks, one thread per (slot, tile), with counts and
-//      farthest hops by shared-memory atomics (fan-out only);
+//      the farthest target's cycles by shared-memory atomics (fan-out
+//      only; under atac each target is priced by its own route, and on
+//      the mesh the cycles are the hops times a constant, so one
+//      maximum serves every network);
 //   7  per tile: fan-out legs; queue off: completion and the floor key
 //      (atomicMax on the unique t_data * T + row);
 //   8  queue off: each slot's single winner writes the floor table.
@@ -108,6 +116,8 @@ namespace {
 constexpr int ST_I = 0, ST_S = 1, ST_O = 2, ST_E = 3, ST_M = 4;
 // Protocols (chain.py PROTO_CODES).
 constexpr int64_t P_MSI = 0, P_MOSI = 1, P_SH_MSI = 2, P_SH_MESI = 3;
+// Memory-network kinds (noc_atac.KERNEL_NET_CODES).
+constexpr int64_t NET_MAGIC = 0, NET_MESH = 1, NET_ATAC = 2;
 // A row's flags, kept in one register across the block's barriers (the
 // wide form's 1,024 threads leave each one 64 registers).
 constexpr uint32_t R_ACT = 1u << 0, R_ISX = 1u << 1, R_ISF = 1u << 2,
@@ -144,7 +154,7 @@ struct FastDiv {
 // workspace and stages no directory rows.  `smem` and `ws` are the sizes.
 struct Layout {
   size_t tblA, tblB, exa, drow, packed, line, invt, issue0, fidx, home,
-      owner, way, xy, frrow, kcnt, kmaxh, fan, oact;
+      owner, way, xy, frrow, kcnt, kmaxc, fan, oact;
   size_t smem, ws;
 };
 
@@ -168,6 +178,8 @@ struct StepArgs {
   int64_t* ftbl;               // [2, H] (queue off, in place) or null
   unsigned char* out;          // one buffer holding every output leaf
   unsigned char* ws;           // the wide form's workspace (else null)
+  const int32_t* cluster_of;   // [T] atac: each tile's cluster (else null)
+  const int32_t* ap_hops;      // [T] atac: hops to its access point
   // byte offsets of the leaves in `out` (chain.py _LEAVES; -1 absent)
   int64_t off_line, off_issue, off_extra, off_t_dir, off_owner_ps,
       off_inv_ps, off_reply_ps, off_from_dram_ps, off_dram_arrival,
@@ -182,7 +194,10 @@ struct StepArgs {
   int64_t T, P, A, W, D, H, KF;
   int64_t fanout, queue_on, ndsets, home_stride, home_bits, site_stride,
       site_bits, dset_bits;
-  int64_t mesh_width, net_magic, hop_cycles, ser_req, ser_data;
+  int64_t mesh_width, net_kind, hop_cycles, ser_req, ser_data;
+  // atac: the ONet's cycles past the access point, distance_based
+  // routing (1) or cluster_based (0), and its unicast hop threshold
+  int64_t onet_cycles, atac_dist, atac_thresh;
   int64_t inv_ack_cycles, dir_cycles, l2_cycles, l1d_cycles, l1i_cycles;
   int64_t dram_latency_ps, dram_processing_ps;
   int64_t wide;                // 1: the wide form (kWide)
@@ -247,12 +262,25 @@ __device__ __forceinline__ int hops(const uint32_t* xy, int s, int d) {
   return abs(sx - dx) + abs(sy - dy);
 }
 
+// Zero-load unicast cycles s -> d before the tail's serialisation (the
+// mesh: hops; atac: noc_atac.unicast_cycles, the ENet within a cluster
+// or, distance_based, within the threshold, else the ONet).
+__device__ __forceinline__ int32_t net_cycles(const StepArgs& a,
+                                              const uint32_t* xy, int s,
+                                              int d) {
+  const int h = hops(xy, s, d);
+  if (a.net_kind == NET_ATAC && a.cluster_of[s] != a.cluster_of[d] &&
+      !(a.atac_dist && h <= a.atac_thresh))
+    return static_cast<int32_t>(a.ap_hops[s] * a.hop_cycles + a.onet_cycles);
+  return static_cast<int32_t>(h * a.hop_cycles);
+}
+
 // Zero-load unicast latency in ps (noc.unicast_ps).
 __device__ __forceinline__ int64_t unicast(const StepArgs& a,
                                            const uint32_t* xy, int s, int d,
                                            int64_t ser, int64_t period) {
-  if (a.net_magic) return 0;
-  return (hops(xy, s, d) * a.hop_cycles + ser) * period;
+  if (a.net_kind == NET_MAGIC) return 0;
+  return (net_cycles(a, xy, s, d) + ser) * period;
 }
 
 // One request's directory transition (engine/directory.py transition):
@@ -339,7 +367,7 @@ __host__ __device__ __forceinline__ Layout make_layout(int64_t T, int64_t A,
   L.xy = take(s, sizeof(uint32_t) * T);
   L.frrow = take(s, sizeof(int32_t) * KF);
   L.kcnt = take(s, sizeof(int32_t) * KF);
-  L.kmaxh = take(s, sizeof(int32_t) * KF);
+  L.kmaxc = take(s, sizeof(int32_t) * KF);
   L.fan = take(s, T);
   L.oact = s;
   L.smem = s + T;
@@ -381,7 +409,7 @@ chain_classify_kernel(StepArgs a) {
   uint32_t* xy_s = reinterpret_cast<uint32_t*>(smem + L.xy);
   int32_t* frrow_s = reinterpret_cast<int32_t*>(smem + L.frrow);
   int32_t* kcnt_s = reinterpret_cast<int32_t*>(smem + L.kcnt);
-  int32_t* kmaxh_s = reinterpret_cast<int32_t*>(smem + L.kmaxh);
+  int32_t* kmaxc_s = reinterpret_cast<int32_t*>(smem + L.kmaxc);
   uint8_t* fan_s = smem + L.fan;     // needs the fan-out budget
   uint8_t* oact_s = smem + L.oact;   // needs the owner-delivery budget
 
@@ -394,7 +422,7 @@ chain_classify_kernel(StepArgs a) {
   for (int k = tid; k < KF; k += nthr) {
     frrow_s[k] = -1;
     kcnt_s[k] = 0;
-    kmaxh_s[k] = 0;
+    kmaxc_s[k] = 0;
   }
   if (tid == 0) issue0_s[0] = kBig;
 
@@ -733,7 +761,7 @@ chain_classify_kernel(StepArgs a) {
       inv_bool[i] = bit;
       if (bit) {
         atomicAdd(&kcnt_s[k], 1);
-        atomicMax(&kmaxh_s[k], hops(xy_s, home_s[r], j));
+        atomicMax(&kmaxc_s[k], net_cycles(a, xy_s, home_s[r], j));
       }
     }
     for (int k = tid; k < KF; k += nthr) {
@@ -752,9 +780,8 @@ chain_classify_kernel(StepArgs a) {
     if (a.fanout && on(fl, R_FANGO)) {
       icnt = kcnt_s[fan_rank];
       const int64_t mh_ps =
-          (!a.net_magic && icnt > 0)
-              ? (kmaxh_s[fan_rank] * a.hop_cycles + a.ser_req) *
-                    a.p_net[home_s[t]]
+          (a.net_kind != NET_MAGIC && icnt > 0)
+              ? (kmaxc_s[fan_rank] + a.ser_req) * a.p_net[home_s[t]]
               : 0;
       ips = 2 * mh_ps + a.inv_ack_cycles * a.p_core[t];
     }

@@ -13,7 +13,11 @@
 // private L2 (shared-L2 MSI and MESI: `shared_l2`, the L2 pointer null),
 // miss chains off (P = 0) or on (P = tpu/miss_chain > 0, with or without
 // the fan-out replay's forwarding and boundary spanning), one-bit or no
-// branch predictor, LRU or round-robin L1 replacement.  The wrapper
+// branch predictor, LRU or round-robin L1 replacement, and every
+// user-network model for the SPAWN landing leg (`nu_kind`: magic; the
+// mesh's XY hops, emesh_hop_counter or emesh_hop_by_hop, zero-load in
+// both packages here; atac's ENet or ONet by the two tiles' clusters,
+// from the per-tile `cluster_of` and `ap_hops` tables).  The wrapper
 // refuses iocoom cores and windows wider than 64.
 //
 // Shared L2: an L1 miss goes to the home slice (no L2 probe, fill,
@@ -107,6 +111,8 @@ constexpr int64_t kStampField = (1LL << 29) - 1;
 constexpr int64_t kStampMask = kStampField << 3;
 constexpr int64_t kNegFloor = -(1LL << 62);
 constexpr int64_t kIcacheBytesPerInstruction = 4;
+// User-network kinds (noc_atac.KERNEL_NET_CODES).
+constexpr int64_t NET_MAGIC = 0, NET_ATAC = 2;
 
 }  // namespace
 
@@ -147,6 +153,10 @@ struct WalkArgs {
   int64_t* mq_extra;              // [P, T]
   int64_t* chain_rel_out;         // [T]
   int32_t* mq_count_out;          // [T]
+  // atac user network: each tile's cluster and its hops to its optical
+  // access point (null otherwise)
+  const int32_t* cluster_of;      // [T]
+  const int32_t* ap_hops;         // [T]
   // geometry and timing
   int64_t T, K, NM;
   int64_t l1i_assoc, l1i_sets, l1i_round_robin;
@@ -157,7 +167,10 @@ struct WalkArgs {
   int64_t l1i_cycles, l1d_cycles, l2_cycles, bp_penalty;
   int64_t col_core, col_l1i, col_l1d, col_l2, col_nu;
   int64_t s_ids, num_tiles, mesh_width;
-  int64_t nu_magic, nu_hop_cycles, nu_ser_cycles;
+  int64_t nu_kind, nu_hop_cycles, nu_ser_cycles;
+  // atac: the ONet's cycles past the access point, distance_based
+  // routing (1) or cluster_based (0), the unicast hop threshold
+  int64_t nu_onet_cycles, nu_atac_dist, nu_atac_thresh;
   int64_t P;                      // miss_chain (0: no chains)
   int64_t wfwd;                   // fan-out replay forwarding (P > 0)
   int64_t qps;                    // quantum, ps: mid-chain overrun credit
@@ -316,7 +329,7 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   int32_t child = arg2 < 0 ? 0 : arg2;
   if (child > a.s_ids - 1) child = static_cast<int32_t>(a.s_ids - 1);
   int64_t net = 0;
-  if (!a.nu_magic) {
+  if (a.nu_kind != NET_MAGIC) {
     const int64_t dst = fmod_pos(child, a.num_tiles);
     const int64_t mw = a.mesh_width;
     const int64_t src = a.tile_ids[t];
@@ -324,7 +337,13 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
     const int64_t dx = fmod_pos(dst, mw), dy = dst / mw;
     const int64_t hops = (sx > dx ? sx - dx : dx - sx) +
                          (sy > dy ? sy - dy : dy - sy);
-    net = (hops * a.nu_hop_cycles + a.nu_ser_cycles) * p_nu;
+    int64_t cyc = hops * a.nu_hop_cycles;
+    // atac (noc_atac.unicast_cycles): another cluster beyond the
+    // distance threshold takes the ONet
+    if (a.nu_kind == NET_ATAC && a.cluster_of[src] != a.cluster_of[dst] &&
+        !(a.nu_atac_dist && hops <= a.nu_atac_thresh))
+      cyc = a.ap_hops[src] * a.nu_hop_cycles + a.nu_onet_cycles;
+    net = (cyc + a.nu_ser_cycles) * p_nu;
   }
 
   // ---- a tile that retires nothing (inactive, or models disabled):

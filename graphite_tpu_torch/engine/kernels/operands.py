@@ -318,6 +318,24 @@ def seeded_window_arrays(params: SimParams, K: int, seed: int) -> dict:
     return a
 
 
+def spawn_window_arrays(params: SimParams, K: int, seed: int) -> dict:
+    """Walk operands (as :func:`random_window_arrays`) in which a quarter
+    of the events are SPAWNs with children spread over every tile (and a
+    few ids past the tile count and below 0, which the walk clips and
+    wraps), so that the spawn landing leg crosses the user network
+    between every pair of clusters and within each."""
+    a = random_window_arrays(params, K, seed)
+    rng = np.random.default_rng(10_000 + seed)
+    T = params.num_tiles
+    op, arg, arg2 = (x.copy() for x in a["meta"])
+    sp = rng.random((T, K)) < 0.25
+    op = np.where(sp, int(EventOp.SPAWN), op)
+    arg = np.where(sp, rng.integers(0, 40, (T, K)), arg)
+    arg2 = np.where(sp, rng.integers(-2, 2 * T, (T, K)), arg2)
+    a["meta"] = np.stack([op, arg, arg2]).astype(np.int32)
+    return a
+
+
 def window_in_from_numpy(arrays: dict, device) -> WindowIn:
     """A :class:`WindowIn` on ``device`` from numpy operands."""
     dev = torch.device(device)

@@ -49,6 +49,7 @@ import torch
 
 from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine import noc_atac
 from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.ops import first_true, scatter
 from graphite_tpu_torch.engine.state import (PEND_EX_REQ, PEND_IFETCH,
@@ -616,14 +617,16 @@ class _WalkArgs(ctypes.Structure):
         "bp", "l1i", "l1i_rr", "l1d", "l1d_rr", "l2",
         "clock_out", "n_ret", "ctr_inc", "spawn_mask", "spawn_child",
         "spawn_land", "chain_rel", "mq_count", "mq_head", "mq_req",
-        "mq_delta", "mq_extra", "chain_rel_out", "mq_count_out")] + [
+        "mq_delta", "mq_extra", "chain_rel_out", "mq_count_out",
+        "cluster_of", "ap_hops")] + [
         (n, ctypes.c_int64) for n in (
         "T", "K", "NM", "l1i_assoc", "l1i_sets", "l1i_round_robin",
         "l1d_assoc", "l1d_sets", "l1d_round_robin", "l2_assoc", "l2_sets",
         "bp_size", "line_bits", "line_size", "l1i_cycles", "l1d_cycles",
         "l2_cycles", "bp_penalty", "col_core", "col_l1i", "col_l1d",
-        "col_l2", "col_nu", "s_ids", "num_tiles", "mesh_width", "nu_magic",
-        "nu_hop_cycles", "nu_ser_cycles", "P", "wfwd", "qps", "wbound_add",
+        "col_l2", "col_nu", "s_ids", "num_tiles", "mesh_width", "nu_kind",
+        "nu_hop_cycles", "nu_ser_cycles", "nu_onet_cycles", "nu_atac_dist",
+        "nu_atac_thresh", "P", "wfwd", "qps", "wbound_add",
         "l2_tags_cycles", "shared_l2", "mesi")]
 
 
@@ -718,7 +721,8 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
     """Pack pointers and scalars into the kernel's argument struct."""
     T, K = wi.addr.shape
     nu = params.net_user
-    noc._zero_load_only(nu)
+    net = noc_atac.kernel_scalars(nu, vp.net_user)
+    cluster_of, ap_hops = noc_atac.kernel_tables(nu, wi.clock.device)
     flits = noc.num_flits(8, vp.net_user.flit_width_bits)
     P = params.miss_chain
 
@@ -762,7 +766,9 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
         col_l1d=int(DVFSModule.L1_DCACHE), col_l2=int(DVFSModule.L2_CACHE),
         col_nu=int(DVFSModule.NETWORK_USER), s_ids=s_ids,
         num_tiles=params.num_tiles, mesh_width=params.mesh_width,
-        nu_magic=int(nu.model == "magic"),
+        nu_kind=net["net_kind"], nu_onet_cycles=net["onet_cycles"],
+        nu_atac_dist=net["atac_dist"], nu_atac_thresh=net["atac_thresh"],
+        cluster_of=ptr(cluster_of), ap_hops=ptr(ap_hops),
         nu_hop_cycles=vp.net_user.router_delay_cycles
         + vp.net_user.link_delay_cycles,
         nu_ser_cycles=max(flits - 1, 0),

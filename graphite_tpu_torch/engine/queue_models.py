@@ -6,8 +6,10 @@ common/shared_models/queue_model_history_list.cc): a request arriving in
 an idle gap of the controller's recorded busy intervals starts at once,
 one arriving inside a busy interval waits for its end, and a batch is
 serialised exactly in (arrival, row) order.  One merged interval per
-(controller, batch) is recorded into an [R, C] ring.  The ``basic`` and
-``m_g_1`` models are ported in a later slice.
+(controller, batch) is recorded into an [R, C] ring.  :func:`fcfs_start`
+is the horizon form of FCFS that the hop-by-hop mesh's links use
+(engine/noc_flight.py).  The ``basic`` and ``m_g_1`` models are ported
+in a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +36,28 @@ def _cumsum_doubling(x: torch.Tensor) -> torch.Tensor:
         v = v + pv
         d *= 2
     return v
+
+
+def fcfs_order(K: int, device):
+    """([K, K] "row j before row i" on equal arrivals, [K, K] identity)."""
+    rows = torch.arange(K, device=device)
+    return (rows[None, :] < rows[:, None],
+            torch.eye(K, dtype=torch.bool, device=device))
+
+
+def fcfs_start(same, arrival, svc, horizon, tie, eye):
+    """[K] FCFS service starts: row i starts at the latest of its arrival,
+    its resource's ``horizon`` and the end of every earlier request on
+    the same resource (``same`` [K, K]; earlier = by arrival, then by
+    row), in the closed form end_i = S_i + max_{j <= i}(a_j - S_{j-1}).
+    ``svc`` is 0 on rows that do not occupy; a row's own result is
+    meaningful only where it is valid."""
+    earlier = same & ((arrival[None, :] < arrival[:, None])
+                      | ((arrival[None, :] == arrival[:, None]) & tie))
+    s_prev = torch.sum(torch.where(earlier, svc[None, :], 0), dim=1)
+    cand = torch.maximum(arrival, horizon) - s_prev
+    return torch.amax(torch.where(earlier | eye, cand[None, :], _NEG),
+                      dim=1) + s_prev
 
 
 class RingFcfsResult(NamedTuple):

@@ -2,8 +2,9 @@
 
 Counterpart of ``graphite_tpu/engine/resolve.py`` on this slice's path:
 ``resolve_memory`` (a full-map directory under MSI or MOSI with private
-L2, or the per-tile L2 slices under shared-L2 MSI or MESI; zero-load
-mesh; the history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
+L2, or the per-tile L2 slices under shared-L2 MSI or MESI; every
+network model, with the hop-by-hop mesh's contended link flights; the
+history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
 the blocking chain replay ``chain_fast_pass`` in front of its conflict
 rounds, and ``resolve_barrier``.  Every parked request (or chain head) of
 every tile is priced and applied at once; same-line races are serialised
@@ -27,6 +28,7 @@ from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import dense
 from graphite_tpu_torch.engine import directory as dirmod
 from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine import noc_flight
 from graphite_tpu_torch.engine import queue_models
 from graphite_tpu_torch.engine.core import STAMP_STRIDE, _lat, _period, \
     mcp_tile
@@ -406,6 +408,13 @@ def _sh_l2_fills(params: SimParams, state: SimState, rows, line, is_ex,
     return state, vlive1 & (vs1 == M)
 
 
+def _contended(params: SimParams) -> bool:
+    """Memory-network legs contend per link: the hop-by-hop mesh with its
+    queue model on (with it off, the model prices as the hop counter)."""
+    return (params.net_memory.model == "emesh_hop_by_hop"
+            and params.net_memory.queue_model_enabled)
+
+
 def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                   ftbl: torch.Tensor):
     """One conflict round of resolve_memory (the JAX ``round_body``)."""
@@ -477,11 +486,15 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     oh_hidx = _oh(hidx, H) if dense_tables else None
     p_net_home = p_net[home.to(torch.int64)]
     p_dir_home = p_dir[home.to(torch.int64)]
-    net_req = noc.unicast_ps(params.net_memory, rows, home, kchain.CTRL_BYTES,
-                             p_net, params.mesh_width, vnet=vp.net_memory)
-    reply_ps = noc.unicast_ps(params.net_memory, home, rows,
-                              params.line_size + kchain.CTRL_BYTES, p_net_home,
-                              params.mesh_width, vnet=vp.net_memory)
+    contended = _contended(params)
+    if not contended:
+        net_req = noc.unicast_ps(params.net_memory, rows, home,
+                                 kchain.CTRL_BYTES, p_net, params.mesh_width,
+                                 vnet=vp.net_memory)
+        reply_ps = noc.unicast_ps(params.net_memory, home, rows,
+                                  params.line_size + kchain.CTRL_BYTES,
+                                  p_net_home, params.mesh_width,
+                                  vnet=vp.net_memory)
     dir_ps = _lat(vp.dir_access_cycles, p_dir_home)
     ftbl_g = ftbl[:, hidx]                     # [2, T]
     line_floor = torch.where(ftbl_g[0] == line, ftbl_g[1], 0)
@@ -705,16 +718,49 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     else:
         l2_vown_ps = _lat(vp.l2_access_cycles, p_l2[vown_c])
 
-    # ---- latency assembly (zero-load legs)
-    arrive = torch.maximum(issue + net_req, line_floor)
-    evict_m_ps = noc.unicast_ps(
-        params.net_memory, home, vown_c, kchain.CTRL_BYTES,
-        p_net_home, params.mesh_width, vnet=vp.net_memory) \
-        + l2_vown_ps \
-        + noc.unicast_ps(
-            params.net_memory, vown_c, home,
-            params.line_size + kchain.CTRL_BYTES,
-            p_net_vown, params.mesh_width, vnet=vp.net_memory)
+    # ---- latency assembly.  Unicast legs are zero-load closed forms,
+    # or, when the hop-by-hop mesh's queue model is on, flights that
+    # contend per link (engine/noc_flight.py), threading the link
+    # horizons through the legs in dependency order: request -> victim
+    # flush -> owner leg -> reply.  Invalidation multicasts and the
+    # shared-L2 slice->controller legs stay zero-load.
+    link_wait = torch.zeros(T, dtype=torch.int64, device=dev)
+    lf = state.link_free_mem
+
+    def flight(src, dst, depart, flits, active, lf, period):
+        return noc_flight.flight(
+            params.net_memory, params.mesh_width, params.mesh_height,
+            src, dst, depart, flits, active, lf, period, vnet=vp.net_memory)
+
+    if contended:
+        fr = flight(rows, home, issue, flits_req, win, lf, p_net)
+        lf = fr.link_free
+        link_wait = link_wait + fr.wait_ps
+        arrive = torch.maximum(fr.arrival, line_floor)
+    else:
+        arrive = torch.maximum(issue + net_req, line_floor)
+    # Victim flush round trips: M victims always; O victims only under
+    # MOSI (the private owner holds the dirty data).
+    ev_rt = (evict_m | evict_o) if params.protocol_kind == "mosi" \
+        else evict_m
+    if contended:
+        dep_ev = arrive + dir_ps
+        e1 = flight(home, vown_c, dep_ev, flits_req, ev_rt, lf,
+                    p_net_home)
+        e2 = flight(vown_c, home, e1.arrival + l2_vown_ps, flits_data,
+                    ev_rt, e1.link_free, p_net_vown)
+        lf = e2.link_free
+        link_wait = link_wait + e1.wait_ps + e2.wait_ps
+        evict_m_ps = torch.where(ev_rt, e2.arrival - dep_ev, 0)
+    else:
+        evict_m_ps = noc.unicast_ps(
+            params.net_memory, home, vown_c, kchain.CTRL_BYTES,
+            p_net_home, params.mesh_width, vnet=vp.net_memory) \
+            + l2_vown_ps \
+            + noc.unicast_ps(
+                params.net_memory, vown_c, home,
+                params.line_size + kchain.CTRL_BYTES,
+                p_net_vown, params.mesh_width, vnet=vp.net_memory)
     evict_ps = torch.where(evict_m, evict_m_ps, evict_ps)
     if params.protocol_kind == "mosi":
         # An O victim: the sharer multicast and the owner's dirty-data
@@ -730,14 +776,24 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         l2_own_ps = _lat(vp.l1d_access_cycles, p_l1[owner64])
     else:
         l2_own_ps = _lat(vp.l2_access_cycles, p_l2[owner64])
-    leg_ps = noc.unicast_ps(params.net_memory, home, owner,
-                            kchain.CTRL_BYTES, p_net_home,
-                            params.mesh_width, vnet=vp.net_memory) \
-        + l2_own_ps \
-        + noc.unicast_ps(params.net_memory, owner, home,
-                         params.line_size + kchain.CTRL_BYTES, p_net_own,
-                         params.mesh_width, vnet=vp.net_memory)
-    owner_ps = torch.where(owner_leg, leg_ps, 0)
+    if contended:
+        g1 = flight(home, owner, t_dir, flits_req, owner_leg, lf,
+                    p_net_home)
+        g2 = flight(owner, home, g1.arrival + l2_own_ps, flits_data,
+                    owner_leg, g1.link_free, p_net_own)
+        lf = g2.link_free
+        link_wait = link_wait + g1.wait_ps + g2.wait_ps
+        owner_ps = torch.where(owner_leg, g2.arrival - t_dir, 0)
+    else:
+        leg_ps = noc.unicast_ps(params.net_memory, home, owner,
+                                kchain.CTRL_BYTES, p_net_home,
+                                params.mesh_width, vnet=vp.net_memory) \
+            + l2_own_ps \
+            + noc.unicast_ps(params.net_memory, owner, home,
+                             params.line_size + kchain.CTRL_BYTES,
+                             p_net_own, params.mesh_width,
+                             vnet=vp.net_memory)
+        owner_ps = torch.where(owner_leg, leg_ps, 0)
 
     need_read = win & act.dram_read
     if shared_l2:
@@ -773,7 +829,13 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     t_data = torch.maximum(t_data, torch.where(need_read, dram_ready, 0))
     t_data = torch.maximum(t_data, t_dir + inv_ps)
 
-    reply_done = t_data + reply_ps
+    if contended:
+        rr = flight(home, rows, t_data, flits_data, win, lf, p_net_home)
+        link_wait = link_wait + rr.wait_ps
+        reply_done = rr.arrival
+        state = state._replace(link_free_mem=rr.link_free)
+    else:
+        reply_done = t_data + reply_ps
 
     l1_fill_ps = torch.where(
         is_if, _lat(vp.l1i_access_cycles,
@@ -886,6 +948,7 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         + torch.where(win, flits_req, 0)
         + torch.where(victim_dirty, flits_data, 0)
         + hb[:, 7],
+        net_link_wait_ps=c.net_link_wait_ps + link_wait,
         dir_deferrals=c.dir_deferrals + hb[:, 8],
     )
     state = state._replace(counters=c)
@@ -945,11 +1008,12 @@ def resolve_memory(params: SimParams, vp: VariantParams,
     dev = state.clock.device
     ftbl = torch.stack([torch.full((H,), -1, dtype=torch.int64, device=dev),
                         torch.zeros((H,), dtype=torch.int64, device=dev)])
-    # Chain replay first (P > 0; this slice runs only simple cores,
-    # full-map directories and zero-load networks, so it always applies):
-    # whole banked chains served in one pass, the floor table threaded
-    # through to the conflict rounds that serve the leftovers.
-    if P > 0:
+    # Chain replay first (P > 0; this slice runs only simple cores and
+    # full-map directories, so it applies unless the hop-by-hop mesh's
+    # links contend): whole banked chains served in one pass, the floor
+    # table threaded through to the conflict rounds that serve the
+    # leftovers.
+    if P > 0 and not _contended(params):
         state, ftbl = chain_fast_pass(params, vp, state, H, ftbl)
 
     def pending(st):

@@ -42,11 +42,16 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
     """Refuse, loudly, every configuration and event kind the port does
     not run yet — nothing is mispriced silently.  Admitted: simple cores,
     every coherence protocol (private L1/L2 under MSI or MOSI, shared L2
-    under MSI or MESI) with a full-map directory, zero-load networks,
-    the history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with
-    the fan-out replay on or off, ``tpu/fast_forward`` at any width and
-    run-ahead span, any tile count the directory's owner field holds
-    (state.py), and the events of ``SLICE_OPS``.  On a CUDA ``device``
+    under MSI or MESI) with a full-map directory, every network model on
+    the memory and user networks (magic, emesh_hop_counter, atac under
+    either routing strategy and receive network, emesh_hop_by_hop with
+    its queue model off or on: contended link flights on the memory
+    network; the user network's contended SEND flight waits for the
+    SEND event, which stays refused), the history DRAM queue (on or
+    off), ``tpu/miss_chain`` 0 to 256 with the fan-out replay on or off,
+    ``tpu/fast_forward`` at any width and run-ahead span, any tile count
+    the directory's owner field holds (state.py), and the events of
+    ``SLICE_OPS``.  On a CUDA ``device``
     the chain replay is also held to the classify kernel's limits
     (kernels/chain.check_chain_config)."""
     def later(what, where="a later slice (model breadth)"):
@@ -64,10 +69,6 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
               "the run-lifecycle slice")
     if params.directory.directory_type != "full_map":
         later(f"the {params.directory.directory_type!r} directory scheme")
-    for name, net in (("memory", params.net_memory),
-                      ("user", params.net_user)):
-        if net.model not in ("magic", "emesh_hop_counter"):
-            later(f"the {net.model!r} {name} network")
     if params.dram.queue_model_type != "history_tree":
         later(f"the {params.dram.queue_model_type!r} DRAM queue model")
     if (params.stats_enabled or params.progress_enabled

@@ -605,7 +605,9 @@ def make_state(params: SimParams, device,
         dram_ring_ptr=z(T, i32),
         dram_qacc=z((6, T), torch.float64),
         link_free_mem=z((NUM_LINK_DIRS, T), i64),
-        link_free_user=z((NUM_LINK_DIRS, 0), i64),
+        link_free_user=z((NUM_LINK_DIRS,
+                          T if params.net_user.model == "emesh_hop_by_hop"
+                          else 0), i64),
         lock_holder=z(max_mutexes, i32),
         lock_free_at=z(max_mutexes, i64),
         bar_count=z(max_barriers, i32),

@@ -5,14 +5,15 @@ only at a cut depth.
     radix=256, seed=0)`` at miss_chain 12 on the default config, 2,181
     engine rounds and a completion of 245,006,600 ps (BENCH_r06's
     radix64_chain12 row, which the JAX package on the CPU reproduces).
-    ``chip_smoke.py`` runs this trace at keys_per_tile 128 to stay well
+    ``chip_smoke.py`` runs this trace at keys_per_tile 64 to stay well
     inside its time limit; this test holds the full depth.
   * radix64 chain-off and radix64_ff_span (``tpu/fast_forward = 8``,
     span 1000 ns) at full depth, keys_per_tile 2048: 13,838 rounds and
     243,651,800 ps (BENCH_r06's radix64 row), and 13,353 rounds and
     243,687,400 ps (the JAX package on the CPU).  ``chip_smoke.py`` runs
-    both at keys_per_tile 128.
-  * One-card scale (``chip_smoke.py`` phase 9 runs them too): radix256,
+    the first at keys_per_tile 64 and the second's first 60 quanta.
+  * One-card scale (``chip_smoke.py`` phase 9 runs them too, radix256
+    for its first 24 quanta): radix256,
     ``gen_radix(256, keys_per_tile=96, radix=256, seed=0)`` on the
     default config (5,475 rounds, 116,211,400 ps), and radix1024 and
     radix1024_chain12, ``gen_radix(1024, keys_per_tile=16, radix=64,
@@ -21,6 +22,12 @@ only at a cut depth.
     wide form).  Every round counter is the JAX package's on the CPU;
     BENCH_r06 gives the same rounds and completions for radix256 and
     radix1024.
+  * The network models: ``gen_fft(64, points_per_tile=64,
+    writeback=True)`` at miss_chain 12 under ATAC on both networks (367
+    rounds, 59,469,000 ps) and under the contended hop-by-hop mesh
+    (1,759 rounds, 209,377,800 ps, 8,595,738,800 ps of link wait), the
+    JAX package's values on the CPU; ``chip_smoke.py`` phase 11 runs
+    both at a cut depth.
 
 Run on the card: ``python -m pytest -m gpu --noconftest
 tests/test_torch_card_paths.py -q`` (about ten minutes).
@@ -132,8 +139,8 @@ def test_radix64_full_depth_on_card(name):
 
 # radix64 under shared-L2 MESI at miss_chain 12 and tpu/fast_forward = 8,
 # span 1000 ns: the path on which all three kernels take their protocol
-# branches (chip_smoke.py phase 10 runs it at keys_per_tile 128); the JAX
-# package's values on the CPU.
+# branches (chip_smoke.py phase 10 runs 12 quanta of it at keys_per_tile
+# 64); the JAX package's values on the CPU.
 SHL2_MESI = {"caching_protocol/type": "pr_l1_sh_l2_mesi",
              "tpu/miss_chain": CHAIN, "tpu/fast_forward": 8,
              "tpu/fast_forward_span": 1000}
@@ -208,3 +215,60 @@ def test_one_card_scale_full_depth_on_card(name):
         from graphite_tpu_torch.engine.kernels import chain as kchain
         assert kchain.chain_step_entry(params, sim.vp, max(1024, 16 * T),
                                        (T + 63) // 64).wide == (T > 512)
+
+
+# The network models at full depth (chip_smoke.py phase 11 runs them at a
+# cut depth): ``gen_fft(64, points_per_tile=64, writeback=True)`` at
+# miss_chain 12 under ATAC on both networks (default AtacParams), and
+# under the contended hop-by-hop mesh, where the chain pass stands down
+# and the conflict rounds fly every leg.  The JAX package's values on the
+# CPU.
+NETWORKS = {
+    "fft64_atac_chain12": (
+        {"network/memory": "atac", "network/user": "atac",
+         "tpu/miss_chain": CHAIN},
+        dict(round_ctr=367, ctr_window=186, ctr_complex=27, ctr_conflict=86,
+             ctr_resolve=68, ctr_quantum=30),
+        59_469_000, 0, (1909, 19)),
+    "fft64_hbh_contended": (
+        {"network/memory": "emesh_hop_by_hop",
+         "network/emesh_hop_by_hop/queue_model/enabled": True,
+         "tpu/miss_chain": CHAIN},
+        dict(round_ctr=1759, ctr_window=532, ctr_complex=35,
+             ctr_conflict=1192, ctr_resolve=334, ctr_quantum=105),
+        209_377_800, 8_595_738_800, (0, 0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_network_paths_full_depth_on_card(name):
+    """Every round counter, the completion time, the summed link wait and
+    the chain pass's fan-out tallies exactly; window_walk once per window
+    round, chain_classify P times per chain pass (none under contention,
+    where the chain pass stands down)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    over, want, completion_ps, wait_ps, (fan, fb) = NETWORKS[name]
+    cfg = load_config()
+    for k, v in over.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, synth.gen_fft(64, points_per_tile=64,
+                                          writeback=True), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want}
+    assert ctrs == want
+    assert s.completion_time_ps == completion_ps
+    assert int(s.counters["net_link_wait_ps"].sum()) == wait_ps
+    assert int(s.counters["chain_fanout_served"].sum()) == fan
+    assert int(s.counters["chain_fallback"].sum()) == fb
+    passes = ctrs["round_ctr"] - ctrs["ctr_window"] - ctrs["ctr_complex"] \
+        - ctrs["ctr_conflict"]
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] == CHAIN * passes
+    assert (passes == 0) == (wait_ps > 0)

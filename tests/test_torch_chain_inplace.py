@@ -14,9 +14,11 @@ the plain step's results copied into one carved buffer per call, the
 floor table updated in place — and hold every SimState leaf to the JAX
 package's (tolerance 0: the engine is all-integer), with the DRAM queue
 model on and off.
+
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
 """
 
-import numpy as np
 import pytest
 import torch
 
@@ -33,6 +35,8 @@ from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 RADIX8 = ("gen_radix", dict(num_tiles=8, keys_per_tile=64, radix=16,
                             seed=3))
 FFT8 = ("gen_fft", dict(num_tiles=8, points_per_tile=64, writeback=True))
@@ -43,6 +47,9 @@ CASES = {
     "fft8": (FFT8, {}),
     "fft8_queue_off": (FFT8, QUEUE_OFF),
 }
+# The cases compared with the JAX package's live run in tier-1 (the
+# others with its recorded pins: tests/torch_jax_ref.py).
+LIVE = ("radix8_queue_off",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,23 +62,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _over(T, over):
+    return {"general/total_cores": T, "tpu/miss_chain": 12, **over}
+
+
 def _params(T, over):
     cj, ct = jax_load_config(), load_config()
     for c in (cj, ct):
-        c.set("general/total_cores", T)
-        c.set("tpu/miss_chain", 12)
-        for k, v in over.items():
+        for k, v in _over(T, over).items():
             c.set(k, v)
     return JaxSimParams.from_config(cj), SimParams.from_config(ct)
-
-
-def _assert_leaves_equal(jleaves, tleaves):
-    assert set(jleaves) == set(tleaves)
-    for name in sorted(jleaves):
-        a, b = np.asarray(jleaves[name]), np.asarray(tleaves[name])
-        assert a.dtype == b.dtype and a.shape == b.shape, \
-            (name, a.dtype, b.dtype, a.shape, b.shape)
-        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 class InPlaceChainStep:
@@ -119,7 +119,12 @@ def test_engine_under_fused_chain_step(name, monkeypatch):
         # chip_smoke.py pins for the same run on the card.
         assert int(tsim.state.round_ctr) == 86
         assert int(tsim.state.clock.max()) == 8_686_600
-    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
-    jsim.run(max_steps=4096)
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+    def jax_leaves():
+        jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
+        jsim.run(max_steps=4096)
+        return convert.leaves_to_numpy(jax.device_get(jsim.state))
+
+    ref.check("test_torch_chain_inplace", name,
+              convert.state_to_numpy(tsim.state), jax_leaves,
+              ref.inputs(_over(kw["num_tiles"], over), tsim.trace,
+                         steps=4096), live=name in LIVE)

@@ -35,6 +35,8 @@ from graphite_tpu_torch.engine.kernels import window as twin
 from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 # The JAX package is imported inside the tests that compare against it,
 # so the card's kernel tests run on a machine without jax
 # (python -m pytest -m gpu --noconftest tests/test_torch_chain_kernel.py).
@@ -109,10 +111,12 @@ def _assert_fields_equal(jout, tout, label=""):
 
 # ------------------------------------------------------- chain_classify
 
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_classify():
     J = _jax()
-    return J["jax"].jit(J["jchain"].chain_classify, static_argnums=(0, 3))
+    return ref.eager(J["jchain"].chain_classify)
 
 
 def _jax_chain_in(arrays):
@@ -181,35 +185,33 @@ def test_plain_classify_matches_jax_with_forced_collisions(config):
     assert collided > 0, "no representative collision was exercised"
 
 
-def _capture(jp, trace_kw, steps, want, pick):
-    """Run a JAX radix8 chain-12 simulation with ``pick`` (the kernel
-    entry point to record: 'chain' or 'window') wrapped so each call's
-    operands reach the host; returns the first ``want`` records."""
-    J = _jax()
-    jax = J["jax"]
-    from graphite_tpu.engine import quantum as jquantum
-    from graphite_tpu.engine.sim import Simulator as JaxSimulator
-    from graphite_tpu.events import synth as jsynth
-    mod = J["jchain"] if pick == "chain" else J["jwin"]
-    name = "run_chain" if pick == "chain" else "run_window"
+def _capture(tp, trace_kw, steps, want, pick):
+    """Run the port's radix8 chain-12 simulation on the CPU with ``pick``
+    (the kernel entry point to record: 'chain', the classify step's
+    ChainIn, or 'window', the walk's WindowIn) wrapped so each call's
+    operands are kept as numpy arrays; returns the first ``want``
+    records.  (tests/test_torch_chain_sim.py holds this run to the JAX
+    package's leaf for leaf, so these are the JAX run's operands too.)"""
+    from graphite_tpu_torch.engine import core as tcore
+    from graphite_tpu_torch.engine import quantum as tquantum
+    from graphite_tpu_torch.engine.sim import Simulator
+    from graphite_tpu_torch.events import synth as tsynth
+    mod, name = (tchain, "chain_classify") if pick == "chain" \
+        else (tcore.kwindow, "run_window")
     orig = getattr(mod, name)
     seen = []
 
-    def record(operands):
-        seen.append(jax.tree_util.tree_map(np.asarray, operands))
+    def record(params, vp, operands, *rest):
+        seen.append(type(operands)(*[
+            None if v is None else v.numpy().copy() for v in operands]))
+        return orig(params, vp, operands, *rest)
 
-    def wrapped(*args):
-        jax.debug.callback(record, args[2], ordered=True)
-        return orig(*args)
-
-    sim = JaxSimulator(jp, jsynth.gen_radix(**trace_kw))
-    state, tr = sim.state, sim.trace
-    setattr(mod, name, wrapped)
+    sim = Simulator(tp, tsynth.gen_radix(**trace_kw), device="cpu")
+    state = sim.state
+    setattr(mod, name, record)
     try:
-        step = jax.jit(lambda st: jquantum.quantum_step(jp, st, tr))
         for _ in range(steps):
-            state = step(state)
-            jax.effects_barrier()
+            state = tquantum.megarun(tp, state, sim.trace, 1)
             if len(seen) >= want:
                 break
     finally:
@@ -223,7 +225,7 @@ RADIX8 = dict(num_tiles=8, keys_per_tile=64, radix=16, seed=3)
 @pytest.fixture(scope="module")
 def captured_chain_ins():
     jp, tp = _params(8, {})
-    return jp, tp, _capture(jp, RADIX8, 40, 36, "chain")
+    return jp, tp, _capture(tp, RADIX8, 40, 36, "chain")
 
 
 def test_plain_classify_matches_jax_on_captured_operands(captured_chain_ins):
@@ -244,7 +246,7 @@ def test_plain_classify_matches_jax_on_captured_operands(captured_chain_ins):
 @functools.lru_cache(maxsize=None)
 def _jax_walk():
     J = _jax()
-    return J["jax"].jit(J["jwin"].window_walk, static_argnums=(0, 3))
+    return ref.eager(J["jwin"].window_walk)
 
 
 def _jax_window_in(arrays):
@@ -285,7 +287,7 @@ def test_plain_walk_matches_jax_with_pending_bank(config, seed):
 @pytest.fixture(scope="module")
 def captured_windows():
     jp, tp = _params(8, {})
-    return jp, tp, _capture(jp, RADIX8, 40, 60, "window")
+    return jp, tp, _capture(tp, RADIX8, 40, 60, "window")
 
 
 def test_plain_walk_matches_jax_on_captured_banking_windows(

@@ -3,10 +3,13 @@ from tile to tile, so chain heads meet owner flushes and invalidation
 fan-outs.  With the fan-out replay on, multi-sharer heads are served
 inside the chain pass (``chain_fanout_served`` > 0); with it off they
 hard-stop into the conflict rounds.  Both packages run
-``gen_migratory(8, lines=16, rounds=8)`` at ``tpu/miss_chain = 12``, and
-every SimState leaf must end equal (tolerance 0)."""
+``gen_migratory(8, lines=8, rounds=4)`` at ``tpu/miss_chain = 12``, and
+every SimState leaf must end equal (tolerance 0).
 
-import numpy as np
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
+"""
+
 import pytest
 import torch
 
@@ -21,7 +24,12 @@ from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
 
-KW = dict(num_tiles=8, lines=16, rounds=8)
+import torch_jax_ref as ref
+
+KW = dict(num_tiles=8, lines=8, rounds=4)
+# The cases compared with the JAX package's live run in tier-1 (the
+# others with its recorded pins: tests/torch_jax_ref.py).
+LIVE = ("fanout_on",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,25 +45,27 @@ def _one_torch_thread():
 @pytest.mark.parametrize("fanout", [True, False], ids=["fanout_on",
                                                        "fanout_off"])
 def test_migratory_chain_run_ends_with_equal_state(fanout):
+    over = {"general/total_cores": 8, "tpu/miss_chain": 12,
+            "tpu/fanout_replay": fanout}
     cj, ct = jax_load_config(), load_config()
     for c in (cj, ct):
-        c.set("general/total_cores", 8)
-        c.set("tpu/miss_chain", 12)
-        c.set("tpu/fanout_replay", fanout)
-    jsim = JaxSimulator(JaxSimParams.from_config(cj),
-                        jax_synth.gen_migratory(**KW))
-    jsim.run(max_steps=4096)
+        for k, v in over.items():
+            c.set(k, v)
     tsim = Simulator(SimParams.from_config(ct), synth.gen_migratory(**KW),
                      device="cpu")
     tsim.run(max_steps=4096)
     assert bool(tsim.state.done.all())
-    jl = convert.leaves_to_numpy(jax.device_get(jsim.state))
-    tl = convert.state_to_numpy(tsim.state)
-    assert set(jl) == set(tl)
-    for name in sorted(jl):
-        a, b = np.asarray(jl[name]), np.asarray(tl[name])
-        assert a.dtype == b.dtype and a.shape == b.shape, name
-        np.testing.assert_array_equal(a, b, err_msg=name)
+
+    def jax_leaves():
+        jsim = JaxSimulator(JaxSimParams.from_config(cj),
+                            jax_synth.gen_migratory(**KW))
+        jsim.run(max_steps=4096)
+        return convert.leaves_to_numpy(jax.device_get(jsim.state))
+
+    name = "fanout_on" if fanout else "fanout_off"
+    ref.check("test_torch_chain_migratory", name,
+              convert.state_to_numpy(tsim.state), jax_leaves,
+              ref.inputs(over, tsim.trace, steps=4096), live=name in LIVE)
     served = int(tsim.state.counters.chain_fanout_served.sum())
     if fanout:
         assert served > 0

@@ -11,6 +11,9 @@ the [P, T] chain bank, caches, directory, counters — must end equal
   * carry-across: a JAX state cut mid-chain (after a local advance, with
     banked elements) goes through one resolve pass and then whole quanta
     in both packages.
+
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
 """
 
 import numpy as np
@@ -34,6 +37,8 @@ from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 CHAIN = {"tpu/miss_chain": 12}
 CASES = {
     "radix8": ("gen_radix", dict(num_tiles=8, keys_per_tile=64, radix=16,
@@ -44,6 +49,9 @@ CASES = {
                                            radix=16, seed=3),
                          {"dram/queue_model/enabled": False}),
 }
+# The cases compared with the JAX package's live run in tier-1 (the
+# others with its recorded pins: tests/torch_jax_ref.py).
+LIVE = ("radix8",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,11 +64,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _over(T, over):
+    return {"general/total_cores": T, **CHAIN, **over}
+
+
 def _params(T, over):
     cj, ct = jax_load_config(), load_config()
     for c in (cj, ct):
-        c.set("general/total_cores", T)
-        for k, v in {**CHAIN, **over}.items():
+        for k, v in _over(T, over).items():
             c.set(k, v)
     return JaxSimParams.from_config(cj), SimParams.from_config(ct)
 
@@ -86,10 +97,20 @@ def _run_both(fn, kw, over, max_steps=4096):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_chain_run_ends_with_equal_state(name):
     fn, kw, over = CASES[name]
-    jsim, tsim = _run_both(fn, kw, over)
+    jp, tp = _params(kw["num_tiles"], over)
+    tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
+    tsim.run(max_steps=4096)
     assert bool(tsim.state.done.all())
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+
+    def jax_leaves():
+        jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
+        jsim.run(max_steps=4096)
+        return convert.leaves_to_numpy(jax.device_get(jsim.state))
+
+    ref.check("test_torch_chain_sim", name,
+              convert.state_to_numpy(tsim.state), jax_leaves,
+              ref.inputs(_over(kw["num_tiles"], over), tsim.trace,
+                         steps=4096), live=name in LIVE)
     if name == "radix8":
         # The radix8_pallas bench row's round count, and the completion
         # chip_smoke.py pins for the same run on the card.
@@ -98,42 +119,59 @@ def test_chain_run_ends_with_equal_state(name):
 
 
 def test_carry_across_mid_chain_state():
+    """A few quanta into the fft8 chain-12 run, the next quantum opened and
+    cut after its first local advance (the window rounds have banked
+    chains that no resolve pass has served yet): that state, carried
+    through ``convert``, goes through the resolve pass that serves the
+    banks and a whole megastep more.  Every state equal to the JAX
+    package's (its pins, or its run)."""
     fn, kw, over = CASES["fft8_writeback"]
     jp, tp = _params(8, over)
-    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
-    qstep = jax.jit(lambda s: jquantum.quantum_step(jp, s, jsim.trace))
-    ladv = jax.jit(lambda s: jcore.local_advance(jp, s, jsim.trace))
-    st = jsim.state
+    tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
+    ttr = tsim.trace
+    st = tsim.state
     for _ in range(6):                    # a few quanta into the run
-        st = qstep(st)
-    # Open the next quantum as quantum_step does, and cut after its first
-    # local advance: the window rounds have banked chains that no resolve
-    # pass has served yet.
-    st = st._replace(boundary=jquantum.next_boundary(jp, st),
+        st = tquantum.quantum_step(tp, st, ttr)
+    # Open the next quantum as quantum_step does.
+    st = st._replace(boundary=tquantum.next_boundary(tp, st),
                      ctr_quantum=st.ctr_quantum + 1)
-    cut = jax.device_get(ladv(st))
-    assert not np.asarray(cut.done).all()
-    assert (np.asarray(cut.mq_count) > 0).any(), "the cut holds no chain"
-    leaves = convert.leaves_to_numpy(cut)
+    jax_states = {}
+
+    def jax_state(which):
+        if not jax_states:
+            jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
+            qstep = jax.jit(lambda s: jquantum.quantum_step(jp, s,
+                                                            jsim.trace))
+            jst = jsim.state
+            for _ in range(6):
+                jst = qstep(jst)
+            jst = jst._replace(boundary=jquantum.next_boundary(jp, jst),
+                               ctr_quantum=jst.ctr_quantum + 1)
+            cut = jax.jit(lambda s: jcore.local_advance(jp, s, jsim.trace))(
+                jst)
+            res = jax.jit(lambda s: jresolve.resolve(jp, s))(cut)
+            nxt = jquantum.megarun(jp, res, jsim.trace, jp.quanta_per_step)
+            jax_states.update({k: convert.leaves_to_numpy(jax.device_get(v))
+                               for k, v in (("open", jst), ("cut", cut),
+                                            ("res", res), ("next", nxt))})
+        return jax_states[which]
+
+    def check(which, state):
+        return ref.check("test_torch_chain_sim", f"carry_{which}",
+                         convert.state_to_numpy(state),
+                         lambda: jax_state(which),
+                         ref.inputs(_over(8, over), ttr, quanta=6,
+                                    which=which), live="carry" in LIVE)
+
+    check("open", st)
+    leaves = check("cut", tcore.local_advance(tp, st, ttr))
+    assert not leaves["done"].all()
+    assert (leaves["mq_count"] > 0).any(), "the cut holds no chain"
     tst = convert.state_from_numpy(tp, leaves, "cpu")
     _assert_leaves_equal(leaves, convert.state_to_numpy(tst))
-    ttr = convert.trace_from_numpy(np.asarray(jsim.trace.addr),
-                                   np.asarray(jsim.trace.meta), "cpu")
-
-    # The resolve pass that serves the cut's banks, then whole quanta.
-    jres = jax.jit(lambda s: jresolve.resolve(jp, s))(jax.device_put(cut))
     tres = tresolve.resolve(tp, tst)
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jres)),
-                         convert.state_to_numpy(tres))
-    q = jp.quanta_per_step
-    jnext = jax.device_get(jquantum.megarun(jp, jres, jsim.trace, q))
-    tnext = tquantum.megarun(tp, tres, ttr, q)
-    _assert_leaves_equal(convert.leaves_to_numpy(jnext),
-                         convert.state_to_numpy(tnext))
-    # And the port's local advance from the same cut point agrees too.
-    tcut = tcore.local_advance(tp, convert.state_from_numpy(
-        tp, convert.leaves_to_numpy(jax.device_get(st)), "cpu"), ttr)
-    _assert_leaves_equal(leaves, convert.state_to_numpy(tcut))
+    check("res", tres)
+    check("next", tquantum.megarun(tp, tres, ttr, tp.quanta_per_step))
 
 
 @pytest.mark.slow

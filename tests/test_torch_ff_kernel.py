@@ -33,6 +33,8 @@ from graphite_tpu_torch.engine.kernels import window as twin
 from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 # The JAX package is imported inside the tests that compare against it,
 # so the card's kernel tests run on a machine without jax
 # (python -m pytest -m gpu --noconftest tests/test_torch_ff_kernel.py).
@@ -115,10 +117,12 @@ def _np_arrays(nt):
 
 # --------------------------------------------------- fast_forward_walk
 
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_ff():
     J = _jax()
-    return J["jax"].jit(J["jwin"].fast_forward_walk, static_argnums=(0,))
+    return ref.eager(J["jwin"].fast_forward_walk)
 
 
 def _ff_both(jp, tp, arrays, interpret=False):
@@ -275,7 +279,7 @@ def test_ff_walk_sticky_mesi_matches_jax():
 @functools.lru_cache(maxsize=None)
 def _jax_walk():
     J = _jax()
-    return J["jax"].jit(J["jwin"].window_walk, static_argnums=(0, 3))
+    return ref.eager(J["jwin"].window_walk)
 
 
 def _walk_both(jp, tp, arrays):

@@ -17,6 +17,9 @@ render block:
     converted and finished by the port;
   * ``slow``: radix64 (keys_per_tile 64, radix 64) at fast_forward 8,
     span 1000.
+
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
 """
 
 import functools
@@ -39,6 +42,8 @@ from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 RADIX8 = ("gen_radix", dict(num_tiles=8, keys_per_tile=64, radix=16,
                             seed=3))
 FFT8 = ("gen_fft", dict(num_tiles=8, points_per_tile=64, writeback=True))
@@ -52,6 +57,10 @@ CASES = {
                                      "tpu/miss_chain": 12,
                                      "tpu/fast_forward_span": 1000}),
 }
+# The cases compared with the JAX package's live run in tier-1, its
+# radix8_span1000 run shared with the carry-across test (the others with
+# its recorded pins: tests/torch_jax_ref.py).
+LIVE = ("radix8_span1000",)
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "fast_forward_golden.json")
 ROUND_CTRS = ("round_ctr", "ctr_window", "ctr_complex", "ctr_conflict",
@@ -68,11 +77,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _over(T, over):
+    return {"general/total_cores": T, **over}
+
+
 def _params(T, over):
     cj, ct = jax_load_config(), load_config()
     for c in (cj, ct):
-        c.set("general/total_cores", T)
-        for k, v in over.items():
+        for k, v in _over(T, over).items():
             c.set(k, v)
     return JaxSimParams.from_config(cj), SimParams.from_config(ct)
 
@@ -113,10 +125,19 @@ def _ff_block(render):
     return lines[i:i + 4]
 
 
+def _with_summary(leaves, s):
+    """The flat leaves and, as two more, the summary's dict (less its
+    host timings) and the render's fast-forward block, as bytes."""
+    d = json.dumps(_summary_dict(s), sort_keys=True,
+                   default=lambda x: x.item())
+    block = "\n".join(_ff_block(s.render()))
+    return {**leaves, "summary": np.frombuffer(d.encode(), np.uint8),
+            "ff_block": np.frombuffer(block.encode(), np.uint8)}
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_ff_run_ends_with_equal_state(name):
     (fn, kw), over = CASES[name]
-    jsim, jsum = _jax_run(name)
     _, tp = _params(kw["num_tiles"], over)
     tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
     tdispatch.reset_counts()
@@ -132,26 +153,44 @@ def test_ff_run_ends_with_equal_state(name):
     passes = c["ctr_resolve"] if "tpu/miss_chain" in over else 0
     assert c["round_ctr"] == c["ctr_window"] + c["ctr_complex"] \
         + c["ctr_conflict"] + passes + engaged
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
-    assert _summary_dict(tsum) == _summary_dict(jsum)
-    assert _ff_block(tsum.render()) == _ff_block(jsum.render())
+
+    def jax_leaves():
+        jsim, jsum = _jax_run(name)
+        return _with_summary(
+            convert.leaves_to_numpy(jax.device_get(jsim.state)), jsum)
+
+    ref.check("test_torch_ff_sim", name,
+              _with_summary(convert.state_to_numpy(tsim.state), tsum),
+              jax_leaves, ref.inputs(_over(kw["num_tiles"], over),
+                                     tsim.trace, steps=4096),
+              live=name in LIVE)
     assert tsum.ff_rounds > 0 and tsum.ff_quanta > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _port_run(name):
+    """The port's whole run of a case on the CPU (its end state equals the
+    JAX package's: test_ff_run_ends_with_equal_state)."""
+    (fn, kw), over = CASES[name]
+    _, tp = _params(kw["num_tiles"], over)
+    tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
+    tsim.run(max_steps=4096)
+    return tsim.state
 
 
 def test_span_engages_the_analytic_leg():
     """The analytic leg engages above span 0: more events priced in
     closed form at span 1000 than at span 0 (where only the wide window
-    rounds count), on radix8 and on the fft8 chain-12 trace."""
-    r0 = _ctrs(_jax_run("radix8_span0")[0].state)
-    r1 = _ctrs(_jax_run("radix8_span1000")[0].state)
+    rounds count), on radix8 and on the fft8 chain-12 trace; the values
+    are the JAX package's (the runs' end states equal its own)."""
+    r0 = _ctrs(_port_run("radix8_span0"))
+    r1 = _ctrs(_port_run("radix8_span1000"))
     assert r1["ff_events"] > r0["ff_events"] and r1["ctr_ff"] > r0["ctr_ff"]
-    # The port's own runs give the same values (test above); pin them.
     assert (r0["round_ctr"], r0["ctr_ff"], r0["ctr_ffq"],
             r0["ff_events"]) == (467, 11, 6, 386)
     assert (r1["round_ctr"], r1["ctr_ff"], r1["ctr_ffq"],
             r1["ff_events"]) == (469, 13, 6, 638)
-    f1 = _ctrs(_jax_run("fft8_chain12_span1000")[0].state)
+    f1 = _ctrs(_port_run("fft8_chain12_span1000"))
     assert (f1["round_ctr"], f1["ctr_ff"], f1["ctr_ffq"],
             f1["ff_events"]) == (84, 32, 12, 5901)
     # fft8 chain 12 at span 0 prices 5,245 events in wide rounds alone.
@@ -181,23 +220,35 @@ def test_port_reproduces_ff_off_golden(name):
 
 
 def test_carry_across_mid_run_ff_state():
-    """A JAX state cut two megasteps into the radix8 span-1000 run, with
-    analytic rounds already engaged, finishes in the port exactly as the
-    JAX run finishes."""
+    """The state two megasteps into the radix8 span-1000 run, with
+    analytic rounds already engaged, carried through ``convert``,
+    finishes in the port exactly as the JAX run finishes (both states
+    the JAX package's: its pins, or its run)."""
     (fn, kw), over = CASES["radix8_span1000"]
     jp, tp = _params(8, over)
-    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
-    jsim.run(max_steps=2)
-    cut = jax.device_get(jsim.state)
-    assert int(cut.ctr_ff) > 0 and not np.asarray(cut.done).all()
-    leaves = convert.leaves_to_numpy(cut)
+    tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
+    tsim.run(max_steps=2)
+
+    def jax_cut():
+        jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
+        jsim.run(max_steps=2)
+        return convert.leaves_to_numpy(jax.device_get(jsim.state))
+
+    leaves = ref.check("test_torch_ff_sim", "carry_cut",
+                       convert.state_to_numpy(tsim.state), jax_cut,
+                       ref.inputs(_over(8, over), tsim.trace, steps=2),
+                       live="radix8_span1000" in LIVE)
+    assert int(leaves["ctr_ff"]) > 0 and not leaves["done"].all()
     tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
     tsim.state = convert.state_from_numpy(tp, leaves, "cpu")
     _assert_leaves_equal(leaves, convert.state_to_numpy(tsim.state))
     tsim.run(max_steps=4096)
-    jend, _ = _jax_run("radix8_span1000")
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jend.state)),
-                         convert.state_to_numpy(tsim.state))
+    ref.check("test_torch_ff_sim", "carry_end",
+              convert.state_to_numpy(tsim.state),
+              lambda: convert.leaves_to_numpy(jax.device_get(
+                  _jax_run("radix8_span1000")[0].state)),
+              ref.inputs(_over(8, over), tsim.trace, steps=2, more=4096),
+              live="radix8_span1000" in LIVE)
 
 
 @pytest.mark.slow

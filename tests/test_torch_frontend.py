@@ -139,7 +139,12 @@ def test_default_device_is_cuda():
     ({"caching_protocol/type": "pr_l1_sh_l2_msi",
       "l2_directory/directory_type": "limited_no_broadcast"}, None),
     ({"dram/queue_model/type": "basic"}, None),
-    ({"network/memory": "emesh_hop_by_hop"}, None),
+    # Every network model is admitted; the hop-by-hop mesh's broadcast
+    # tree is read only under the broadcast directory schemes, which are
+    # not.
+    ({"network/memory": "emesh_hop_by_hop",
+      "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
+      "dram_directory/directory_type": "limited_broadcast"}, None),
     ({}, lambda: synth.gen_lock_contention(num_tiles=4, acquisitions=2)),
     ({}, lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
 ], ids=["miss_chain", "ackwise", "iocoom", "sh_l2_limited", "basic_queue",

@@ -13,25 +13,26 @@ trace, tests/test_block_equivalence.py's ``test_mosi_equivalent`` and
 ``test_shared_l2_equivalent`` traces and tests/test_kernels.py's
 shared-L2 MESI radix trace.  The hand-built traces of those tests run in
 test_torch_protocols.py.  A carry-across test takes a shared-L2 MESI
-state from the JAX package into the port mid-run.
+state from the JAX package into the port mid-run.  The JAX package's
+end states come through tests/torch_jax_ref.py: its live run on the
+cases in ``LIVE``, its recorded pins on the others.
 """
 
-import numpy as np
 import pytest
 import torch
 
 import jax
 
 from graphite_tpu.config import load_config as jax_load_config
-from graphite_tpu.engine import quantum as jquantum
 from graphite_tpu.engine.sim import Simulator as JaxSimulator
 from graphite_tpu.events import synth as jax_synth
 from graphite_tpu.params import SimParams as JaxSimParams
 from graphite_tpu_torch import convert, load_config
-from graphite_tpu_torch.engine import quantum as tquantum
 from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth as tsynth
 from graphite_tpu_torch.params import SimParams
+
+import torch_jax_ref as ref
 
 MOSI = "pr_l1_pr_l2_dram_directory_mosi"
 SH_MSI = "pr_l1_sh_l2_msi"
@@ -86,28 +87,32 @@ GENERATED = {
     "radix_equivalent_sh_mesi": (RADIX_SH, SH_MESI, {}),
     "radix_mosi_chain12": (RADIX64KEYS, MOSI, CHAIN12),
 }
+# The cases compared with the JAX package's live run in tier-1 (the
+# others with its recorded pins: tests/torch_jax_ref.py).
+LIVE = ("migratory_sh_mesi_chain12",)
 
 
-def _assert_leaves_equal(jleaves, tleaves):
-    assert set(jleaves) == set(tleaves)
-    for name in sorted(jleaves):
-        a, b = np.asarray(jleaves[name]), np.asarray(tleaves[name])
-        assert a.dtype == b.dtype and a.shape == b.shape, \
-            (name, a.dtype, b.dtype, a.shape, b.shape)
-        np.testing.assert_array_equal(a, b, err_msg=name)
+_assert_leaves_equal = ref.assert_leaves_equal
 
 
-def _both(T, over, jtrace, ttrace):
-    """Run both packages to the end, every leaf equal; returns the port's
+def _both(key, T, over, jtrace, ttrace):
+    """Run the port to the end, every leaf equal to the JAX package's
+    (torch_jax_pins: its pins, or its run); returns the port's
     summary."""
     jp, tp = _params(T, over)
-    jsim = JaxSimulator(jp, jtrace)
-    jsim.run(max_steps=4096)
     tsim = Simulator(tp, ttrace, device="cpu")
     s = tsim.run(max_steps=4096)
     assert bool(s.done.all())
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+
+    def jax_leaves():
+        jsim = JaxSimulator(jp, jtrace())
+        jsim.run(max_steps=4096)
+        return convert.leaves_to_numpy(jax.device_get(jsim.state))
+
+    ref.check("test_torch_protocol_runs", key,
+              convert.state_to_numpy(tsim.state), jax_leaves,
+              ref.inputs({"general/total_cores": T, **over}, tsim.trace,
+                         steps=4096), live=key in LIVE)
     return s
 
 
@@ -118,36 +123,30 @@ def _sum(s, k):
 @pytest.mark.parametrize("name", sorted(GENERATED))
 def test_generated_trace_matches_jax(name):
     (fn, kw), proto, over = GENERATED[name]
-    s = _both(kw["num_tiles"],
-                       {"caching_protocol/type": proto, **over},
-                       getattr(jax_synth, fn)(**kw),
-                       getattr(tsynth, fn)(**kw))
+    s = _both(name, kw["num_tiles"],
+              {"caching_protocol/type": proto, **over},
+              lambda: getattr(jax_synth, fn)(**kw),
+              getattr(tsynth, fn)(**kw))
     if proto != MOSI:
         # Every slice miss read DRAM (test_shared_l2's invariant).
         assert _sum(s, "l2_miss") == _sum(s, "dram_reads")
 
 
 def test_carry_across_shared_mesi_mid_run():
-    """The JAX state of a shared-L2 MESI chain-12 run after two quanta (E
-    and O slice entries, the [1, T, 1] placeholder of the private L2),
-    carried into the port with ``convert.state_from_numpy``, runs one
-    more quantum in both packages to equal states."""
+    """The state of a shared-L2 MESI chain-12 run after two quanta (E and O
+    slice entries, the [1, T, 1] placeholder of the private L2), carried
+    through ``convert.state_from_numpy``, runs one more quantum to the
+    JAX package's state (torch_jax_ref.megarun_carry)."""
     (fn, kw), proto, over = GENERATED["radix_kernels_sh_mesi_chain12"]
-    jp, tp = _params(kw["num_tiles"], {"caching_protocol/type": proto,
-                                       **over})
-    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
-    jtr = jsim.trace
-    mid = jax.device_get(jquantum.megarun(jp, jsim.state, jtr, 2))
-    leaves = convert.leaves_to_numpy(mid)
+    over = {"caching_protocol/type": proto, **over}
+    jp, tp = _params(kw["num_tiles"], over)
+    leaves, tnext = ref.megarun_carry(
+        "test_torch_protocol_runs", "carry", jp,
+        lambda: getattr(jax_synth, fn)(**kw), tp,
+        getattr(tsynth, fn)(**kw), 2, 1,
+        {"general/total_cores": kw["num_tiles"], **over},
+        live="carry" in LIVE)
     assert leaves["l2.word"].shape == (1, kw["num_tiles"], 1)
     dstate = leaves["dir_word"] & 7
     assert (dstate == 2).any() and (dstate == 3).any()   # O and E entries
-    tst = convert.state_from_numpy(tp, leaves, "cpu")
-    _assert_leaves_equal(leaves, convert.state_to_numpy(tst))
-    ttr = convert.trace_from_numpy(np.asarray(jtr.addr),
-                                   np.asarray(jtr.meta), "cpu")
-    jnext = jax.device_get(jquantum.megarun(jp, jax.device_put(mid), jtr, 1))
-    tnext = tquantum.megarun(tp, tst, ttr, 1)
     assert int(tnext.ctr_quantum) == 3
-    _assert_leaves_equal(convert.leaves_to_numpy(jnext),
-                         convert.state_to_numpy(tnext))

@@ -27,6 +27,9 @@ MESI), part by part against the JAX package on the CPU:
 The generated traces' whole runs are in test_torch_protocol_runs.py.  Every comparison is
 exact (tolerance 0: the engine is all-integer; uint64 sharer words
 compare as int64 bits).
+
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
 """
 
 import functools
@@ -63,6 +66,8 @@ from graphite_tpu_torch.events import schema as tschema
 from graphite_tpu_torch.events import synth as tsynth
 from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
+
+import torch_jax_ref as ref
 
 PROTOCOLS = {"mosi": "pr_l1_pr_l2_dram_directory_mosi",
              "sh_l2_msi": "pr_l1_sh_l2_msi",
@@ -301,9 +306,11 @@ def _jax_state(jp, leaves):
 
 # ------------------------------------------------- plain window walk
 
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_walk():
-    return jax.jit(jwin.window_walk, static_argnums=(0, 3))
+    return ref.eager(jwin.window_walk)
 
 
 def _walk_both(jp, tp, arrays):
@@ -349,7 +356,7 @@ def test_plain_walk_matches_jax(proto, K, P):
 
 @functools.lru_cache(maxsize=None)
 def _jax_classify():
-    return jax.jit(jchain.chain_classify, static_argnums=(0, 3))
+    return ref.eager(jchain.chain_classify)
 
 
 def _jax_step_in(jp, arrays, H):
@@ -514,6 +521,13 @@ HAND_BUILT = {
     "write_invalidates": (_write_invalidates, (SH_MSI,)),
     "dirty_l1_victim": (_dirty_l1_victim, (SH_MSI,)),
 }
+# The cases compared with the JAX package's live run in tier-1: MOSI's
+# traces at chain 12, one JAX compile for the three (the traces are
+# padded to one shape); the others with its recorded pins
+# (tests/torch_jax_ref.py).
+LIVE = tuple(f"{name}-{MOSI}-12" for name in ("producer_readers",
+                                               "write_after_o",
+                                               "owner_upgrade"))
 
 
 def _hand_built(name, schema, synth):
@@ -522,26 +536,24 @@ def _hand_built(name, schema, synth):
     return tb.build(min_events=16)
 
 
-def _assert_leaves_equal(jleaves, tleaves):
-    assert set(jleaves) == set(tleaves)
-    for name in sorted(jleaves):
-        a, b = np.asarray(jleaves[name]), np.asarray(tleaves[name])
-        assert a.dtype == b.dtype and a.shape == b.shape, \
-            (name, a.dtype, b.dtype, a.shape, b.shape)
-        np.testing.assert_array_equal(a, b, err_msg=name)
-
-
-def _both(T, over, jtrace, ttrace):
-    """Run both packages to the end, every leaf equal; returns the port's
+def _both(key, T, over, jtrace, ttrace):
+    """Run the port to the end, every leaf equal to the JAX package's
+    (torch_jax_pins: its pins, or its run); returns the port's
     summary."""
     jp, tp = _params(T, over)
-    jsim = JaxSimulator(jp, jtrace)
-    jsim.run(max_steps=4096)
     tsim = Simulator(tp, ttrace, device="cpu")
     s = tsim.run(max_steps=4096)
     assert bool(s.done.all())
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+
+    def jax_leaves():
+        jsim = JaxSimulator(jp, jtrace())
+        jsim.run(max_steps=4096)
+        return convert.leaves_to_numpy(jax.device_get(jsim.state))
+
+    ref.check("test_torch_protocols", key,
+              convert.state_to_numpy(tsim.state), jax_leaves,
+              ref.inputs({"general/total_cores": T, **over}, tsim.trace,
+                         steps=4096), live=key in LIVE)
     return s
 
 
@@ -553,10 +565,10 @@ def _sum(s, k):
 @pytest.mark.parametrize("name,proto", [
     (n, p) for n, (_, protos) in HAND_BUILT.items() for p in protos])
 def test_hand_built_trace_matches_jax(name, proto, chain):
-    s = _both(4, {"caching_protocol/type": proto,
-                        "tpu/miss_chain": chain},
-                    _hand_built(name, jax_schema, jax_synth),
-                    _hand_built(name, tschema, tsynth))
+    s = _both(f"{name}-{proto}-{chain}", 4,
+              {"caching_protocol/type": proto, "tpu/miss_chain": chain},
+              lambda: _hand_built(name, jax_schema, jax_synth),
+              _hand_built(name, tschema, tsynth))
     # What the JAX package's own tests of these traces hold.
     if name == "producer_readers":
         assert _sum(s, "dram_writes") == 0 and _sum(s, "dir_forwards") == 2

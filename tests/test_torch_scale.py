@@ -36,6 +36,9 @@ round take seconds):
 Under ``slow``: the whole keys-1 runs on the default directory, pinned at
 the JAX package's CPU values (1,537 rounds, 57,500,000 ps at miss_chain
 0; 336 rounds, 56,706,000 ps at miss_chain 12).
+
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
 """
 
 import numpy as np
@@ -54,12 +57,15 @@ from graphite_tpu.engine.sim import Simulator as JaxSimulator
 from graphite_tpu.events import synth as jax_synth
 from graphite_tpu.params import SimParams as JaxSimParams
 from graphite_tpu_torch import convert, load_config
+from graphite_tpu_torch.engine import core as tcore
 from graphite_tpu_torch.engine import dense as tdense
 from graphite_tpu_torch.engine import quantum as tquantum
 from graphite_tpu_torch.engine import resolve as tresolve
 from graphite_tpu_torch.engine.sim import Simulator, check_slice
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
+
+import torch_jax_ref as ref
 
 SMALL_DIR = {"dram_directory/total_entries": 1024}
 K4 = {"tpu/block_events": 4}
@@ -84,6 +90,9 @@ CASES = {
         "caching_protocol/type": "pr_l1_sh_l2_mesi",
         "l2_cache/T1/cache_size": 16}, 7),
 }
+# The cases compared with the JAX package's live run in tier-1 (the
+# others with its recorded pins: tests/torch_jax_ref.py).
+LIVE = ("radix256_dense",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,18 +124,46 @@ def _assert_leaves_equal(jleaves, tleaves):
 
 
 class _JaxCut:
-    """One case's JAX run: the params, the simulator and the state after
-    the case's quanta (megarun, jitted)."""
+    """One case: the params, and, run at the first need, the JAX
+    package's simulator and its state after the case's quanta (megarun,
+    jitted)."""
 
     def __init__(self, name):
         T, (fn, kw), over, quanta = CASES[name]
+        self.name = name
+        self.over = {"general/total_cores": T, **over}
         self.jp, self.tp = _params(T, over)
         self.trace_kw = (fn, dict(num_tiles=T, **kw))
-        self.sim = JaxSimulator(self.jp, getattr(jax_synth, fn)(
-            **self.trace_kw[1]))
         self.quanta = quanta
-        self.state = jax.device_get(jquantum.megarun(
-            self.jp, self.sim.state, self.sim.trace, quanta))
+        self._state = None
+        self._port = None
+
+    def port(self):
+        """The port's cut and its trace arrays (run once, shared)."""
+        if self._port is None:
+            self._port = _port_cut(self, with_trace=True)
+        return self._port
+
+    @property
+    def state(self):
+        if self._state is None:
+            fn, kw = self.trace_kw
+            self.sim = JaxSimulator(self.jp, getattr(jax_synth, fn)(**kw))
+            self._state = jax.device_get(jquantum.megarun(
+                self.jp, self.sim.state, self.sim.trace, self.quanta))
+        return self._state
+
+    def inputs(self, **extra):
+        _, trace = self.port()
+        return ref.inputs(self.over, trace, quanta=self.quanta, **extra)
+
+    def check(self, tst):
+        """Every leaf of the port's cut ``tst`` equal to the JAX
+        package's (torch_jax_pins: its pins, or its run)."""
+        ref.check("test_torch_scale", self.name,
+                  convert.state_to_numpy(tst),
+                  lambda: convert.leaves_to_numpy(self.state),
+                  self.inputs(), live=self.name in LIVE)
 
 
 @pytest.fixture(scope="module")
@@ -140,10 +177,11 @@ def jax_cut():
     return get
 
 
-def _port_cut(cut):
+def _port_cut(cut, with_trace=False):
     fn, kw = cut.trace_kw
     tsim = Simulator(cut.tp, getattr(synth, fn)(**kw), device="cpu")
-    return tquantum.megarun(cut.tp, tsim.state, tsim.trace, cut.quanta)
+    st = tquantum.megarun(cut.tp, tsim.state, tsim.trace, cut.quanta)
+    return (st, tsim.trace) if with_trace else st
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -153,11 +191,10 @@ def test_cut_run_matches_jax(name, jax_cut):
     H = max(1024, 16 * T)
     dense_tables = T * H <= tdense.DENSE_MAX_ELEMS
     assert dense_tables == (T <= 512)
-    tst = _port_cut(cut)
+    tst, _ = cut.port()
     assert int(tst.ctr_quantum) == cut.quanta
     assert not bool(tst.done.all())
-    _assert_leaves_equal(convert.leaves_to_numpy(cut.state),
-                         convert.state_to_numpy(tst))
+    cut.check(tst)
     assert int(tst.ctr_conflict) > 0
     if "chain12" in name:
         assert int(tst.ctr_resolve) > 0
@@ -203,28 +240,46 @@ def test_floor_table_duplicates_take_last_row(jax_cut, monkeypatch):
             jnp.asarray(vals.numpy()), jnp.asarray(tbl.numpy()))
         np.testing.assert_array_equal(np.asarray(want), out.numpy())
     assert dup_slots > 0 and differ_rounds > 0, (dup_slots, differ_rounds)
-    _assert_leaves_equal(convert.leaves_to_numpy(cut.state),
-                         convert.state_to_numpy(tst))
+    cut.check(tst)
 
 
 def test_carry_across_resolve_t1024(jax_cut):
-    """The JAX chain-12 cut, opened into its next quantum and cut after
-    the local advance (banked chains no resolve pass has served), goes
-    through one resolve pass in both packages."""
+    """The chain-12 cut, opened into its next quantum and cut after the
+    local advance (banked chains no resolve pass has served), carried
+    through ``convert`` and one resolve pass: every state equal to the
+    JAX package's (its pins, or its run from its own cut)."""
     cut = jax_cut("radix1024_chain12")
     jp, tp = cut.jp, cut.tp
-    st = jax.device_put(cut.state)
-    st = st._replace(boundary=jquantum.next_boundary(jp, st),
-                     ctr_quantum=st.ctr_quantum + 1)
-    mid = jax.device_get(jax.jit(
-        lambda s: jcore.local_advance(jp, s, cut.sim.trace))(st))
-    assert (np.asarray(mid.mq_count) > 0).any(), "the cut holds no chain"
-    leaves = convert.leaves_to_numpy(mid)
+    tcut, ttr = cut.port()
+    cut.check(tcut)
+    st = tcut._replace(boundary=tquantum.next_boundary(tp, tcut),
+                       ctr_quantum=tcut.ctr_quantum + 1)
+    tmid = tcore.local_advance(tp, st, ttr)
+    assert bool((tmid.mq_count > 0).any()), "the cut holds no chain"
+    jax_states = {}
+
+    def jax_mid():
+        jst = jax.device_put(cut.state)
+        jst = jst._replace(boundary=jquantum.next_boundary(jp, jst),
+                           ctr_quantum=jst.ctr_quantum + 1)
+        jax_states["mid"] = jax.jit(
+            lambda s: jcore.local_advance(jp, s, cut.sim.trace))(jst)
+        return convert.leaves_to_numpy(jax.device_get(jax_states["mid"]))
+
+    def jax_res():
+        if "mid" not in jax_states:
+            jax_mid()
+        return convert.leaves_to_numpy(jax.device_get(jax.jit(
+            lambda s: jresolve.resolve(jp, s))(jax_states["mid"])))
+
+    leaves = ref.check("test_torch_scale", "carry_mid",
+                       convert.state_to_numpy(tmid), jax_mid,
+                       cut.inputs(which="mid"), live=cut.name in LIVE)
     tst = convert.state_from_numpy(tp, leaves, "cpu")
-    jres = jax.jit(lambda s: jresolve.resolve(jp, s))(jax.device_put(mid))
-    tres = tresolve.resolve(tp, tst)
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jres)),
-                         convert.state_to_numpy(tres))
+    _assert_leaves_equal(leaves, convert.state_to_numpy(tst))
+    ref.check("test_torch_scale", "carry_res",
+              convert.state_to_numpy(tresolve.resolve(tp, tst)), jax_res,
+              cut.inputs(which="res"), live=cut.name in LIVE)
 
 
 @pytest.mark.parametrize("T", [256, 512, 1024])

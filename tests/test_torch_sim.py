@@ -31,6 +31,8 @@ from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "chain_off_golden.json")
 ROUND_CTRS = ("ctr_quantum", "ctr_window", "ctr_complex", "ctr_conflict",
@@ -90,47 +92,64 @@ def test_initial_state_leaves_match():
     _assert_leaves_equal(jl, tl)
 
 
+RADIX8 = dict(num_tiles=8, keys_per_tile=64, radix=16, seed=3)
+R8_OVER = {"general/total_cores": 8}
+
+
 @pytest.fixture(scope="module")
 def radix8_jax():
-    """One JAX radix8 simulator, advanced two megasteps (for the
-    carry-across test) and then to the end."""
-    jp, _ = _params(8)
-    trace = jax_synth.gen_radix(num_tiles=8, keys_per_tile=64, radix=16,
-                                seed=3)
-    sim = JaxSimulator(jp, trace)
-    sim.run(max_steps=2)
-    mid = jax.device_get(sim.state)
-    sim.run(max_steps=256)
-    return jp, sim, mid
+    """The JAX package's radix8 run, made at the first need: its state
+    after two megasteps (``mid``), one more megastep from there
+    (``next``), and its end state (``end``), as flat leaves."""
+    states = {}
+
+    def get(which):
+        if not states:
+            jp, _ = _params(8)
+            sim = JaxSimulator(jp, jax_synth.gen_radix(**RADIX8))
+            sim.run(max_steps=2)
+            mid = jax.device_get(sim.state)
+            nxt = jquantum.megarun(jp, jax.device_put(mid), sim.trace,
+                                   jp.quanta_per_step)
+            sim.run(max_steps=256)
+            states.update(mid=convert.leaves_to_numpy(mid),
+                          next=convert.leaves_to_numpy(jax.device_get(nxt)),
+                          end=convert.leaves_to_numpy(
+                              jax.device_get(sim.state)))
+        return states[which]
+    return get
 
 
 def test_both_packages_end_radix8_with_equal_state(radix8_jax):
-    _, jsim, _ = radix8_jax
     _, tp = _params(8)
-    tsim = Simulator(tp, synth.gen_radix(num_tiles=8, keys_per_tile=64,
-                                         radix=16, seed=3), device="cpu")
+    tsim = Simulator(tp, synth.gen_radix(**RADIX8), device="cpu")
     tsim.run(max_steps=256)
     assert bool(tsim.state.done.all())
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+    ref.check("test_torch_sim", "radix8_end",
+              convert.state_to_numpy(tsim.state), lambda: radix8_jax("end"),
+              ref.inputs(R8_OVER, tsim.trace, steps=256), live=True)
 
 
 def test_carry_across_mid_run_state(radix8_jax):
-    jp, jsim, mid = radix8_jax
+    """The state two megasteps into the run (the JAX package's: its pins,
+    or its run), carried through ``convert``, runs one more megastep to
+    the JAX package's state."""
     _, tp = _params(8)
-    leaves = convert.leaves_to_numpy(mid)
+    tsim = Simulator(tp, synth.gen_radix(**RADIX8), device="cpu")
+    tsim.run(max_steps=2)
+    leaves = ref.check("test_torch_sim", "radix8_mid",
+                       convert.state_to_numpy(tsim.state),
+                       lambda: radix8_jax("mid"),
+                       ref.inputs(R8_OVER, tsim.trace, steps=2), live=True)
     tst = convert.state_from_numpy(tp, leaves, "cpu")
     # The conversion itself is lossless, and back again.
     _assert_leaves_equal(leaves, convert.state_to_numpy(tst))
-    jtr = jsim.trace
-    ttr = convert.trace_from_numpy(np.asarray(jtr.addr),
-                                   np.asarray(jtr.meta), "cpu")
-    q = jp.quanta_per_step
-    jnext = jax.device_get(jquantum.megarun(jp, jax.device_put(mid), jtr, q))
-    tnext = tquantum.megarun(tp, tst, ttr, q)
-    assert int(tnext.ctr_quantum) == int(mid.ctr_quantum) + q
-    _assert_leaves_equal(convert.leaves_to_numpy(jnext),
-                         convert.state_to_numpy(tnext))
+    q = tp.quanta_per_step
+    tnext = tquantum.megarun(tp, tst, tsim.trace, q)
+    assert int(tnext.ctr_quantum) == int(leaves["ctr_quantum"]) + q
+    ref.check("test_torch_sim", "radix8_next", convert.state_to_numpy(tnext),
+              lambda: radix8_jax("next"),
+              ref.inputs(R8_OVER, tsim.trace, steps=2, more=q), live=True)
     assert tstate.SimState._fields == jstate.SimState._fields
 
 

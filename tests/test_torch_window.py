@@ -23,6 +23,8 @@ from graphite_tpu_torch.engine.kernels import window as twin
 from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 # The JAX package is imported inside the tests that compare against it,
 # so the card's kernel test runs on a machine without jax
 # (python -m pytest -m gpu --noconftest tests/test_torch_window.py).
@@ -70,10 +72,11 @@ def _params(T, over):
     return J["JaxSimParams"].from_config(cj), _torch_params(T, over)
 
 
+
 @functools.lru_cache(maxsize=None)
 def _jax_walk():
     J = _jax_modules()
-    return J["jax"].jit(J["jwin"].window_walk, static_argnums=(0, 3))
+    return ref.eager(J["jwin"].window_walk)
 
 
 def _jax_window_in(arrays):

@@ -12,12 +12,14 @@ plain form's results copied into the operands' own storage, the operands
 returned as the written leaves — and hold the runs to the same values the
 other tests use: the chain-off golden and every SimState leaf against the
 JAX package (tolerance 0: the engine is all-integer).
+
+The JAX package's end states come through tests/torch_jax_ref.py:
+its live run on the cases in ``LIVE``, its recorded pins on the others.
 """
 
 import json
 import os
 
-import numpy as np
 import pytest
 import torch
 
@@ -34,6 +36,8 @@ from graphite_tpu_torch.engine.sim import Simulator
 from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.params import SimParams
 
+import torch_jax_ref as ref
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "chain_off_golden.json")
 RADIX8 = ("gen_radix", dict(num_tiles=8, keys_per_tile=64, radix=16,
@@ -45,6 +49,10 @@ CASES = {
     "radix8_ff4_span200": (RADIX8, {"tpu/fast_forward": 4,
                                     "tpu/fast_forward_span": 200}),
 }
+# The cases compared with the JAX package's live run in tier-1, one run
+# shared by both tests of the case (the others with its recorded pins:
+# tests/torch_jax_ref.py).
+LIVE = ("radix8_ff4_span200",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,22 +65,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _over(T, over):
+    return {"general/total_cores": T, **over}
+
+
 def _params(T, over):
     cj, ct = jax_load_config(), load_config()
     for c in (cj, ct):
-        c.set("general/total_cores", T)
-        for k, v in over.items():
+        for k, v in _over(T, over).items():
             c.set(k, v)
     return JaxSimParams.from_config(cj), SimParams.from_config(ct)
-
-
-def _assert_leaves_equal(jleaves, tleaves):
-    assert set(jleaves) == set(tleaves)
-    for name in sorted(jleaves):
-        a, b = np.asarray(jleaves[name]), np.asarray(tleaves[name])
-        assert a.dtype == b.dtype and a.shape == b.shape, \
-            (name, a.dtype, b.dtype, a.shape, b.shape)
-        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 class InPlaceWalk:
@@ -96,10 +98,35 @@ class InPlaceWalk:
         return out._replace(**leaves)
 
 
+@pytest.fixture(scope="module")
+def jax_leaves():
+    """The JAX package's end state of a case, run at the first need and
+    shared by the tests that read it."""
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            (fn, kw), over = CASES[name]
+            jp, _ = _params(kw["num_tiles"], over)
+            jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
+            jsim.run(max_steps=4096)
+            runs[name] = convert.leaves_to_numpy(jax.device_get(jsim.state))
+        return runs[name]
+    return get
+
+
+def _check(key, name, tsim, jax_leaves):
+    (_, kw), over = CASES[name]
+    ref.check("test_torch_window_inplace", key,
+              convert.state_to_numpy(tsim.state), lambda: jax_leaves(name),
+              ref.inputs(_over(kw["num_tiles"], over), tsim.trace,
+                         steps=4096), live=name in LIVE)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_engine_under_in_place_walk(name, monkeypatch):
+def test_engine_under_in_place_walk(name, monkeypatch, jax_leaves):
     (fn, kw), over = CASES[name]
-    jp, tp = _params(kw["num_tiles"], over)
+    _, tp = _params(kw["num_tiles"], over)
     shim = InPlaceWalk()
     monkeypatch.setattr(tcore.kwindow, "run_window", shim)
     tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
@@ -114,10 +141,7 @@ def test_engine_under_in_place_walk(name, monkeypatch):
             assert int(getattr(tsim.state, f)) == want, f
         for k, want in gold["counters"].items():
             assert tsum.counters[k].tolist() == want, k
-    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
-    jsim.run(max_steps=4096)
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+    _check(name, name, tsim, jax_leaves)
 
 
 class InPlaceFFWalk:
@@ -139,11 +163,11 @@ class InPlaceFFWalk:
                                for f in twin.FF_INPLACE_FIELDS})
 
 
-def test_engine_under_in_place_ff_walk(monkeypatch):
+def test_engine_under_in_place_ff_walk(monkeypatch, jax_leaves):
     """radix8 at fast_forward 4, span 200, with both walks in place:
     every SimState leaf equal to the JAX package."""
     (fn, kw), over = CASES["radix8_ff4_span200"]
-    jp, tp = _params(kw["num_tiles"], over)
+    _, tp = _params(kw["num_tiles"], over)
     walk, ff = InPlaceWalk(), InPlaceFFWalk()
     monkeypatch.setattr(tcore.kwindow, "run_window", walk)
     monkeypatch.setattr(tcore.kwindow, "run_fast_forward", ff)
@@ -151,7 +175,5 @@ def test_engine_under_in_place_ff_walk(monkeypatch):
     tsim.run(max_steps=4096)
     assert walk.calls > 0 and ff.engaged > 0
     assert bool(tsim.state.done.all())
-    jsim = JaxSimulator(jp, getattr(jax_synth, fn)(**kw))
-    jsim.run(max_steps=4096)
-    _assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jsim.state)),
-                         convert.state_to_numpy(tsim.state))
+    _check("ff_walk_radix8_ff4_span200", "radix8_ff4_span200", tsim,
+           jax_leaves)
