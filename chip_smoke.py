@@ -90,13 +90,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      iterations that serve a fan-out, and chain_classify is held against
      its plain form on each of them once the run's counts are read.
   7. Profiled stretches of the chain-off and the chain-12 radix64 runs
-     (torch.profiler; 2 quanta and 1 quantum, continuing phase 3's
-     simulations), and of the radix64_ff_span run (2 quanta, continuing
-     phase 3's fast-forward simulation; it runs after phase 8's
-     radix64_ff_span path, whose unprofiled wall it is held against):
-     device busy time per round, held against the unprofiled wall time
-     per round of phases 5, 6 and 8, kernels and host polls per round,
-     and each kernel's share.
+     (torch.profiler with device activity only; 2 quanta, and the first
+     2 sub-rounds of a quantum with the top device kernels, continuing
+     phase 3's simulations), and of the radix64_ff_span run (2 quanta,
+     continuing phase 3's fast-forward simulation; it runs after phase
+     8's radix64_ff_span path, whose unprofiled wall it is held
+     against): device busy time per round, held against the unprofiled
+     wall time per round of phases 5, 6 and 8, kernels and host polls
+     (device-to-host copies) per round, each kernel's share, and the
+     profiler's own seconds.
   8. The fast-forward paths at full width, ``tpu/fast_forward = 8``
      (wide rounds of 64 events):
        * radix64_ff_span: phase 5's cut radix64 trace at miss_chain 0
@@ -191,7 +193,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      first window walks and replay iterations, on which the kernels are
      held against their plain forms once the launch counts are read.
 
-Before each path of phases 4 to 6 and 8 to 11 every kernel's launch count is
+  12. Synchronisation, CAPI messaging and system events at one stream
+      per tile, T = 64, each a whole run exact against the JAX package's
+      values on the CPU (every round counter, the completion, the sums
+      of the sync, thread, syscall, network and stall counters, the
+      [vm] section):
+       * lock64: ``gen_lock_contention(64, acquisitions=16,
+         critical_cycles=50)`` on the default config (5,900 rounds,
+         1,024 mutex acquires);
+       * pingpong64_hbh_user: ``gen_ping_pong(64, messages=32,
+         size=64)`` under a hop-by-hop user network with its queue model
+         on: every SEND flies over the user links (264 rounds);
+       * threads64_chain12: ``gen_threads_oversubscribed(num_streams=64,
+         compute_blocks=8, cost_cycles=100, yields=2)`` at miss_chain 12
+         (SPAWN, THREAD_START, JOIN, YIELD; 31 rounds);
+       * sysev64_ff: ``synth.gen_system_events(64, seed=0)`` (ATOMICs,
+         cond pairs, every SYSCALL class with the VM payloads, DVFS_SET,
+         the ROI markers, STALL and SYNC) at ``tpu/fast_forward = 8``,
+         span 1000 ns, miss_chain 12: all three kernels (266 rounds).
+     The last two record their first window walks with SPAWN rows (with
+     STALL or SYNC rows), replay iterations (with a banked ATOMIC at a
+     head) and analytic rounds, on which each kernel is held against its
+     plain form once the launch counts are read.
+
+Before each path of phases 4 to 6 and 8 to 12 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -357,6 +382,65 @@ FFT_HBH_CTRS = dict(round_ctr=710, ctr_window=218, ctr_complex=11,
 FFT_HBH_COMPLETION_PS = 88_225_600      # the latest clock at the cut
 FFT_HBH_CUT = dict(clock_sum=5_421_584_800, cursor_sum=31_002)
 FFT_HBH_LINK_WAIT_PS = 3_217_312_800
+
+
+# The synchronisation, CAPI and system-event paths (phase 12), whole
+# runs at T = 64, as the JAX package computes them on the CPU: the round
+# counters, the completion, the sums of the counters named and the [vm]
+# section (None: the trace makes no memory-management syscall).
+SYNC_SUMS = ("icount", "mutex_acquires", "cond_waits", "cond_signals",
+             "joins", "spawns", "syscalls", "syscall_ps", "net_link_wait_ps",
+             "sends", "recvs", "net_user_flits", "sync_stall_ps",
+             "mem_stall_ps")
+SYNC_PINS = {
+    "lock64": dict(
+        ctrs=dict(round_ctr=5900, ctr_window=3398, ctr_complex=2438,
+                  ctr_conflict=64, ctr_resolve=64, ctr_quantum=343),
+        completion_ps=147_411_200,
+        sums=dict(icount=51200, mutex_acquires=1024, cond_waits=0,
+                  cond_signals=0, joins=0, spawns=0, syscalls=0,
+                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
+                  net_user_flits=0, sync_stall_ps=9_032_793_600,
+                  mem_stall_ps=18_355_200),
+        vm=None),
+    # The pairs are mesh neighbours, so no two packets share a link: the
+    # flights run and wait 0 ps (the fan-in of test_torch_sync_runs.py
+    # shows the waits on the CPU).
+    "pingpong64_hbh_user": dict(
+        ctrs=dict(round_ctr=264, ctr_window=132, ctr_complex=132,
+                  ctr_conflict=0, ctr_resolve=0, ctr_quantum=17),
+        completion_ps=768_000,
+        sums=dict(icount=0, mutex_acquires=0, cond_waits=0, cond_signals=0,
+                  joins=0, spawns=0, syscalls=0, syscall_ps=0,
+                  net_link_wait_ps=0, sends=2048, recvs=2048,
+                  net_user_flits=18432, sync_stall_ps=44_704_000,
+                  mem_stall_ps=0),
+        vm=None),
+    "threads64_chain12": dict(
+        ctrs=dict(round_ctr=31, ctr_window=18, ctr_complex=7,
+                  ctr_conflict=0, ctr_resolve=6, ctr_quantum=3),
+        completion_ps=4_127_400,
+        sums=dict(icount=54912, mutex_acquires=0, cond_waits=0,
+                  cond_signals=0, joins=32, spawns=32, syscalls=0,
+                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
+                  net_user_flits=0, sync_stall_ps=31_836_400,
+                  mem_stall_ps=115_703_200),
+        vm=None),
+    "sysev64_ff": dict(
+        ctrs=dict(round_ctr=266, ctr_window=106, ctr_complex=92,
+                  ctr_conflict=0, ctr_resolve=55, ctr_quantum=15,
+                  ctr_ff=61, ctr_ffq=11, ff_events=861),
+        completion_ps=52_823_200,
+        sums=dict(icount=75396, mutex_acquires=96, cond_waits=32,
+                  cond_signals=32, joins=0, spawns=0, syscalls=126,
+                  syscall_ps=219_584_072, net_link_wait_ps=0, sends=0,
+                  recvs=0, net_user_flits=0, sync_stall_ps=1_246_284_816,
+                  mem_stall_ps=180_189_470),
+        vm=dict(data_segment_bytes=299008, stack_segment_bytes=134217728,
+                dynamic_segment_bytes=1597440, mmap_bytes=1597440,
+                munmap_bytes=45056, brk_overflow=False,
+                dynamic_overflow=False)),
+}
 
 
 T_START = time.perf_counter()
@@ -924,33 +1008,53 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.6f} ms"
 
 
-def profile_stretch(psim, wall_ms, card, label, names, quanta, top=0):
-    """torch.profiler over ``quanta`` quantum steps of a simulation
-    already past its start-up: device time per round against the
-    unprofiled ``wall_ms`` per round, kernels and host polls per round,
-    each named kernel's time and, with ``top``, the ``top`` device
-    kernels that took the most time."""
+def profile_stretch(psim, wall_ms, card, label, names, quanta=None,
+                    subrounds=None, top=0):
+    """torch.profiler (device activity only) over ``quanta`` quantum
+    steps of a simulation already past its start-up, or over the first
+    ``subrounds`` sub-rounds (local advance, then resolve) of its next
+    quantum: device time per round against the unprofiled ``wall_ms``
+    per round, kernels and host polls (device-to-host copies, each a
+    host wait) per round, each named kernel's time and, with ``top``,
+    the ``top`` device kernels that took the most time; and the
+    profiler's own seconds around the stretch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from graphite_tpu_torch.engine.quantum import megarun
-    params = psim.params
+    from graphite_tpu_torch.engine.core import local_advance
+    from graphite_tpu_torch.engine.quantum import megarun, next_boundary
+    from graphite_tpu_torch.engine.resolve import resolve
+    params, vp = psim.params, psim.vp
     torch.cuda.synchronize()
     q0 = int(psim.state.ctr_quantum.item())
     r0 = int(psim.state.round_ctr.item())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        psim.state = megarun(params, psim.state, psim.trace, quanta,
-                             vp=psim.vp)
+        if subrounds is None:
+            psim.state = megarun(params, psim.state, psim.trace, quanta,
+                                 vp=vp)
+        else:
+            # The simulation is left inside its quantum: it is not run
+            # on after its stretch.
+            st = psim.state._replace(
+                boundary=next_boundary(params, psim.state, vp=vp),
+                ctr_quantum=psim.state.ctr_quantum + 1)
+            for _ in range(subrounds):
+                st = resolve(params, local_advance(params, st, psim.trace,
+                                                   vp=vp), vp=vp)
+            psim.state = st
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
     pr = max(int(psim.state.round_ctr.item()) - r0, 1)
     pq = int(psim.state.ctr_quantum.item()) - q0
+    what = f"{pq} quanta" if subrounds is None \
+        else f"{subrounds} sub-rounds of 1 quantum"
     dev_us, n_kernels, ppolls = 0.0, 0, 0
     per = {n: [0.0, 0] for n in names}
     by_kernel = []
     for evt in prof.key_averages():
-        if evt.key == "aten::_local_scalar_dense":     # one per .item()
+        if "Memcpy DtoH" in evt.key:          # one per .item() / .tolist()
             ppolls += evt.count
         t = getattr(evt, "self_device_time_total",
                     getattr(evt, "self_cuda_time_total", 0.0))
@@ -963,10 +1067,12 @@ def profile_stretch(psim, wall_ms, card, label, names, quanta, top=0):
                 if n in evt.key:
                     per[n][0] += t
                     per[n][1] += evt.count
+    own_s = time.perf_counter() - t_prof - pwall
     if dev_us <= 0:
-        print(f"profile {label}: {pq} quanta, {pr} rounds in {pwall:.3f} s "
+        print(f"profile {label}: {what}, {pr} rounds in {pwall:.3f} s "
               f"wall; device time not measured (the profiler saw no "
-              f"device events), host polls {ppolls}")
+              f"device events), host polls {ppolls}; the profiler's own "
+              f"time {own_s:.3f} s")
         return
     busy_ms = dev_us / 1e3 / pr
     shares = ", ".join(
@@ -976,13 +1082,14 @@ def profile_stretch(psim, wall_ms, card, label, names, quanta, top=0):
     # The profiler's host overhead stretches the wall of this stretch, so
     # the busy share is device time per round over the unprofiled wall
     # time per round of the same run.
-    print(f"profile {label}: {pq} quanta, {pr} rounds in {pwall:.3f} s "
+    print(f"profile {label}: {what}, {pr} rounds in {pwall:.3f} s "
           f"profiled wall ({1e3 * pwall / pr:.4f} ms/round); device busy "
           f"{dev_us / 1e3:.3f} ms ({busy_ms:.6f} ms/round, "
           f"{busy_ms / wall_ms:.4f} of the unprofiled {wall_ms:.4f} "
           f"ms/round, idle share {1 - busy_ms / wall_ms:.4f}), {n_kernels} "
           f"device kernels ({n_kernels / pr:.1f} per round), host polls "
-          f"{ppolls} ({ppolls / pr:.2f} per round); {shares} on {card}")
+          f"{ppolls} ({ppolls / pr:.2f} per round); {shares}; the "
+          f"profiler's own time {own_s:.3f} s, on {card}")
     for t, n, key in sorted(by_kernel, reverse=True)[:top]:
         print(f"profile {label}: top device kernel {key[:90]!r}: "
               f"{t / 1e3:.3f} ms over {n} launches ({t / 1e3 / pr:.6f} "
@@ -1774,7 +1881,7 @@ def main() -> int:
                     quanta=2)
     stamp("phase 7: chain-off stretch profiled")
     profile_stretch(csim, wall_ms12, card, "radix64_chain12",
-                    ["window_walk", "chain_classify"], quanta=1)
+                    ["window_walk", "chain_classify"], subrounds=2, top=5)
     stamp("phase 7: chain-12 stretch profiled")
 
     # ---- 8. the fast-forward paths at full width
@@ -2337,6 +2444,135 @@ def main() -> int:
             FFT_HBH_CTRS, FFT_HBH_COMPLETION_PS, FFT_HBH_LINK_WAIT_PS,
             contended=True, quanta=FFT_HBH_QUANTA, cut=FFT_HBH_CUT)
     stamp("phase 11: fft64_hbh_contended")
+
+    # ---- 12. synchronisation, CAPI and system events at full width,
+    # one stream per tile, each a whole run exact against its JAX pins
+    def sync_run(label, p, strace, windows=None, iterations=None,
+                 rounds=False):
+        """One phase-12 path; with ``windows`` and ``iterations``
+        (predicates on the walk's and the replay step's operands) and
+        ``rounds`` it records (clones of) the operands of its first
+        window walks, replay iterations and analytic rounds, on which
+        each kernel is held against its plain form once the launch
+        counts are read."""
+        nonlocal err_w, err_c, err_f
+        pin = SYNC_PINS[label]
+        held = peak_reset()
+        sim = Simulator(p, strace, device=dev)
+        reset_counts()
+        with Recorder(kcore.kwindow, "run_window",
+                      windows or (lambda wi: False), 3) as rwp, \
+                Recorder(kres.kchain, "run_chain_step",
+                         iterations or (lambda si: False), 4) as rcp, \
+                Recorder(kcore.kwindow, "run_fast_forward",
+                         (lambda fi: bool(fi.tile_active.any())) if rounds
+                         else (lambda fi: False), 3) as rfp:
+            s, wall = advance(sim)
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+        lf, engaged = COUNTS["fast_forward_walk"], COUNTS["ff_engaged"]
+        c = round_ctrs(sim.state)
+        r = c["round_ctr"]
+        passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
+            - engaged
+        check_end(label, sim, s, pin["completion_ps"])
+        for k, v in pin["ctrs"].items():
+            check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
+        sums = {k: int(s.counters[k].sum()) for k in SYNC_SUMS}
+        for k, v in pin["sums"].items():
+            check(sums[k] == v, f"{label}: sum of {k} {sums[k]} != {v}")
+        check(s.vm_summary() == pin["vm"],
+              f"{label}: [vm] {s.vm_summary()} != {pin['vm']}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{label}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        check(passes == (c["ctr_resolve"] if p.miss_chain else 0)
+              and lc == p.miss_chain * passes,
+              f"{label}: chain_classify launches {lc} != {p.miss_chain} x "
+              f"{passes} chain passes")
+        check(lf >= engaged, f"{label}: fast_forward_walk launches {lf} < "
+                             f"{engaged} engaged analytic rounds")
+        print(f"{label}: all_done, round_ctr {r}, completion "
+              f"{s.completion_time_ps / 1000:.1f} ns; counters {c}; sums "
+              f"{sums}; vm {s.vm_summary()}; analytic rounds that engaged "
+              f"{engaged}, chain passes {passes}")
+        print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
+              f"{1e3 * wall / r:.4f} ms/round, simulated MIPS "
+              f"{s.total_instructions / wall / 1e6:.6f}, {peak_line(held)}, "
+              f"window_walk launches {lw}, chain_classify launches {lc}, "
+              f"fast_forward_walk launches {lf} on {card}")
+        del sim
+        v = variant_params(p)
+        check((windows is None or bool(rwp.seen))
+              and (iterations is None or bool(rcp.seen))
+              and (not rounds or bool(rfp.seen)),
+              f"{label}: recorded {len(rwp.seen)} windows, {len(rcp.seen)} "
+              f"replay iterations, {len(rfp.seen)} analytic rounds")
+        for i, wi in enumerate(rwp.seen):
+            got, ref = walk_pair(kwin, p, v, wi, T)
+            torch.cuda.synchronize()
+            err_w = max(err_w, compare("window_walk", got, ref,
+                                       f"{label} window {i}"))
+        for i, si in enumerate(rcp.seen):
+            got, ref = step_pair(kchain, p, v, si, H)
+            torch.cuda.synchronize()
+            err_c = max(err_c, compare_step(got, ref,
+                                            f"{label} iteration {i}"))
+        for i, fi in enumerate(rfp.seen):
+            got, ref = ff_pair(kwin, p, v, fi)
+            torch.cuda.synchronize()
+            err_f = max(err_f, compare("fast_forward_walk", got, ref,
+                                       f"{label} analytic round {i}"))
+        if rwp.seen or rcp.seen or rfp.seen:
+            print(f"{label}: kernels held on the run's recorded operands "
+                  f"({len(rwp.seen)} windows, {len(rcp.seen)} replay "
+                  f"iterations, {len(rfp.seen)} analytic rounds), max abs "
+                  f"err window {err_w}, chain {err_c}, ff {err_f}")
+        return lw, lc, lf
+
+    def rows_of(*ops):
+        """A window predicate: some valid event is one of ``ops``."""
+        def keep(wi):
+            hit = torch.zeros_like(wi.valid_ev)
+            for o in ops:
+                hit |= wi.meta[0] == int(o)
+            return bool((hit & wi.valid_ev).any())
+        return keep
+
+    def atomic_head(si):
+        """A replay iteration in which some active head is a banked
+        ATOMIC (bit 3 of its request word)."""
+        hsel = torch.clamp(si.head, 0, CHAIN - 1).to(torch.int64)[None, :]
+        req = torch.gather(si.mq_req, 0, hsel)[0]
+        return bool((((~si.stopped) & (si.head < si.stop_hi))
+                     & (((req >> 3) & 1) == 1)).any())
+
+    sync_run("lock64", config(), synth.gen_lock_contention(
+        T, acquisitions=16, critical_cycles=50))
+    stamp("phase 12: lock64")
+    sync_run("pingpong64_hbh_user",
+             config(**{"network/user": "emesh_hop_by_hop",
+                       "network/emesh_hop_by_hop/queue_model/enabled": True}),
+             synth.gen_ping_pong(T, messages=32, size=64))
+    stamp("phase 12: pingpong64_hbh_user")
+    lw, lc, _ = sync_run(
+        "threads64_chain12", config(**{"tpu/miss_chain": CHAIN}),
+        synth.gen_threads_oversubscribed(num_streams=T, compute_blocks=8,
+                                         cost_cycles=100, yields=2),
+        windows=rows_of(EventOp.SPAWN), iterations=any_head)
+    check(lw > 0 and lc > 0, f"threads64_chain12: launches window_walk {lw}, "
+                             f"chain_classify {lc}")
+    stamp("phase 12: threads64_chain12")
+    lw, lc, lf = sync_run(
+        "sysev64_ff", config(**{"tpu/fast_forward": FF,
+                                "tpu/fast_forward_span": 1000,
+                                "tpu/miss_chain": CHAIN}),
+        synth.gen_system_events(T, seed=0),
+        windows=rows_of(EventOp.STALL, EventOp.SYNC),
+        iterations=atomic_head, rounds=True)
+    check(lw > 0 and lc > 0 and lf > 0,
+          f"sysev64_ff: launches window_walk {lw}, chain_classify {lc}, "
+          f"fast_forward_walk {lf}: each kernel must run")
+    stamp("phase 12: sysev64_ff")
 
     kernels = [{
         "name": "window_walk",

@@ -17,10 +17,12 @@ to 256, ``tpu/fast_forward`` on or off):
     walk (the CUDA kernel on the card) before the detailed machinery:
     each prices a candidate tile's hit/compute-only prefix in closed
     form.
-  * ``_complex_slot`` — one event per tile for the event kinds of this
-    slice: COMPUTE / BRANCH / MEM misses park the tile for resolve (or,
-    at P > 0, bank as chain element 0), BARRIER_WAIT parks on the
-    barrier, DONE retires the stream.
+  * ``_complex_slot`` — one event per tile, every event kind:
+    COMPUTE / BRANCH / MEM / ATOMIC misses park the tile for resolve (or,
+    at P > 0, bank as chain element 0), the sync, CAPI and thread kinds
+    park on their resolvers, STALL / SYNC / DVFS_SET / SYSCALL / YIELD
+    and the ROI markers retire in closed form, DONE retires the stream.
+    One stream per tile (the ThreadScheduler slice takes more).
   * ``local_advance`` — the analytic rounds first (at
     ``tpu/fast_forward`` > 0); then at P = 0, window rounds until they
     stop retiring, then one general slot, repeated while anything moves;
@@ -35,20 +37,24 @@ and match the JAX loops exactly.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from graphite_tpu_torch.engine import cache as cachemod
 from graphite_tpu_torch.engine import dense
 from graphite_tpu_torch.engine import noc
+from graphite_tpu_torch.engine import noc_flight
 from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.kernels import window as kwindow
 from graphite_tpu_torch.engine.ops import scatter
 from graphite_tpu_torch.engine.state import (
-    PEND_BARRIER, PEND_EX_REQ, PEND_IFETCH, PEND_NONE, PEND_SH_REQ, SimState,
-    TraceArrays)
+    PEND_BARRIER, PEND_CBC, PEND_COND, PEND_CSIG, PEND_EX_REQ, PEND_IFETCH,
+    PEND_JOIN, PEND_MUTEX, PEND_NONE, PEND_RECV, PEND_SEND, PEND_SH_REQ,
+    PEND_START, SimState, TraceArrays)
 from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
 from graphite_tpu_torch.events.schema import ICACHE_BYTES_PER_INSTRUCTION
-from graphite_tpu_torch.isa import DVFSModule, EventOp
+from graphite_tpu_torch.isa import DVFSModule, EventOp, SyscallClass
 from graphite_tpu_torch import params as params_mod
 from graphite_tpu_torch.params import SimParams
 
@@ -66,6 +72,12 @@ _ff_bound = kwindow._ff_bound
 def _period(state: SimState, module: DVFSModule):
     """[T] int32 ps-per-cycle of a DVFS module's current clock."""
     return state.period_ps[:, int(module)]
+
+
+@functools.lru_cache(maxsize=None)
+def _syscall_table(costs: tuple, device) -> torch.Tensor:
+    """[len(SyscallClass)] int32 service cycles on ``device``, made once."""
+    return torch.tensor(costs, dtype=torch.int32, device=device)
 
 
 def mcp_tile(params: SimParams) -> int:
@@ -311,15 +323,17 @@ def _fast_forward_guarded(params: SimParams, vp: VariantParams,
 
 def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
                   trace: TraceArrays) -> SimState:
-    """One event per tile, for this slice's event kinds (COMPUTE, BRANCH,
-    MEM_READ, MEM_WRITE, BARRIER_WAIT, DONE, NOP — the simulator refuses
-    traces with any other op at construction, so every other kind's mask
-    in the JAX slot is all-false here and its leaves are untouched)."""
+    """One event per tile, every event kind: compute, branch and memory
+    misses park the tile for resolve (or, at P > 0, bank as chain element
+    0), the sync, CAPI and lifecycle kinds park on their resolvers or
+    retire in closed form, DONE retires the stream.  One stream per tile:
+    YIELD is cost only (the ThreadScheduler slice rotates seats)."""
     T = params.num_tiles
     N = trace.num_events
     line_bits = params.line_size.bit_length() - 1
     dev = state.clock.device
     rows = torch.arange(T, device=dev)
+    num_locks = state.lock_holder.shape[0]
     num_bars = state.bar_count.shape[0]
     mcp = mcp_tile(params)
     st = state
@@ -341,7 +355,17 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     arg = ev[1]
     arg2 = ev[2]
 
+    # Region of interest: outside it compute, branch and memory events
+    # cost nothing and count nothing; sync, network and lifecycle events
+    # stay functional.  With core modeling off in the config the markers
+    # cannot turn it on.
     en = st.models_enabled
+    if params.enable_core_modeling:
+        models_enabled = (st.models_enabled
+                          | (op == EventOp.ENABLE_MODELS).any()) \
+            & ~(op == EventOp.DISABLE_MODELS).any()
+    else:
+        models_enabled = st.models_enabled
     clk = st.clock
 
     p_core = _period(st, DVFSModule.CORE)
@@ -404,7 +428,8 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
 
     # ------------------------------------------------- MEMORY OPERANDS
     is_rd = op == EventOp.MEM_READ
-    is_wr = op == EventOp.MEM_WRITE
+    is_at = op == EventOp.ATOMIC
+    is_wr = (op == EventOp.MEM_WRITE) | is_at
     is_mem = is_rd | is_wr
     # Writable states: M, and under shared-L2 MESI also E (the exclusive
     # owner upgrades E->M locally without telling the home slice).
@@ -419,11 +444,60 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         l2_ok = pL2.hit & (is_rd | (pL2.state == M))
         mem_l2 = is_mem & ~l1_ok & l2_ok & en
         mem_rem = is_mem & ~l1_ok & ~l2_ok & en
-    dt_mem_l1 = l1d_ps
-    dt_mem_l2 = l1d_ps + l2_ps
+    # An atomic pays one read-modify-write cycle past its access.
+    at_extra = torch.where(is_at, cycle_ps, 0)
+    dt_mem_l1 = l1d_ps + at_extra
+    dt_mem_l2 = l1d_ps + l2_ps + at_extra
+
+    # --------------------------------------------- USER NETWORK (CAPI)
+    is_send_op = op == EventOp.SEND
+    is_recv = op == EventOp.RECV
+    flits_send = noc.num_flits(torch.clamp(arg, min=0),
+                               vp.net_user.flit_width_bits)
+    chan = {}
+    if st.has_capi:
+        # A send takes the next slot of its [D] channel ring, or parks
+        # (PEND_SEND) while the ring is full.  The reused slot holds the
+        # completion of the recv that freed it, a floor on the departure.
+        chan_depth = st.ch_time.shape[0]
+        dst = torch.clip(arg2, 0, T - 1).to(torch.int64)
+        sent_row = st.ch_sent[rows, dst]
+        recvd_row = st.ch_recvd[rows, dst]
+        ch_full = (sent_row - recvd_row) >= chan_depth
+        is_send = is_send_op & ~ch_full
+        send_block = is_send_op & ch_full
+        slot_idx = (sent_row % chan_depth).to(torch.int64)
+        slot_freed = st.ch_time[slot_idx, rows, dst]
+        depart = torch.maximum(clk + cycle_ps, slot_freed)
+        if params.net_user.model == "emesh_hop_by_hop":
+            # The data packet contends per link on the user mesh.
+            fl = noc_flight.flight(
+                params.net_user, params.mesh_width, params.mesh_height,
+                rows.to(torch.int32), dst.to(torch.int32), depart,
+                flits_send, is_send & active, st.link_free_user, p_nu,
+                vnet=vp.net_user)
+            chan["link_free_user"] = fl.link_free
+            c = c._replace(net_link_wait_ps=c.net_link_wait_ps
+                           + torch.where(is_send & active & en,
+                                         fl.wait_ps, 0))
+            arrival = torch.where(is_send, fl.arrival, depart)
+        else:
+            arrival = depart + noc.unicast_ps(
+                params.net_user, rows, dst, torch.clamp(arg, min=0), p_nu,
+                params.mesh_width, vnet=vp.net_user)
+        chan["ch_time"] = scatter(st.ch_time, (slot_idx, rows, dst),
+                                  arrival, "set", mask=is_send)
+        chan["ch_sent"] = scatter(st.ch_sent, (rows, dst), 1, "add",
+                                  mask=is_send)
+    else:
+        is_send = torch.zeros_like(is_send_op)
+        send_block = is_send_op          # a CAPI-less state cannot send
+    dt_send = cycle_ps
 
     # ------------------------------------------------------ SYNC OPS
     is_bar = op == EventOp.BARRIER_WAIT
+    is_lock = op == EventOp.MUTEX_LOCK
+    is_unlock = op == EventOp.MUTEX_UNLOCK
     to_mcp_ps = noc.unicast_ps(
         params.net_user, rows, torch.full((T,), mcp, device=dev), 8, p_nu,
         params.mesh_width, vnet=vp.net_user)
@@ -434,8 +508,60 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         bar_oh, is_bar, 1).to(st.bar_count.dtype)
     bar_time = torch.maximum(st.bar_time, dense.binmax(
         bar_oh, is_bar, clk + to_mcp_ps, NEG))
+    # Unlock, and COND_WAIT (whose mutex id is in arg2), release the mutex
+    # at its MCP arrival; an unlock pays the round trip.
+    is_cwait = op == EventOp.COND_WAIT
+    is_csig = op == EventOp.COND_SIGNAL
+    is_cbc = op == EventOp.COND_BROADCAST
+    is_join = op == EventOp.JOIN
+    is_tstart = op == EventOp.THREAD_START
+    release = is_unlock | is_cwait
+    lock_id = torch.clip(torch.where(is_cwait, arg2, arg), 0, num_locks - 1)
+    ul_oh = dense.onehot(lock_id, num_locks) & release[:, None]
+    lock_holder = torch.where(ul_oh.any(dim=0), 0, st.lock_holder)
+    lock_free_at = torch.maximum(st.lock_free_at, dense.binmax(
+        ul_oh, release, clk + to_mcp_ps + cycle_ps, NEG))
+    dt_unlock = 2 * to_mcp_ps + 2 * cycle_ps
 
+    # SPAWN (from the slot when models are off: the window walk takes it
+    # otherwise) lands on the child's tile.
+    is_spawn = op == EventOp.SPAWN
+    S_ids = st.spawned_at.shape[0]
+    child = torch.clip(arg2, 0, S_ids - 1).to(torch.int64)
+    spawn_land = clk + _lat(torch.clamp(arg, min=0), p_core) \
+        + noc.unicast_ps(params.net_user, rows, child % T, 8, p_nu,
+                         params.mesh_width, vnet=vp.net_user)
+    spawned_at = scatter(st.spawned_at, child, spawn_land, "max",
+                         mask=is_spawn)
+
+    # ------------------------------------------------ SIMPLE/DYNAMIC OPS
+    is_stall = op == EventOp.STALL
+    is_sync = op == EventOp.SYNC
+    is_dvfs = op == EventOp.DVFS_SET
     is_done = op == EventOp.DONE
+    # YIELD: an MCP round trip; with one stream per tile nothing rotates.
+    is_yield = op == EventOp.YIELD
+    dt_spawn = _lat(torch.clamp(arg, min=0), p_core)
+    dt_dvfs = _lat(vp.dvfs_sync_delay_cycles, p_core)
+
+    # SYSCALL: request leg to the MCP with the marshalled bytes, the
+    # class's service cycles, the ack leg and one cycle; no park.
+    is_sysc = op == EventOp.SYSCALL
+    svc_tbl = _syscall_table(vp.syscall_cost_cycles, dev)
+    svc_ps = _lat(svc_tbl[torch.clip(arg, 0, svc_tbl.shape[0] - 1).to(
+        torch.int64)], p_core)
+    sys_req_ps = noc.unicast_ps(
+        params.net_user, rows, torch.full((T,), mcp, device=dev),
+        torch.clamp(arg2, min=0), p_nu, params.mesh_width,
+        vnet=vp.net_user)
+    dt_sysc = sys_req_ps + svc_ps + to_mcp_ps + cycle_ps
+    nmod = st.period_ps.shape[1]
+    mod_oh = is_dvfs[:, None] & dense.onehot(torch.clip(arg, 0, nmod - 1),
+                                             nmod)
+    # arg2 is the new frequency in MHz: period_ps = round(1e6 / MHz).
+    mhz = torch.clamp(arg2, min=1)
+    new_period = ((1_000_000 + mhz // 2) // mhz).to(torch.int32)
+    period_ps = torch.where(mod_oh, new_period[:, None], st.period_ps)
 
     # ------------------------------------------------------ combine dt
     dt = torch.zeros(T, dtype=torch.int64, device=dev)
@@ -443,43 +569,79 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     dt = torch.where(is_br & en, dt_br, dt)
     dt = torch.where(mem_l1, dt_mem_l1, dt)
     dt = torch.where(mem_l2, dt_mem_l2, dt)
+    dt = torch.where(is_send, dt_send, dt)
+    dt = torch.where(is_unlock, dt_unlock, dt)
+    dt = torch.where(is_spawn, dt_spawn, dt)
+    dt = torch.where(is_dvfs, dt_dvfs, dt)
+    # ROI-gated: with models off a syscall runs but charges no time.
+    dt = torch.where(is_sysc & en, dt_sysc, dt)
+    dt = torch.where(is_yield & en, 2 * to_mcp_ps + cycle_ps, dt)
+
     new_clock = clk + dt
+    new_clock = torch.where(is_stall, torch.maximum(clk, addr), new_clock)
+    new_clock = torch.where(
+        is_sync,
+        torch.maximum(clk, addr) + _lat(torch.clamp(arg, min=0), p_core),
+        new_clock)
 
     # ------------------------------------------------- blocking events
     # At P > 0 a memory miss banks as chain element 0 instead of parking
     # (the complex slot runs only on an empty chain, so slot 0 is free);
     # the resolve pass fills the line at serve time.
     bank = (mem_rem | comp_block) if P > 0 else torch.zeros_like(mem_rem)
-    blocked = ((comp_block | mem_rem) & ~bank) | is_bar
+    blocked = ((comp_block | mem_rem) & ~bank) | is_recv | is_bar \
+        | is_lock | send_block | is_cwait | is_csig | is_cbc | is_join \
+        | is_tstart
     kind = torch.where(comp_block, PEND_IFETCH, PEND_NONE)
     kind = torch.where(mem_rem & is_rd, PEND_SH_REQ, kind)
     kind = torch.where(mem_rem & is_wr, PEND_EX_REQ, kind)
+    kind = torch.where(is_recv, PEND_RECV, kind)
     kind = torch.where(is_bar, PEND_BARRIER, kind)
+    kind = torch.where(is_lock, PEND_MUTEX, kind)
+    kind = torch.where(send_block, PEND_SEND, kind)
+    kind = torch.where(is_cwait, PEND_COND, kind)
+    kind = torch.where(is_csig, PEND_CSIG, kind)
+    kind = torch.where(is_cbc, PEND_CBC, kind)
+    kind = torch.where(is_join, PEND_JOIN, kind)
+    kind = torch.where(is_tstart, PEND_START, kind)
     pend_kind = torch.where(blocked, kind, st.pend_kind)
     pend_addr = torch.where(
-        is_bar, arg.to(torch.int64),
-        torch.where(blocked, addr, st.pend_addr))
+        is_bar | is_lock | is_cwait | is_csig | is_cbc, arg.to(torch.int64),
+        torch.where(send_block, torch.clamp(arg, min=0).to(torch.int64),
+                    torch.where(blocked, addr, st.pend_addr)))
     # The miss is found after the local tag checks: L1 only with shared
     # L2 (there is no private L2 tag array to consult).
     miss_tags_ps = cycle_ps if shared_l2 else l2_tag_ps
     issue = clk + torch.where(
         comp_block, l1i_ps + miss_tags_ps,
         torch.where(mem_rem, l1d_ps + miss_tags_ps, cycle_ps))
+    # Cond waits and signal/broadcast tokens park with their MCP arrival
+    # time; THREAD_START parks at the local clock.
+    issue = torch.where(is_cwait | is_csig | is_cbc, clk + to_mcp_ps, issue)
+    issue = torch.where(is_tstart, clk, issue)
     pend_issue = torch.where(blocked, issue, st.pend_issue)
+    # A memory park's aux: the atomic flag in bit 0 and a load's
+    # destination register + 1 in bits 8-12; other parks carry arg2.
     mdreg = torch.where(is_rd, (arg2 >> 8) & 31, 0)
     pend_aux = torch.where(blocked,
-                           torch.where(mem_rem, mdreg << 8, arg2),
+                           torch.where(mem_rem,
+                                       is_at.to(torch.int32) | (mdreg << 8),
+                                       arg2),
                            st.pend_aux)
+    # Local cost still owed once the remote part resolves: a blocked
+    # COMPUTE block's execution and fetch, an atomic's RMW cycle.
     extra = torch.where(
         comp_block,
-        cost_ps + fetch_ps + (0 if shared_l2 else (n_lines - 1) * l2_ps), 0)
+        cost_ps + fetch_ps + (0 if shared_l2 else (n_lines - 1) * l2_ps),
+        torch.where(mem_rem, at_extra, 0))
     pend_extra = torch.where(blocked, extra, st.pend_extra)
 
     if P > 0:
         kind_ev = torch.where(comp_block, PEND_IFETCH,
                               torch.where(is_wr, PEND_EX_REQ,
                                           PEND_SH_REQ)).to(torch.int64)
-        mq_req0 = kind_ev | (line << 8)
+        # The bank word: kind, the atomic flag in bit 3, the line.
+        mq_req0 = kind_ev | (is_at.to(torch.int64) << 3) | (line << 8)
         chain = dict(
             mq_req=_set_row0(st.mq_req, bank, mq_req0),
             mq_delta=_set_row0(st.mq_delta, bank, issue),
@@ -543,8 +705,22 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
             c.l2_miss, mem_rem | comp_block),
         branches=add(c.branches, is_br),
         mispredicts=add(c.mispredicts, is_br & ~correct),
+        net_user_pkts=add(c.net_user_pkts, is_send),
+        net_user_flits=c.net_user_flits
+        + torch.where(is_send & en, flits_send, 0),
+        sends=add(c.sends, is_send),
         barriers=add(c.barriers, is_bar),
+        cond_waits=add(c.cond_waits, is_cwait),
+        cond_signals=add(c.cond_signals, is_csig | is_cbc),
+        spawns=add(c.spawns, is_spawn),
+        syscalls=add(c.syscalls, is_sysc),
+        syscall_ps=c.syscall_ps + torch.where(is_sysc & en, dt_sysc, 0),
     )
+
+    # The VMManager's accounting: mmap/munmap lengths and the requested
+    # break ride the SYSCALL's addr field.  Functional, so not ROI-gated.
+    def vm_of(cls):
+        return torch.where(is_sysc & (arg == int(cls)), addr, 0)
 
     return st._replace(
         clock=new_clock,
@@ -552,6 +728,8 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
             torch.int32),
         done=st.done | is_done,
         done_at=torch.where(is_done, clk, st.done_at),
+        spawned_at=spawned_at,
+        models_enabled=models_enabled,
         pend_kind=pend_kind.to(torch.int32),
         pend_addr=pend_addr,
         pend_issue=pend_issue,
@@ -559,11 +737,19 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         pend_extra=pend_extra,
         bp_table=bp_table,
         l1i=l1i, l1d=l1d, l2=l2,
+        period_ps=period_ps,
+        lock_holder=lock_holder,
+        lock_free_at=lock_free_at,
         bar_count=bar_count,
         bar_time=bar_time,
         round_ctr=st.round_ctr + 1,
         ctr_complex=st.ctr_complex + 1,
         counters=c,
+        vm_mmap_bytes=st.vm_mmap_bytes + torch.sum(vm_of(SyscallClass.MMAP)),
+        vm_munmap_bytes=st.vm_munmap_bytes
+        + torch.sum(vm_of(SyscallClass.MUNMAP)),
+        vm_brk=torch.maximum(st.vm_brk, torch.amax(vm_of(SyscallClass.BRK))),
+        **chan,
         **chain,
     )
 
@@ -579,8 +765,9 @@ def _complex_slot_guarded(params: SimParams, vp: VariantParams,
                           trace: TraceArrays) -> SimState:
     """Run the general slot only when some tile can use it (P > 0): an
     eligible tile (empty chain, un-parked, inside the spanned bound)
-    whose next event is one the window never takes — here BARRIER_WAIT,
-    DONE and NOP — or any eligible tile while models are off.  Skipping
+    whose next event is one the window never takes (every kind but
+    COMPUTE, BRANCH, MEM_READ, MEM_WRITE, STALL, SYNC and SPAWN), or any
+    eligible tile while models are off.  Skipping
     is result-identical; at P == 0 the slot runs unconditionally."""
     if params.miss_chain <= 0:
         return _complex_slot(params, vp, state, trace)

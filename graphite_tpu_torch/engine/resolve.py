@@ -6,7 +6,9 @@ L2, or the per-tile L2 slices under shared-L2 MSI or MESI; every
 network model, with the hop-by-hop mesh's contended link flights; the
 history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
 the blocking chain replay ``chain_fast_pass`` in front of its conflict
-rounds, and ``resolve_barrier``.  Every parked request (or chain head) of
+rounds, and the sync resolvers (CAPI receives and back-pressured sends,
+barriers, condition variables, mutexes, joins and thread starts) at one
+stream per tile.  Every parked request (or chain head) of
 every tile is priced and applied at once; same-line races are serialised
 by conflict rounds, in which each line's earliest pending request
 transacts and later ones see the post-transaction directory.  The
@@ -35,8 +37,9 @@ from graphite_tpu_torch.engine.core import STAMP_STRIDE, _lat, _period, \
 from graphite_tpu_torch.engine.kernels import chain as kchain
 from graphite_tpu_torch.engine.ops import first_true, scatter, umod64
 from graphite_tpu_torch.engine.state import (
-    PEND_BARRIER, PEND_EX_REQ, PEND_IFETCH, PEND_NONE, PEND_RECV,
-    PEND_SH_REQ, SimState, dword_owner, dword_pack, dword_stamp,
+    NUM_CONDS, PEND_BARRIER, PEND_CBC, PEND_COND, PEND_CSIG, PEND_EX_REQ,
+    PEND_IFETCH, PEND_JOIN, PEND_MUTEX, PEND_NONE, PEND_RECV, PEND_SEND,
+    PEND_SH_REQ, PEND_START, SimState, dword_owner, dword_pack, dword_stamp,
     dword_state, dword_tag, dword_with_meta)
 from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
 from graphite_tpu_torch.isa import DVFSModule
@@ -466,6 +469,9 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         cdelta = hsel(state.mq_delta)
         issue = torch.where(state.mq_head == 0, cdelta,
                             state.chain_base + cdelta)
+        # Bit 3 of the word is an atomic's flag: only the iocoom cores'
+        # early unpark reads it (an atomic waits its full round trip),
+        # and simple cores wait every request in full.
         kind = (req & 7).to(torch.int32)
         line = req >> 8
         extra = hsel(state.mq_extra)
@@ -1138,6 +1144,94 @@ def _sh_l1_evict_notify(params: SimParams, state: SimState, tiles, vtag,
 
 
 # ====================================================================== sync
+#
+# The resolvers of the sync pass, each the JAX package's on one stream per
+# tile.  Their branches for more streams than tiles (the descheduled
+# streams of the stream store, ``strm_*``) belong to the ThreadScheduler
+# slice of the port and are left out here.
+
+def _mcp_legs(params: SimParams, vp: VariantParams, state: SimState):
+    """(to_mcp, from_mcp): each tile's control-packet legs to and from
+    the sync server, [T] int64 ps."""
+    T = params.num_tiles
+    dev = state.clock.device
+    rows = torch.arange(T, device=dev)
+    mcp = mcp_tile(params)
+    to_mcp_at = torch.full((T,), mcp, device=dev)
+    p_nu = _period(state, DVFSModule.NETWORK_USER)
+    to_mcp = noc.unicast_ps(params.net_user, rows, to_mcp_at,
+                            kchain.CTRL_BYTES, p_nu, params.mesh_width,
+                            vnet=vp.net_user)
+    from_mcp = noc.unicast_ps(params.net_user, to_mcp_at, rows,
+                              kchain.CTRL_BYTES, p_nu[mcp],
+                              params.mesh_width, vnet=vp.net_user)
+    return to_mcp, from_mcp
+
+
+def _count(state: SimState, name: str, mask) -> SimState:
+    """Add one to counter ``name`` where ``mask`` and models are on."""
+    c = state.counters
+    return state._replace(counters=c._replace(**{
+        name: getattr(c, name)
+        + torch.where(mask & state.models_enabled, 1, 0)}))
+
+
+def resolve_recv(params: SimParams, vp: VariantParams,
+                 state: SimState) -> SimState:
+    """Complete receives whose channel holds a message; the consumed ring
+    slot takes the receive's completion, the floor of the send that
+    reuses it."""
+    T = params.num_tiles
+    rows = torch.arange(T, device=state.clock.device)
+    D = state.ch_time.shape[0]
+    is_recv = state.pend_kind == PEND_RECV
+    src = torch.clip(state.pend_aux, 0, T - 1).to(torch.int64)
+    sent = state.ch_sent[src, rows]
+    recvd = state.ch_recvd[src, rows]
+    slot = (recvd % D).to(torch.int64)
+    arr = state.ch_time[slot, src, rows]
+    ok = is_recv & (sent > recvd)
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    completion = torch.maximum(state.pend_issue, arr) + cycle_ps
+    state = state._replace(
+        ch_recvd=scatter(state.ch_recvd, (src, rows), 1, "add", mask=ok),
+        ch_time=scatter(state.ch_time, (slot, src, rows), completion, "set",
+                        mask=ok))
+    return _unblock(_count(state, "recvs", ok), ok, completion, sync=True)
+
+
+def resolve_send(params: SimParams, vp: VariantParams,
+                 state: SimState) -> SimState:
+    """Complete sends that a full channel ring back-pressured, no earlier
+    than the receive that freed their slot."""
+    T = params.num_tiles
+    rows = torch.arange(T, device=state.clock.device)
+    D = state.ch_time.shape[0]
+    is_send = state.pend_kind == PEND_SEND
+    dst = torch.clip(state.pend_aux, 0, T - 1).to(torch.int64)
+    sent = state.ch_sent[rows, dst]
+    ok = is_send & ((sent - state.ch_recvd[rows, dst]) < D)
+    p_nu = _period(state, DVFSModule.NETWORK_USER)
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    net_ps = noc.unicast_ps(params.net_user, rows, dst, state.pend_addr,
+                            p_nu, params.mesh_width, vnet=vp.net_user)
+    slot = (sent % D).to(torch.int64)
+    completion = torch.maximum(state.pend_issue,
+                               state.ch_time[slot, rows, dst]) + cycle_ps
+    c = state.counters
+    on = ok & state.models_enabled
+    state = state._replace(
+        ch_time=scatter(state.ch_time, (slot, rows, dst),
+                        completion + net_ps, "set", mask=ok),
+        ch_sent=scatter(state.ch_sent, (rows, dst), 1, "add", mask=ok),
+        counters=c._replace(
+            sends=c.sends + torch.where(on, 1, 0),
+            net_user_pkts=c.net_user_pkts + torch.where(on, 1, 0),
+            net_user_flits=c.net_user_flits + torch.where(
+                on, noc.num_flits(state.pend_addr,
+                                  vp.net_user.flit_width_bits), 0)))
+    return _unblock(state, ok, completion, sync=True)
+
 
 def resolve_barrier(params: SimParams, vp: VariantParams,
                     state: SimState) -> SimState:
@@ -1164,20 +1258,203 @@ def resolve_barrier(params: SimParams, vp: VariantParams,
     return _unblock(state, rel, completion, sync=True)
 
 
+def resolve_mutex(params: SimParams, vp: VariantParams,
+                  state: SimState) -> SimState:
+    """FCFS: the earliest waiter on each free lock takes it, granted at
+    its MCP arrival or the lock's release, whichever is later."""
+    T = params.num_tiles
+    rows = torch.arange(T, device=state.clock.device)
+    NL = state.lock_holder.shape[0]
+    is_mx = state.pend_kind == PEND_MUTEX
+    lid = torch.clip(state.pend_addr, 0, NL - 1)
+    issue = state.pend_issue
+    first = _elect(is_mx, _fcfs_keys(is_mx, issue), lid, NL)
+    win = first & (state.lock_holder[lid] == 0)
+    to_mcp, from_mcp = _mcp_legs(params, vp, state)
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    grant = torch.maximum(issue + to_mcp, state.lock_free_at[lid])
+    completion = grant + from_mcp + cycle_ps
+    state = state._replace(lock_holder=scatter(
+        state.lock_holder, lid, (rows + 1).to(torch.int32), "set",
+        mask=win))
+    return _unblock(_count(state, "mutex_acquires", win), win, completion,
+                    sync=True)
+
+
+def resolve_cond(params: SimParams, vp: VariantParams,
+                 state: SimState) -> SimState:
+    """Match parked cond waiters with parked signal/broadcast tokens (the
+    poster parks as the token, PEND_CSIG / PEND_CBC, with its MCP
+    arrival time).  Each pass takes, per cond, its one earliest token:
+
+      * a signal wakes the earliest waiter parked at or before it; with
+        none it stays until no tile could still park earlier, then it
+        is lost;
+      * a broadcast wakes every waiter parked at or before it, and is
+        consumed under the same no-earlier-park rule.
+
+    With ``cond_replay`` (captured traces) any parked waiter matches,
+    waking at the later of its park and the token, and a waiter whose
+    cond has no token wakes at its park once every live tile is parked
+    on a sync kind.  Posters unblock when their token resolves; a woken
+    waiter becomes a PEND_MUTEX park to re-acquire its mutex (its
+    pend_issue set so that resolve_mutex's issue + to_mcp is the wake
+    time)."""
+    NC = NUM_CONDS
+    T = params.num_tiles
+    kind = state.pend_kind
+    is_cw = kind == PEND_COND
+    is_sig = kind == PEND_CSIG
+    is_bc = kind == PEND_CBC
+    is_tok = is_sig | is_bc
+    cid = torch.clip(state.pend_addr, 0, NC - 1)
+    t = state.pend_issue                       # MCP-arrival timestamps
+    oh_c = _oh(cid, NC)
+
+    # One earliest token per cond this pass (FCFS by time, then tile).
+    tok_win = _elect(is_tok, _fcfs_keys(is_tok, t), cid, NC)
+    tok_time_nc = dense.binmax(oh_c, tok_win, t, 0)            # [NC]
+    tok_bc_nc = dense.binsum(oh_c, tok_win & is_bc, 1) > 0     # [NC]
+    has_tok_nc = dense.binsum(oh_c, tok_win, 1) > 0
+
+    def per_tile(flags):
+        return _sel(oh_c, flags.to(torch.int32)) > 0
+
+    wt = _sel(oh_c, tok_time_nc)
+    w_has = per_tile(has_tok_nc)
+    w_bc = per_tile(tok_bc_nc)
+    if params.cond_replay:
+        elig = is_cw & w_has
+        wake_at = torch.maximum(t, wt)
+    else:
+        elig = is_cw & w_has & (t <= wt)
+        wake_at = wt
+    first = _elect(elig, _fcfs_keys(elig, t), cid, NC)
+    wake = torch.where(w_bc, elig, first)
+    if params.cond_replay:
+        # An orphaned recorded wait (its cond has no token) wakes at its
+        # own park once every live tile is parked on a sync kind.
+        pure_sync = (kind == PEND_COND) | (kind == PEND_MUTEX) \
+            | (kind == PEND_BARRIER) | (kind == PEND_RECV) \
+            | (kind == PEND_SEND) | (kind == PEND_JOIN) \
+            | (kind == PEND_START) | (kind == PEND_CSIG) | (kind == PEND_CBC)
+        quiesce = ~torch.any(~state.done & ~pure_sync)
+        orphan = is_cw & ~w_has & quiesce
+        wake = wake | orphan
+        wake_at = torch.where(orphan, t, wake_at)
+
+    to_mcp, from_mcp = _mcp_legs(params, vp, state)
+    # A token resolves once no other tile can still park before it: each
+    # tile's next park is no earlier than its clock (runnable), just past
+    # its park time (parked), or past issue + to_mcp for a mutex waiter
+    # (whose pend_issue a wake rewound by to_mcp).  The token excludes
+    # itself through the two smallest bounds.
+    INF = 2**62
+    lb = torch.where(
+        state.done, INF,
+        torch.where(kind == PEND_NONE, state.clock,
+                    torch.where(kind == PEND_MUTEX,
+                                state.pend_issue + to_mcp + 1,
+                                state.pend_issue + 1)))
+    if T >= 2:
+        m1, m2 = -torch.topk(-lb, 2).values
+        lb_excl = torch.where(lb == m1, m2, m1)
+    else:
+        lb_excl = torch.full_like(lb, INF)
+    woke_mine = per_tile(dense.binsum(oh_c, wake & ~w_bc, 1) > 0)
+    if params.cond_replay:
+        # Lost only when no waiter of its cond is parked and no tile is
+        # runnable.
+        any_runnable = (~state.done & (kind == PEND_NONE)).any()
+        no_waiter = ~per_tile(dense.binsum(oh_c, is_cw, 1) > 0)
+        tok_done = tok_win & ((is_sig & woke_mine)
+                              | (~any_runnable & no_waiter))
+    else:
+        tok_done = tok_win & ((t < lb_excl) | (is_sig & woke_mine))
+
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    c = state.counters
+    state = state._replace(
+        pend_kind=torch.where(wake, PEND_MUTEX, kind).to(torch.int32),
+        pend_addr=torch.where(wake, state.pend_aux.to(torch.int64),
+                              state.pend_addr),
+        pend_issue=torch.where(wake, wake_at - to_mcp, state.pend_issue),
+        counters=c._replace(
+            # [park, hand-off to the mutex); the mutex's unblock adds the
+            # rest from wake_at - to_mcp.
+            sync_stall_ps=c.sync_stall_ps + torch.where(
+                wake, torch.clamp(wake_at - to_mcp - t, min=0), 0)))
+    return _unblock(state, tok_done, t + from_mcp + cycle_ps, sync=True)
+
+
+def resolve_join(params: SimParams, vp: VariantParams,
+                 state: SimState) -> SimState:
+    """Release joiners whose child stream is DONE, no earlier than the
+    child's exit reaching the MCP."""
+    T = params.num_tiles
+    is_j = state.pend_kind == PEND_JOIN
+    child = torch.clip(state.pend_aux, 0, state.done_at.shape[0] - 1).to(
+        torch.int64)
+    ok = is_j & state.done[child]
+    to_mcp, from_mcp = _mcp_legs(params, vp, state)
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    exit_at_mcp = state.done_at[child] + to_mcp[child % T]
+    completion = torch.maximum(state.pend_issue + to_mcp, exit_at_mcp) \
+        + from_mcp + cycle_ps
+    return _unblock(_count(state, "joins", ok), ok, completion, sync=True)
+
+
+def resolve_start(params: SimParams, vp: VariantParams,
+                  state: SimState) -> SimState:
+    """Release THREAD_START gates whose stream has been SPAWNed."""
+    ok = (state.pend_kind == PEND_START) & (state.spawned_at >= 0)
+    cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
+    completion = torch.maximum(state.pend_issue, state.spawned_at) \
+        + cycle_ps
+    return _unblock(state, ok, completion, sync=True)
+
+
 def resolve(params: SimParams, state: SimState,
             vp: VariantParams = None) -> SimState:
     """One full cross-tile resolution pass: the memory pass when memory
-    requests are parked, then the sync pass when sync parks exist (only
-    barriers in this slice; the other resolvers see no parks)."""
+    requests are parked (or banked), then the sync resolvers in the JAX
+    package's order (recv, send — only with CAPI channels —, barrier,
+    cond, mutex, join, start), each run only when some tile is parked on
+    its kind (cond on a waiter or a token).
+
+    One host read decides every gate: the memory pass changes no sync
+    park and each resolver clears only its own kind, except resolve_cond,
+    which turns woken waiters into mutex parks, so the mutex gate is read
+    again after it."""
     if vp is None:
         vp = variant_params(params)
     if params.miss_chain > 0:
-        any_mem = bool((state.mq_count > 0).any().item())
+        any_mem = (state.mq_count > 0).any()
     else:
-        any_mem = bool(_parked(state).any().item())
-    any_sync = bool((state.pend_kind >= PEND_RECV).any().item())
-    if any_mem:
+        any_mem = _parked(state).any()
+    kinds = torch.arange(PEND_RECV, PEND_CBC + 1, dtype=torch.int32,
+                         device=state.pend_kind.device)
+    parked = (state.pend_kind[None, :] == kinds[:, None]).any(dim=1)
+    flags = torch.cat([any_mem[None], parked]).tolist()
+    has = dict(zip(range(PEND_RECV, PEND_CBC + 1), flags[1:]))
+    if flags[0]:
         state = resolve_memory(params, vp, state)
-    if any_sync and bool((state.pend_kind == PEND_BARRIER).any().item()):
+    if state.has_capi:
+        # A trace without CAPI events has zero-size channel leaves and no
+        # RECV / SEND parks.
+        if has[PEND_RECV]:
+            state = resolve_recv(params, vp, state)
+        if has[PEND_SEND]:
+            state = resolve_send(params, vp, state)
+    if has[PEND_BARRIER]:
         state = resolve_barrier(params, vp, state)
+    if has[PEND_COND] or has[PEND_CSIG] or has[PEND_CBC]:
+        state = resolve_cond(params, vp, state)
+        has[PEND_MUTEX] = bool((state.pend_kind == PEND_MUTEX).any().item())
+    if has[PEND_MUTEX]:
+        state = resolve_mutex(params, vp, state)
+    if has[PEND_JOIN]:
+        state = resolve_join(params, vp, state)
+    if has[PEND_START]:
+        state = resolve_start(params, vp, state)
     return state

@@ -31,10 +31,9 @@ from graphite_tpu_torch.isa import EventOp
 from graphite_tpu_torch.params import SimParams
 from graphite_tpu_torch.time_base import ps_to_ns
 
-# Event kinds this slice runs (radix / fft and the like); every other op
-# belongs to a later slice.
-SLICE_OPS = (EventOp.NOP, EventOp.COMPUTE, EventOp.BRANCH, EventOp.MEM_READ,
-             EventOp.MEM_WRITE, EventOp.BARRIER_WAIT, EventOp.DONE)
+# Where more trace streams than tiles (the ThreadScheduler's seats) will
+# run.
+SCHEDULER_SLICE = "the ThreadScheduler slice (model breadth 3a-ii)"
 
 
 def check_slice(params: SimParams, trace: Optional[Trace] = None,
@@ -46,14 +45,14 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
     the memory and user networks (magic, emesh_hop_counter, atac under
     either routing strategy and receive network, emesh_hop_by_hop with
     its queue model off or on: contended link flights on the memory
-    network; the user network's contended SEND flight waits for the
-    SEND event, which stays refused), the history DRAM queue (on or
-    off), ``tpu/miss_chain`` 0 to 256 with the fan-out replay on or off,
-    ``tpu/fast_forward`` at any width and run-ahead span, any tile count
-    the directory's owner field holds (state.py), and the events of
-    ``SLICE_OPS``.  On a CUDA ``device``
-    the chain replay is also held to the classify kernel's limits
-    (kernels/chain.check_chain_config)."""
+    network, and SEND's flight on a hop-by-hop user network), the
+    history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with the
+    fan-out replay on or off, ``tpu/fast_forward`` at any width and
+    run-ahead span, any tile count the directory's owner field holds
+    (state.py), and every event kind (the sync, CAPI, thread, ROI, DVFS
+    and syscall kinds among them) at one trace stream per tile.  More
+    streams than tiles waits for the ThreadScheduler slice.  On a CUDA ``device`` the chain replay is also held to the
+    classify kernel's limits (kernels/chain.check_chain_config)."""
     def later(what, where="a later slice (model breadth)"):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "
@@ -83,13 +82,7 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
         later(f"tpu/block_events > {MAX_WINDOW}")
     if trace is not None:
         if trace.num_tiles != params.num_tiles:
-            later("more trace streams than tiles (the ThreadScheduler)")
-        ops = np.unique(np.asarray(trace.ops))
-        bad = sorted(set(int(o) for o in ops) - set(int(o) for o in SLICE_OPS))
-        if bad:
-            names = ", ".join(EventOp(o).name if o in EventOp._value2member_map_
-                              else str(o) for o in bad)
-            later(f"trace events {names}")
+            later("more trace streams than tiles", SCHEDULER_SLICE)
 
 
 class SimSummary:

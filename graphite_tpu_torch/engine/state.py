@@ -6,9 +6,11 @@ shapes and dtypes, so a state converts one-to-one between the packages
 directory sharer bitmap: ``uint64`` in JAX, ``int64`` with the same bits
 here (torch's uint64 support on CUDA is thin).  The miss-chain bank
 (``mq_*``, ``chain_*``) is [P, T] at ``tpu/miss_chain = P`` and zero-size
-at P = 0.  Leaves that belong to later slices of the port (iocoom rings,
-telemetry, CAPI channels, scheduler seats) keep the shapes ``make_state``
-gives them at this config, which is zero-size or unused.
+at P = 0; the CAPI channel leaves are [T, T] and [D, T, T] when the
+trace sends or receives, zero-size otherwise.  Leaves that belong to
+later slices of the port (iocoom rings, telemetry, scheduler seats) keep
+the shapes ``make_state`` gives them at this config, which is zero-size
+or unused.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ PEND_CSIG = 11      # posted signal TOKEN: the signaler parks until its
 PEND_CBC = 12       # posted broadcast token (same mechanism)
 
 NUM_DVFS_MODULES = len(DVFSModule)
+
+NUM_CONDS = 64      # cond-var id space (like the mutexes; ids clip)
 
 # Directed-link horizons per tile (engine/noc_flight.py NUM_DIRS).
 NUM_LINK_DIRS = 4
@@ -541,8 +545,9 @@ def make_state(params: SimParams, device,
     S = num_streams if num_streams > 0 else T
     if S != T:
         raise NotImplementedError(
-            "more trace streams than tiles (the ThreadScheduler) is ported "
-            "in a later slice (model breadth)")
+            "more trace streams than tiles is not ported yet: it belongs to "
+            "the ThreadScheduler slice (model breadth 3a-ii) of the PyTorch "
+            "port")
     if T > (1 << _DIR_OWNER_BITS) - 2:
         raise ValueError(
             f"num_tiles {T} exceeds the packed directory owner field "

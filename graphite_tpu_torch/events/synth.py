@@ -20,7 +20,7 @@ import numpy as np
 
 from graphite_tpu_torch.events.schema import (
     ICACHE_BYTES_PER_INSTRUCTION, Trace, TraceBuilder)
-from graphite_tpu_torch.isa import EventOp
+from graphite_tpu_torch.isa import DVFSModule, EventOp, SyscallClass
 
 PRIVATE_BASE = 0x1000_0000
 PRIVATE_SPAN = 0x0100_0000
@@ -189,6 +189,79 @@ def gen_lock_contention(num_tiles: int, acquisitions: int = 16,
             tb.mutex_lock(t, 0)
             tb.compute(t, critical_cycles, critical_cycles)
             tb.mutex_unlock(t, 0)
+    return tb.build()
+
+
+def gen_system_events(num_tiles: int, seed: int = 0,
+                      builder=TraceBuilder) -> Trace:
+    """Private and shared memory traffic around the system event kinds:
+    ATOMICs on a few shared lines, cond-variable producer/consumer pairs,
+    a SYSCALL of every class (MMAP, BRK and MUNMAP with their VM
+    payloads), a mid-trace DVFS_SET of the core on every eighth tile, a
+    DISABLE_MODELS ... ENABLE_MODELS stretch on tile 0, STALLs and SYNC
+    rows.
+
+    Tiles pair up: the even tile of a pair parks on COND_WAIT (holding
+    and releasing its pair's mutex) early in its stream, the odd tile
+    stalls past 40 us, then takes the mutex and signals (even pairs) or
+    broadcasts (odd pairs) while it holds it.  ``builder`` is the
+    TraceBuilder class that emits the events (SYNC has no builder method
+    and goes through ``_emit``), so that another package's builder makes
+    the same arrays."""
+    if num_tiles % 2 or num_tiles < 4:
+        raise ValueError("system_events needs an even tile count >= 4")
+    rng = np.random.default_rng(seed)
+    tb = builder(num_tiles)
+    ncls = len(SyscallClass)
+
+    def private_pass(t, writes):
+        base = PRIVATE_BASE + t * PRIVATE_SPAN
+        for i in range(8):
+            cost = int(rng.integers(20, 120))
+            tb.compute(t, cost, cost // 2 + 1)
+            if writes and i % 2:
+                tb.write(t, base + 64 * i)
+            else:
+                tb.read(t, base + 64 * i)
+        tb.branch(t, bool(rng.integers(0, 2)))
+
+    for t in range(num_tiles):
+        pair, consumer = t // 2, t % 2 == 0
+        mutex, cond = pair % 64, pair % 64
+        private_pass(t, writes=False)
+        if consumer:
+            tb.mutex_lock(t, mutex)
+            tb.cond_wait(t, cond, mutex)
+            tb.mutex_unlock(t, mutex)
+        if t == 0:
+            tb.disable_models(t)
+        private_pass(t, writes=True)
+        if t == 0:
+            tb.enable_models(t)
+        if t % 8 == 3:
+            tb.dvfs_set(t, int(DVFSModule.CORE), 1.5)
+        for k in range(2):
+            tb.atomic(t, SHARED_BASE + 64 * int(rng.integers(0, 4)))
+        for cls in (t % ncls, (t + 8) % ncls):
+            vm_arg = {SyscallClass.MMAP: 4096 * (t + 1),
+                      SyscallClass.MUNMAP: 4096,
+                      SyscallClass.BRK: (1 << 16) + 4096 * t}.get(
+                SyscallClass(cls), 0)
+            tb.syscall(t, SyscallClass(cls), nbytes=int(rng.integers(0, 256)),
+                       vm_arg=vm_arg)
+        private_pass(t, writes=True)
+        tb.stall_until(t, 20_000_000 + 50_000 * t)
+        tb._emit(t, EventOp.SYNC, 21_000_000 + 40_000 * t,
+                 int(rng.integers(1, 200)), 0)
+        if not consumer:
+            tb.stall_until(t, 40_000_000 + 100_000 * pair)
+            tb.mutex_lock(t, mutex)
+            if pair % 2:
+                tb.cond_broadcast(t, cond)
+            else:
+                tb.cond_signal(t, cond)
+            tb.mutex_unlock(t, mutex)
+        private_pass(t, writes=False)
     return tb.build()
 
 

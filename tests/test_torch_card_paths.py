@@ -29,6 +29,12 @@ only at a cut depth.
     JAX package's values on the CPU; ``chip_smoke.py`` phase 11 runs
     both at a cut depth.
 
+  * The system events: ``synth.gen_system_events(8, seed=0)`` in
+    ``chip_smoke.py``'s sysev64_ff configuration, every leaf of the
+    card's run equal to the CPU run's (``chip_smoke.py`` phase 12 runs
+    its four sync paths whole at T = 64, so none of them is repeated
+    here).
+
 Run on the card: ``python -m pytest -m gpu --noconftest
 tests/test_torch_card_paths.py -q`` (about ten minutes).
 """
@@ -272,3 +278,48 @@ def test_network_paths_full_depth_on_card(name):
     assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
     assert dispatch.COUNTS["chain_classify"] == CHAIN * passes
     assert (passes == 0) == (wait_ps > 0)
+
+
+# synth.gen_system_events at T = 8 in chip_smoke.py's sysev64_ff
+# configuration (tpu/fast_forward = 8, span 1000 ns, miss_chain 12): the
+# three kernels on the card against the plain forms on the CPU, over a
+# whole run that reaches their STALL / SYNC rows, the DVFS periods, the
+# ROI markers and banked atomics.
+SYSEV = {"general/total_cores": 8, "tpu/fast_forward": 8,
+         "tpu/fast_forward_span": 1000, "tpu/miss_chain": CHAIN}
+
+
+@pytest.mark.gpu
+def test_system_events_on_card_equal_cpu():
+    """Every SimState leaf of the card's run equal to the CPU run's, with
+    every kernel launched: window_walk once per window round,
+    chain_classify P times per chain pass, fast_forward_walk at least
+    once per analytic round that engaged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    from graphite_tpu_torch import convert
+    cfg = load_config()
+    for k, v in SYSEV.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    trace = synth.gen_system_events(8, seed=0)
+    cpu = Simulator(params, trace, device="cpu")
+    cpu.run()
+    card = Simulator(params, trace, device="cuda")
+    dispatch.reset_counts()
+    s = card.run()
+    assert bool(s.done.all())
+    want = convert.state_to_numpy(cpu.state)
+    got = convert.state_to_numpy(card.state)
+    assert set(want) == set(got)
+    for name in sorted(want):
+        assert want[name].dtype == got[name].dtype, name
+        assert (want[name] == got[name]).all(), name
+    st = card.state
+    engaged = dispatch.COUNTS["ff_engaged"]
+    passes = int(st.round_ctr) - int(st.ctr_window) - int(st.ctr_complex) \
+        - int(st.ctr_conflict) - engaged
+    assert passes == int(st.ctr_resolve) > 0
+    assert dispatch.COUNTS["window_walk"] == int(st.ctr_window)
+    assert dispatch.COUNTS["chain_classify"] == CHAIN * passes
+    assert dispatch.COUNTS["fast_forward_walk"] >= engaged > 0

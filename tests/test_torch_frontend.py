@@ -31,6 +31,12 @@ OVERRIDES = [
     {"caching_protocol/type": "pr_l1_sh_l2_mesi", "tpu/miss_chain": 12},
     {"tile/model_list": "<default,iocoom,T1,T1,T1>",
      "network/memory": "emesh_hop_by_hop"},
+    # the system events' keys: per-class syscall service cycles, the
+    # channel ring depth, the cond replay mode, the DVFS sync delay
+    {"syscall/read_cost": 2000, "syscall/brk_cost": 7,
+     "tpu/channel_depth": 4, "tpu/cond_replay": True,
+     "dvfs/synchronization_delay": 3,
+     "general/trigger_models_within_application": "true"},
 ]
 
 
@@ -145,10 +151,15 @@ def test_default_device_is_cuda():
     ({"network/memory": "emesh_hop_by_hop",
       "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
       "dram_directory/directory_type": "limited_broadcast"}, None),
-    ({}, lambda: synth.gen_lock_contention(num_tiles=4, acquisitions=2)),
-    ({}, lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
+    # Every event kind is admitted at one stream per tile; more streams
+    # than tiles wait for the ThreadScheduler slice.
+    ({}, lambda: synth.gen_threads_oversubscribed(num_streams=8)),
+    # The DRAM queue models other than the history tree are refused under
+    # a CAPI trace as under any other.
+    ({"dram/queue_model/type": "basic"},
+     lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
 ], ids=["miss_chain", "ackwise", "iocoom", "sh_l2_limited", "basic_queue",
-        "hop_by_hop", "mutex_events", "capi_events"])
+        "hop_by_hop", "streams_over_tiles", "basic_queue_capi"])
 def test_outside_slice_refused_at_construction(over, trace_fn):
     cfg = load_config()
     cfg.set("general/total_cores", 4)
@@ -159,6 +170,28 @@ def test_outside_slice_refused_at_construction(over, trace_fn):
         num_tiles=4, keys_per_tile=8, radix=8, seed=0)
     with pytest.raises(NotImplementedError, match="slice"):
         Simulator(params, trace, device="cpu")
+
+
+def test_initial_state_leaves_match_capi():
+    """A CAPI trace's initial state: the [T, T] channel counters and the
+    [D, T, T] arrival ring beside every other leaf (the lock, barrier,
+    spawn, DVFS period and VM leaves among them), leaf for leaf the JAX
+    package's make_state."""
+    import jax
+    from graphite_tpu.engine import state as jstate
+    from graphite_tpu_torch import convert
+    jp, tp = _both_params({"general/total_cores": 4})
+    trace = synth.gen_ping_pong(num_tiles=4, messages=2)
+    jl = convert.leaves_to_numpy(jax.device_get(
+        jstate.make_state(jp, has_capi=True, num_streams=4)))
+    tl = convert.state_to_numpy(Simulator(tp, trace, device="cpu").state)
+    assert set(jl) == set(tl)
+    for name in sorted(jl):
+        a, b = np.asarray(jl[name]), tl[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert tl["ch_time"].shape == (tp.channel_depth, 4, 4)
+    assert tl["ch_sent"].shape == (4, 4)
 
 
 def test_cli_run_and_params(tmp_path, capsys):

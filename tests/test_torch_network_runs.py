@@ -178,18 +178,20 @@ def test_carry_across_contended_mid_run():
 
 
 @pytest.mark.parametrize("over,trace_fn", [
-    # The user network's contended SEND flight belongs with the SEND event
-    # (the synchronisation slice), refused with it.
+    # The user network's contended SEND flight runs (test_torch_sync_runs);
+    # the directory schemes other than full_map stay refused under a sync
+    # trace as under any other.
     ({"network/user": "emesh_hop_by_hop",
-      "network/emesh_hop_by_hop/queue_model/enabled": True},
-     lambda: tsynth.gen_ping_pong(num_tiles=4, messages=2)),
+      "network/emesh_hop_by_hop/queue_model/enabled": True,
+      "dram_directory/directory_type": "limitless"},
+     lambda: tsynth.gen_lock_contention(num_tiles=4, acquisitions=2)),
     # The broadcast tree is read only under the broadcast directory
     # schemes, which stay refused.
     ({**CONTENDED, "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
       "dram_directory/directory_type": "limited_broadcast"}, None),
     ({"network/memory": "atac",
       "dram_directory/directory_type": "ackwise"}, None),
-], ids=["user_hbh_send", "broadcast_tree_scheme", "atac_ackwise"])
+], ids=["user_hbh_limitless_sync", "broadcast_tree_scheme", "atac_ackwise"])
 def test_network_configs_still_refused(over, trace_fn):
     cfg = load_config()
     cfg.set("general/total_cores", 4)
