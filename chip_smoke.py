@@ -216,7 +216,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      head) and analytic rounds, on which each kernel is held against its
      plain form once the launch counts are read.
 
-Before each path of phases 4 to 6 and 8 to 12 every kernel's launch count is
+  13. The ThreadScheduler at full width: T = 64 tiles, S = 128 trace
+      streams (``general/max_threads_per_core = 2``), each a whole run
+      exact against the JAX package's values on the CPU (the round
+      counters, the completion, the counter sums of phase 12, every
+      stream done):
+       * threads128on64_chain12: ``gen_threads_oversubscribed(128,
+         compute_blocks=64, yields=8)`` at miss_chain 12 (seat rotations
+         on done, YIELD and the preemption quantum; SPAWNs of streams
+         64-127 from the window walk; the chain pass beside the seats);
+       * lock128on64: ``gen_lock_contention(128, acquisitions=2,
+         critical_cycles=50)`` (mutex parks rotated out and back);
+       * barrier128on64: ``gen_barrier_compute(128)`` (barrier waiters
+         woken in the stream store).
+     The first records its first window walks with a SPAWN of a stream
+     >= T (the landing leg's ``child % T``, ``s_ids`` = 128) and its
+     replay iterations, on which the kernels are held against their
+     plain forms.  The longer scheduler runs (threads128on64 at
+     miss_chain 0, the system events at S = 128 at miss_chain 0 and 12)
+     are held on the card by tests/test_torch_card_paths.py.
+
+Before each path of phases 4 to 6 and 8 to 13 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -384,10 +404,11 @@ FFT_HBH_CUT = dict(clock_sum=5_421_584_800, cursor_sum=31_002)
 FFT_HBH_LINK_WAIT_PS = 3_217_312_800
 
 
-# The synchronisation, CAPI and system-event paths (phase 12), whole
-# runs at T = 64, as the JAX package computes them on the CPU: the round
-# counters, the completion, the sums of the counters named and the [vm]
-# section (None: the trace makes no memory-management syscall).
+# The synchronisation, CAPI and system-event paths (phase 12) and the
+# ThreadScheduler paths (phase 13), whole runs at T = 64, as the JAX
+# package computes them on the CPU: the round counters, the completion,
+# the sums of the counters named and the [vm] section (None: the trace
+# makes no memory-management syscall).
 SYNC_SUMS = ("icount", "mutex_acquires", "cond_waits", "cond_signals",
              "joins", "spawns", "syscalls", "syscall_ps", "net_link_wait_ps",
              "sends", "recvs", "net_user_flits", "sync_stall_ps",
@@ -440,6 +461,38 @@ SYNC_PINS = {
                 dynamic_segment_bytes=1597440, mmap_bytes=1597440,
                 munmap_bytes=45056, brk_overflow=False,
                 dynamic_overflow=False)),
+    # Phase 13: 128 trace streams on 64 tiles under the ThreadScheduler
+    # (``streams``: every one reported done).
+    "threads128on64_chain12": dict(
+        ctrs=dict(round_ctr=243, ctr_window=131, ctr_complex=46,
+                  ctr_conflict=17, ctr_resolve=49, ctr_quantum=34),
+        completion_ps=48_968_600,
+        sums=dict(icount=833792, mutex_acquires=0, cond_waits=0,
+                  cond_signals=0, joins=64, spawns=64, syscalls=0,
+                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
+                  net_user_flits=0, sync_stall_ps=1_122_986_800,
+                  mem_stall_ps=1_372_380_400),
+        vm=None, streams=128),
+    "lock128on64": dict(
+        ctrs=dict(round_ctr=1830, ctr_window=979, ctr_complex=787,
+                  ctr_conflict=64, ctr_resolve=64, ctr_quantum=121),
+        completion_ps=46_035_200,
+        sums=dict(icount=12800, mutex_acquires=256, cond_waits=0,
+                  cond_signals=0, joins=0, spawns=0, syscalls=0,
+                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
+                  net_user_flits=0, sync_stall_ps=4_386_963_600,
+                  mem_stall_ps=18_355_200),
+        vm=None, streams=128),
+    "barrier128on64": dict(
+        ctrs=dict(round_ctr=248, ctr_window=131, ctr_complex=116,
+                  ctr_conflict=1, ctr_resolve=1, ctr_quantum=81),
+        completion_ps=13_355_400,
+        sums=dict(icount=260053, mutex_acquires=0, cond_waits=0,
+                  cond_signals=0, joins=0, spawns=0, syscalls=0,
+                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
+                  net_user_flits=0, sync_stall_ps=289_671_600,
+                  mem_stall_ps=75_618_000),
+        vm=None, streams=128),
 }
 
 
@@ -934,14 +987,14 @@ def ff_times(kwin, p, v, fi, iters=200, warmup=20):
     return ms, dev, plain
 
 
-def walk_pair(kwin, p, v, wi, T):
-    """window_walk's kernel and its plain form on the same operands: the
-    kernel updates its operands in place, so it runs on a clone and the
-    plain form on ``wi``.  The leaves the kernel writes must be the
-    clone's own tensors."""
+def walk_pair(kwin, p, v, wi, s_ids):
+    """window_walk's kernel and its plain form on the same operands (the
+    trace's ``s_ids`` streams): the kernel updates its operands in place,
+    so it runs on a clone and the plain form on ``wi``.  The leaves the
+    kernel writes must be the clone's own tensors."""
     work = clone_operands(wi)
-    got = kwin.window_walk_cuda(p, v, work, T)
-    ref = kwin.window_walk(p, v, wi, T)
+    got = kwin.window_walk_cuda(p, v, work, s_ids)
+    ref = kwin.window_walk(p, v, wi, s_ids)
     for f in kwin.INPLACE_FIELDS:
         if getattr(work, f) is not None:
             check(getattr(got, f).data_ptr() == getattr(work, f).data_ptr(),
@@ -2449,14 +2502,15 @@ def main() -> int:
     # one stream per tile, each a whole run exact against its JAX pins
     def sync_run(label, p, strace, windows=None, iterations=None,
                  rounds=False):
-        """One phase-12 path; with ``windows`` and ``iterations``
-        (predicates on the walk's and the replay step's operands) and
-        ``rounds`` it records (clones of) the operands of its first
-        window walks, replay iterations and analytic rounds, on which
-        each kernel is held against its plain form once the launch
-        counts are read."""
+        """One phase-12 or phase-13 path; with ``windows`` and
+        ``iterations`` (predicates on the walk's and the replay step's
+        operands) and ``rounds`` it records (clones of) the operands of
+        its first window walks, replay iterations and analytic rounds,
+        on which each kernel is held against its plain form once the
+        launch counts are read."""
         nonlocal err_w, err_c, err_f
         pin = SYNC_PINS[label]
+        streams = pin.get("streams", T)
         held = peak_reset()
         sim = Simulator(p, strace, device=dev)
         reset_counts()
@@ -2475,6 +2529,8 @@ def main() -> int:
         passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
             - engaged
         check_end(label, sim, s, pin["completion_ps"])
+        check(s.done.shape == (streams,),
+              f"{label}: {s.done.shape[0]} streams reported, not {streams}")
         for k, v in pin["ctrs"].items():
             check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
         sums = {k: int(s.counters[k].sum()) for k in SYNC_SUMS}
@@ -2508,7 +2564,7 @@ def main() -> int:
               f"{label}: recorded {len(rwp.seen)} windows, {len(rcp.seen)} "
               f"replay iterations, {len(rfp.seen)} analytic rounds")
         for i, wi in enumerate(rwp.seen):
-            got, ref = walk_pair(kwin, p, v, wi, T)
+            got, ref = walk_pair(kwin, p, v, wi, streams)
             torch.cuda.synchronize()
             err_w = max(err_w, compare("window_walk", got, ref,
                                        f"{label} window {i}"))
@@ -2573,6 +2629,31 @@ def main() -> int:
           f"sysev64_ff: launches window_walk {lw}, chain_classify {lc}, "
           f"fast_forward_walk {lf}: each kernel must run")
     stamp("phase 12: sysev64_ff")
+
+    # ---- 13. the ThreadScheduler at full width: 128 streams on 64 tiles,
+    # each a whole run exact against its JAX pins
+    def sched(**over):
+        return config(**{"general/max_threads_per_core": 2, **over})
+
+    def spawn_past_tiles(wi):
+        """A window with a valid SPAWN of a stream id >= T."""
+        return bool(((wi.meta[0] == int(EventOp.SPAWN))
+                     & (wi.meta[2] >= T) & wi.valid_ev).any())
+
+    lw, lc, lf = sync_run(
+        "threads128on64_chain12", sched(**{"tpu/miss_chain": CHAIN}),
+        synth.gen_threads_oversubscribed(num_streams=2 * T,
+                                         compute_blocks=64, yields=8),
+        windows=spawn_past_tiles, iterations=any_head)
+    check(lw > 0 and lc > 0 and lf == 0,
+          f"threads128on64_chain12: launches window_walk {lw}, "
+          f"chain_classify {lc}, fast_forward_walk {lf}")
+    stamp("phase 13: threads128on64_chain12")
+    sync_run("lock128on64", sched(), synth.gen_lock_contention(
+        2 * T, acquisitions=2, critical_cycles=50))
+    stamp("phase 13: lock128on64")
+    sync_run("barrier128on64", sched(), synth.gen_barrier_compute(2 * T))
+    stamp("phase 13: barrier128on64")
 
     kernels = [{
         "name": "window_walk",

@@ -22,7 +22,9 @@ to 256, ``tpu/fast_forward`` on or off):
     at P > 0, bank as chain element 0), the sync, CAPI and thread kinds
     park on their resolvers, STALL / SYNC / DVFS_SET / SYSCALL / YIELD
     and the ROI markers retire in closed form, DONE retires the stream.
-    One stream per tile (the ThreadScheduler slice takes more).
+    With more trace streams than tiles each tile reads its seated
+    stream's trace row, and a YIELD marks the seat for rotation
+    (engine/quantum.schedule_rotate).
   * ``local_advance`` — the analytic rounds first (at
     ``tpu/fast_forward`` > 0); then at P = 0, window rounds until they
     stop retiring, then one general slot, repeated while anything moves;
@@ -97,13 +99,17 @@ def _progress(st: SimState) -> int:
 # ===================================================== block retirement
 
 def _window_slice_gather(st: SimState, trace: TraceArrays, width: int):
-    """Gather ``width`` events per tile starting at the cursor; indices
-    clamp at the trace end exactly like the JAX gather."""
+    """Gather ``width`` events per tile starting at the cursor, from the
+    seated stream's row under the ThreadScheduler; indices clamp at the
+    trace end exactly like the JAX gather."""
     N = trace.num_events
     dev = st.cursor.device
     pos = st.cursor[:, None] + torch.arange(width, dtype=torch.int32,
                                             device=dev)[None, :]
     idx = torch.clamp(pos, max=N - 1).to(torch.int64)
+    if st.sched_enabled:
+        srow = st.trace_rows()[:, None]
+        return trace.meta[:, srow, idx], trace.addr[srow, idx]
     T = idx.shape[0]
     meta = torch.gather(trace.meta, 2, idx[None].expand(3, T, width))
     addr = torch.gather(trace.addr, 1, idx)
@@ -113,15 +119,20 @@ def _window_slice_gather(st: SimState, trace: TraceArrays, width: int):
 def _window_refresh(params: SimParams, st: SimState, trace: TraceArrays,
                     tile_active: torch.Tensor, width: int) -> SimState:
     """Re-gather the [T, WC] resident window slice only when some active
-    tile's next ``width`` events fall outside its cached span."""
+    tile's next ``width`` events fall outside its cached span, or (under
+    the ThreadScheduler) its seat rotated since the slice was taken."""
     WC = st.win_meta.shape[2]
     d = st.cursor - st.win_base
     ok = (d >= 0) & (d + width <= WC)
+    if st.sched_enabled:
+        ok = ok & (st.win_seat == st.seat_stream)
     if not bool(torch.any(tile_active & ~ok).item()):
         return st
     meta, addr = _window_slice_gather(st, trace, WC)
+    seat = st.seat_stream if st.sched_enabled \
+        else torch.full_like(st.win_seat, -1)
     return st._replace(win_meta=meta, win_addr=addr, win_base=st.cursor,
-                       win_seat=torch.full_like(st.win_seat, -1))
+                       win_seat=seat)
 
 
 def _ff_width(params: SimParams) -> int:
@@ -288,13 +299,15 @@ def _fast_forward_guarded(params: SimParams, vp: VariantParams,
                           state: SimState,
                           trace: TraceArrays) -> SimState:
     """The analytic leg's gate: skipped when the leg is off
-    (``_ff_width`` 0), when the run-ahead span is 0 (the walk's engage
-    rule, commits past the window bound, can then never fire), when no
-    tile is a candidate, or when models are disabled.  Otherwise analytic
-    rounds while the cursor sum grows, at most
-    ``max(1, max_events_per_quantum)``.  At P > 0 tiles with pending
-    chain heads are no candidates."""
-    if _ff_width(params) == 0 or vp.fast_forward_span_ps <= 0:
+    (``_ff_width`` 0), with the ThreadScheduler seated (a seat rotation
+    is a thread switch no span may cross), when the run-ahead span is 0
+    (the walk's engage rule, commits past the window bound, can then
+    never fire), when no tile is a candidate, or when models are
+    disabled.  Otherwise analytic rounds while the cursor sum grows, at
+    most ``max(1, max_events_per_quantum)``.  At P > 0 tiles with
+    pending chain heads are no candidates."""
+    if _ff_width(params) == 0 or state.sched_enabled \
+            or vp.fast_forward_span_ps <= 0:
         return state
     N = trace.num_events
     P = params.miss_chain
@@ -326,8 +339,9 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     """One event per tile, every event kind: compute, branch and memory
     misses park the tile for resolve (or, at P > 0, bank as chain element
     0), the sync, CAPI and lifecycle kinds park on their resolvers or
-    retire in closed form, DONE retires the stream.  One stream per tile:
-    YIELD is cost only (the ThreadScheduler slice rotates seats)."""
+    retire in closed form, DONE retires the stream.  Each tile reads its
+    seated stream's row under the ThreadScheduler, where DONE lands in
+    the stream's ``done_at`` and a YIELD marks the seat for rotation."""
     T = params.num_tiles
     N = trace.num_events
     line_bits = params.line_size.bit_length() - 1
@@ -349,8 +363,9 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     if P > 0:
         active = active & (st.mq_count == 0)
     cur = torch.clamp(st.cursor, max=N - 1).to(torch.int64)
-    ev = trace.meta[:, rows, cur]          # [3, T]
-    addr = trace.addr[rows, cur]
+    srow = st.trace_rows() if st.sched_enabled else rows
+    ev = trace.meta[:, srow, cur]          # [3, T]
+    addr = trace.addr[srow, cur]
     op = torch.where(active, ev[0], int(EventOp.NOP))
     arg = ev[1]
     arg2 = ev[2]
@@ -539,7 +554,8 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     is_sync = op == EventOp.SYNC
     is_dvfs = op == EventOp.DVFS_SET
     is_done = op == EventOp.DONE
-    # YIELD: an MCP round trip; with one stream per tile nothing rotates.
+    # YIELD: an MCP round trip; under the ThreadScheduler the seat then
+    # rotates at the next quantum (seat_yield below).
     is_yield = op == EventOp.YIELD
     dt_spawn = _lat(torch.clamp(arg, min=0), p_core)
     dt_dvfs = _lat(vp.dvfs_sync_delay_cycles, p_core)
@@ -722,12 +738,18 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
     def vm_of(cls):
         return torch.where(is_sysc & (arg == int(cls)), addr, 0)
 
+    if st.sched_enabled:
+        # done_at is per stream: the seated stream's row.
+        done_at = scatter(st.done_at, srow, clk, "set", mask=is_done)
+        st = st._replace(seat_yield=st.seat_yield | is_yield)
+    else:
+        done_at = torch.where(is_done, clk, st.done_at)
     return st._replace(
         clock=new_clock,
         cursor=st.cursor + torch.where(active & ~blocked, 1, 0).to(
             torch.int32),
         done=st.done | is_done,
-        done_at=torch.where(is_done, clk, st.done_at),
+        done_at=done_at,
         spawned_at=spawned_at,
         models_enabled=models_enabled,
         pend_kind=pend_kind.to(torch.int32),
@@ -772,14 +794,13 @@ def _complex_slot_guarded(params: SimParams, vp: VariantParams,
     if params.miss_chain <= 0:
         return _complex_slot(params, vp, state, trace)
     N = trace.num_events
-    T = params.num_tiles
     gbound = _spanned_bound(params, vp, state.boundary)
     eligible = (~state.done) & (state.pend_kind == PEND_NONE) \
         & (state.clock < gbound) & (state.cursor < N) \
         & (state.mq_count == 0)
     if params.block_events > 0:
         cur = torch.clamp(state.cursor, max=N - 1).to(torch.int64)
-        op = trace.meta[0, torch.arange(T, device=cur.device), cur]
+        op = trace.meta[0, state.trace_rows(), cur]
         window_class = ((op == EventOp.COMPUTE) | (op == EventOp.BRANCH)
                         | (op == EventOp.MEM_READ)
                         | (op == EventOp.MEM_WRITE)
@@ -834,13 +855,15 @@ def local_advance(params: SimParams, state: SimState,
     rounds until they stop retiring, then one general slot, repeated
     while the cursor sum moves (capped at max_events_per_quantum).  At
     ``tpu/fast_forward`` > 0 the analytic rounds run first and every
-    window round is wide."""
+    window round is wide, except under the ThreadScheduler, where both
+    surfaces of the leg are off as in the JAX package."""
     if vp is None:
         vp = variant_params(params)
     wide = None
     if params.fast_forward > 0:
         state = _fast_forward_guarded(params, vp, state, trace)
-        if _ff_width(params) > params.block_events:
+        if _ff_width(params) > params.block_events \
+                and not state.sched_enabled:
             wide = _ff_width(params)
     if params.miss_chain > 0:
         return _chain_cadence(params, vp, state, trace, wide)

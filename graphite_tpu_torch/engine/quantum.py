@@ -5,7 +5,8 @@ recomputed from the min clock over runnable tiles (skipping empty
 quanta), and a quantum step is sub-rounds of (local_advance ; resolve)
 while the progress witness moves, capped at ``rounds_per_quantum``; at
 ``tpu/fast_forward`` > 0 the quantum counts in ``ctr_ffq`` when it
-fast-forwarded.
+fast-forwarded.  With more trace streams than tiles each quantum first
+rotates the ThreadScheduler's seats (``schedule_rotate``).
 ``megarun`` runs quantum steps until every stream is done or a quanta
 budget is spent.  The JAX package runs these loops on the device; here
 each loop condition is one host read of a device scalar, and the trip
@@ -17,10 +18,12 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.engine.core import local_advance
+from graphite_tpu_torch.engine.ops import scatter
 from graphite_tpu_torch.engine.resolve import resolve
 from graphite_tpu_torch.engine.state import (
-    PEND_BARRIER, PEND_CBC, PEND_COND, PEND_CSIG, PEND_JOIN, PEND_MUTEX,
-    PEND_RECV, PEND_SEND, PEND_START, SimState, TraceArrays)
+    PEND_BARRIER, PEND_CBC, PEND_COND, PEND_CSIG, PEND_EX_REQ, PEND_IFETCH,
+    PEND_JOIN, PEND_MUTEX, PEND_RECV, PEND_SEND, PEND_SH_REQ, PEND_START,
+    SimState, TraceArrays)
 from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
 from graphite_tpu_torch.params import SimParams
 from graphite_tpu_torch.time_base import TIME_MAX
@@ -52,6 +55,102 @@ def next_boundary(params: SimParams, state: SimState,
         torch.int64)
 
 
+def schedule_rotate(params: SimParams, state: SimState,
+                    vp: VariantParams = None) -> SimState:
+    """The ThreadScheduler's seat rotation, the JAX ``schedule_rotate``.
+
+    Streams are placed round-robin (stream s on tile s % T) and each
+    tile seats one of them: the [T] context leaves are the seats, the
+    other streams wait in the ``strm_*`` store.  A seat gives up its
+    stream when the stream is done, retired a YIELD, parked on
+    THREAD_START before its SPAWN, or has held the seat for
+    ``thread_switch_quantum_ps`` of simulated time, but never while the
+    tile is mid-memory-transaction (a parked SH / EX / IFETCH request or
+    a non-empty miss chain).  It then seats its tile's waiting stream
+    with the lowest ``strm_key``; the outgoing stream goes to the back
+    of the queue (key ``max_key + 1 + tile``).  The incoming stream's
+    clock is at least the outgoing one's (the core is serial).  Runs on
+    the device with no host read."""
+    T = params.num_tiles
+    S = state.strm_cursor.shape[0]
+    dev = state.clock.device
+    sst = state.seat_stream.to(torch.int64)                # [T]
+    tiles = torch.arange(T, dtype=torch.int64, device=dev)
+    sids = torch.arange(S, dtype=torch.int64, device=dev)
+    strm_tile = sids % T                                   # static placement
+
+    # The store's done flags of the seated streams, brought up to date.
+    strm_done = scatter(state.strm_done, sst, state.done, "set")
+    state = state._replace(strm_done=strm_done)
+
+    k = state.pend_kind
+    mem_park = (k == PEND_SH_REQ) | (k == PEND_EX_REQ) | (k == PEND_IFETCH) \
+        | (state.mq_count > 0)
+    unspawned_gate = (k == PEND_START) & (state.spawned_at[sst] < 0)
+    switch_q = vp.thread_switch_quantum_ps if vp is not None \
+        else params.thread_switch_quantum_ps
+    expired = (state.boundary - state.seat_since) >= switch_q
+    give_up = (state.done | state.seat_yield | unspawned_gate
+               | expired) & ~mem_park
+
+    # Waiting streams per tile (not seated, not done), FCFS by strm_key.
+    seated = state.seated()
+    waiting = ~seated & ~strm_done
+    BIG = 2**62
+    tbl = scatter(torch.full((T,), BIG, dtype=torch.int64, device=dev),
+                  strm_tile, state.strm_key, "min", mask=waiting)
+    has_wait = tbl < BIG
+    rotate = give_up & has_wait                            # [T]
+    winner = waiting & (tbl[strm_tile] == state.strm_key) \
+        & rotate[strm_tile]                                # [S]
+    in_s = scatter(torch.zeros(T, dtype=torch.int64, device=dev),
+                   strm_tile, sids, "max", mask=winner)    # [T]
+
+    # Save the outgoing contexts into the store (rotating tiles only).
+    def save(store, seat_val):
+        return scatter(store, sst, seat_val, "set", mask=rotate)
+
+    max_key = torch.amax(state.strm_key)
+    state = state._replace(
+        strm_cursor=save(state.strm_cursor, state.cursor),
+        strm_clock=save(state.strm_clock, state.clock),
+        strm_pend_kind=save(state.strm_pend_kind, state.pend_kind),
+        strm_pend_addr=save(state.strm_pend_addr, state.pend_addr),
+        strm_pend_issue=save(state.strm_pend_issue, state.pend_issue),
+        strm_pend_aux=save(state.strm_pend_aux, state.pend_aux),
+        strm_pend_extra=save(state.strm_pend_extra, state.pend_extra),
+        strm_done=save(state.strm_done, state.done),
+        # Each rotating tile adds a distinct offset: keys stay unique.
+        strm_key=save(state.strm_key, max_key + 1 + tiles),
+    )
+
+    # Load the incoming contexts.
+    def load(seat_val, store):
+        return torch.where(rotate, store[in_s], seat_val)
+
+    state = state._replace(
+        cursor=load(state.cursor, state.strm_cursor),
+        clock=torch.where(rotate,
+                          torch.maximum(state.strm_clock[in_s], state.clock),
+                          state.clock),
+        done=load(state.done, state.strm_done),
+        pend_kind=load(state.pend_kind, state.strm_pend_kind),
+        pend_addr=load(state.pend_addr, state.strm_pend_addr),
+        pend_issue=load(state.pend_issue, state.strm_pend_issue),
+        pend_aux=load(state.pend_aux, state.strm_pend_aux),
+        pend_extra=load(state.pend_extra, state.strm_pend_extra),
+        seat_stream=torch.where(rotate, in_s, sst).to(torch.int32),
+        seat_since=torch.where(rotate, state.boundary, state.seat_since),
+        seat_yield=state.seat_yield & ~rotate,
+    )
+    # A context switch restores the incoming thread's registers: the
+    # scoreboard (iocoom only; [0, T] otherwise) starts all-ready.
+    if state.reg_ready.shape[0] > 0:
+        state = state._replace(reg_ready=torch.where(
+            rotate[None, :], 0, state.reg_ready))
+    return state
+
+
 def _progress(st: SimState, chain: bool) -> int:
     """Cursor sum + clock sum, plus at P > 0 the memory-stall sum: a
     mid-chain serve moves neither cursor nor clock until the chain
@@ -73,6 +172,8 @@ def quantum_step(params: SimParams, state: SimState,
         vp = variant_params(params)
     state = state._replace(boundary=next_boundary(params, state, vp=vp),
                            ctr_quantum=state.ctr_quantum + 1)
+    if state.sched_enabled:
+        state = schedule_rotate(params, state, vp=vp)
     chain = params.miss_chain > 0
     cap = max(params.rounds_per_quantum, params.max_events_per_quantum) \
         if chain else params.rounds_per_quantum

@@ -7,8 +7,9 @@ network model, with the hop-by-hop mesh's contended link flights; the
 history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
 the blocking chain replay ``chain_fast_pass`` in front of its conflict
 rounds, and the sync resolvers (CAPI receives and back-pressured sends,
-barriers, condition variables, mutexes, joins and thread starts) at one
-stream per tile.  Every parked request (or chain head) of
+barriers, condition variables, mutexes, joins and thread starts), with
+the ThreadScheduler's stream store where there are more trace streams
+than tiles.  Every parked request (or chain head) of
 every tile is priced and applied at once; same-line races are serialised
 by conflict rounds, in which each line's earliest pending request
 transacts and later ones see the post-transaction directory.  The
@@ -1145,10 +1146,11 @@ def _sh_l1_evict_notify(params: SimParams, state: SimState, tiles, vtag,
 
 # ====================================================================== sync
 #
-# The resolvers of the sync pass, each the JAX package's on one stream per
-# tile.  Their branches for more streams than tiles (the descheduled
-# streams of the stream store, ``strm_*``) belong to the ThreadScheduler
-# slice of the port and are left out here.
+# The resolvers of the sync pass, each the JAX package's.  Under the
+# ThreadScheduler (more trace streams than tiles) the barrier and cond
+# resolvers also wake the descheduled streams of the stream store
+# (``strm_*``), and join and start read stream-indexed flags through the
+# seats.
 
 def _mcp_legs(params: SimParams, vp: VariantParams, state: SimState):
     """(to_mcp, from_mcp): each tile's control-packet legs to and from
@@ -1252,6 +1254,24 @@ def resolve_barrier(params: SimParams, vp: VariantParams,
                              kchain.CTRL_BYTES, p_nu[mcp], params.mesh_width,
                              vnet=vp.net_user)
     completion = state.bar_time[bid] + back_ps + cycle_ps
+    if state.sched_enabled:
+        # Descheduled waiters of a released barrier wake in the store:
+        # the release resets bar_count below, so a stream rotated out
+        # while parked would otherwise miss its generation.  Their
+        # arrivals were counted when they parked.
+        S = state.strm_cursor.shape[0]
+        s_is = state.strm_pend_kind == PEND_BARRIER
+        sbid = torch.clip(state.strm_pend_addr, 0, NB - 1)
+        sparts = torch.clamp(state.strm_pend_aux, min=1)
+        s_rel = s_is & (state.bar_count[sbid] >= sparts) & ~state.strm_done
+        s_tile = torch.arange(S, device=dev) % T
+        s_comp = state.bar_time[sbid] + back_ps[s_tile] + cycle_ps[s_tile]
+        state = state._replace(
+            strm_pend_kind=torch.where(s_rel, PEND_NONE,
+                                       state.strm_pend_kind).to(torch.int32),
+            strm_clock=torch.where(s_rel, s_comp, state.strm_clock),
+            strm_cursor=state.strm_cursor
+            + torch.where(s_rel, 1, 0).to(torch.int32))
     state = state._replace(
         bar_count=scatter(state.bar_count, bid, 0, "set", mask=rel),
         bar_time=scatter(state.bar_time, bid, 0, "set", mask=rel))
@@ -1356,12 +1376,70 @@ def resolve_cond(params: SimParams, vp: VariantParams,
                     torch.where(kind == PEND_MUTEX,
                                 state.pend_issue + to_mcp + 1,
                                 state.pend_issue + 1)))
+    if state.sched_enabled:
+        # A descheduled stream can still park (or holds a park) no
+        # earlier than its frozen clock: no token is lost or complete
+        # while such a stream could match it.  The seated streams' store
+        # rows are stale and left out.
+        lb_store = torch.where(
+            state.strm_done, INF,
+            torch.where(state.strm_pend_kind == PEND_NONE, state.strm_clock,
+                        state.strm_pend_issue + 1))
+        seated = state.seated()
+        store_min = torch.amin(torch.where(seated, INF, lb_store))
+    else:
+        store_min = INF
     if T >= 2:
         m1, m2 = -torch.topk(-lb, 2).values
         lb_excl = torch.where(lb == m1, m2, m1)
     else:
         lb_excl = torch.full_like(lb, INF)
-    woke_mine = per_tile(dense.binsum(oh_c, wake & ~w_bc, 1) > 0)
+    lb_excl = torch.clamp(lb_excl, max=store_min)
+    woke_seat_nc = dense.binsum(oh_c, wake & ~w_bc, 1) > 0
+    if state.sched_enabled:
+        # Descheduled waiters wake in the store: a waiter and its
+        # signaler on the same tile share one seat and may never be
+        # seated together.  A broadcast wakes every eligible stored
+        # waiter; a signal the earliest one, only where it woke no
+        # seated waiter.
+        S = state.strm_cursor.shape[0]
+        dev = state.clock.device
+        s_tile = torch.arange(S, device=dev) % T
+        s_is_cw = (state.strm_pend_kind == PEND_COND) & ~seated \
+            & ~state.strm_done
+        s_cid = torch.clip(state.strm_pend_addr, 0, NC - 1)
+        s_t = state.strm_pend_issue
+        s_wt = tok_time_nc[s_cid]
+        s_has = has_tok_nc[s_cid]
+        s_bc = tok_bc_nc[s_cid]
+        if params.cond_replay:
+            s_elig = s_is_cw & s_has
+            s_wake_at = torch.maximum(s_t, s_wt)
+        else:
+            s_elig = s_is_cw & s_has & (s_t <= s_wt)
+            s_wake_at = s_wt
+        skey = torch.clip(s_t, 0, 2**40) * S \
+            + torch.arange(S, dtype=torch.int64, device=dev)
+        stbl = scatter(torch.full((NC,), INF, dtype=torch.int64,
+                                  device=dev), s_cid, skey, "min",
+                       mask=s_elig)
+        s_first = s_elig & (stbl[s_cid] == skey)
+        s_wake = torch.where(s_bc, s_elig, s_first & ~woke_seat_nc[s_cid])
+        state = state._replace(
+            strm_pend_kind=torch.where(s_wake, PEND_MUTEX,
+                                       state.strm_pend_kind).to(torch.int32),
+            strm_pend_addr=torch.where(
+                s_wake, state.strm_pend_aux.to(torch.int64),
+                state.strm_pend_addr),
+            strm_pend_issue=torch.where(s_wake, s_wake_at - to_mcp[s_tile],
+                                        state.strm_pend_issue))
+        woke_store_nc = scatter(torch.zeros(NC, dtype=torch.bool,
+                                            device=dev), s_cid, True, "set",
+                                mask=s_wake & ~s_bc)
+        woke_nc = woke_seat_nc | woke_store_nc
+    else:
+        woke_nc = woke_seat_nc
+    woke_mine = per_tile(woke_nc)
     if params.cond_replay:
         # Lost only when no waiter of its cond is parked and no tile is
         # runnable.
@@ -1395,7 +1473,8 @@ def resolve_join(params: SimParams, vp: VariantParams,
     is_j = state.pend_kind == PEND_JOIN
     child = torch.clip(state.pend_aux, 0, state.done_at.shape[0] - 1).to(
         torch.int64)
-    ok = is_j & state.done[child]
+    # ``child`` is a stream id; a seated child's flag lives in its seat.
+    ok = is_j & state.stream_done()[child]
     to_mcp, from_mcp = _mcp_legs(params, vp, state)
     cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
     exit_at_mcp = state.done_at[child] + to_mcp[child % T]
@@ -1406,11 +1485,13 @@ def resolve_join(params: SimParams, vp: VariantParams,
 
 def resolve_start(params: SimParams, vp: VariantParams,
                   state: SimState) -> SimState:
-    """Release THREAD_START gates whose stream has been SPAWNed."""
-    ok = (state.pend_kind == PEND_START) & (state.spawned_at >= 0)
+    """Release THREAD_START gates whose stream has been SPAWNed
+    (``spawned_at`` is per stream: each seat reads its stream's)."""
+    spawned = state.spawned_at[state.seat_stream.to(torch.int64)] \
+        if state.sched_enabled else state.spawned_at
+    ok = (state.pend_kind == PEND_START) & (spawned >= 0)
     cycle_ps = _lat(1, _period(state, DVFSModule.CORE))
-    completion = torch.maximum(state.pend_issue, state.spawned_at) \
-        + cycle_ps
+    completion = torch.maximum(state.pend_issue, spawned) + cycle_ps
     return _unblock(state, ok, completion, sync=True)
 
 
@@ -1425,7 +1506,12 @@ def resolve(params: SimParams, state: SimState,
     One host read decides every gate: the memory pass changes no sync
     park and each resolver clears only its own kind, except resolve_cond,
     which turns woken waiters into mutex parks, so the mutex gate is read
-    again after it."""
+    again after it.  The gates read the seats' parks, as the JAX
+    package's do: under the ThreadScheduler a resolver whose kind only
+    descheduled streams hold has nothing to do (a barrier releases in the
+    pass in which its last arriver, seated, parks; a stored cond waiter
+    wakes only on a seated token; the other resolvers read the seats
+    alone)."""
     if vp is None:
         vp = variant_params(params)
     if params.miss_chain > 0:

@@ -6,9 +6,13 @@ windows with the same no-progress ``DeadlockError`` check, and
 ``SimSummary`` renders the same ``sim.out``-style report and dict.
 
 ``device=None`` means CUDA: with no GPU present the constructor raises
-instead of falling back to the CPU.  Configurations and trace events
-outside this slice of the port raise ``NotImplementedError`` at
-construction (:func:`check_slice`), naming the slice that ports them.
+instead of falling back to the CPU.  Configurations outside this slice
+of the port raise ``NotImplementedError`` at construction
+(:func:`check_slice`), naming the slice that ports them.  A trace with
+more streams than tiles runs under the ThreadScheduler, as in the JAX
+package, which refuses the same traces: fewer streams than tiles, more
+than ``general/max_threads_per_core`` a tile, or CAPI messaging with
+more streams than tiles (``ValueError``).
 """
 
 from __future__ import annotations
@@ -31,28 +35,25 @@ from graphite_tpu_torch.isa import EventOp
 from graphite_tpu_torch.params import SimParams
 from graphite_tpu_torch.time_base import ps_to_ns
 
-# Where more trace streams than tiles (the ThreadScheduler's seats) will
-# run.
-SCHEDULER_SLICE = "the ThreadScheduler slice (model breadth 3a-ii)"
 
-
-def check_slice(params: SimParams, trace: Optional[Trace] = None,
-                device=None) -> None:
-    """Refuse, loudly, every configuration and event kind the port does
-    not run yet — nothing is mispriced silently.  Admitted: simple cores,
+def check_slice(params: SimParams, device=None) -> None:
+    """Refuse, loudly, every configuration the port does not run yet —
+    nothing is mispriced silently.  Admitted: simple cores,
     every coherence protocol (private L1/L2 under MSI or MOSI, shared L2
     under MSI or MESI) with a full-map directory, every network model on
     the memory and user networks (magic, emesh_hop_counter, atac under
     either routing strategy and receive network, emesh_hop_by_hop with
     its queue model off or on: contended link flights on the memory
     network, and SEND's flight on a hop-by-hop user network), the
-    history DRAM queue (on or off), ``tpu/miss_chain`` 0 to 256 with the
-    fan-out replay on or off, ``tpu/fast_forward`` at any width and
-    run-ahead span, any tile count the directory's owner field holds
-    (state.py), and every event kind (the sync, CAPI, thread, ROI, DVFS
-    and syscall kinds among them) at one trace stream per tile.  More
-    streams than tiles waits for the ThreadScheduler slice.  On a CUDA ``device`` the chain replay is also held to the
-    classify kernel's limits (kernels/chain.check_chain_config)."""
+    history DRAM queues (``history_list`` and ``history_tree``, on or
+    off), ``tpu/miss_chain`` 0 to 256 with the fan-out replay on or off,
+    ``tpu/fast_forward`` at any width and run-ahead span, any tile count
+    the directory's owner field holds (state.py), every event kind (the
+    sync, CAPI, thread, ROI, DVFS and syscall kinds among them), and
+    more trace streams than tiles under the ThreadScheduler (its limits
+    are the JAX package's ``ValueError``s, raised by ``Simulator`` and
+    ``make_state``).  On a CUDA ``device`` the chain replay is also held
+    to the classify kernel's limits (kernels/chain.check_chain_config)."""
     def later(what, where="a later slice (model breadth)"):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "
@@ -68,7 +69,7 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
               "the run-lifecycle slice")
     if params.directory.directory_type != "full_map":
         later(f"the {params.directory.directory_type!r} directory scheme")
-    if params.dram.queue_model_type != "history_tree":
+    if params.dram.queue_model_type not in ("history_list", "history_tree"):
         later(f"the {params.dram.queue_model_type!r} DRAM queue model")
     if (params.stats_enabled or params.progress_enabled
             or params.power_trace_enabled or params.telemetry_enabled):
@@ -80,9 +81,6 @@ def check_slice(params: SimParams, trace: Optional[Trace] = None,
         check_chain_config(params, device)
     if params.block_events > MAX_WINDOW:
         later(f"tpu/block_events > {MAX_WINDOW}")
-    if trace is not None:
-        if trace.num_tiles != params.num_tiles:
-            later("more trace streams than tiles", SCHEDULER_SLICE)
 
 
 class SimSummary:
@@ -95,8 +93,9 @@ class SimSummary:
         self.steps = steps
         self.quanta = int(state.ctr_quantum.item())
         self.clock = state.clock.cpu().numpy()
-        # Per-stream done (one stream per tile in this slice).
-        self.done = state.done.cpu().numpy()
+        # Per-stream done: under the ThreadScheduler the seated streams'
+        # flags merged into the store's, so every stream is reported.
+        self.done = state.stream_done().cpu().numpy()
         self.period_ps = state.period_ps.cpu().numpy()
         self.counters: Dict[str, np.ndarray] = {
             f: getattr(state.counters, f).cpu().numpy()
@@ -295,13 +294,17 @@ class Simulator:
                 f"trace has {trace.num_tiles} streams, params expect "
                 f"at least {params.num_tiles}")
         self.device = dispatch.resolve_device(device)
-        check_slice(params, trace, self.device)
+        check_slice(params, self.device)
         self.params = params
         self.vp = variant_params(params)
-        self.trace = TraceArrays.from_trace(trace, self.device)
         ops = np.asarray(trace.ops)
         has_capi = bool(((ops == int(EventOp.SEND))
                          | (ops == int(EventOp.RECV))).any())
+        if has_capi and trace.num_tiles > params.num_tiles:
+            raise ValueError(
+                "CAPI SEND/RECV with multi-thread-per-core scheduling is "
+                "not supported yet (channel state is tile-addressed)")
+        self.trace = TraceArrays.from_trace(trace, self.device)
         self.state = make_state(params, self.device, has_capi=has_capi,
                                 num_streams=trace.num_tiles)
         self.steps = 0

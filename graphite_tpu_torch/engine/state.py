@@ -7,10 +7,12 @@ directory sharer bitmap: ``uint64`` in JAX, ``int64`` with the same bits
 here (torch's uint64 support on CUDA is thin).  The miss-chain bank
 (``mq_*``, ``chain_*``) is [P, T] at ``tpu/miss_chain = P`` and zero-size
 at P = 0; the CAPI channel leaves are [T, T] and [D, T, T] when the
-trace sends or receives, zero-size otherwise.  Leaves that belong to
-later slices of the port (iocoom rings, telemetry, scheduler seats) keep
-the shapes ``make_state`` gives them at this config, which is zero-size
-or unused.
+trace sends or receives, zero-size otherwise.  With more trace streams
+than tiles the ThreadScheduler's seat leaves are [T] and its stream
+store [S]; at one stream per tile both are zero-size.  Leaves that
+belong to later slices of the port (iocoom rings, telemetry) keep the
+shapes ``make_state`` gives them at this config, which is zero-size or
+unused.
 """
 
 from __future__ import annotations
@@ -122,13 +124,15 @@ def make_counters(num_tiles: int, device) -> Counters:
 
 
 class TraceArrays(NamedTuple):
-    """Device-resident trace: int32 (op, arg, arg2) stacked [3, T, N]
-    beside the int64 byte addresses [T, N].  ``base``/``n_total`` (the
-    streamed-segment frame of the JAX package) stay None: streaming
-    ingest is a later slice."""
+    """Device-resident trace: int32 (op, arg, arg2) stacked [3, S, N]
+    beside the int64 byte addresses [S, N], one row per trace stream
+    (S = T at one stream per tile; under the ThreadScheduler each tile
+    reads its seated stream's row, ``SimState.seat_stream``).
+    ``base``/``n_total`` (the streamed-segment frame of the JAX package)
+    stay None: streaming ingest is a later slice."""
 
-    addr: torch.Tensor  # [T, N] int64 byte address
-    meta: torch.Tensor  # [3, T, N] int32: (op, arg, arg2)
+    addr: torch.Tensor  # [S, N] int64 byte address
+    meta: torch.Tensor  # [3, S, N] int32: (op, arg, arg2)
     base: Optional[torch.Tensor] = None
     n_total: Optional[int] = None
 
@@ -488,8 +492,30 @@ class SimState(NamedTuple):
             else self.clock.shape[0]
 
     def all_done(self) -> torch.Tensor:
-        """Scalar bool tensor: every stream is done."""
-        return self.done.all()
+        """Scalar bool tensor: every stream is done (under the
+        ThreadScheduler the seats hold only the scheduled streams, so
+        their flags are merged into the store's)."""
+        return self.stream_done().all()
+
+    def stream_done(self) -> torch.Tensor:
+        """[S] bool: each trace stream's done flag, the seated streams'
+        live flags over the store's."""
+        if self.sched_enabled:
+            return self.strm_done.index_put((self.seat_stream.long(),),
+                                            self.done)
+        return self.done
+
+    def seated(self) -> torch.Tensor:
+        """[S] bool: the streams seated on a tile (ThreadScheduler)."""
+        return torch.zeros_like(self.strm_done).index_put(
+            (self.seat_stream.long(),), torch.ones_like(self.done))
+
+    def trace_rows(self) -> torch.Tensor:
+        """[T] int64: each tile's trace row, its seated stream under the
+        ThreadScheduler."""
+        if self.sched_enabled:
+            return self.seat_stream.long()
+        return torch.arange(self.clock.shape[0], device=self.clock.device)
 
 
 def init_periods(params: SimParams) -> np.ndarray:
@@ -540,14 +566,24 @@ def make_state(params: SimParams, device,
                num_streams: int = 0) -> SimState:
     """The initial state, leaf for leaf the JAX package's ``make_state``
     (shapes and dtypes; sharer bitmaps int64).  Configs outside this
-    slice are refused earlier, by ``check_slice``."""
+    slice are refused earlier, by ``check_slice``.  ``num_streams`` > T
+    engages the ThreadScheduler: streams 0..T-1 start seated on their own
+    tile, the rest wait in the stream store."""
     T = params.num_tiles
     S = num_streams if num_streams > 0 else T
-    if S != T:
-        raise NotImplementedError(
-            "more trace streams than tiles is not ported yet: it belongs to "
-            "the ThreadScheduler slice (model breadth 3a-ii) of the PyTorch "
-            "port")
+    if S < T:
+        raise ValueError(
+            f"trace has {S} streams but params expect {T} tiles; "
+            f"fewer streams than tiles is not supported")
+    if S > T * params.max_threads_per_core:
+        raise ValueError(
+            f"trace has {S} streams > {T} tiles x "
+            f"{params.max_threads_per_core} general/max_threads_per_core "
+            f"(the reference refuses the same overflow, "
+            f"thread_scheduler.cc:577)")
+    sched = S > T
+    TS = T if sched else 0          # the seat leaves
+    SS = S if sched else 0          # the stream store
     if T > (1 << _DIR_OWNER_BITS) - 2:
         raise ValueError(
             f"num_tiles {T} exceeds the packed directory owner field "
@@ -619,18 +655,18 @@ def make_state(params: SimParams, device,
         bar_time=z(max_barriers, i64),
         spawned_at=full((S,), -1, i64),
         done_at=z(S, i64),
-        seat_stream=z(0, i32),
-        seat_since=z(0, i64),
-        seat_yield=z(0, torch.bool),
-        strm_cursor=z(0, i32),
-        strm_clock=z(0, i64),
-        strm_pend_kind=z(0, i32),
-        strm_pend_addr=z(0, i64),
-        strm_pend_issue=z(0, i64),
-        strm_pend_aux=z(0, i32),
-        strm_pend_extra=z(0, i64),
-        strm_done=z(0, torch.bool),
-        strm_key=z(0, i64),
+        seat_stream=torch.arange(TS, dtype=i32, device=dev),
+        seat_since=z(TS, i64),
+        seat_yield=z(TS, torch.bool),
+        strm_cursor=z(SS, i32),
+        strm_clock=z(SS, i64),
+        strm_pend_kind=z(SS, i32),
+        strm_pend_addr=z(SS, i64),
+        strm_pend_issue=z(SS, i64),
+        strm_pend_aux=z(SS, i32),
+        strm_pend_extra=z(SS, i64),
+        strm_done=z(SS, torch.bool),
+        strm_key=torch.arange(SS, dtype=i64, device=dev),
         models_enabled=scalar(params.models_enabled_at_start, torch.bool),
         stat_filled=scalar(0, i32),
         stat_next=scalar(params.stat_interval_ps, i64),

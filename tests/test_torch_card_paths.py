@@ -34,6 +34,16 @@ only at a cut depth.
     card's run equal to the CPU run's (``chip_smoke.py`` phase 12 runs
     its four sync paths whole at T = 64, so none of them is repeated
     here).
+  * The ThreadScheduler: ``gen_threads_oversubscribed(16)`` on 8 tiles
+    at miss_chain 12, every leaf of the card's run equal to the CPU
+    run's; and at full width, 128 streams on 64 tiles, the runs longer
+    than ``chip_smoke.py`` phase 13's: threads128on64
+    (``gen_threads_oversubscribed(128, compute_blocks=64, yields=8)`` at
+    miss_chain 0, 2,558 rounds), sysev128on64 and sysev128on64_chain12
+    (``synth.gen_system_events(128, seed=0)`` at miss_chain 0 and 12,
+    3,659 and 957 rounds), each pinned from the JAX package on the CPU
+    (the round counters, the completion, the counter sums, every stream
+    done).
 
 Run on the card: ``python -m pytest -m gpu --noconftest
 tests/test_torch_card_paths.py -q`` (about ten minutes).
@@ -323,3 +333,118 @@ def test_system_events_on_card_equal_cpu():
     assert dispatch.COUNTS["window_walk"] == int(st.ctr_window)
     assert dispatch.COUNTS["chain_classify"] == CHAIN * passes
     assert dispatch.COUNTS["fast_forward_walk"] >= engaged > 0
+
+
+# The ThreadScheduler at full width: 128 streams on 64 tiles
+# (general/max_threads_per_core = 2), the JAX package's values on the
+# CPU: (trace, config, round counters, completion in ps, counter sums,
+# the [vm] section).
+SCHED_SUMS = ("icount", "mutex_acquires", "cond_waits", "cond_signals",
+              "joins", "spawns", "syscalls", "syscall_ps", "sync_stall_ps",
+              "mem_stall_ps")
+SYSEV128_VM = dict(data_segment_bytes=569344, stack_segment_bytes=134217728,
+                   dynamic_segment_bytes=5906432, mmap_bytes=5906432,
+                   munmap_bytes=94208, brk_overflow=False,
+                   dynamic_overflow=False)
+SCHED = {
+    "threads128on64": (
+        lambda: synth.gen_threads_oversubscribed(128, compute_blocks=64,
+                                                 yields=8), {},
+        dict(round_ctr=2558, ctr_window=1251, ctr_complex=884,
+             ctr_conflict=423, ctr_resolve=263, ctr_quantum=237),
+        49_588_200,
+        dict(icount=833792, mutex_acquires=0, cond_waits=0, cond_signals=0,
+             joins=64, spawns=64, syscalls=0, syscall_ps=0,
+             sync_stall_ps=1_262_142_200, mem_stall_ps=1_375_699_400),
+        None),
+    "sysev128on64": (
+        lambda: synth.gen_system_events(128, seed=0), {},
+        dict(round_ctr=3659, ctr_window=1937, ctr_complex=1358,
+             ctr_conflict=364, ctr_resolve=307, ctr_quantum=269),
+        65_535_400,
+        dict(icount=150003, mutex_acquires=192, cond_waits=64,
+             cond_signals=64, joins=0, spawns=0, syscalls=256,
+             syscall_ps=450_572_144, sync_stall_ps=2_154_460_542,
+             mem_stall_ps=317_812_119),
+        SYSEV128_VM),
+    "sysev128on64_chain12": (
+        lambda: synth.gen_system_events(128, seed=0),
+        {"tpu/miss_chain": CHAIN},
+        dict(round_ctr=957, ctr_window=530, ctr_complex=285,
+             ctr_conflict=0, ctr_resolve=142, ctr_quantum=149),
+        64_728_800,
+        dict(icount=150003, mutex_acquires=192, cond_waits=64,
+             cond_signals=64, joins=0, spawns=0, syscalls=256,
+             syscall_ps=450_572_144, sync_stall_ps=2_434_549_448,
+             mem_stall_ps=316_831_631),
+        SYSEV128_VM),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(SCHED))
+def test_scheduler_paths_full_depth_on_card(name):
+    """Every round counter, the completion and the counter sums exactly,
+    all 128 streams done; window_walk once per window round,
+    chain_classify P times per chain pass, no fast_forward_walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    make, over, want, completion_ps, sums, vm = SCHED[name]
+    cfg = load_config()
+    cfg.set("general/max_threads_per_core", 2)
+    for k, v in over.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, make(), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert s.done.shape == (128,) and bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want}
+    assert ctrs == want
+    assert s.completion_time_ps == completion_ps
+    assert {k: int(s.counters[k].sum()) for k in sums} == sums
+    assert s.vm_summary() == vm
+    passes = ctrs["round_ctr"] - ctrs["ctr_window"] - ctrs["ctr_complex"] \
+        - ctrs["ctr_conflict"]
+    P = params.miss_chain
+    assert passes == (ctrs["ctr_resolve"] if P else 0)
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] == P * passes
+    assert dispatch.COUNTS["fast_forward_walk"] == 0
+
+
+@pytest.mark.gpu
+def test_scheduler_on_card_equal_cpu():
+    """gen_threads_oversubscribed(16) on 8 tiles at miss_chain 12: every
+    SimState leaf of the card's run (the seats and the stream store
+    among them) equal to the CPU run's, both kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    from graphite_tpu_torch import convert
+    cfg = load_config()
+    for k, v in (("general/total_cores", 8),
+                 ("general/max_threads_per_core", 2),
+                 ("tpu/miss_chain", CHAIN)):
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    trace = synth.gen_threads_oversubscribed(16)
+    cpu = Simulator(params, trace, device="cpu")
+    cpu.run()
+    card = Simulator(params, trace, device="cuda")
+    dispatch.reset_counts()
+    s = card.run()
+    assert s.done.shape == (16,) and bool(s.done.all())
+    want = convert.state_to_numpy(cpu.state)
+    got = convert.state_to_numpy(card.state)
+    assert set(want) == set(got)
+    for name in sorted(want):
+        assert want[name].dtype == got[name].dtype, name
+        assert (want[name] == got[name]).all(), name
+    st = card.state
+    passes = int(st.round_ctr) - int(st.ctr_window) - int(st.ctr_complex) \
+        - int(st.ctr_conflict)
+    assert passes == int(st.ctr_resolve) > 0
+    assert dispatch.COUNTS["window_walk"] == int(st.ctr_window) > 0
+    assert dispatch.COUNTS["chain_classify"] == CHAIN * passes

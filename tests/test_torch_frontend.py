@@ -151,15 +151,12 @@ def test_default_device_is_cuda():
     ({"network/memory": "emesh_hop_by_hop",
       "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
       "dram_directory/directory_type": "limited_broadcast"}, None),
-    # Every event kind is admitted at one stream per tile; more streams
-    # than tiles wait for the ThreadScheduler slice.
-    ({}, lambda: synth.gen_threads_oversubscribed(num_streams=8)),
     # The DRAM queue models other than the history tree are refused under
     # a CAPI trace as under any other.
     ({"dram/queue_model/type": "basic"},
      lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
 ], ids=["miss_chain", "ackwise", "iocoom", "sh_l2_limited", "basic_queue",
-        "hop_by_hop", "streams_over_tiles", "basic_queue_capi"])
+        "hop_by_hop", "basic_queue_capi"])
 def test_outside_slice_refused_at_construction(over, trace_fn):
     cfg = load_config()
     cfg.set("general/total_cores", 4)
