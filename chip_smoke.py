@@ -111,12 +111,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          and at least the analytic rounds that engaged, window_walk
          launches == ctr_window, no chain_classify launch;
        * fft64_ff_span: the fft64 trace at miss_chain 12, span 1000, the
-         path on which all three kernels run (round_ctr 293, completion
-         61,719.4 ns, 1,737 fan-outs, 13 fallbacks);
-       * fft64_ff: the same at span 0, where only the wide rounds run
-         (round_ctr 278, completion 62,347.6 ns, ctr_ff 73, ctr_ffq 29,
-         ff_events 28817, 1,737 fan-outs, 14 fallbacks, no
-         fast_forward_walk launch).
+         path on which all three kernels run, for its first 16 quanta
+         (round_ctr 142, latest clock 34,043.8 ns, 598 fan-outs, 5
+         fallbacks, the clocks' and cursors' sums; the whole run, 293
+         rounds, is held on the card by tests/test_torch_card_paths.py);
+       * fft64_ff: the same at span 0, where only the wide rounds run,
+         for its first 16 quanta (round_ctr 139, ctr_ff 40, ctr_ffq 15,
+         ff_events 15413, 598 fan-outs, 5 fallbacks, no
+         fast_forward_walk launch; the whole run, 278 rounds, on the
+         card by tests/test_torch_card_paths.py).
      Chain passes (round_ctr - ctr_window - ctr_complex - ctr_conflict
      - engaged analytic rounds) == ctr_resolve at miss_chain 12 and 0 at
      0; chain_classify launches == 12 x chain passes.
@@ -124,15 +127,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      completion the JAX package's on the CPU (BENCH_r06 gives the same
      rounds and completions for radix1024 and the full-depth radix256):
        * radix1024: ``gen_radix(1024, keys_per_tile=16, radix=64,
-         seed=0)`` at ``tpu/block_events = 4``, miss_chain 0 (round_ctr
-         2912, completion 64,803.2 ns), BASELINE's scored configuration;
+         seed=0)`` at ``tpu/block_events = 4``, miss_chain 0, BASELINE's
+         scored configuration, for its first 60 quanta
+         (round_ctr 1612, latest clock 31,250.8 ns, the clocks' and
+         cursors' sums; the whole run, 2,912 rounds to 64,803.2 ns, on
+         the card by tests/test_torch_card_paths.py);
          then a profiled stretch of 2 quanta continuing phase 3's
          radix1024 simulation, with the device kernels that took the most
          time;
-       * radix1024_chain12: the same trace at miss_chain 12 (round_ctr
-         632, completion 63,390.0 ns, 20 fan-outs served in-pass);
-         chain_classify launches == 12 x ctr_resolve, all of its wide
-         form;
+       * radix1024_chain12: the same trace at miss_chain 12, for its
+         first 12 quanta (round_ctr 375, latest clock
+         27,558.0 ns, the clocks' and cursors' sums; the whole run, 632
+         rounds to 63,390.0 ns with 20 fan-outs, on the card by
+         tests/test_torch_card_paths.py); chain_classify launches == 12 x
+         ctr_resolve, all of its wide form;
        * radix256: ``gen_radix(256, keys_per_tile=96, radix=256,
          seed=0)`` on the default config for its first 24 quanta
          (round_ctr 542, latest clock 12,225.8 ns, the clocks' and
@@ -152,12 +160,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          branches, each launched (the full depth, 1,633 rounds, is held
          on the card by tests/test_torch_card_paths.py);
        * fft64_mosi: ``gen_fft(64, points_per_tile=64, writeback=True)``
-         under MOSI at miss_chain 12 (round_ctr 354, completion 48,966.2
-         ns, 1,855 fan-outs, 94 fallbacks);
+         under MOSI at miss_chain 12 for its first 14 quanta (round_ctr
+         179, latest clock 29,192.6 ns, 534 fan-outs, 52 fallbacks; the
+         whole run, 354 rounds, on the card by
+         tests/test_torch_card_paths.py);
        * fft64_shl2_msi: the same trace under ``pr_l1_sh_l2_msi`` at
          miss_chain 12 with the DRAM controllers on 8 of the 64 tiles, so
-         that a slice miss's controller is often another tile (round_ctr
-         371, completion 37,856.6 ns, 282 fan-outs, 41 fallbacks).
+         that a slice miss's controller is often another tile, for its
+         first 12 quanta (round_ctr 230, latest clock 24,310.6 ns, 150
+         fan-outs, 16 fallbacks; the whole run, 371 rounds, on the card
+         by tests/test_torch_card_paths.py).
      Each path records (clones of) the operands of its first window
      walks, replay iterations and analytic rounds; once its launch
      counts are read, each kernel is held against its plain form on
@@ -194,13 +206,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      held against their plain forms once the launch counts are read.
 
   12. Synchronisation, CAPI messaging and system events at one stream
-      per tile, T = 64, each a whole run exact against the JAX package's
+      per tile, T = 64, each run (lock64 cut by quanta, the others
+      whole) exact against the JAX package's
       values on the CPU (every round counter, the completion, the sums
       of the sync, thread, syscall, network and stall counters, the
       [vm] section):
        * lock64: ``gen_lock_contention(64, acquisitions=16,
-         critical_cycles=50)`` on the default config (5,900 rounds,
-         1,024 mutex acquires);
+         critical_cycles=50)`` on the default config, for its first 160
+         quanta (2,540 rounds, 433 mutex acquires, the clocks' and
+         cursors' sums; the whole run, 5,900 rounds and 1,024 acquires,
+         on the card by tests/test_torch_card_paths.py);
        * pingpong64_hbh_user: ``gen_ping_pong(64, messages=32,
          size=64)`` under a hop-by-hop user network with its queue model
          on: every SEND flies over the user links (264 rounds);
@@ -235,8 +250,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      plain forms.  The longer scheduler runs (threads128on64 at
      miss_chain 0, the system events at S = 128 at miss_chain 0 and 12)
      are held on the card by tests/test_torch_card_paths.py.
+  14. chain_classify's grid form (past 1,024 tiles or 16 sharer words,
+      past 32 directory ways: ceil(T / 256) blocks of one cooperative
+      launch), the largest grid the card holds at once, and:
+       * the grid form against the plain step on state-level seeded
+         sets of every configuration (fan-out replay and DRAM queue
+         model on and off): at T = 2,048 on a directory of 4 sets a
+         tile, at 64 and 128 directory ways (T = 64), and, asked for, at
+         T = 1,024 on the wide form's sets; among them fan-outs past 32
+         targets, across blocks, and directory hits past way 32; the
+         wrapper and device time per launch, the plain step's and the
+         bound of each group (at T = 1,024 the wide form's beside it);
+       * radix1536_chain12: ``gen_radix(1536, keys_per_tile=16,
+         radix=64, seed=0)`` at ``tpu/block_events = 4`` and miss_chain
+         12 on the default directory (24 sharer words, 4.83 GB; a 39-wide
+         mesh of 40 rows, the last holding 15 tiles): the grid form on the first
+         replay iterations of a one-quantum run, then its first 8 quanta
+         exact against the JAX package's values on the CPU (round_ctr
+         270, latest clock 20,754.0 ns, the clocks' and cursors' sums; the
+         whole run, 818 rounds with its conflict rounds and fan-outs, on
+         the card by tests/test_torch_card_paths.py), chain_classify
+         launches == 12 x chain passes, every one of its grid form.
 
-Before each path of phases 4 to 6 and 8 to 13 every kernel's launch count is
+Before each path of phases 4 to 6 and 8 to 14 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -308,17 +344,24 @@ FF_SPAN_CTRS = dict(round_ctr=1293, ctr_window=593, ctr_complex=409,
 FF_SPAN_COMPLETION_PS = 27_141_800      # the latest clock at the cut
 FF_SPAN_CUT = dict(clock_sum=995_889_200, cursor_sum=16_899)
 FF_SPAN_ICOUNT = 30_640
-FFT_FF_SPAN_CTRS = dict(round_ctr=293, ctr_window=92, ctr_complex=27,
-                        ctr_conflict=90, ctr_resolve=70, ctr_quantum=31,
-                        ctr_ff=79, ctr_ffq=29, ff_events=38318)
-FFT_FF_SPAN_COMPLETION_PS = 61_719_400
-FFT_FF_SPAN_FALLBACK = 13
-FFT_FF_CTRS = dict(round_ctr=278, ctr_window=97, ctr_complex=27,
-                   ctr_conflict=86, ctr_resolve=68, ctr_quantum=32,
-                   ctr_ff=73, ctr_ffq=29, ff_events=28817)
-FFT_FF_COMPLETION_PS = 62_347_600
-FFT_FF_FANOUT_SERVED = 1737
-FFT_FF_FALLBACK = 14
+# fft64_ff_span and fft64_ff for their first 16 quanta (the
+# whole runs, 293 and 278 rounds to 61,719.4 and 62,347.6 ns with 1,737
+# fan-outs, are held on the card by tests/test_torch_card_paths.py): by
+# then both have fan-outs, fallbacks and engaged analytic rounds.
+FFT_FF_QUANTA = 16
+FFT_FF_SPAN_CTRS = dict(round_ctr=142, ctr_window=45, ctr_complex=7,
+                        ctr_conflict=47, ctr_resolve=36, ctr_quantum=16,
+                        ctr_ff=42, ctr_ffq=15, ff_events=20437)
+FFT_FF_SPAN_COMPLETION_PS = 34_043_800  # the latest clock at the cut
+FFT_FF_SPAN_FALLBACK = 5
+FFT_FF_CTRS = dict(round_ctr=139, ctr_window=49, ctr_complex=7,
+                   ctr_conflict=47, ctr_resolve=36, ctr_quantum=16,
+                   ctr_ff=40, ctr_ffq=15, ff_events=15413)
+FFT_FF_COMPLETION_PS = 34_043_800       # the latest clock at the cut
+FFT_FF_FANOUT_SERVED = 598
+FFT_FF_FALLBACK = 5
+# Both cuts reach the same clocks and cursors.
+FFT_FF_CUT = dict(clock_sum=2_104_508_400, cursor_sum=33_103)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM peak memory rate
 # One-card scale (phases 3 and 9), as the JAX package computes them on
 # the CPU; BENCH_r06's radix256 and radix1024 rows give the same rounds
@@ -327,15 +370,26 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM peak memory rate
 # rounds take the scatter forms, and chain_classify its wide form.
 SCALE_K = 4
 SCALE_H = 16384                    # max(1024, 16 T) at T = 1024
-RADIX1024_CTRS = dict(round_ctr=2912, ctr_window=1561, ctr_complex=787,
-                      ctr_conflict=564, ctr_resolve=370, ctr_quantum=124)
-RADIX1024_COMPLETION_PS = 64_803_200
-RADIX1024_ICOUNT = 292_832
-RADIX1024_CHAIN12_CTRS = dict(round_ctr=632, ctr_window=442, ctr_complex=86,
-                              ctr_conflict=8, ctr_resolve=96,
-                              ctr_quantum=31)
-RADIX1024_CHAIN12_COMPLETION_PS = 63_390_000
-RADIX1024_CHAIN12_FANOUT = 20
+# radix1024 for its first 60 quanta (the whole run, 2,912
+# rounds and 64,803.2 ns as in BENCH_r06, is held on the card by
+# tests/test_torch_card_paths.py).
+RADIX1024_QUANTA = 60
+RADIX1024_CTRS = dict(round_ctr=1612, ctr_window=938, ctr_complex=397,
+                      ctr_conflict=277, ctr_resolve=183, ctr_quantum=60)
+RADIX1024_COMPLETION_PS = 31_250_800    # the latest clock at the cut
+RADIX1024_CUT = dict(clock_sum=20_014_394_400, cursor_sum=73_300)
+RADIX1024_CUT_ICOUNT = 129_142
+# radix1024_chain12 for its first 12 quanta (the whole run,
+# 632 rounds to 63,390.0 ns with 20 fan-outs, on the card by
+# tests/test_torch_card_paths.py).
+RADIX1024_CHAIN12_QUANTA = 12
+RADIX1024_CHAIN12_CTRS = dict(round_ctr=375, ctr_window=260, ctr_complex=51,
+                              ctr_conflict=6, ctr_resolve=58,
+                              ctr_quantum=12)
+RADIX1024_CHAIN12_COMPLETION_PS = 27_558_000  # the latest clock at the cut
+RADIX1024_CHAIN12_CUT = dict(clock_sum=19_582_317_400, cursor_sum=70_465)
+RADIX1024_CHAIN12_ICOUNT = 125_357
+RADIX1024_CHAIN12_FANOUT = 0
 # radix256 (BENCH_r06's trace, keys_per_tile 96) for its first 24
 # quanta, since phase 11 was added (the whole run, 5,475 rounds and
 # 116,211.4 ns as in BENCH_r06, is held on the card by
@@ -373,17 +427,26 @@ SHL2_MESI_FF_CTRS = dict(round_ctr=176, ctr_window=79, ctr_complex=9,
                          ctr_ff=26, ctr_ffq=12, ff_events=8263)
 SHL2_MESI_FF_COMPLETION_PS = 25_301_200   # the latest clock at the cut
 SHL2_MESI_FF_CUT = dict(clock_sum=903_868_400, cursor_sum=16_859)
-FFT_MOSI_CTRS = dict(round_ctr=354, ctr_window=171, ctr_complex=19,
-                     ctr_conflict=100, ctr_resolve=64, ctr_quantum=25)
-FFT_MOSI_COMPLETION_PS = 48_966_200
-FFT_MOSI_FANOUT, FFT_MOSI_FALLBACK = 1855, 94
+# fft64_mosi for its first 14 quanta and fft64_shl2_msi for its first 12
+# (the whole runs, 354 rounds to 48,966.2 ns with 1,855
+# fan-outs and 94 fallbacks, and 371 rounds to 37,856.6 ns with 282 and
+# 41, are held on the card by tests/test_torch_card_paths.py).
+FFT_MOSI_QUANTA = 14
+FFT_MOSI_CTRS = dict(round_ctr=179, ctr_window=94, ctr_complex=7,
+                     ctr_conflict=41, ctr_resolve=37, ctr_quantum=14)
+FFT_MOSI_COMPLETION_PS = 29_192_600     # the latest clock at the cut
+FFT_MOSI_CUT = dict(clock_sum=1_826_229_200, cursor_sum=31_904)
+FFT_MOSI_ICOUNT = 279_956
+FFT_MOSI_FANOUT, FFT_MOSI_FALLBACK = 534, 52
 # fft64 under shared-L2 MSI with the controllers on 8 tiles (stride 8).
 SHL2_CTRL = 8
-FFT_SHL2_CTRS = dict(round_ctr=371, ctr_window=190, ctr_complex=30,
-                     ctr_conflict=67, ctr_resolve=84, ctr_quantum=19)
-FFT_SHL2_COMPLETION_PS = 37_856_600
-FFT_SHL2_FANOUT, FFT_SHL2_FALLBACK = 282, 41
-FFT_ICOUNT = 557_056
+FFT_SHL2_QUANTA = 12
+FFT_SHL2_CTRS = dict(round_ctr=230, ctr_window=118, ctr_complex=17,
+                     ctr_conflict=41, ctr_resolve=54, ctr_quantum=12)
+FFT_SHL2_COMPLETION_PS = 24_310_600     # the latest clock at the cut
+FFT_SHL2_CUT = dict(clock_sum=1_511_812_400, cursor_sum=36_938)
+FFT_SHL2_ICOUNT = 286_650
+FFT_SHL2_FANOUT, FFT_SHL2_FALLBACK = 150, 16
 # The network models (phase 11): gen_fft(64, points_per_tile=
 # NET_FFT_POINTS, writeback=True) at miss_chain 12 under ATAC on both
 # networks (default AtacParams) and under the contended hop-by-hop mesh,
@@ -414,16 +477,21 @@ SYNC_SUMS = ("icount", "mutex_acquires", "cond_waits", "cond_signals",
              "sends", "recvs", "net_user_flits", "sync_stall_ps",
              "mem_stall_ps")
 SYNC_PINS = {
+    # lock64 for its first 160 quanta (``quanta``, ``cut``: the latest
+    # clock, the clocks' and cursors' sums at the cut; the whole run,
+    # 5,900 rounds to 147,411.2 ns with 1,024 mutex acquires, is held on
+    # the card by tests/test_torch_card_paths.py).
     "lock64": dict(
-        ctrs=dict(round_ctr=5900, ctr_window=3398, ctr_complex=2438,
-                  ctr_conflict=64, ctr_resolve=64, ctr_quantum=343),
-        completion_ps=147_411_200,
-        sums=dict(icount=51200, mutex_acquires=1024, cond_waits=0,
+        ctrs=dict(round_ctr=2540, ctr_window=1422, ctr_complex=1054,
+                  ctr_conflict=64, ctr_resolve=64, ctr_quantum=160),
+        completion_ps=69_475_200,
+        sums=dict(icount=21600, mutex_acquires=433, cond_waits=0,
                   cond_signals=0, joins=0, spawns=0, syscalls=0,
                   syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
-                  net_user_flits=0, sync_stall_ps=9_032_793_600,
+                  net_user_flits=0, sync_stall_ps=4_118_432_600,
                   mem_stall_ps=18_355_200),
-        vm=None),
+        vm=None, quanta=160,
+        cut=dict(clock_sum=4_188_292_800, cursor_sum=1297)),
     # The pairs are mesh neighbours, so no two packets share a link: the
     # flights run and wait 0 ps (the fan-in of test_torch_sync_runs.py
     # shows the waits on the CPU).
@@ -494,6 +562,23 @@ SYNC_PINS = {
                   mem_stall_ps=75_618_000),
         vm=None, streams=128),
 }
+
+
+# Phase 14: radix1536_chain12, ``gen_radix(1536, keys_per_tile=16,
+# radix=64, seed=0)`` at block_events 4 and miss_chain 12 on the default
+# directory (24 sharer words, 4.83 GB of them; chain_classify's grid
+# form), cut at 8 quanta, as the JAX package computes it on the CPU (the
+# whole run, 818 rounds with 13 conflict rounds and 34 fan-outs, is held
+# on the card by tests/test_torch_card_paths.py).
+RADIX1536_T = 1536
+RADIX1536_QUANTA = 8
+RADIX1536_CTRS = dict(round_ctr=270, ctr_window=194, ctr_complex=37,
+                      ctr_conflict=0, ctr_resolve=39, ctr_quantum=8)
+RADIX1536_COMPLETION_PS = 20_754_000    # the latest clock at the cut
+RADIX1536_CUT = dict(clock_sum=18_207_678_600, cursor_sum=54_447)
+RADIX1536_ICOUNT = 109_683
+RADIX1536_FANOUT = 0
+GRID_SMALL_DIR = 64        # directory entries a tile at T = 2048: 4 sets
 
 
 T_START = time.perf_counter()
@@ -860,7 +945,7 @@ class Recorder:
         setattr(self.module, self.name, self.orig)
 
 
-def device_ms(fn, kernel: str, launches: int = 100):
+def device_ms(fn, kernel: str, launches: int = 50):
     """Device time per launch of ``kernel`` over ``launches`` calls of
     ``fn`` (torch.profiler), or None where the profiler sees no device
     events."""
@@ -883,9 +968,9 @@ def device_ms(fn, kernel: str, launches: int = 100):
     return total / 1e3 / n if n else None
 
 
-def host_ms(fn, iters: int = 2000) -> float:
+def host_ms(fn, iters: int = 500) -> float:
     """Milliseconds of host time per call of ``fn`` (no device wait)."""
-    for _ in range(50):
+    for _ in range(20):
         fn()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -959,7 +1044,7 @@ def ff_pair(kwin, p, v, fi):
     return got, ref
 
 
-def ff_times(kwin, p, v, fi, iters=200, warmup=20):
+def ff_times(kwin, p, v, fi, iters=100, warmup=10):
     """One fast_forward_walk case, every launch from the span-start state
     of ``fi`` (which no launch touches): the wrapper's time per call
     (CUDA events over calls on fresh copies of the leaves the kernel
@@ -982,8 +1067,8 @@ def ff_times(kwin, p, v, fi, iters=200, warmup=20):
         kwin.fast_forward_walk_cuda(p, v, work)
 
     dev = device_ms(restore_and_launch, "fast_forward_walk_kernel")
-    plain = time_cuda(lambda: kwin.fast_forward_walk(p, v, fi), iters=50,
-                      warmup=5)
+    plain = time_cuda(lambda: kwin.fast_forward_walk(p, v, fi), iters=20,
+                      warmup=3)
     return ms, dev, plain
 
 
@@ -1002,7 +1087,7 @@ def walk_pair(kwin, p, v, wi, s_ids):
     return got, ref
 
 
-def walk_times(kwin, p, v, wi, T, iters=200, warmup=20):
+def walk_times(kwin, p, v, wi, T, iters=100, warmup=10):
     """One window_walk case, every launch from the window-start state of
     ``wi`` (which no launch touches): the wrapper's time per call (CUDA
     events over calls on fresh copies of the leaves the kernel writes),
@@ -1020,11 +1105,11 @@ def walk_times(kwin, p, v, wi, T, iters=200, warmup=20):
     dev = walk_device_ms(kwin, p, v, wi, T)
     big = wi.addr.shape[1] > 16 and p.miss_chain > 0
     plain = time_cuda(lambda: kwin.window_walk(p, v, wi, T),
-                      iters=20 if big else 50, warmup=3 if big else 5)
+                      iters=10 if big else 20, warmup=2 if big else 3)
     return ms, dev, plain, kwin.window_walk(p, v, wi, T)
 
 
-def walk_device_ms(kwin, p, v, wi, T, launches: int = 100):
+def walk_device_ms(kwin, p, v, wi, T, launches: int = 50):
     """window_walk's device time per launch (torch.profiler), each launch
     from the window-start state of ``wi``: a device copy restores the
     leaves the kernel writes before it, so the rows it reads are warm in
@@ -1266,6 +1351,7 @@ def main() -> int:
         return ms, plain, bound
 
     ms0, _, _ = walk_line("K=16 P=0", params, vp, captured)
+    stamp("phase 3: window_walk P=0")
 
     # Operands of the port's own radix64 chain-12 run: banking windows
     # (a pending bank, or elements banked by this window) and replay
@@ -1278,7 +1364,7 @@ def main() -> int:
                   lambda wi: bool((wi.mq_count > wi.mq_head).any()), 6) \
             as rw, Recorder(kres.kchain, "run_chain_step", any_head, 24) \
             as rc:
-        csim.run(max_steps=2)
+        csim.run(max_steps=1)
     check(len(rw.seen) == 6 and len(rc.seen) == 24,
           f"captured {len(rw.seen)} banking windows and {len(rc.seen)} "
           f"replay iterations from the chain-12 run")
@@ -1307,6 +1393,7 @@ def main() -> int:
           f"operands' own (max abs err {err_w})")
     ms_w, plain_w, bound_w = walk_line(f"K=16 P={CHAIN}", cparams, cvp,
                                        rw.seen[-1])
+    stamp("phase 3: window_walk P=12")
 
     # chain_classify: one replay iteration from the state's own arrays
     cases = []
@@ -1336,11 +1423,11 @@ def main() -> int:
           f"err {err_c})")
     si12 = rc.seen[0]
     ms_c = time_cuda(lambda: kchain.chain_step_cuda(cparams, cvp, si12, H),
-                     iters=500, warmup=50)
+                     iters=200, warmup=20)
     dev_c = device_ms(lambda: kchain.chain_step_cuda(cparams, cvp, si12, H),
                       "chain_classify_kernel")
     plain_c = time_cuda(lambda: kchain.chain_step(cparams, cvp, si12, H),
-                        iters=50, warmup=5)
+                        iters=20, warmup=3)
     # What the wrapper's host time is made of: carving the output views
     # from the one buffer, and the operand checks.
     step = kchain.chain_step_entry(cparams, cvp, H, si12.dir_sharers.shape[0]
@@ -1376,6 +1463,7 @@ def main() -> int:
           f"{bound_c:.9f} ms ({moved_c} bytes the function reads and "
           f"writes on these operands, at {HBM_BYTES_PER_S / 1e12:.2f} "
           f"TB/s), library call: none on {card}")
+    stamp("phase 3: chain_classify T=64")
 
     # fast_forward_walk at F = 64
     fparams = config(**{"tpu/fast_forward": FF,
@@ -1442,6 +1530,7 @@ def main() -> int:
           f"({moved_f} bytes the function reads and writes on these "
           f"operands, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), library call: "
           f"none on {card}")
+    stamp("phase 3: fast_forward_walk")
 
     # window_walk at the wide width K = 64, P = 0 and P = 12
     fcparams = config(**{"tpu/fast_forward": FF,
@@ -1487,6 +1576,7 @@ def main() -> int:
           f"own (max abs err {err_w})")
     walk_line("K=64 P=0", fparams, fvp, rww.seen[-1])
     walk_line(f"K=64 P={CHAIN}", fcparams, fcvp, rwc.seen[-1])
+    stamp("phase 3: window_walk K=64")
     # The other fast-forward simulation and the recorded operands are done
     # with; phase 7 continues cap_sim, csim and fsim.
     del fcsim, rff, rww, rwc, cases, fi_cap, wi, got, ref
@@ -1522,6 +1612,7 @@ def main() -> int:
           f"sets, every output leaf equal to the plain form, the written "
           f"leaves the operands' own (max abs err {err_w1k})")
     walk_line(f"T=1024 K={SCALE_K} P=0", sparams, svp, cap1k, T1k)
+    stamp("phase 3: window_walk T=1024")
 
     # chain_classify's wide form at T = 1024 (16 ways, 16 sharer words,
     # H = 16,384: the tables in its workspace, the directory rows read
@@ -1552,7 +1643,8 @@ def main() -> int:
     scvp = variant_params(scparams)
     s1kc = Simulator(scparams, trace1k, device=dev)
     with Recorder(kres.kchain, "run_chain_step", any_head, 3) as rc1k:
-        s1kc.run(max_steps=1)
+        s1kc.state = megarun(scparams, s1kc.state, s1kc.trace, 1,
+                             vp=s1kc.vp)
     del s1kc
     check(len(rc1k.seen) == 3,
           f"captured {len(rc1k.seen)} replay iterations from the radix1024 "
@@ -1564,7 +1656,8 @@ def main() -> int:
     for p, v, h, label, si in cases:
         A = p.directory.associativity
         check(kchain.chain_step_entry(p, v, h, si.dir_sharers.shape[0] // A)
-              .wide, f"chain_classify {label}: not the wide form")
+              .form == kchain.WIDE,
+              f"chain_classify {label}: not the wide form")
         got, ref = step_pair(kchain, p, v, si, h)
         torch.cuda.synchronize()
         err_c1k = max(err_c1k, compare_step(got, ref, label))
@@ -1584,13 +1677,13 @@ def main() -> int:
     si1k = rc1k.seen[0]
     ms_c1k = time_cuda(lambda: kchain.chain_step_cuda(scparams, scvp, si1k,
                                                       SCALE_H),
-                       iters=200, warmup=20)
+                       iters=100, warmup=10)
     dev_c1k = device_ms(lambda: kchain.chain_step_cuda(scparams, scvp, si1k,
                                                        SCALE_H),
                         "chain_classify_kernel")
     plain_c1k = time_cuda(lambda: kchain.chain_step(scparams, scvp, si1k,
                                                     SCALE_H),
-                          iters=10, warmup=2)
+                          iters=5, warmup=1)
     moved_c1k = chain_bytes(scparams, si1k, *kchain.chain_step(
         scparams, scvp, si1k, SCALE_H))
     print(f"kernel chain_classify T=1024 (wide form): {ms_c1k:.6f} "
@@ -1672,7 +1765,8 @@ def main() -> int:
                           "l2_cache/T1/cache_size": 16})
             v = variant_params(p)
             for h in ((SCALE_H,) if fan else (4,)):
-                check(kchain.chain_step_entry(p, v, h, 16).wide,
+                check(kchain.chain_step_entry(p, v, h, 16).form
+                      == kchain.WIDE,
                       "chain_classify T=1024 shared-L2 MESI: not the wide "
                       "form")
                 si = chain_step_in_from_numpy(
@@ -1926,10 +2020,11 @@ def main() -> int:
     stamp("phase 6: chain-12 radix64 and fft64")
 
     # ---- 7. where the time goes: profiled stretches of both radix64 runs
-    # The stretches continue phase 3's two simulations, which are eight
-    # quanta past their start.  They are short: the profiler's own cost
-    # grows with the events it records, and a chain-12 round issues about
-    # ten times the host ops of a chain-off round.
+    # The stretches continue phase 3's two simulations, which are 16
+    # (chain-off) and 8 (chain-12) quanta past their start.  They are
+    # short: the profiler's own cost grows with the events it records,
+    # and a chain-12 round issues about ten times the host ops of a
+    # chain-off round.
     profile_stretch(cap_sim, wall_ms0, card, "radix64", ["window_walk"],
                     quanta=2)
     stamp("phase 7: chain-off stretch profiled")
@@ -1999,7 +2094,8 @@ def main() -> int:
     del fsim
     stamp("phase 7: fast-forward stretch profiled")
     _, lf, lc, fan, fb, _ = ff_run("fft64_ff_span", fcparams, fft,
-                                FFT_FF_SPAN_CTRS, FFT_FF_SPAN_COMPLETION_PS)
+                                FFT_FF_SPAN_CTRS, FFT_FF_SPAN_COMPLETION_PS,
+                                quanta=FFT_FF_QUANTA, cut=FFT_FF_CUT)
     check(lf > 0 and lc > 0 and fan == FFT_FF_FANOUT_SERVED
           and fb == FFT_FF_SPAN_FALLBACK,
           f"fft64_ff_span: fast_forward_walk launches {lf}, chain_classify "
@@ -2009,7 +2105,8 @@ def main() -> int:
     s, lf, lc, fan, fb, _ = ff_run(
         "fft64_ff", config(**{"tpu/fast_forward": FF,
                               "tpu/miss_chain": CHAIN}),
-        fft, FFT_FF_CTRS, FFT_FF_COMPLETION_PS)
+        fft, FFT_FF_CTRS, FFT_FF_COMPLETION_PS, quanta=FFT_FF_QUANTA,
+        cut=FFT_FF_CUT)
     check(lf == 0 and lc > 0 and fan == FFT_FF_FANOUT_SERVED
           and fb == FFT_FF_FALLBACK,
           f"fft64_ff: fast_forward_walk launches {lf} (the leg is dormant at "
@@ -2056,8 +2153,9 @@ def main() -> int:
         return sim, lc, fan, 1e3 * wall / r
 
     sim, _, _, wall_ms1k = scale_run(
-        "radix1024", sparams, trace1k, RADIX1024_CTRS,
-        RADIX1024_COMPLETION_PS, RADIX1024_ICOUNT)
+        f"radix1024 ({RADIX1024_QUANTA} quanta)", sparams, trace1k,
+        RADIX1024_CTRS, RADIX1024_COMPLETION_PS, RADIX1024_CUT_ICOUNT,
+        quanta=RADIX1024_QUANTA, cut=RADIX1024_CUT)
     del sim
     stamp("phase 9: radix1024")
     # The profiled stretch continues phase 3's radix1024 simulation, one
@@ -2068,14 +2166,16 @@ def main() -> int:
     del s1k
     stamp("phase 9: radix1024 stretch profiled")
     sim, lc1k, fan, _ = scale_run(
-        "radix1024_chain12", scparams, trace1k, RADIX1024_CHAIN12_CTRS,
-        RADIX1024_CHAIN12_COMPLETION_PS, RADIX1024_ICOUNT)
+        f"radix1024_chain12 ({RADIX1024_CHAIN12_QUANTA} quanta)", scparams,
+        trace1k, RADIX1024_CHAIN12_CTRS, RADIX1024_CHAIN12_COMPLETION_PS,
+        RADIX1024_CHAIN12_ICOUNT, quanta=RADIX1024_CHAIN12_QUANTA,
+        cut=RADIX1024_CHAIN12_CUT)
     check(fan == RADIX1024_CHAIN12_FANOUT and lc1k > 0,
           f"radix1024_chain12: chain_fanout_served {fan} != "
           f"{RADIX1024_CHAIN12_FANOUT}")
     step = kchain.chain_step_entry(scparams, sim.vp, SCALE_H, 16)
-    check(step.wide, "radix1024_chain12: chain_classify did not launch "
-                     "its wide form")
+    check(step.form == kchain.WIDE,
+          "radix1024_chain12: chain_classify did not launch its wide form")
     print(f"radix1024_chain12: chain_classify launched its wide form "
           f"({lc1k} launches = {CHAIN} x {RADIX1024_CHAIN12_CTRS['ctr_resolve']} "
           f"chain passes)")
@@ -2237,7 +2337,8 @@ def main() -> int:
     _, _, _, fan, fb = proto_run(
         "fft64_mosi", config(**{"caching_protocol/type": MOSI,
                                 "tpu/miss_chain": CHAIN}), fft,
-        FFT_MOSI_CTRS, FFT_MOSI_COMPLETION_PS, FFT_ICOUNT)
+        FFT_MOSI_CTRS, FFT_MOSI_COMPLETION_PS, FFT_MOSI_ICOUNT,
+        quanta=FFT_MOSI_QUANTA, cut=FFT_MOSI_CUT)
     check(fan == FFT_MOSI_FANOUT and fb == FFT_MOSI_FALLBACK,
           f"fft64_mosi: chain_fanout_served {fan} / chain_fallback {fb} != "
           f"{FFT_MOSI_FANOUT} / {FFT_MOSI_FALLBACK}")
@@ -2246,7 +2347,8 @@ def main() -> int:
         "fft64_shl2_msi", config(**{"caching_protocol/type": SH_MSI,
                                     "tpu/miss_chain": CHAIN,
                                     "dram/num_controllers": SHL2_CTRL}), fft,
-        FFT_SHL2_CTRS, FFT_SHL2_COMPLETION_PS, FFT_ICOUNT)
+        FFT_SHL2_CTRS, FFT_SHL2_COMPLETION_PS, FFT_SHL2_ICOUNT,
+        quanta=FFT_SHL2_QUANTA, cut=FFT_SHL2_CUT)
     check(fan == FFT_SHL2_FANOUT and fb == FFT_SHL2_FALLBACK,
           f"fft64_shl2_msi: chain_fanout_served {fan} / chain_fallback {fb} "
           f"!= {FFT_SHL2_FANOUT} / {FFT_SHL2_FALLBACK}")
@@ -2344,7 +2446,8 @@ def main() -> int:
                        "general/total_cores": T1k,
                        "dram_directory/total_entries": 256})
         vw = variant_params(pw)
-        check(kchain.chain_step_entry(pw, vw, SCALE_H, 16).wide,
+        check(kchain.chain_step_entry(pw, vw, SCALE_H, 16).form
+              == kchain.WIDE,
               "chain_classify T=1024 atac: not the wide form")
         if wide_arrays is None:
             wide_arrays = random_chain_step_arrays(pw, SCALE_H, 0)
@@ -2521,14 +2624,14 @@ def main() -> int:
                 Recorder(kcore.kwindow, "run_fast_forward",
                          (lambda fi: bool(fi.tile_active.any())) if rounds
                          else (lambda fi: False), 3) as rfp:
-            s, wall = advance(sim)
+            s, wall = advance(sim, pin.get("quanta"))
         lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         lf, engaged = COUNTS["fast_forward_walk"], COUNTS["ff_engaged"]
         c = round_ctrs(sim.state)
         r = c["round_ctr"]
         passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"] \
             - engaged
-        check_end(label, sim, s, pin["completion_ps"])
+        check_end(label, sim, s, pin["completion_ps"], pin.get("cut"))
         check(s.done.shape == (streams,),
               f"{label}: {s.done.shape[0]} streams reported, not {streams}")
         for k, v in pin["ctrs"].items():
@@ -2547,8 +2650,9 @@ def main() -> int:
               f"{passes} chain passes")
         check(lf >= engaged, f"{label}: fast_forward_walk launches {lf} < "
                              f"{engaged} engaged analytic rounds")
-        print(f"{label}: all_done, round_ctr {r}, completion "
-              f"{s.completion_time_ps / 1000:.1f} ns; counters {c}; sums "
+        print(f"{label}: {end_word(pin.get('quanta'))}, round_ctr {r}, "
+              f"completion {s.completion_time_ps / 1000:.1f} ns; counters "
+              f"{c}; sums "
               f"{sums}; vm {s.vm_summary()}; analytic rounds that engaged "
               f"{engaged}, chain passes {passes}")
         print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
@@ -2655,6 +2759,161 @@ def main() -> int:
     sync_run("barrier128on64", sched(), synth.gen_barrier_compute(2 * T))
     stamp("phase 13: barrier128on64")
 
+    # ---- 14. chain_classify's grid form: past 1,024 tiles (16 sharer
+    # words) and past 32 directory ways, on seeded sets, then the
+    # radix1536_chain12 path at full width
+    cap_blocks, cap_threads = kchain.grid_capacity()
+    print(f"kernel chain_classify grid form: at most {cap_blocks} blocks of "
+          f"{cap_threads} threads resident at once on this card (at most "
+          f"{cap_blocks * cap_threads} tiles)")
+
+    def grid_sets(label, T14, over, hs):
+        """State-level seeded sets of every configuration (fan-out replay
+        and DRAM queue model each on and off) at each H of ``hs``."""
+        sets = []
+        for fan in (True, False):
+            for queue in (True, False):
+                p = config(**{"general/total_cores": T14,
+                              "tpu/miss_chain": CHAIN,
+                              "tpu/fanout_replay": fan,
+                              "dram/queue_model/enabled": queue, **over})
+                v = variant_params(p)
+                for h in hs:
+                    seed = len(sets)
+                    sets.append((p, v, h, f"{label} fanout={fan} "
+                                          f"queue={queue} H={h} seed {seed}",
+                                 chain_step_in_from_numpy(
+                                     random_chain_step_arrays(p, h, seed),
+                                     dev)))
+        return sets
+
+    def grid_entry(p, v, si, h, form=None):
+        A14 = p.directory.associativity
+        return kchain.chain_step_entry(p, v, h,
+                                       si.dir_sharers.shape[0] // A14, form)
+
+    def grid_pair(p, v, si, h, label, form=None):
+        """The grid form (chosen by the sizes, or asked for) and the plain
+        step on the same operands, the floor table on a clone; every
+        field equal."""
+        step = grid_entry(p, v, si, h, form)
+        check(step.form == kchain.GRID,
+              f"chain_classify {label}: not the grid form")
+        work = si._replace(ftbl=None if si.ftbl is None else si.ftbl.clone())
+        got = step(work)
+        ref = kchain.chain_step(p, v, si, h)
+        if work.ftbl is not None:
+            check(got[1].ftbl.data_ptr() == work.ftbl.data_ptr(),
+                  "chain_classify: the floor table is not the operand's "
+                  "own")
+        torch.cuda.synchronize()
+        return compare_step(got, ref, label), ref
+
+    def grid_times(label, p, v, si, h, form=None):
+        """Wrapper and device time per launch of the form the entry
+        takes, the plain step's time and the bound, on one set (DRAM
+        queue model on: the floor table is not written)."""
+        step = grid_entry(p, v, si, h, form)
+        ms = time_cuda(lambda: step(si), iters=100, warmup=10)
+        dv = device_ms(lambda: step(si), "chain_classify_kernel")
+        plain = time_cuda(lambda: kchain.chain_step(p, v, si, h), iters=10,
+                          warmup=2)
+        moved = chain_bytes(p, si, *kchain.chain_step(p, v, si, h))
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        form_name = ("shared", "wide", "grid")[step.form]
+        print(f"kernel chain_classify {label} ({form_name} form, "
+              f"{step.ws_bytes} B workspace): {ms:.6f} ms/launch (wrapper), "
+              f"device {fmt_ms(dv)} per launch, plain {plain:.6f} ms, bound "
+              f"{bound:.9f} ms ({moved} bytes the function reads and writes "
+              f"on these operands, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+              f"library call: none on {card}")
+        return ms, dv, plain, bound
+
+    err_g, fan32, blocks_x, past32 = 0, 0, 0, 0
+    groups = (
+        ("T=2048", 2048, {"dram_directory/total_entries": GRID_SMALL_DIR},
+         (2048 * 16, 4), None),
+        ("A=64 T=64", T, {"dram_directory/associativity": 64}, (H, 4), None),
+        ("A=128 T=64", T, {"dram_directory/associativity": 128}, (H,), None),
+        ("T=1024", T1k, {"dram_directory/total_entries": 256},
+         (SCALE_H, 4), kchain.GRID))
+    for label, T14, over, hs, form in groups:
+        sets = grid_sets(label, T14, over, hs)
+        for p, v, h, lab, si in sets:
+            e, ref = grid_pair(p, v, si, h, lab, form)
+            err_g = max(err_g, e)
+            co = ref[1]
+            if co.inv_bool is not None:
+                fan32 += int((co.fan_go & (co.inv_count > 32)).sum())
+                if T14 > cap_threads:
+                    nb = co.inv_bool.reshape(co.inv_bool.shape[0], -1,
+                                             cap_threads).any(2).sum(1)
+                    blocks_x += int((nb > 1).sum())
+            if p.directory.associativity > 32:
+                past32 += int((co.hit & (co.way >= 32)).sum())
+        print(f"kernel chain_classify {label} (grid form"
+              f"{', asked for' if form is not None else ''}): {len(sets)} "
+              f"seeded sets, every ChainHead and ChainOut field and the "
+              f"in-place floor table equal to the plain step (max abs err "
+              f"{err_g})")
+        p, v, h, lab, si = sets[0]          # fan-out on, queue on
+        if form is not None:                # the wide form on the same set
+            grid_times(f"{label} {lab}", p, v, si, h)
+        grid_times(f"{label} {lab}", p, v, si, h, form)
+        del sets, si
+        stamp(f"phase 14: grid form {label}")
+    check(fan32 > 0 and blocks_x > 0 and past32 > 0,
+          f"chain_classify grid form: fan-outs past 32 targets {fan32}, "
+          f"across blocks {blocks_x}, hits past way 32 {past32}")
+    print(f"kernel chain_classify grid form: {fan32} fan-outs past 32 "
+          f"targets, {blocks_x} whose targets lie in more than one block, "
+          f"{past32} directory hits past way 32 (the second hit-held word)")
+
+    # radix1536_chain12: the first replay iterations of a one-quantum run
+    # of its own (their clones hold the 4.83 GB sharer array, so they stay
+    # out of the pinned run's peak memory), held against the plain step
+    # and timed; then the pinned cut.
+    p15 = config(**{"general/total_cores": RADIX1536_T,
+                    "tpu/block_events": SCALE_K, "tpu/miss_chain": CHAIN})
+    v15 = variant_params(p15)
+    H15 = max(1024, 16 * RADIX1536_T)
+    trace15 = synth.gen_radix(RADIX1536_T, keys_per_tile=16, radix=64,
+                              seed=0)
+    rsim = Simulator(p15, trace15, device=dev)
+    with Recorder(kres.kchain, "run_chain_step", any_head, 2) as r15:
+        rsim.state = megarun(p15, rsim.state, rsim.trace, 1, vp=rsim.vp)
+    del rsim
+    check(len(r15.seen) == 2, f"captured {len(r15.seen)} replay iterations "
+                              f"from the radix1536 chain-12 run, want 2")
+    for i, si in enumerate(r15.seen):
+        e, _ = grid_pair(p15, v15, si, H15,
+                         f"captured radix1536 chain-12 iteration {i}")
+        err_g = max(err_g, e)
+    print(f"kernel chain_classify radix1536 (grid form): "
+          f"{len(r15.seen)} replay iterations recorded in the run, every "
+          f"field equal to the plain step (max abs err {err_g})")
+    ms_g, _, plain_g, bound_g = grid_times(
+        "T=1536 captured radix1536 chain-12 iteration 0", p15, v15,
+        r15.seen[0], H15)
+    del r15, si
+    stamp("phase 14: radix1536 recorded iterations")
+    sim, lc15, fan, _ = scale_run(
+        f"radix1536_chain12 ({RADIX1536_QUANTA} quanta)", p15, trace15,
+        RADIX1536_CTRS, RADIX1536_COMPLETION_PS, RADIX1536_ICOUNT,
+        quanta=RADIX1536_QUANTA, cut=RADIX1536_CUT)
+    check(fan == RADIX1536_FANOUT and lc15 > 0,
+          f"radix1536_chain12: chain_fanout_served {fan} != "
+          f"{RADIX1536_FANOUT}")
+    check(kchain.chain_step_entry(p15, sim.vp, H15, (RADIX1536_T + 63)
+                                  // 64).form == kchain.GRID,
+          "radix1536_chain12: chain_classify did not launch its grid form")
+    print(f"radix1536_chain12: chain_classify launched its grid form "
+          f"({lc15} launches = {CHAIN} x {RADIX1536_CTRS['ctr_resolve']} "
+          f"chain passes), a {p15.mesh_width}-wide mesh of "
+          f"{RADIX1536_T} tiles")
+    del sim
+    stamp("phase 14: radix1536_chain12")
+
     kernels = [{
         "name": "window_walk",
         "route": "cuda",
@@ -2668,7 +2927,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }, {
-        "name": "chain_classify",
+        "name": "chain_classify (shared form)",
         "route": "cuda",
         "source": "graphite_tpu_torch/engine/kernels/csrc/chain_classify.cu",
         "replaces": "graphite_tpu/engine/kernels/chain.py:134",
@@ -2677,6 +2936,30 @@ def main() -> int:
         "ms": ms_c,
         "plain_ms": plain_c,
         "bound_ms": bound_c,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "chain_classify (wide form)",
+        "route": "cuda",
+        "source": "graphite_tpu_torch/engine/kernels/csrc/chain_classify.cu",
+        "replaces": "graphite_tpu/engine/kernels/chain.py:134",
+        "launches": lc1k,
+        "max_abs_err": err_c1k,
+        "ms": ms_c1k,
+        "plain_ms": plain_c1k,
+        "bound_ms": moved_c1k / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "chain_classify (grid form)",
+        "route": "cuda",
+        "source": "graphite_tpu_torch/engine/kernels/csrc/chain_classify.cu",
+        "replaces": "graphite_tpu/engine/kernels/chain.py:134",
+        "launches": lc15,
+        "max_abs_err": err_g,
+        "ms": ms_g,
+        "plain_ms": plain_g,
+        "bound_ms": bound_g,
         "bound_by": "bytes",
         "library_ms": None,
     }, {

@@ -27,14 +27,18 @@ Two forms compute one iteration from the state's own arrays
     tests hold :func:`chain_classify` against the JAX function field for
     field, and :func:`chain_step` against it on state-level operands.
   * ``csrc/chain_classify.cu`` — ONE CUDA launch for ``sm_90a`` per
-    iteration: one block, one thread per tile for the per-tile work and
-    the whole block for the tables, the directory-row staging and the
-    invalidation masks; every output leaf a view of one device buffer
-    (:class:`StepLayout`), the floor table updated in place.  Two forms,
-    chosen from the sizes when the launch is set up (:func:`step_form`):
-    the shared form (T <= 512) holds every table in shared memory; the
-    wide form (T <= 1024) keeps the H-sized tables in a device workspace
-    and reads the directory rows where they lie.
+    iteration: one thread per tile for the per-tile work and every
+    thread of the launch for the tables, the directory-row staging and
+    the invalidation masks; every output leaf a view of one device
+    buffer (:class:`StepLayout`), the floor table updated in place.
+    Three forms, chosen from the sizes when the launch is set up
+    (:func:`step_form`): the shared form (one block, T <= 512) holds
+    every table in shared memory; the wide form (one block, T <= 1024)
+    keeps the H-sized tables in a device workspace and reads the
+    directory rows where they lie; the grid form (any T and any number
+    of directory ways: ceil(T / 256) blocks of one cooperative launch,
+    grid-wide barriers between its phases) keeps every array in the
+    workspace.
 
 :func:`run_chain_step` picks between them by the tensors' device, like
 ``window.run_window``; the wrapper counts its launches in
@@ -240,20 +244,29 @@ def slice_dram_legs(params: SimParams, vp: VariantParams, line, home,
 
 
 def check_chain_config(params: SimParams, device=None) -> None:
-    """For a CUDA ``device``, the classify kernel's limits, so that a run
-    the card cannot take is refused before it starts and never at its
-    first chain pass (the plain form takes any size)."""
+    """For a CUDA ``device``, what the classify kernel cannot take, so
+    that a run the card cannot take is refused before it starts and never
+    at its first chain pass (the plain form takes any size).  The only
+    limit is the grid form's: its ceil(T / 256) blocks must be resident
+    at once (:func:`grid_capacity`, computed on the card; where no CUDA
+    device is present nothing can launch, and nothing is refused here)."""
     if device is None or torch.device(device).type != "cuda":
         return
     T = params.num_tiles
     A = params.directory.associativity
-    if T > 64 * MAX_WORDS or A > MAX_WAYS:
+    if not _takes_grid(T, A, (T + 63) // 64):
+        return
+    cap = grid_capacity(device)
+    if cap is None:
+        return
+    blocks, threads = cap
+    need = -(-T // threads)
+    if need > blocks:
         raise NotImplementedError(
-            f"the chain replay on the card takes at most {64 * MAX_WORDS} "
-            f"tiles and {MAX_WAYS} directory ways (chain_classify: one "
-            f"block, one thread per tile, the hit-held ways of a set in one "
-            f"32-bit mask); T = {T}, A = {A} is refused.  Lifting these "
-            f"limits is ROADMAP queue 2 item 2")
+            f"the chain replay at T = {T} needs {need} blocks of "
+            f"chain_classify's grid form resident at once, and this card "
+            f"holds {blocks} ({threads} threads a block): at most "
+            f"{blocks * threads} tiles")
 
 
 def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
@@ -498,16 +511,22 @@ def chain_classify(params: SimParams, vp: VariantParams, ci: ChainIn,
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
 
-# Sharer-bitmap words per directory entry the kernel takes: T <= 1024,
-# one thread per tile in one block.
+# Sharer-bitmap words per directory entry the one-block forms take: T <=
+# 1024, one thread per tile in one block.
 MAX_WORDS = 16
 
-# Directory ways the kernel takes (the hit-held ways of a set are bits of
-# one 32-bit word).
+# Directory ways the one-block forms take (the hit-held ways of a set are
+# bits of one 32-bit word).
 MAX_WAYS = 32
 
 # Tiles the shared form takes (its block has at most 512 threads).
 SHARED_MAX_TILES = 512
+
+# The kernel's three forms (csrc/chain_classify.cu F_SHARED, F_WIDE,
+# F_GRID): one block with every array in shared memory; one block with
+# the tables in a workspace; many blocks of one cooperative launch with
+# every array in the workspace.
+SHARED, WIDE, GRID = 0, 1, 2
 
 # One fused launch writes every ChainHead and ChainOut leaf into ONE
 # device buffer: the [T] int64 leaves, then the other int64 leaves, the
@@ -598,37 +617,83 @@ def _align8(x: int) -> int:
 
 
 def step_layout_bytes(T: int, A: int, W: int, H: int, KF: int,
-                      wide: bool):
-    """(shared-memory bytes, workspace bytes) of one launch of either
-    form: the kernel's ``make_layout``, array by array.  The shared form
-    holds everything in shared memory; the wide form keeps the three
-    H-sized tables and the [T, W] invalidation words in the workspace and
-    stages no directory rows."""
-    s = g = 0
-    for nbytes, where in ((8 * H, "big"), (4 * H, "big"), (H, "big"),
-                          (0 if wide else 8 * T * A, "s"), (8 * T, "s"),
-                          (8 * T, "s"), (8 * T * W, "big"), (8, "s"),
-                          (4 * T, "s"), (4 * T, "s"), (4 * T, "s"),
-                          (4 * T, "s"), (4 * T, "s"), (4 * KF, "s"),
-                          (4 * KF, "s"), (4 * KF, "s"), (T, "s")):
-        if where == "big" and wide:
-            g = _align8(g + nbytes)
-        else:
-            s = _align8(s + nbytes)
-    return s + T, g
+                      form: int):
+    """(shared-memory bytes, workspace bytes) of one launch of ``form``:
+    the kernel's ``make_layout``, array by array.  The shared form holds
+    everything in shared memory; the wide form keeps the three H-sized
+    tables and the [T, W] invalidation words in the workspace and stages
+    no directory rows; the grid form keeps every array in the workspace,
+    with ceil(A / 32) hit-held way words per hash slot and a combining
+    table of its own (int32[H])."""
+    big = "s" if form == SHARED else "g"
+    per = "g" if form == GRID else "s"
+    nw = -(-A // 32) if form == GRID else 1
+    size = {"s": 0, "g": 0}
+    for nbytes, where in ((8 * H, big), (4 * H * nw, big), (H, big),
+                          (8 * T * A if form == SHARED else 0, "s"),
+                          (8 * T, per), (8 * T, per), (8 * T * W, big),
+                          (8, per), (4 * T, per), (4 * T, per),
+                          (4 * T, per), (4 * T, per), (4 * T, per),
+                          (4 * KF, per), (4 * KF, per), (4 * KF, per),
+                          (T, per)):
+        size[where] = _align8(size[where] + nbytes)
+    size[per] += T                       # the last per-row flags
+    if form == GRID:
+        size["g"] = _align8(_align8(size["g"]) + 4 * H)
+    return size["s"], size["g"]
+
+
+def _takes_grid(T: int, A: int, W: int) -> bool:
+    """What neither one-block form takes: more tiles than one block's
+    threads, more sharer words or more directory ways than they hold."""
+    return T > 64 * MAX_WORDS or W > MAX_WORDS or A > MAX_WAYS
 
 
 def step_form(T: int, A: int, W: int, H: int, KF: int):
-    """(wide, shared-memory bytes, workspace bytes) of the fused launch:
-    the shared form while T <= 512 and its arrays fit one block's shared
-    memory, else the wide form (whose shared part, the per-row arrays,
-    is under 52 KB at any T <= 1024).  Chosen once, when a launch is set
-    up, never as a fallback after a failed launch."""
-    smem, ws = step_layout_bytes(T, A, W, H, KF, False)
+    """(form, shared-memory bytes, workspace bytes) of the fused launch:
+    the grid form for what neither one-block form takes (T > 1024, W >
+    16 sharer words, A > 32 directory ways), else the shared form while
+    T <= 512 and its arrays fit one block's shared memory, else the wide
+    form (whose shared part, the per-row arrays, is under 52 KB at any T
+    <= 1024).  Chosen once, when a launch is set up, by the sizes alone,
+    never as a fallback after a failed launch."""
+    if _takes_grid(T, A, W):
+        return (GRID,) + step_layout_bytes(T, A, W, H, KF, GRID)
+    smem, ws = step_layout_bytes(T, A, W, H, KF, SHARED)
     if T <= SHARED_MAX_TILES and smem <= MAX_SMEM_BYTES:
-        return False, smem, ws
-    smem, ws = step_layout_bytes(T, A, W, H, KF, True)
-    return True, smem, ws
+        return SHARED, smem, ws
+    return (WIDE,) + step_layout_bytes(T, A, W, H, KF, WIDE)
+
+
+# CUDA device index -> (blocks, threads a block) of the grid form that the
+# card holds at once.
+_GRID_CAPACITY = {}
+
+
+def grid_capacity(device=None):
+    """(blocks, threads a block): the most blocks of the grid form that
+    the card holds at once (its blocks per SM, from the CUDA occupancy
+    calculator on the built kernel, times its SMs; a cooperative launch
+    needs them all resident), computed once per card; None where no CUDA
+    device is present."""
+    if not torch.cuda.is_available():
+        return None
+    dev = torch.device("cuda" if device is None else device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _GRID_CAPACITY:
+        from graphite_tpu_torch.engine.kernels import build
+        lib = build.load("chain_classify")
+        fn = lib.chain_classify_grid_capacity
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        blocks, threads = ctypes.c_int64(0), ctypes.c_int64(0)
+        err = fn(idx, ctypes.byref(blocks), ctypes.byref(threads))
+        if err != 0:
+            raise RuntimeError(
+                f"chain_classify: the grid form's occupancy query failed: "
+                f"CUDA error {err} ({build.error_string(lib, err)})")
+        _GRID_CAPACITY[idx] = (blocks.value, threads.value)
+    return _GRID_CAPACITY[idx]
 
 
 def fast_divisor(d: int):
@@ -665,7 +730,7 @@ _SCALARS = ("T", "P", "A", "W", "D", "H", "KF", "fanout", "queue_on",
             "hop_cycles", "ser_req", "ser_data", "onet_cycles", "atac_dist",
             "atac_thresh", "inv_ack_cycles",
             "dir_cycles", "l2_cycles", "l1d_cycles", "l1i_cycles",
-            "dram_latency_ps", "dram_processing_ps", "wide", "proto")
+            "dram_latency_ps", "dram_processing_ps", "form", "proto")
 # The divisors: H; the homes a line folds over (the controllers, or every
 # tile's slice with shared L2), which also divide it for its directory
 # set; the controllers (the DRAM site); the directory sets.
@@ -677,7 +742,7 @@ PROTO_CODES = {"msi": 0, "mosi": 1, "sh_l2_msi": 2, "sh_l2_mesi": 3}
 
 # The kernel's array offsets and region sizes (struct Layout in
 # csrc/chain_classify.cu), which its launch function computes on the host.
-_LAYOUT_WORDS = 20
+_LAYOUT_WORDS = 21
 
 
 class _StepArgs(ctypes.Structure):
@@ -704,14 +769,15 @@ def _check(name, t, dtype, shape, dev):
 
 class _Step:
     """The fused launch at one (params, vp, H, W): the loaded library,
-    the form (:func:`step_form`), the argument struct with every scalar
-    and output offset filled, the output layout and the wide form's
+    the form (:func:`step_form`'s, or ``form`` where a measurement asks
+    for the grid form at a size the others take), the argument struct with every scalar and output
+    offset filled, the output layout and the wide or grid form's
     workspace, allocated at the first call and reused by every later
     one (the kernel clears it itself).  Per call only the pointers are
     set."""
 
     def __init__(self, params: SimParams, vp: VariantParams, H: int,
-                 W: int):
+                 W: int, form: Optional[int] = None):
         check_chain_config(params, "cuda")
         net = params.net_memory
         T = params.num_tiles
@@ -721,14 +787,22 @@ class _Step:
             raise ValueError(
                 f"chain_classify: W = {W} sharer words per entry at T = "
                 f"{T}, not ceil(T / 64)")
-        self.wide, self.smem, self.ws_bytes = step_form(T, A, W, H, KF)
+        self.form, self.smem, self.ws_bytes = step_form(T, A, W, H, KF)
+        if form is not None and form != self.form:
+            if form != GRID:
+                raise ValueError(
+                    f"chain_classify: only the grid form takes any size; "
+                    f"form {form} asked at T = {T}, A = {A}")
+            self.form = GRID
+            self.smem, self.ws_bytes = step_layout_bytes(T, A, W, H, KF,
+                                                         GRID)
         from graphite_tpu_torch.engine.kernels import build
         self.lib = build.load("chain_classify")
         fn = self.lib.chain_classify_bytes
         fn.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_size_t
         ws = ctypes.c_int64(0)
-        smem = int(fn(T, A, W, H, KF, int(self.wide), ctypes.byref(ws)))
+        smem = int(fn(T, A, W, H, KF, self.form, ctypes.byref(ws)))
         if (smem, ws.value) != (self.smem, self.ws_bytes):
             raise RuntimeError(
                 f"chain_classify: the kernel's layout ({smem}, {ws.value} "
@@ -767,7 +841,7 @@ class _Step:
             l1d_cycles=vp.l1d_access_cycles,
             l1i_cycles=vp.l1i_access_cycles,
             dram_latency_ps=vp.dram_latency_ps,
-            dram_processing_ps=vp.dram_processing_ps, wide=int(self.wide),
+            dram_processing_ps=vp.dram_processing_ps, form=self.form,
             proto=PROTO_CODES[params.protocol_kind],
             div_h=_FastDiv(*fast_divisor(H)),
             div_home=_FastDiv(*fast_divisor(nhome)),
@@ -827,7 +901,8 @@ class _Step:
         self.bind_pass(si)
         self.check(si)
         dev = si.base.device
-        if self.wide and (self.ws is None or self.ws.device != dev):
+        if self.form != SHARED and (self.ws is None
+                                    or self.ws.device != dev):
             self.ws = torch.empty(self.ws_bytes, dtype=torch.uint8,
                                   device=dev)
             self.args.ws = self.ws.data_ptr()
@@ -850,22 +925,24 @@ class _Step:
         return self.layout.carve(buf, si.ftbl)
 
 
-# (id(params), id(vp), H, W) -> _Step; the entry holds params and vp, so
-# their ids stay theirs while it lives.  A run uses one entry; the cache
-# is emptied when it outgrows a handful.
+# (id(params), id(vp), H, W, form) -> _Step; the entry holds params and
+# vp, so their ids stay theirs while it lives.  A run uses one entry; the
+# cache is emptied when it outgrows a handful.
 _STEPS = {}
 _MAX_STEPS = 16
 
 
 def chain_step_entry(params: SimParams, vp: VariantParams, H: int,
-                     W: int) -> _Step:
-    """The cached fused launch at (params, vp, H, W)."""
-    key = (id(params), id(vp), H, W)
+                     W: int, form: Optional[int] = None) -> _Step:
+    """The cached fused launch at (params, vp, H, W): the form the sizes
+    choose, or (``form=GRID``, for measuring it beside another form) the
+    grid form."""
+    key = (id(params), id(vp), H, W, form)
     step = _STEPS.get(key)
     if step is None:
         if len(_STEPS) >= _MAX_STEPS:
             _STEPS.clear()
-        step = _STEPS[key] = _Step(params, vp, H, W)
+        step = _STEPS[key] = _Step(params, vp, H, W, form)
     return step
 
 

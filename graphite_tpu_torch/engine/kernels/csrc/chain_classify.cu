@@ -38,19 +38,22 @@
 // the controller count, the directory sets) comes with a magic number
 // computed on the host
 // (chain.py fast_divisor), and tile coordinates come from a per-tile
-// (x, y) table built once in shared memory with 32-bit arithmetic.
+// (x, y) table built once per launch (in shared memory, or the grid
+// form's workspace) with 32-bit arithmetic.
 //
 // Design.  The hash tables of the function (victim-way exclusion,
 // way-slot election, shared-read combining, the floor maximum) are global
-// over tiles, so the kernel is ONE block: one thread per tile for the
-// per-tile work, and the whole block (256 threads, or T rounded up to
-// whole warps if larger) for the table initialisation, the staging of
-// the directory rows and the [KF, T] invalidation masks.  Its arrays
-// (make_layout):
+// over tiles: one thread per tile for the per-tile work, and every thread
+// of the launch for the table initialisation, the staging of the
+// directory rows and the [KF, T] invalidation masks, with a barrier over
+// the whole launch wherever a phase reads what another thread wrote.
+// Its arrays (make_layout):
 //
 //   tblA  int64[H]   election minimum (BIG empty), later the floor max
-//   tblB  int32[H]   hit-held way bits per set, later the combining
-//                    representative's row (-1 empty)
+//   tblB  int32[H, NW] hit-held way bits per set (NW words of 32 ways;
+//                    one word in the one-block forms), there later the
+//                    combining representative's row (-1 empty)
+//   rep   int32[H]   the grid form's combining representative's row
 //   exa   uint8[H]   "an exclusive request hashes here"
 //   drow  int64[A, T] each head's directory row, way-major (the probe and
 //                    the victim scan read it from here, once each)
@@ -59,18 +62,40 @@
 //   flags; per fan-out slot its row, target count and the network
 //   cycles to its farthest target.
 //
-// Two forms, chosen by the wrapper from the sizes (chain.py step_form),
+// Three forms, chosen by the wrapper from the sizes (chain.py step_form),
 // never as a fallback:
-//   * shared (kWide = false; T <= 512, a block of at most 512 threads):
-//     every array in shared memory, while they fit one block's 227 KB;
-//   * wide (kWide = true; T <= 1024, at most 1024 threads): the H-sized
-//     tables and the invalidation words in a device workspace the wrapper
-//     allocates once and this kernel clears itself (phase 0 and the table
-//     turnovers), the directory rows read where they lie in dir_word and
-//     not staged, the per-row arrays still in shared memory.  Its
-//     atomics are global ones; __syncthreads() orders the block's global
-//     accesses as it does its shared ones.  At T = 1024 and H = 16,384
-//     the tables and staged rows alone would need about 344 KB.
+//   * shared (F_SHARED; T <= 512, ONE block of at most 512 threads,
+//     A <= 32): every array in shared memory, while they fit one block's
+//     227 KB;
+//   * wide (F_WIDE; T <= 1024, ONE block of at most 1024 threads, A <=
+//     32): the H-sized tables and the invalidation words in a device
+//     workspace the wrapper allocates once and this kernel clears itself
+//     (phase 0 and the table turnovers), the directory rows read where
+//     they lie in dir_word and not staged, the per-row arrays still in
+//     shared memory.  Its atomics are global ones; __syncthreads() orders
+//     the block's global accesses as it does its shared ones.  At T =
+//     1024 and H = 16,384 the tables and staged rows alone would need
+//     about 344 KB.
+//   * grid (F_GRID; any T, any A; what neither other form takes: T >
+//     1024, or more than 32 ways): ceil(T / 256) blocks of 256 threads in
+//     ONE cooperative launch (cudaLaunchCooperativeKernel), every array in
+//     the workspace (the per-row arrays too: phases 5, 5b and 6 read other
+//     blocks' rows), the block barriers replaced by grid-wide ones
+//     (cooperative_groups::this_grid().sync(), which is valid because the
+//     launch is cooperative, so every block is resident at once), the
+//     shared-memory atomics by global ones.  The hit-held ways of a set
+//     are ceil(A / 32) words, and the combining table has its own rep[H]
+//     (cleared in phase 0), so phase 4 clears nothing.  Phases 1 and 2
+//     share one barrier interval (no staged rows to wait for).  The
+//     wrapper refuses, at construction, a grid larger than the card holds
+//     at once (chain_classify_grid_capacity).
+//
+// Duplicates resolve as in the plain form whatever the form: the election
+// is the minimum of the packed FCFS key (atomicMin), a combining slot
+// keeps the LAST representative row (atomicMax), and the floor slot goes
+// to the largest t_data * T + row (atomicMax; the product fits int64
+// while t_data < 2^63 / 8,192 ps, over 10^15 ps, and is the plain form's
+// own int64 product).
 //
 // Only the chosen way's W sharer words are read from the sharer array
 // (the whole [A, W] row of every head would need T * A * W * 8 bytes, 512
@@ -78,7 +103,7 @@
 // member has its representative's line, hence the same directory row,
 // probe and victim, hence the same way.
 //
-// Phases, separated by __syncthreads():
+// Phases, separated by barriers (sync(): the block's, or the grid's):
 //   0  tables empty; per tile: the head, its coordinates, ChainHead out;
 //   1  whole block: stage the directory rows; issue minimum, exclusive
 //      flags;
@@ -93,9 +118,10 @@
 //   5b per tile: per-owner rank, serve, combining representatives
 //      (atomicMax of the row: the JAX package's CPU scatter lets the
 //      LAST row win);
-//   6  per tile: members, hard stops, timing legs, outputs; whole block:
+//   6  per tile: members, hard stops, timing legs, outputs; every thread:
 //      the [KF, T] masks, one thread per (slot, tile), with counts and
-//      the farthest target's cycles by shared-memory atomics (fan-out
+//      the farthest target's cycles by atomics (shared memory but in the
+//      grid form; fan-out
 //      only; under atac each target is priced by its own route, and on
 //      the mesh the cycles are the hops times a constant, so one
 //      maximum serves every network);
@@ -106,8 +132,12 @@
 // Cost.  Launch latency bounds it: a few KB of operands and outputs per
 // iteration at T = 64, a few hundred integer operations per thread, and
 // four dependent global round trips (head, bank row, directory rows,
-// sharer words).  The P iterations of one pass are P launches.
+// sharer words).  The P iterations of one pass are P launches.  The grid
+// form adds up to eight grid barriers of a few microseconds each; its
+// rank loops (phases 5 and 5b) read every row's key from global memory
+// (L2-resident at these sizes).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -134,11 +164,16 @@ constexpr int64_t kBig = 1LL << 62;
 constexpr int32_t kNever = 2147483647;
 constexpr int kJOwn = 8;
 constexpr int64_t kKeyClip = 1LL << 40;
+// The forms (chain.py SHARED, WIDE, GRID).
+constexpr int F_SHARED = 0, F_WIDE = 1, F_GRID = 2;
 constexpr int kMaxThreadsShared = 512;  // the shared form: T <= 512
 constexpr int kMaxThreadsWide = 1024;   // the wide form: T <= 1024
 constexpr int kMinThreads = 256;
-constexpr int kMaxWords = 16;     // T <= 1024 -> at most 16 bitmap words
-constexpr int kMaxWays = 32;      // hit-held ways are bits of one int32
+constexpr int kGridThreads = 256;       // the grid form's block
+// The one-block forms: T <= 1024 -> at most 16 bitmap words, and the
+// hit-held ways of a set are the bits of one int32.
+constexpr int kMaxWords = 16;
+constexpr int kMaxWays = 32;
 
 }  // namespace
 
@@ -151,10 +186,11 @@ struct FastDiv {
 
 // Byte offsets of the launch's arrays: in shared memory, except that the
 // wide form keeps the H-sized tables and the invalidation words in its
-// workspace and stages no directory rows.  `smem` and `ws` are the sizes.
+// workspace and stages no directory rows, and the grid form keeps every
+// array there.  `smem` and `ws` are the sizes.
 struct Layout {
   size_t tblA, tblB, exa, drow, packed, line, invt, issue0, fidx, home,
-      owner, way, xy, frrow, kcnt, kmaxc, fan, oact;
+      owner, way, xy, frrow, kcnt, kmaxc, fan, oact, rep;
   size_t smem, ws;
 };
 
@@ -200,7 +236,7 @@ struct StepArgs {
   int64_t onet_cycles, atac_dist, atac_thresh;
   int64_t inv_ack_cycles, dir_cycles, l2_cycles, l1d_cycles, l1i_cycles;
   int64_t dram_latency_ps, dram_processing_ps;
-  int64_t wide;                // 1: the wide form (kWide)
+  int64_t form;                // F_SHARED, F_WIDE or F_GRID
   int64_t proto;               // P_MSI, P_MOSI, P_SH_MSI or P_SH_MESI
   // H; the homes (controllers, or every slice with shared L2); the
   // controllers (the DRAM site); the directory sets
@@ -346,31 +382,44 @@ __host__ __device__ __forceinline__ size_t take(size_t& off, size_t bytes) {
   return at;
 }
 
+// Hit-held way words per hash slot: ceil(A / 32) in the grid form, one
+// in the one-block forms (A <= 32).
+__host__ __device__ __forceinline__ int64_t way_words(int64_t A, int form) {
+  return form == F_GRID ? (A + 31) / 32 : 1;
+}
+
 __host__ __device__ __forceinline__ Layout make_layout(int64_t T, int64_t A,
                                                       int64_t W, int64_t H,
-                                                      int64_t KF, bool wide) {
+                                                      int64_t KF, int form) {
   Layout L;
   size_t s = 0, g = 0;
-  size_t& big = wide ? g : s;
+  size_t& big = form == F_SHARED ? s : g;   // the H-sized tables, invt
+  size_t& per = form == F_GRID ? g : s;     // the per-row arrays
   L.tblA = take(big, sizeof(long long) * H);
-  L.tblB = take(big, sizeof(int32_t) * H);
+  L.tblB = take(big, sizeof(int32_t) * H * way_words(A, form));
   L.exa = take(big, H);
-  L.drow = wide ? 0 : take(s, sizeof(int64_t) * T * A);
-  L.packed = take(s, sizeof(long long) * T);
-  L.line = take(s, sizeof(int64_t) * T);
+  L.drow = form == F_SHARED ? take(s, sizeof(int64_t) * T * A) : 0;
+  L.packed = take(per, sizeof(long long) * T);
+  L.line = take(per, sizeof(int64_t) * T);
   L.invt = take(big, sizeof(uint64_t) * T * W);
-  L.issue0 = take(s, sizeof(long long));
-  L.fidx = take(s, sizeof(int32_t) * T);
-  L.home = take(s, sizeof(int32_t) * T);
-  L.owner = take(s, sizeof(int32_t) * T);
-  L.way = take(s, sizeof(int32_t) * T);
-  L.xy = take(s, sizeof(uint32_t) * T);
-  L.frrow = take(s, sizeof(int32_t) * KF);
-  L.kcnt = take(s, sizeof(int32_t) * KF);
-  L.kmaxc = take(s, sizeof(int32_t) * KF);
-  L.fan = take(s, T);
-  L.oact = s;
-  L.smem = s + T;
+  L.issue0 = take(per, sizeof(long long));
+  L.fidx = take(per, sizeof(int32_t) * T);
+  L.home = take(per, sizeof(int32_t) * T);
+  L.owner = take(per, sizeof(int32_t) * T);
+  L.way = take(per, sizeof(int32_t) * T);
+  L.xy = take(per, sizeof(uint32_t) * T);
+  L.frrow = take(per, sizeof(int32_t) * KF);
+  L.kcnt = take(per, sizeof(int32_t) * KF);
+  L.kmaxc = take(per, sizeof(int32_t) * KF);
+  L.fan = take(per, T);
+  L.oact = per;
+  per += T;
+  L.rep = 0;
+  if (form == F_GRID) {
+    g = align8(g);
+    L.rep = take(g, sizeof(int32_t) * H);
+  }
+  L.smem = s;
   L.ws = g;
   return L;
 }
@@ -380,44 +429,69 @@ __device__ __forceinline__ V* leaf(const StepArgs& a, int64_t off) {
   return reinterpret_cast<V*>(a.out + off);
 }
 
-template <bool kWide>
-__global__ void __launch_bounds__(kWide ? kMaxThreadsWide : kMaxThreadsShared)
+template <int kForm>
+__global__ void __launch_bounds__(kForm == F_WIDE     ? kMaxThreadsWide
+                                  : kForm == F_SHARED ? kMaxThreadsShared
+                                                      : kGridThreads)
 chain_classify_kernel(StepArgs a) {
+  // The tables in the workspace, the directory rows read in place (wide
+  // and grid); every array in the workspace, many blocks (grid).
+  constexpr bool kWide = kForm != F_SHARED;
+  constexpr bool kGrid = kForm == F_GRID;
   extern __shared__ __align__(8) unsigned char smem[];
   const int T = static_cast<int>(a.T), A = static_cast<int>(a.A);
   const int W = static_cast<int>(a.W), KF = static_cast<int>(a.KF);
   const int64_t H = a.H, D = a.D;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
+  const int64_t NW = way_words(a.A, kForm);
+  // Tile / element index over the whole launch (one block but in the
+  // grid form).
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthr = gridDim.x * blockDim.x;
+  // The barrier between phases: over the block, or over the cooperative
+  // grid (which also orders the global accesses across blocks).
+  auto sync = [] {
+    if constexpr (kForm == F_GRID)
+      cooperative_groups::this_grid().sync();
+    else
+      __syncthreads();
+  };
 
   // ---- the arrays (make_layout, computed on the host; the wrapper sized
   // both regions)
   const Layout& L = a.lay;
   unsigned char* big = kWide ? a.ws : smem;
+  unsigned char* per = kGrid ? a.ws : smem;
   long long* tblA = reinterpret_cast<long long*>(big + L.tblA);
   int32_t* tblB = reinterpret_cast<int32_t*>(big + L.tblB);
+  int32_t* rep = kGrid ? reinterpret_cast<int32_t*>(a.ws + L.rep) : tblB;
   uint8_t* exa = big + L.exa;
   uint64_t* invt = reinterpret_cast<uint64_t*>(big + L.invt);
   int64_t* drow_s = reinterpret_cast<int64_t*>(smem + L.drow);  // shared form
-  long long* packed_s = reinterpret_cast<long long*>(smem + L.packed);
-  int64_t* line_s = reinterpret_cast<int64_t*>(smem + L.line);
-  long long* issue0_s = reinterpret_cast<long long*>(smem + L.issue0);
-  int32_t* fidx_s = reinterpret_cast<int32_t*>(smem + L.fidx);
-  int32_t* home_s = reinterpret_cast<int32_t*>(smem + L.home);
-  int32_t* owner_s = reinterpret_cast<int32_t*>(smem + L.owner);
-  int32_t* way_s = reinterpret_cast<int32_t*>(smem + L.way);
-  uint32_t* xy_s = reinterpret_cast<uint32_t*>(smem + L.xy);
-  int32_t* frrow_s = reinterpret_cast<int32_t*>(smem + L.frrow);
-  int32_t* kcnt_s = reinterpret_cast<int32_t*>(smem + L.kcnt);
-  int32_t* kmaxc_s = reinterpret_cast<int32_t*>(smem + L.kmaxc);
-  uint8_t* fan_s = smem + L.fan;     // needs the fan-out budget
-  uint8_t* oact_s = smem + L.oact;   // needs the owner-delivery budget
+  long long* packed_s = reinterpret_cast<long long*>(per + L.packed);
+  int64_t* line_s = reinterpret_cast<int64_t*>(per + L.line);
+  long long* issue0_s = reinterpret_cast<long long*>(per + L.issue0);
+  int32_t* fidx_s = reinterpret_cast<int32_t*>(per + L.fidx);
+  int32_t* home_s = reinterpret_cast<int32_t*>(per + L.home);
+  int32_t* owner_s = reinterpret_cast<int32_t*>(per + L.owner);
+  int32_t* way_s = reinterpret_cast<int32_t*>(per + L.way);
+  uint32_t* xy_s = reinterpret_cast<uint32_t*>(per + L.xy);
+  int32_t* frrow_s = reinterpret_cast<int32_t*>(per + L.frrow);
+  int32_t* kcnt_s = reinterpret_cast<int32_t*>(per + L.kcnt);
+  int32_t* kmaxc_s = reinterpret_cast<int32_t*>(per + L.kmaxc);
+  uint8_t* fan_s = per + L.fan;      // needs the fan-out budget
+  uint8_t* oact_s = per + L.oact;    // needs the owner-delivery budget
 
   // ---- phase 0: tables empty; each tile's chain head
   for (int64_t i = tid; i < H; i += nthr) {
     tblA[i] = kBig;
-    tblB[i] = 0;
     exa[i] = 0;
+    if constexpr (kGrid)
+      rep[i] = -1;
+    else
+      tblB[i] = 0;
+  }
+  if constexpr (kGrid) {
+    for (int64_t i = tid; i < H * NW; i += nthr) tblB[i] = 0;
   }
   for (int k = tid; k < KF; k += nthr) {
     frrow_s[k] = -1;
@@ -488,7 +562,7 @@ chain_classify_kernel(StepArgs a) {
     xy_s[t] = (static_cast<uint32_t>(t) % mw) |
               ((static_cast<uint32_t>(t) / mw) << 16);
   }
-  __syncthreads();
+  sync();
 
   // ---- phase 1: stage the directory rows (whole block, way-major so
   // that both the stores and the per-row scans are conflict-free; not in
@@ -506,7 +580,9 @@ chain_classify_kernel(StepArgs a) {
                 static_cast<long long>(leaf<int64_t>(a, a.off_issue)[t]));
     if (on(fl, R_ISX)) exa[hx] = 1;
   }
-  __syncthreads();
+  // (the grid form stages no rows, and phase 2 reads nothing phase 1
+  // writes: one barrier interval)
+  if constexpr (!kGrid) __syncthreads();
 
   // ---- phase 2: the probe at (home, dset); hit-held ways per set
   int hway = 0;
@@ -523,9 +599,11 @@ chain_classify_kernel(StepArgs a) {
     }
     fl |= flag(any && on(fl, R_ACT), R_HIT);
     if (on(fl, R_HIT))
-      atomicOr(reinterpret_cast<unsigned int*>(&tblB[fhash]), 1u << hway);
+      atomicOr(reinterpret_cast<unsigned int*>(
+                   &tblB[static_cast<int64_t>(fhash) * NW + (hway >> 5)]),
+               1u << (hway & 31));
   }
-  __syncthreads();
+  sync();
 
   // ---- phase 3: victim way (invalid first, then stamp-LRU, hit-held
   // ways excluded), FCFS key, way-slot election; the protocol's
@@ -536,12 +614,14 @@ chain_classify_kernel(StepArgs a) {
   if (row) {
     const bool act = on(fl, R_ACT), isx = on(fl, R_ISX);
     const bool hit = on(fl, R_HIT);
-    const unsigned used = static_cast<unsigned>(tblB[fhash]);
+    const int32_t* used = tblB + static_cast<int64_t>(fhash) * NW;
+    unsigned uw = 0;   // the word of 32 hit-held ways that holds way w
     int best = 0;
     int32_t best_key = 0;
     for (int w = 0; w < A; ++w) {
+      if ((w & 31) == 0) uw = static_cast<unsigned>(used[w >> 5]);
       const int64_t word = dword(w);
-      const int32_t key = ((used >> w) & 1u)
+      const int32_t key = ((uw >> (w & 31)) & 1u)
                               ? kNever
                               : (word_state(word) == ST_I ? -1
                                                           : word_stamp(word));
@@ -607,7 +687,7 @@ chain_classify_kernel(StepArgs a) {
                    ((way_state == ST_S || way_state == ST_O) && all_zero),
                R_VICDEAD);
   }
-  __syncthreads();
+  sync();
 
   // ---- phase 4: the election's result; which rows need the fan-out
   // budget
@@ -619,9 +699,12 @@ chain_classify_kernel(StepArgs a) {
     fl |= flag(cand0, R_CAND0) | flag(need_fan, R_NEEDFAN);
     fan_s[t] = need_fan;
   }
-  // tblB becomes the combining representative table
-  for (int64_t i = tid; i < H; i += nthr) tblB[i] = -1;
-  __syncthreads();
+  // tblB becomes the combining representative table (the grid form's
+  // has its own, cleared in phase 0)
+  if constexpr (!kGrid) {
+    for (int64_t i = tid; i < H; i += nthr) tblB[i] = -1;
+  }
+  sync();
 
   // ---- phase 5: fan-out rank (FCFS, over the staged rows), candidacy,
   // which rows need the owner-delivery budget
@@ -639,7 +722,7 @@ chain_classify_kernel(StepArgs a) {
     fl |= flag(cand, R_CAND);
     oact_s[t] = cand && on(fl, R_OWNACT);
   }
-  __syncthreads();
+  sync();
 
   // ---- phase 5b: per-owner rank (FCFS, over the staged rows), serve,
   // combining representatives
@@ -659,13 +742,13 @@ chain_classify_kernel(StepArgs a) {
     fl |= flag(serve, R_SERVE) | flag(own_act && serve, R_OWNERLEG) |
           flag(fan_go, R_FANGO);
     if (serve && !on(fl, R_ISX) && on(fl, R_SHOK))
-      atomicMax(&tblB[hx], t);
+      atomicMax(&rep[hx], t);
     if (fan_go) frrow_s[fan_rank] = t;
     way_s[t] = way;
   }
   // tblA becomes the floor-table maximum
   for (int64_t i = tid; i < H; i += nthr) tblA[i] = -1;
-  __syncthreads();
+  sync();
 
   // ---- phase 6: combining members, hard stops, timing legs, the
   // outputs; the fan-out invalidation masks
@@ -673,7 +756,7 @@ chain_classify_kernel(StepArgs a) {
   // them back from there, so none is held across the barrier between.
   if (row) {
     const bool serve = on(fl, R_SERVE), hit = on(fl, R_HIT);
-    const int r = tblB[hx];
+    const int r = rep[hx];
     const int64_t rep_line = r >= 0 ? line_s[r] : -1;
     const int rep_way = r >= 0 ? way_s[r] : 0;
     const bool member = on(fl, R_ACT) && !serve && !on(fl, R_ISX) &&
@@ -768,7 +851,7 @@ chain_classify_kernel(StepArgs a) {
       const int r = frrow_s[k];
       leaf<int64_t>(a, a.off_line_fr)[k] = r >= 0 ? line_s[r] : 0;
     }
-    __syncthreads();
+    sync();
   }
 
   // ---- phase 7: the fan-out legs (a served fan-out row is its own
@@ -816,7 +899,7 @@ chain_classify_kernel(StepArgs a) {
 
   // ---- phase 8: the floor write by each slot's single winner, in place
   if (!a.queue_on) {
-    __syncthreads();
+    sync();
     if (row && on(fl, R_SERVEALL) && tblA[hx] == tkey) {
       a.ftbl[hx] = line_s[t];
       a.ftbl[H + hx] = tdata;
@@ -824,50 +907,94 @@ chain_classify_kernel(StepArgs a) {
   }
 }
 
-template <bool kWide>
+template <int kForm>
 cudaError_t launch(const StepArgs& a, size_t smem, cudaStream_t stream) {
-  static size_t opted = 48 * 1024;  // one opt-in per form
-  if (smem > opted) {
-    // Above 48 KB a block's dynamic shared memory needs an opt-in.
-    const cudaError_t err = cudaFuncSetAttribute(
-        chain_classify_kernel<kWide>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if constexpr (kForm == F_GRID) {
+    // One cooperative launch: every block resident at once, so the grid
+    // barriers are valid (a grid the card cannot hold is refused with
+    // cudaErrorCooperativeLaunchTooLarge; the wrapper refuses it first).
+    const unsigned blocks =
+        static_cast<unsigned>((a.T + kGridThreads - 1) / kGridThreads);
+    void* params[] = {const_cast<StepArgs*>(&a)};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(&chain_classify_kernel<F_GRID>),
+        dim3(blocks), dim3(kGridThreads), params, 0, stream);
     if (err != cudaSuccess) return err;
-    opted = smem;
+    return cudaGetLastError();
+  } else {
+    static size_t opted = 48 * 1024;  // one opt-in per form
+    if (smem > opted) {
+      // Above 48 KB a block's dynamic shared memory needs an opt-in.
+      const cudaError_t err = cudaFuncSetAttribute(
+          chain_classify_kernel<kForm>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      opted = smem;
+    }
+    const int64_t warps = (a.T + 31) / 32 * 32;
+    const unsigned threads =
+        static_cast<unsigned>(warps > kMinThreads ? warps : kMinThreads);
+    chain_classify_kernel<kForm><<<1, threads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  const int64_t warps = (a.T + 31) / 32 * 32;
-  const unsigned threads =
-      static_cast<unsigned>(warps > kMinThreads ? warps : kMinThreads);
-  chain_classify_kernel<kWide><<<1, threads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared-memory bytes of one launch; `ws` (if not null) receives the
-// workspace bytes of the wide form (0 for the shared form).
+// Shared-memory bytes of one launch of `form`; `ws` (if not null)
+// receives its workspace bytes (0 for the shared form).
 extern "C" size_t chain_classify_bytes(int64_t T, int64_t A, int64_t W,
-                                       int64_t H, int64_t KF, int64_t wide,
+                                       int64_t H, int64_t KF, int64_t form,
                                        int64_t* ws) {
-  const Layout L = make_layout(T, A, W, H, KF, wide != 0);
+  const Layout L = make_layout(T, A, W, H, KF, static_cast<int>(form));
   if (ws != nullptr) *ws = static_cast<int64_t>(L.ws);
   return L.smem;
 }
 
+// The most blocks of the grid form that the card `device` holds at once
+// (blocks per SM at kGridThreads threads, times the SMs; 0 where the card
+// takes no cooperative launch), and its block size.
+extern "C" int chain_classify_grid_capacity(int device, int64_t* blocks,
+                                            int64_t* threads) {
+  int coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, chain_classify_kernel<F_GRID>, kGridThreads, 0);
+  *blocks = coop ? static_cast<int64_t>(per_sm) * sms : 0;
+  *threads = kGridThreads;
+  return static_cast<int>(err);
+}
+
 extern "C" int chain_classify_launch(const StepArgs* args, void* stream) {
   // The wrapper (chain.py _Step) holds T, W and A to the limits of the
-  // form it chose, and the shared memory to the card's.
+  // form it chose, the shared memory to the card's and the grid to what
+  // the card holds at once.
   if (args->T <= 0) return 0;
-  const bool wide = args->wide != 0;
-  if (args->T > (wide ? kMaxThreadsWide : kMaxThreadsShared) ||
-      args->W > kMaxWords || args->A > kMaxWays ||
-      (wide && args->ws == nullptr))
+  const int form = static_cast<int>(args->form);
+  const bool one_block = form == F_SHARED || form == F_WIDE;
+  if ((!one_block && form != F_GRID) ||
+      (one_block &&
+       (args->T > (form == F_WIDE ? kMaxThreadsWide : kMaxThreadsShared) ||
+        args->W > kMaxWords || args->A > kMaxWays)) ||
+      (form != F_SHARED && args->ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a = *args;
-  a.lay = make_layout(a.T, a.A, a.W, a.H, a.KF, wide);
+  a.lay = make_layout(a.T, a.A, a.W, a.H, a.KF, form);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(wide ? launch<true>(a, a.lay.smem, st)
-                               : launch<false>(a, a.lay.smem, st));
+  switch (form) {
+    case F_SHARED:
+      return static_cast<int>(launch<F_SHARED>(a, a.lay.smem, st));
+    case F_WIDE:
+      return static_cast<int>(launch<F_WIDE>(a, a.lay.smem, st));
+    default:
+      return static_cast<int>(launch<F_GRID>(a, 0, st));
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -53,7 +53,8 @@ def check_slice(params: SimParams, device=None) -> None:
     more trace streams than tiles under the ThreadScheduler (its limits
     are the JAX package's ``ValueError``s, raised by ``Simulator`` and
     ``make_state``).  On a CUDA ``device`` the chain replay is also held
-    to the classify kernel's limits (kernels/chain.check_chain_config)."""
+    to the one limit of the classify kernel, its grid form's co-residency
+    on the card (kernels/chain.check_chain_config)."""
     def later(what, where="a later slice (model breadth)"):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "

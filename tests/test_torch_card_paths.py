@@ -45,9 +45,27 @@ only at a cut depth.
     (the round counters, the completion, the counter sums, every stream
     done).
 
+  * chain_classify's grid form: radix1536_chain12 (``gen_radix(1536,
+    keys_per_tile=16, radix=64, seed=0)`` at ``tpu/block_events = 4``,
+    miss_chain 12, the default directory: 818 rounds, 93,687,000 ps;
+    ``chip_smoke.py`` phase 14 runs its first 8 quanta) and
+    fft64_dir64w_chain12 (fft64 at miss_chain 12 with 64 directory
+    ways: 393 rounds, 61,541,400 ps), whole runs pinned from the JAX
+    package on the CPU.
+  * fft64 at miss_chain 12 under fast-forward (span 1000 and 0), under
+    MOSI and under shared-L2 MSI with 8 DRAM controllers, whole runs
+    (``chip_smoke.py`` phases 8 and 10 run their first quanta), pinned
+    from the JAX package on the CPU.
+  * lock64 (``gen_lock_contention(64, acquisitions=16,
+    critical_cycles=50)``) whole, 5,900 rounds (``chip_smoke.py`` phase 12
+    runs its first 160 quanta), pinned from the JAX package on the CPU.
+
 Run on the card: ``python -m pytest -m gpu --noconftest
 tests/test_torch_card_paths.py -q`` (about ten minutes).
 """
+
+import gc
+import sys
 
 import pytest
 import torch
@@ -95,6 +113,74 @@ SCALE = {
                                ctr_quantum=31),
                           63_390_000),
 }
+
+
+# chain_classify's grid form at full width (first in this file, before
+# the other full-width runs): radix1536_chain12,
+# ``gen_radix(1536, keys_per_tile=16, radix=64, seed=0)`` at
+# ``tpu/block_events = 4`` and miss_chain 12 on the default directory
+# (24 sharer words, 4.83 GB of them; a 39-wide mesh of 40 rows, the
+# last holding 15 tiles), and fft64_dir64w_chain12, ``gen_fft(64,
+# points_per_tile=64, writeback=True)`` at miss_chain 12 with 64
+# directory ways (256 sets of 16,384 entries a tile).  Whole runs; the
+# JAX package's values on the CPU.
+GRID_PATHS = {
+    "radix1536_chain12": (
+        1536, {"tpu/block_events": 4, "tpu/miss_chain": CHAIN},
+        dict(round_ctr=818, ctr_window=571, ctr_complex=112, ctr_conflict=13,
+             ctr_resolve=122, ctr_quantum=43),
+        93_687_000, 443_872, (34, 0)),
+    "fft64_dir64w_chain12": (
+        64, {"tpu/miss_chain": CHAIN, "dram_directory/associativity": 64},
+        dict(round_ctr=393, ctr_window=191, ctr_complex=32, ctr_conflict=98,
+             ctr_resolve=72, ctr_quantum=31),
+        61_541_400, 557_056, (1910, 24)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(GRID_PATHS))
+def test_grid_form_paths_full_depth_on_card(name):
+    """Every round counter, the completion, the instruction count and the
+    chain pass's fan-out tallies exactly; window_walk once per window
+    round, chain_classify P times per chain pass, every launch its grid
+    form (more than 1,024 tiles, or more than 32 directory ways)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    from graphite_tpu_torch.engine.kernels import chain as kchain
+    T, over, want, completion_ps, icount, (fan, fb) = GRID_PATHS[name]
+    # The radix path's state and its drop-scatters' copies take about 31
+    # GB of the card: give it all the memory this process has cached.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{name}: {free} of {total} B free on the card, "
+          f"{torch.cuda.memory_reserved()} B reserved by PyTorch",
+          file=sys.stderr)
+    cfg = load_config()
+    cfg.set("general/total_cores", T)
+    for k, v in over.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    trace = synth.gen_radix(T, keys_per_tile=16, radix=64, seed=0) \
+        if name.startswith("radix") \
+        else synth.gen_fft(64, points_per_tile=64, writeback=True)
+    sim = Simulator(params, trace, device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want}
+    assert ctrs == want
+    assert s.completion_time_ps == completion_ps
+    assert s.total_instructions == icount
+    assert int(s.counters["chain_fanout_served"].sum()) == fan
+    assert int(s.counters["chain_fallback"].sum()) == fb
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] == CHAIN * ctrs["ctr_resolve"]
+    assert kchain.chain_step_entry(params, sim.vp, max(1024, 16 * T),
+                                   (T + 63) // 64).form == kchain.GRID
 
 
 @pytest.mark.gpu
@@ -230,7 +316,8 @@ def test_one_card_scale_full_depth_on_card(name):
     if params.miss_chain:
         from graphite_tpu_torch.engine.kernels import chain as kchain
         assert kchain.chain_step_entry(params, sim.vp, max(1024, 16 * T),
-                                       (T + 63) // 64).wide == (T > 512)
+                                       (T + 63) // 64).form \
+            == (kchain.WIDE if T > 512 else kchain.SHARED)
 
 
 # The network models at full depth (chip_smoke.py phase 11 runs them at a
@@ -448,3 +535,90 @@ def test_scheduler_on_card_equal_cpu():
     assert passes == int(st.ctr_resolve) > 0
     assert dispatch.COUNTS["window_walk"] == int(st.ctr_window) > 0
     assert dispatch.COUNTS["chain_classify"] == CHAIN * passes
+
+
+# The fft64 paths that chip_smoke.py phases 8 and 10 run for their first
+# quanta only: ``gen_fft(64, points_per_tile=64, writeback=True)`` at
+# miss_chain 12 under fast-forward (span 1000 and 0), under MOSI, and
+# under shared-L2 MSI with the DRAM controllers on 8 tiles.  Whole runs;
+# the JAX package's values on the CPU.
+FFT64_PATHS = {
+    "fft64_ff_span": (
+        {"tpu/fast_forward": 8, "tpu/fast_forward_span": 1000},
+        dict(round_ctr=293, ctr_window=92, ctr_complex=27, ctr_conflict=90,
+             ctr_resolve=70, ctr_quantum=31, ctr_ff=79, ctr_ffq=29,
+             ff_events=38318),
+        61_719_400, (1737, 13)),
+    "fft64_ff": (
+        {"tpu/fast_forward": 8},
+        dict(round_ctr=278, ctr_window=97, ctr_complex=27, ctr_conflict=86,
+             ctr_resolve=68, ctr_quantum=32, ctr_ff=73, ctr_ffq=29,
+             ff_events=28817),
+        62_347_600, (1737, 14)),
+    "fft64_mosi": (
+        {"caching_protocol/type": "pr_l1_pr_l2_dram_directory_mosi"},
+        dict(round_ctr=354, ctr_window=171, ctr_complex=19, ctr_conflict=100,
+             ctr_resolve=64, ctr_quantum=25),
+        48_966_200, (1855, 94)),
+    "fft64_shl2_msi": (
+        {"caching_protocol/type": "pr_l1_sh_l2_msi",
+         "dram/num_controllers": 8},
+        dict(round_ctr=371, ctr_window=190, ctr_complex=30, ctr_conflict=67,
+             ctr_resolve=84, ctr_quantum=19),
+        37_856_600, (282, 41)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(FFT64_PATHS))
+def test_fft64_paths_full_depth_on_card(name):
+    """Every round counter, the completion, the instruction count and the
+    chain pass's fan-out tallies exactly; window_walk once per window
+    round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    over, want, completion_ps, (fan, fb) = FFT64_PATHS[name]
+    cfg = load_config()
+    for k, v in {"tpu/miss_chain": CHAIN, **over}.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, synth.gen_fft(64, points_per_tile=64,
+                                          writeback=True), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want}
+    assert ctrs == want
+    assert s.completion_time_ps == completion_ps
+    assert s.total_instructions == 557_056
+    assert int(s.counters["chain_fanout_served"].sum()) == fan
+    assert int(s.counters["chain_fallback"].sum()) == fb
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+def test_lock64_full_depth_on_card():
+    """``gen_lock_contention(64, acquisitions=16, critical_cycles=50)`` on
+    the default config, whole (``chip_smoke.py`` phase 12 runs its first
+    160 quanta): every round counter, the completion and the mutex
+    tallies, the JAX package's values on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    params = SimParams.from_config(load_config())
+    sim = Simulator(params, synth.gen_lock_contention(
+        64, acquisitions=16, critical_cycles=50), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    want = dict(round_ctr=5900, ctr_window=3398, ctr_complex=2438,
+                ctr_conflict=64, ctr_resolve=64, ctr_quantum=343)
+    assert {k: int(getattr(sim.state, k).item()) for k in want} == want
+    assert s.completion_time_ps == 147_411_200
+    assert s.total_instructions == 51200
+    assert int(s.counters["mutex_acquires"].sum()) == 1024
+    assert int(s.counters["sync_stall_ps"].sum()) == 9_032_793_600
+    assert dispatch.COUNTS["window_walk"] == want["ctr_window"]

@@ -504,20 +504,35 @@ def test_step_form_by_size():
     assert ws == 16384 * (8 + 4 + 1) + 1024 * 16 * 8
 
 
-@pytest.mark.parametrize("over,match", [
+@pytest.mark.parametrize("over,old_limit", [
     ({"dram_directory/associativity": 64}, "32 directory ways"),
     ({"general/total_cores": 2048}, "1024"),
 ])
-def test_chain_limits_refused_at_construction_on_cuda(over, match):
-    """What chain_classify cannot take (more than 32 directory ways, or
-    more than 1,024 tiles) is refused by the construction-time check
-    when the device is CUDA, before any round; the CPU runs it."""
+def test_chain_limits_refused_at_construction_on_cuda(over, old_limit,
+                                                      monkeypatch):
+    """What the one-block forms cannot take (more than 32 directory ways,
+    more than 1,024 tiles: ``old_limit``, the limit refused until the
+    grid form) is admitted on CUDA at construction and takes the grid
+    form; the one limit left, the grid form's co-residency, is refused at
+    construction with the card's number (here a card that holds 4 blocks
+    of 256 threads), before any round; the CPU runs everything."""
     from graphite_tpu_torch.engine.sim import check_slice
     tp = _torch_params(64, over)
     assert tp.miss_chain == 12
-    with pytest.raises(NotImplementedError, match=match) as exc:
+    T, A = tp.num_tiles, tp.directory.associativity
+    W = (T + 63) // 64
+    assert tchain.step_form(T, A, W, max(1024, 16 * T),
+                            min(tp.max_inv_fanout_per_round, T))[0] \
+        == tchain.GRID
+    check_slice(tp, device=torch.device("cuda"))
+    check_slice(tp, device=torch.device("cpu"))
+    monkeypatch.setattr(tchain, "grid_capacity", lambda device=None: (4, 256))
+    if T > 4 * 256:
+        with pytest.raises(NotImplementedError,
+                           match=f"needs {T // 256} blocks .* holds 4 "):
+            check_slice(tp, device=torch.device("cuda"))
+    else:
         check_slice(tp, device=torch.device("cuda"))
-    assert "ROADMAP queue 2 item 2" in str(exc.value)
     check_slice(tp, device=torch.device("cpu"))
     tp0 = _torch_params(64, {**over, "tpu/miss_chain": 0})
     check_slice(tp0, device=torch.device("cuda"))
@@ -632,7 +647,7 @@ def test_cuda_chain_kernel_wide_form_matches_plain():
         vp = variant_params(tp)
         for H in (max(1024, 16 * T), 1000, 4):
             step = tchain.chain_step_entry(tp, vp, H, (T + 63) // 64)
-            assert step.wide
+            assert step.form == tchain.WIDE
             for seed in range(2):
                 si = toperands.chain_step_in_from_numpy(
                     toperands.random_chain_step_arrays(tp, H, seed), "cuda")
@@ -710,7 +725,8 @@ def test_cuda_chain_kernel_wide_form_under_shared_mesi():
                                "l2_cache/T1/cache_size": 16})
         vp = variant_params(tp)
         for H in (max(1024, 16 * T), 4):
-            assert tchain.chain_step_entry(tp, vp, H, 16).wide
+            assert tchain.chain_step_entry(tp, vp, H, 16).form \
+                == tchain.WIDE
             si = toperands.chain_step_in_from_numpy(
                 toperands.random_chain_step_arrays(tp, H, 0), "cuda")
             _step_kernel_against_plain(tp, vp, si, H, f"{config} H={H}")

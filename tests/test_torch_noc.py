@@ -480,7 +480,7 @@ def test_cuda_chain_kernel_wide_form_under_networks(name):
     tp = _torch_params(T, _step_params(name))
     vp = variant_params(tp)
     H = 16 * T
-    assert tchain.chain_step_entry(tp, vp, H, T // 64).wide
+    assert tchain.chain_step_entry(tp, vp, H, T // 64).form == tchain.WIDE
     si = toperands.chain_step_in_from_numpy(
         toperands.random_chain_step_arrays(tp, H, 0), "cuda")
     work = si._replace(ftbl=None if si.ftbl is None else si.ftbl.clone())

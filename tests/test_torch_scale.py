@@ -31,7 +31,12 @@ round take seconds):
     pass in both packages;
   * T = 256 on the default config (the dense tables), a few quanta;
   * the radix cut at miss_chain 12 under shared-L2 MESI, on 32-set L2
-    slices (the directory is the slice: ``dir_sharers`` is 32 MB).
+    slices (the directory is the slice: ``dir_sharers`` is 32 MB);
+  * the radix cut at T = 2,048 and miss_chain 12 (32 sharer words, H =
+    32,768, a 45 x 46 mesh whose last row is part empty: on the card,
+    ``chain_classify``'s grid form), one quantum on a directory of 4
+    one-way sets a tile and 16 KB L2s (``dir_sharers`` is 2 MB), whose
+    directory evictions reach the conflict rounds in that quantum.
 
 Under ``slow``: the whole keys-1 runs on the default directory, pinned at
 the JAX package's CPU values (1,537 rounds, 57,500,000 ps at miss_chain
@@ -89,6 +94,10 @@ CASES = {
         **K4, "tpu/miss_chain": 12,
         "caching_protocol/type": "pr_l1_sh_l2_mesi",
         "l2_cache/T1/cache_size": 16}, 7),
+    "radix2048_chain12": (2048, RADIX1, {
+        **K4, "tpu/miss_chain": 12, "dram_directory/total_entries": 4,
+        "dram_directory/associativity": 1, "l2_cache/T1/cache_size": 16},
+        1),
 }
 # The cases compared with the JAX package's live run in tier-1 (the
 # others with its recorded pins: tests/torch_jax_ref.py).
@@ -282,11 +291,13 @@ def test_carry_across_resolve_t1024(jax_cut):
               cut.inputs(which="res"), live=cut.name in LIVE)
 
 
-@pytest.mark.parametrize("T", [256, 512, 1024])
+@pytest.mark.parametrize("T", [256, 512, 1024, 2048, 4096])
 def test_check_slice_admits_one_card_tile_counts(T):
     """No tile cap but the directory owner field's (8,191 tiles): the
-    default config at T = 256, 512 and 1024, chain replay off and on, on
-    the CPU and (for the construction check alone) on CUDA."""
+    default config at T = 256, 512, 1024, 2048 and 4096, chain replay
+    off and on, on the CPU and (for the construction check alone) on
+    CUDA, where past 1,024 tiles the chain replay takes
+    ``chain_classify``'s grid form."""
     for chain in (0, 12):
         cfg = load_config()
         cfg.set("general/total_cores", T)
