@@ -272,7 +272,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          the card by tests/test_torch_card_paths.py), chain_classify
          launches == 12 x chain passes, every one of its grid form.
 
-Before each path of phases 4 to 6 and 8 to 14 every kernel's launch count is
+  15. The limited directory schemes and the ``basic`` and ``m_g_1`` DRAM
+      queue models:
+       * ``basic_ring``, ``mg1_delay``, ``probe`` and ``occupy`` on
+         seeded batches as CUDA tensors against the same calls on the
+         CPU, every output byte for byte (the float64 ``dram_qacc``
+         moments among them): the moving average off and at windows 1,
+         2, 16 and 64, occupancy rows, 1,200 rows on few resources, and
+         moments whose M/G/1 wait turns on the fused variance;
+       * cut runs at T = 64, every SimState leaf (by its digest) and
+         round counter the JAX package's on the CPU
+         (tests/data/card_pins_dir_queue.json, written by
+         tests/record_card_pins.py): phase 5's radix64 trace under each
+         limited scheme with four hardware pointers for 6 quanta (the
+         radix trace never invalidates, so only limited_no_broadcast's
+         pointer eviction and limitless's trap move its counters);
+         ``gen_migratory(64, lines=8, rounds=1)`` under
+         limited_broadcast on the hop-by-hop mesh with its broadcast
+         tree on and off and under ackwise, 6 quanta each (an overflowed
+         broadcast in each); radix64 at miss_chain 12 under ``basic``
+         (window 64) and ``m_g_1`` for 4 quanta.  window_walk launches
+         == ctr_window, chain_classify launches == 12 x chain passes
+         under the queue models and 0 under a scheme (the chain replay
+         serves full-map directories only).  The whole runs are held on
+         the card by tests/test_torch_card_paths.py.
+
+Before each path of phases 4 to 6 and 8 to 15 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -1140,6 +1165,104 @@ def peak_line(held: int) -> str:
     peak = torch.cuda.max_memory_allocated()
     return (f"max_memory_allocated {peak} B ({peak - held} B above the "
             f"{held} B held before the run)")
+
+
+def leaf_digest(a) -> str:
+    """``dtype|shape|sha256`` of one state leaf, as
+    tests/torch_jax_ref.py digests the JAX package's."""
+    import hashlib
+    import numpy as np
+    a = np.ascontiguousarray(np.asarray(a))
+    return (f"{a.dtype.str}|{'x'.join(map(str, a.shape))}|"
+            f"{hashlib.sha256(a.tobytes()).hexdigest()[:32]}")
+
+
+def phase15_queue_models(dev) -> int:
+    """``basic_ring``, ``mg1_delay``, ``probe`` and ``occupy`` on seeded
+    batches as CUDA tensors, every output byte for byte the same call's
+    on the CPU (``dram_qacc``, the models' float64 state, among them):
+    repeated resources, occupancy rows, the moving average off and at
+    windows 1, 2, 16 and 64, a batch of 1,200 rows on few resources at
+    window 2, and moments whose M/G/1 wait turns on the fused variance.
+    Returns the bytes compared."""
+    import numpy as np
+    import torch
+    from graphite_tpu_torch.engine import queue_models as tq
+    rng = np.random.default_rng(15)
+    compared = 0
+
+    def same(label, cpu, card):
+        nonlocal compared
+        for i, (a, b) in enumerate(zip(cpu, card)):
+            if a is None:
+                check(b is None, f"{label} output {i}: None on the CPU")
+                continue
+            a, b = a.numpy(), b.cpu().numpy()
+            check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                  f"{label} output {i}: the card's differs from the CPU's")
+            compared += a.nbytes
+
+    def both(fn, label, *args, **kw):
+        def on(d):
+            def t(a):
+                return torch.from_numpy(np.array(a)).to(d) \
+                    if isinstance(a, np.ndarray) else a
+            return fn(*[t(a) for a in args],
+                      **{k: t(v) for k, v in kw.items()})
+        cpu, card = on("cpu"), on(dev)
+        if isinstance(cpu[0], tuple):          # (RingFcfsResult, moments)
+            cpu, card = list(cpu[0]) + [cpu[1]], list(card[0]) + [card[1]]
+        same(label, cpu, card)
+
+    def batch(K, C, steady):
+        res = rng.integers(0, C, K).astype(np.int32)
+        base = rng.integers(1_000, 10**9, C)
+        arr = (base[res] + rng.integers(0, 3, K)) if steady \
+            else rng.integers(0, 10**9, K)
+        return (res, arr.astype(np.int64),
+                rng.integers(1, 3_000, K).astype(np.int64),
+                rng.random(K) < 0.85)
+
+    def state(C, R=8):
+        re = np.zeros((R, C), np.int64)
+        re[0] = rng.integers(0, 2 * 10**9, C)
+        m = np.zeros((6, C), np.float64)
+        m[0] = rng.integers(1, 10**6, C)
+        m[1] = m[0] ** 2 / rng.integers(1, 30, C) \
+            + rng.integers(0, 10**9, C)
+        m[2] = rng.integers(1, 60, C)
+        m[3] = rng.integers(1, 10**9, C)
+        m[4] = rng.integers(1_000, 10**9, C) + rng.random(C)
+        m[5] = rng.integers(0, 70, C)
+        return [np.zeros((R, C), np.int64), re, np.zeros(C, np.int32), m]
+
+    C = 64
+    for qtype, window in (("basic", 0), ("basic", 1), ("basic", 2),
+                          ("basic", 16), ("basic", 64), ("m_g_1", 0)):
+        for trial in range(4):
+            st = state(C)
+            b = batch(2 * C, C, trial % 2 == 1)
+            occ = batch(2 * C, C, False)
+            both(tq.probe, f"probe {qtype} W={window}", qtype, *b, *st,
+                 *occ, ma_window=window)
+            both(tq.occupy, f"occupy {qtype} W={window}", qtype, *st,
+                 b[0], b[1], 150, b[3], ma_window=window)
+    b = batch(1200, 4, True)
+    b[0][:1050] = 0
+    b[3][:1050] = True
+    both(tq.probe, "probe basic W=2, 1,200 rows", "basic", *b, *state(4),
+         ma_window=2)
+    b = batch(96, C, False)
+    st = state(C)
+    both(tq.basic_ring, "basic_ring", *b, *st[:3], *batch(32, C, True),
+         moments=st[3], ma_window=64)
+    both(tq.mg1_delay, "mg1_delay", *b, st[3], *batch(32, C, False))
+    m = np.array([[2524382.0], [float.fromhex("0x1.49f488758ffffp+37")],
+                  [36.0], [38195617.0]])
+    both(tq.mg1_delay, "mg1_delay fused variance", np.zeros(1, np.int32),
+         np.full(1, 10**9, np.int64), np.full(1, 5, np.int64),
+         np.ones(1, bool), m)
+    return compared
 
 
 def fmt_ms(ms) -> str:
@@ -2913,6 +3036,61 @@ def main() -> int:
           f"{RADIX1536_T} tiles")
     del sim
     stamp("phase 14: radix1536_chain12")
+
+    # ---- 15. the limited directory schemes and the basic and m_g_1
+    # DRAM queue models
+    qbytes = phase15_queue_models(dev)
+    print(f"queue models: basic (windows 0, 1, 2, 16, 64) and m_g_1 on "
+          f"CUDA tensors equal to the CPU's, byte for byte "
+          f"({qbytes} B of outputs compared)")
+    stamp("phase 15: queue models on the card")
+    from graphite_tpu_torch import convert
+    pins15 = json.load(open(os.path.join(HERE, "tests", "data",
+                                         "card_pins_dir_queue.json")))
+    for name in sorted(pins15):
+        pin = pins15[name]
+        gen, kw = pin["trace"]
+        p = config(**pin["over"])
+        held = peak_reset()
+        sim = Simulator(p, getattr(synth, gen)(**kw), device=dev)
+        reset_counts()
+        s, wall = advance(sim, pin["quanta"])
+        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+        c = round_ctrs(sim.state)
+        want = pin["cut"]
+        check_end(name, sim, s, want["completion_ps"],
+                  dict(clock_sum=want["clock_sum"],
+                       cursor_sum=want["cursor_sum"]))
+        for k, v in want["ctrs"].items():
+            check(c[k] == v, f"{name}: {k} {c[k]} != {v}")
+        leaves = convert.state_to_numpy(sim.state)
+        check(set(leaves) == set(want["leaves"]),
+              f"{name}: leaves {sorted(set(leaves) ^ set(want['leaves']))}")
+        bad = sorted(k for k, v in leaves.items()
+                     if leaf_digest(v) != want["leaves"][k])
+        check(not bad, f"{name}: leaves differ from the JAX package's: "
+                       f"{bad}")
+        check(lw == c["ctr_window"] and lw > 0,
+              f"{name}: window_walk launches {lw} != ctr_window "
+              f"{c['ctr_window']}")
+        # The chain replay runs under the full map only.
+        passes = c["ctr_resolve"] if p.miss_chain and \
+            p.directory.directory_type == "full_map" else 0
+        check(lc == p.miss_chain * passes,
+              f"{name}: chain_classify launches {lc} != {p.miss_chain} x "
+              f"{passes} chain passes")
+        r = c["round_ctr"]
+        print(f"{name}: cut at {pin['quanta']} quanta, every leaf and round "
+              f"counter the JAX package's (dram_qacc "
+              f"{leaf_digest(leaves['dram_qacc'])}), round_ctr {r}, latest "
+              f"clock {s.completion_time_ps / 1000:.1f} ns, invalidations "
+              f"{int(s.counters['dir_invalidations'].sum())}, net_mem_pkts "
+              f"{int(s.counters['net_mem_pkts'].sum())}; window_walk "
+              f"launches {lw}, chain_classify launches {lc}")
+        print(f"{name}: wall {wall:.3f} s, {1e3 * wall / r:.4f} ms/round, "
+              f"{peak_line(held)} on {card}")
+        del sim
+        stamp(f"phase 15: {name}")
 
     kernels = [{
         "name": "window_walk",

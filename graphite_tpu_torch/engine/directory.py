@@ -1,14 +1,17 @@
 """Directory coherence: sharer bitmaps and the protocol transition
 functions.
 
-Counterpart of ``graphite_tpu/engine/directory.py`` for the full-map
-directory under the four protocol families: MSI and MOSI with private
-L2 (reference: pr_l1_pr_l2_dram_directory_{msi,mosi}/
-dram_directory_cntlr.cc), and the shared-L2 slice FSM under MSI and
-MESI (pr_l1_sh_l2_{msi,mesi}/l2_cache_cntlr.cc).  Sharer bitmaps are
-``uint64`` words in JAX and ``int64`` words with the same bits here; bit
-63 is the sign bit, which ``&``/``|``/``~`` and the ``(x >> s) & 1``
-extraction never notice.
+Counterpart of ``graphite_tpu/engine/directory.py`` under the four
+protocol families: MSI and MOSI with private L2 (reference:
+pr_l1_pr_l2_dram_directory_{msi,mosi}/dram_directory_cntlr.cc), and the
+shared-L2 slice FSM under MSI and MESI (pr_l1_sh_l2_{msi,mesi}/
+l2_cache_cntlr.cc).  The bitmaps are full maps; the limited schemes
+(reference directory_schemes/) add their behaviour on top in the
+conflict round (engine/resolve.py), with :func:`popcount` and
+:func:`lowest_bit`.  Sharer bitmaps are ``uint64`` words in JAX and
+``int64`` words with the same bits here; bit 63 is the sign bit, which
+``&``/``|``/``~`` and the ``(x >> s) & 1`` extraction never notice, and
+:func:`popcount` shifts with ``ops.lshr``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from graphite_tpu_torch.engine.cache import E, I, M, O, S
+from graphite_tpu_torch.engine.ops import lshr
 
 # ------------------------------------------------------------- bitmaps
 
@@ -40,6 +44,27 @@ def bitmap_to_bool(words: torch.Tensor, num_tiles: int) -> torch.Tensor:
     shifts = torch.arange(64, dtype=torch.int64, device=words.device)
     bits = (words[:, :, None] >> shifts[None, None, :]) & 1
     return bits.reshape(K, W * 64)[:, :num_tiles].to(torch.bool)
+
+
+def lowest_bit(words: torch.Tensor) -> torch.Tensor:
+    """[K, W] words -> [K, W] bitmap with only the lowest set bit of the
+    row kept (all-zero rows stay zero): ``x & (~x + 1)`` in the row's
+    first non-zero word.  The victim sharer of limited_no_broadcast's
+    pointer overflow (reference
+    directory_entry_limited_no_broadcast.cc)."""
+    nz = words != 0
+    first = nz & (torch.cumsum(nz.to(torch.int32), dim=1) == 1)
+    return torch.where(first, words & (~words + 1), 0)
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """[K, W] words -> [K] int32 number of set bits (a SWAR count per
+    word; the adds and the multiply wrap as uint64 does)."""
+    x = words - (lshr(words, 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + (lshr(x, 2) & 0x3333333333333333)
+    x = (x + lshr(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    x = lshr(x * 0x0101010101010101, 56)
+    return torch.sum(x, dim=-1).to(torch.int32)
 
 
 class MsiActions(NamedTuple):

@@ -178,9 +178,6 @@ def check_window_config(params: SimParams) -> None:
     if params.core.model != "simple":
         raise NotImplementedError(
             "the window walk for iocoom cores is ported in a later slice")
-    if params.block_events > MAX_WINDOW:
-        raise NotImplementedError(
-            f"block_events > {MAX_WINDOW} is not supported by the kernel")
 
 
 def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,

@@ -18,9 +18,17 @@ each gets ONE deliberate implementation here that every module calls:
     hence :func:`lshr` and :func:`umod64`.
   * First-index ``argmax``/``argmin`` over bool masks (torch has no
     bool argmax): :func:`first_true`.
+
+One more follows from how XLA compiles for the CPU: it lets LLVM fuse a
+float multiply into the add or subtract that consumes it (one rounding
+instead of two).  The float64 sites of the DRAM queue models that XLA
+fuses so use :func:`fma`, a correctly rounded ``a * b + c`` built from
+plain float64 operations, the same on the CPU and on CUDA.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -136,3 +144,43 @@ def first_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
     ``jnp.argmax`` on a bool mask."""
     return torch.argmax(mask.to(torch.int8), dim=dim)
 
+
+
+_SPLIT = 134217729.0     # 2**27 + 1 (Veltkamp's split of a float64)
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, e): s = RN(a + b) and its exact error, a + b = s + e."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """(p, e): p = RN(a * b) and its exact error (Dekker's product)."""
+    def split(x):
+        c = _SPLIT * x
+        hi = c - (c - x)
+        return hi, x - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float64 ``a * b + c`` rounded once, as a fused multiply-add gives it
+    (Boldo and Melquiond's emulation through rounding to odd; exact for
+    operands far from overflow and underflow, as the queue models'
+    times and weights are).  Every step is one plain torch operation, so
+    no compiler contracts it further."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    # Round v = RN(tl + ul) to odd: where inexact and even, step to the
+    # neighbour on the side of the exact sum.
+    even = (v.view(torch.int64) & 1) == 0
+    step = torch.nextafter(v, torch.where(e > 0, math.inf, -math.inf)
+                           .to(v.dtype))
+    v = torch.where((e != 0) & even, step, v)
+    return th + v

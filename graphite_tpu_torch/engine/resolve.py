@@ -1,12 +1,12 @@
 """Cross-tile resolution of pending requests.
 
 Counterpart of ``graphite_tpu/engine/resolve.py`` on this slice's path:
-``resolve_memory`` (a full-map directory under MSI or MOSI with private
-L2, or the per-tile L2 slices under shared-L2 MSI or MESI; every
-network model, with the hop-by-hop mesh's contended link flights; the
-history-ring DRAM queue or none) with, at ``tpu/miss_chain > 0``,
-the blocking chain replay ``chain_fast_pass`` in front of its conflict
-rounds, and the sync resolvers (CAPI receives and back-pressured sends,
+``resolve_memory`` (a directory under MSI or MOSI with private L2, or
+the per-tile L2 slices under shared-L2 MSI or MESI, full-map or one of
+the four limited schemes; every network model, with the hop-by-hop
+mesh's contended link flights; every DRAM queue model, or none) with,
+at ``tpu/miss_chain > 0`` under a full-map directory, the blocking
+chain replay ``chain_fast_pass`` in front of its conflict rounds, and the sync resolvers (CAPI receives and back-pressured sends,
 barriers, condition variables, mutexes, joins and thread starts), with
 the ThreadScheduler's stream store where there are more trace streams
 than tiles.  Every parked request (or chain head) of
@@ -592,6 +592,47 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                             entry_state, entry_owner, entry_sharers, W,
                             is_ifetch=is_if)
 
+    # ---- limited directory schemes (reference directory_schemes/
+    # directory_entry_{limited_broadcast,limited_no_broadcast,ackwise,
+    # limitless}.cc).  The bitmap stays a full map; each scheme adds its
+    # behaviour on top:
+    #   limited_no_broadcast — an add past max_hw_sharers first
+    #     invalidates the lowest other sharer (pointer eviction);
+    #   limitless — an access to an entry past the hardware pointers
+    #     traps to software (software_trap_penalty directory cycles);
+    #   limited_broadcast — an overflowed entry's invalidation
+    #     broadcasts: its latency spans every tile and T-1 INV packets
+    #     go out;
+    #   ackwise — the T-1 packets, at the true sharers' ack latency.
+    # Pointer pressure leaves out the requester's own bit (a tracked
+    # sharer asking again takes no new pointer); overflow counts every
+    # tracked pointer.
+    scheme = params.directory.directory_type
+    k_hw = params.directory.max_hw_sharers
+    scheme_dir_ps = 0
+    bcast_lat = bcast_traffic = None
+    if scheme != "full_map":
+        others = entry_sharers & ~dirmod.make_tile_bit(rows, W)
+        n_sh = dirmod.popcount(others)
+        if scheme == "limitless":
+            scheme_dir_ps = torch.where(
+                hit & (n_sh >= k_hw),
+                _lat(vp.limitless_trap_cycles, p_dir_home), 0)
+        elif scheme == "limited_no_broadcast":
+            overflow_add = ~is_ex & (n_sh >= k_hw) & (others != 0).any(dim=1)
+            vbit = dirmod.lowest_bit(others)
+            act = act._replace(
+                inv_targets=torch.where(overflow_add[:, None],
+                                        act.inv_targets | vbit,
+                                        act.inv_targets),
+                new_sharers=torch.where(overflow_add[:, None],
+                                        act.new_sharers & ~vbit,
+                                        act.new_sharers))
+        else:   # limited_broadcast, ackwise
+            bcast_traffic = dirmod.popcount(entry_sharers) > k_hw
+            if scheme == "limited_broadcast":
+                bcast_lat = bcast_traffic
+
     has_inv = win & (act.inv_targets != 0).any(dim=1)
     owner = act.owner_tile
     vown_c = torch.clamp(vowner, min=0).to(torch.int64)
@@ -640,44 +681,48 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
                                   device=dev), (tgt2, slot2), down2,
                       "set", mask=put)
 
-    # ---- shared-read combining (full_map): concurrent SH_REQs against an
-    # I/S entry all win beside the elected representative.  With shared
-    # L2 only against an S entry: the slice fills an uncached line once
-    # (and the MESI E grant needs a sole first reader).
+    # ---- shared-read combining: concurrent SH_REQs against an I/S entry
+    # all win beside the elected representative.  With shared L2 only
+    # against an S entry: the slice fills an uncached line once (and the
+    # MESI E grant needs a sole first reader).  Full map only: the
+    # limited schemes take per-add pointer actions, which serialise.
     req_word = (rows // 64).to(torch.int64)
     req_bit1 = torch.ones(T, dtype=torch.int64, device=dev) \
         << (rows % 64).to(torch.int64)
-    sh_entry_ok = (entry_state == I) | (entry_state == S)
-    if shared_l2:
-        sh_entry_ok = sh_entry_ok & (entry_state != I)
-    ex_unres = unres & is_ex
-    rep_sh = win & ~is_ex & sh_entry_ok
-    if dense_tables:
-        any_ex = torch.any(oh_hidx & ex_unres[:, None], dim=0)
-        rline = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
-                                       line[:, None], -1), dim=0)
-        rway = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
-                                      way[:, None].to(torch.int64), -1),
-                          dim=0)
-        m_any_ex = _sel(oh_hidx, any_ex.to(torch.int32)) > 0
-        m_rline = _sel(oh_hidx, rline)
-        m_rway = _sel(oh_hidx, rway).to(torch.int32)
-    else:
-        # The three tables over one index in one scatter-max (rep_sh has
-        # at most one winner per slot and the exclusive flag is
-        # monotone; masked rows write the max identity), one gather back.
-        cmb = dense.stacked_max_table(hidx, torch.stack([
-            torch.where(ex_unres, 1, -1).to(torch.int64),
-            torch.where(rep_sh, line, -1),
-            torch.where(rep_sh, way.to(torch.int64), -1)]), H, -1)
-        g_cmb = cmb[:, hidx]
-        m_any_ex = g_cmb[0] > 0
-        m_rline = g_cmb[1]
-        m_rway = g_cmb[2].to(torch.int32)
-    combinable = unres & ~win & ~is_ex & sh_entry_ok \
-        & ~m_any_ex & (m_rline == line)
-    win = win | combinable
-    way = torch.where(combinable, m_rway, way)
+    combinable = torch.zeros_like(win)
+    if scheme == "full_map":
+        sh_entry_ok = (entry_state == I) | (entry_state == S)
+        if shared_l2:
+            sh_entry_ok = sh_entry_ok & (entry_state != I)
+        ex_unres = unres & is_ex
+        rep_sh = win & ~is_ex & sh_entry_ok
+        if dense_tables:
+            any_ex = torch.any(oh_hidx & ex_unres[:, None], dim=0)
+            rline = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
+                                           line[:, None], -1), dim=0)
+            rway = torch.amax(torch.where(oh_hidx & rep_sh[:, None],
+                                          way[:, None].to(torch.int64), -1),
+                              dim=0)
+            m_any_ex = _sel(oh_hidx, any_ex.to(torch.int32)) > 0
+            m_rline = _sel(oh_hidx, rline)
+            m_rway = _sel(oh_hidx, rway).to(torch.int32)
+        else:
+            # The three tables over one index in one scatter-max (rep_sh
+            # has at most one winner per slot and the exclusive flag is
+            # monotone; masked rows write the max identity), one gather
+            # back.
+            cmb = dense.stacked_max_table(hidx, torch.stack([
+                torch.where(ex_unres, 1, -1).to(torch.int64),
+                torch.where(rep_sh, line, -1),
+                torch.where(rep_sh, way.to(torch.int64), -1)]), H, -1)
+            g_cmb = cmb[:, hidx]
+            m_any_ex = g_cmb[0] > 0
+            m_rline = g_cmb[1]
+            m_rway = g_cmb[2].to(torch.int32)
+        combinable = unres & ~win & ~is_ex & sh_entry_ok \
+            & ~m_any_ex & (m_rline == line)
+        win = win | combinable
+        way = torch.where(combinable, m_rway, way)
     way64 = way.to(torch.int64)
     own_word = torch.gather(entry_sharers, 1, req_word[:, None])[:, 0]
     sharer_add = combinable & ((own_word & req_bit1) == 0)
@@ -702,6 +747,11 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         dim=1, dtype=torch.int64)
     inv_bool = dirmod.bitmap_to_bool(inv_words, T)   # [K, T]
     vic_bool = dirmod.bitmap_to_bool(vic_words, T)
+    if bcast_lat is not None:
+        # limited_broadcast overflow: the broadcast completes on the acks
+        # of every tile, not just the true sharers.
+        bl_k = torch.any(oh_sr & (bcast_lat & has_inv)[None, :], dim=1)
+        inv_bool = inv_bool | bl_k[:, None]
 
     home_sr = sr_sel(home)
     pnh_sr = sr_sel(p_net_home.to(torch.int64)).to(torch.int32)
@@ -775,7 +825,10 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         evict_ps = torch.where(evict_o, torch.maximum(evict_ps, evict_m_ps),
                                evict_ps)
 
-    t_dir = arrive + dir_ps + torch.where(evicting, evict_ps, 0)
+    # Replacing a live victim entry completes before the request is
+    # served; scheme_dir_ps is limitless's software trap.
+    t_dir = arrive + dir_ps + scheme_dir_ps \
+        + torch.where(evicting, evict_ps, 0)
 
     owner64 = owner.to(torch.int64)
     p_net_own = p_net[owner64]
@@ -900,9 +953,21 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
 
     # ---- counters (home-binned tallies via one stacked scatter-add)
     kcnt_inv = torch.sum(inv_bool, dim=1).to(torch.int64)  # [K]
+    kcnt_inv_flits = kcnt_inv
+    if bcast_traffic is not None:
+        # An overflowed broadcast puts T-1 INV messages on the wire
+        # whatever the true sharer count.  With the hop-by-hop mesh's
+        # broadcast tree the source injects one packet that the routers
+        # replicate: the packet count drops to 1 and the flits keep the
+        # T-1 traversals.
+        bt_k = torch.any(oh_sr & (bcast_traffic & has_inv)[None, :], dim=1)
+        bcast_pkts = 1 if params.net_memory.broadcast_tree_enabled \
+            else T - 1
+        kcnt_inv = torch.where(bt_k, bcast_pkts, kcnt_inv)
+        kcnt_inv_flits = torch.where(bt_k, T - 1, kcnt_inv_flits)
     kcnt_vic = torch.sum(vic_bool, dim=1).to(torch.int64)
     kcnt = kcnt_inv + kcnt_vic
-    kcnt_fl = kcnt_inv + kcnt_vic
+    kcnt_fl = kcnt_inv_flits + kcnt_vic
     inv_count = torch.sum(torch.where(oh_sr, kcnt[:, None], 0), dim=0)
     inv_flits = torch.sum(torch.where(oh_sr, kcnt_fl[:, None], 0), dim=0)
     c = state.counters
@@ -1015,12 +1080,12 @@ def resolve_memory(params: SimParams, vp: VariantParams,
     dev = state.clock.device
     ftbl = torch.stack([torch.full((H,), -1, dtype=torch.int64, device=dev),
                         torch.zeros((H,), dtype=torch.int64, device=dev)])
-    # Chain replay first (P > 0; this slice runs only simple cores and
-    # full-map directories, so it applies unless the hop-by-hop mesh's
-    # links contend): whole banked chains served in one pass, the floor
-    # table threaded through to the conflict rounds that serve the
-    # leftovers.
-    if P > 0 and not _contended(params):
+    # Chain replay first (P > 0 under a full-map directory, unless the
+    # hop-by-hop mesh's links contend; the port runs simple cores only):
+    # whole banked chains served in one pass, the floor table threaded
+    # through to the conflict rounds that serve the leftovers.
+    if P > 0 and not _contended(params) \
+            and params.directory.directory_type == "full_map":
         state, ftbl = chain_fast_pass(params, vp, state, H, ftbl)
 
     def pending(st):

@@ -26,7 +26,6 @@ import torch
 from graphite_tpu_torch.config import Config
 from graphite_tpu_torch.engine.kernels import dispatch
 from graphite_tpu_torch.engine.kernels.chain import check_chain_config
-from graphite_tpu_torch.engine.kernels.window import MAX_WINDOW
 from graphite_tpu_torch.engine.quantum import megarun
 from graphite_tpu_torch.engine.state import SimState, TraceArrays, make_state
 from graphite_tpu_torch.engine.vparams import variant_params
@@ -40,13 +39,18 @@ def check_slice(params: SimParams, device=None) -> None:
     """Refuse, loudly, every configuration the port does not run yet —
     nothing is mispriced silently.  Admitted: simple cores,
     every coherence protocol (private L1/L2 under MSI or MOSI, shared L2
-    under MSI or MESI) with a full-map directory, every network model on
-    the memory and user networks (magic, emesh_hop_counter, atac under
-    either routing strategy and receive network, emesh_hop_by_hop with
-    its queue model off or on: contended link flights on the memory
-    network, and SEND's flight on a hop-by-hop user network), the
-    history DRAM queues (``history_list`` and ``history_tree``, on or
-    off), ``tpu/miss_chain`` 0 to 256 with the fan-out replay on or off,
+    under MSI or MESI) with every directory scheme (full_map,
+    limited_broadcast, limited_no_broadcast, ackwise, limitless; at any
+    ``max_hw_sharers``), every network model on the memory and user
+    networks (magic, emesh_hop_counter, atac under either routing
+    strategy and receive network, emesh_hop_by_hop with its queue model
+    off or on: contended link flights on the memory network, and SEND's
+    flight on a hop-by-hop user network; with its broadcast tree on or
+    off), every DRAM queue model (``history_list``, ``history_tree``,
+    ``basic`` with its moving average on or off, ``m_g_1``; on or off),
+    ``tpu/miss_chain`` 0 to 256 with the fan-out replay on or off (the
+    chain replay serves full-map directories only, as in the JAX
+    package),
     ``tpu/fast_forward`` at any width and run-ahead span, any tile count
     the directory's owner field holds (state.py), every event kind (the
     sync, CAPI, thread, ROI, DVFS and syscall kinds among them), and
@@ -68,10 +72,6 @@ def check_slice(params: SimParams, device=None) -> None:
     if params.segment_events > 0:
         later("streaming trace ingest (trace/segment_events > 0)",
               "the run-lifecycle slice")
-    if params.directory.directory_type != "full_map":
-        later(f"the {params.directory.directory_type!r} directory scheme")
-    if params.dram.queue_model_type not in ("history_list", "history_tree"):
-        later(f"the {params.dram.queue_model_type!r} DRAM queue model")
     if (params.stats_enabled or params.progress_enabled
             or params.power_trace_enabled or params.telemetry_enabled):
         later("telemetry sampling and the statistics ring",
@@ -80,8 +80,6 @@ def check_slice(params: SimParams, device=None) -> None:
         later("miss-type classification ([cache]/track_miss_types)")
     if params.miss_chain > 0:
         check_chain_config(params, device)
-    if params.block_events > MAX_WINDOW:
-        later(f"tpu/block_events > {MAX_WINDOW}")
 
 
 class SimSummary:

@@ -1,0 +1,115 @@
+"""The full-width paths of the limited directory schemes and the ``basic``
+and ``m_g_1`` DRAM queue models that ``chip_smoke.py`` (phase 15, cut
+by quanta) and ``tests/test_torch_card_paths.py`` (whole runs) hold the
+port to on the card, and the JAX package's values for them, recorded on
+the CPU into ``tests/data/card_pins_dir_queue.json``:
+
+    JAX_PLATFORMS=cpu python tests/record_card_pins.py [path ...]
+
+For each path the file keeps its trace (a ``synth`` generator and its
+arguments), its config overrides and its cut, and, for the cut and the
+whole run, the round counters, the latest clock, the clocks' and
+cursors' sums and every SimState leaf's digest (dtype, shape and the
+SHA-256 of its bytes, as tests/torch_jax_ref.py digests them).
+
+The radix64 trace never writes a line that another tile holds (no
+invalidation at any depth, under a full map or a scheme), so the
+broadcast schemes' legs are held on a migratory trace as well.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+RADIX64 = ["gen_radix", dict(num_tiles=64, keys_per_tile=64, radix=256,
+                             seed=0)]
+MIGRATORY64 = ["gen_migratory", dict(num_tiles=64, lines=8, rounds=1)]
+HBH = {"network/memory": "emesh_hop_by_hop"}
+TREE = "network/emesh_hop_by_hop/broadcast_tree_enabled"
+
+
+def _scheme(scheme, k=4):
+    return {"dram_directory/directory_type": scheme,
+            "dram_directory/max_hw_sharers": k}
+
+
+# name: (trace, config overrides, quanta of the cut run)
+PATHS = {
+    **{f"radix64_{s}": (RADIX64, _scheme(s), 6) for s in (
+        "limited_broadcast", "limited_no_broadcast", "ackwise",
+        "limitless")},
+    "migratory64_lb_hbh_tree": (
+        MIGRATORY64, {**_scheme("limited_broadcast"), **HBH, TREE: True},
+        6),
+    "migratory64_lb_hbh_no_tree": (
+        MIGRATORY64, {**_scheme("limited_broadcast"), **HBH, TREE: False},
+        6),
+    "migratory64_ackwise": (MIGRATORY64, _scheme("ackwise"), 6),
+    "radix64_chain12_basic": (
+        RADIX64, {"tpu/miss_chain": 12, "dram/queue_model/type": "basic"},
+        4),
+    "radix64_chain12_m_g_1": (
+        RADIX64, {"tpu/miss_chain": 12, "dram/queue_model/type": "m_g_1"},
+        4),
+}
+CTRS = ("round_ctr", "ctr_window", "ctr_complex", "ctr_conflict",
+        "ctr_resolve", "ctr_quantum")
+HERE = os.path.dirname(os.path.abspath(__file__))
+PIN_FILE = os.path.join(HERE, "data", "card_pins_dir_queue.json")
+
+
+def _values(leaves):
+    import numpy as np
+    sys.path.insert(0, HERE)
+    from torch_jax_ref import digest
+    return dict(
+        ctrs={k: int(leaves[k]) for k in CTRS},
+        completion_ps=int(np.asarray(leaves["clock"]).max()),
+        clock_sum=int(np.asarray(leaves["clock"]).sum()),
+        cursor_sum=int(np.asarray(leaves["cursor"]).astype(np.int64).sum()),
+        leaves={k: digest(v) for k, v in sorted(leaves.items())})
+
+
+def record(name):
+    import jax
+    from graphite_tpu.config import load_config
+    from graphite_tpu.engine import quantum
+    from graphite_tpu.engine.sim import Simulator
+    from graphite_tpu.events import synth
+    from graphite_tpu.params import SimParams
+    from graphite_tpu_torch import convert
+    (gen, kw), over, quanta = PATHS[name]
+    cfg = load_config()
+    for k, v in over.items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, getattr(synth, gen)(**kw))
+    cut = quantum.megarun(params, sim.state, sim.trace, quanta)
+    cut = convert.leaves_to_numpy(jax.device_get(cut))
+    sim.run()
+    whole = convert.leaves_to_numpy(jax.device_get(sim.state))
+    return dict(trace=[gen, kw], over=over, quanta=quanta,
+                cut=_values(cut), whole=_values(whole))
+
+
+def main(names):
+    sys.path.insert(0, os.path.dirname(HERE))
+    try:
+        with open(PIN_FILE) as f:
+            pins = json.load(f)
+    except FileNotFoundError:
+        pins = {}
+    for name in names or sorted(PATHS):
+        pins[name] = record(name)
+        w = pins[name]["whole"]
+        print(f"{name}: cut {pins[name]['cut']['ctrs']}, whole "
+              f"{w['ctrs']}, {w['completion_ps']} ps", flush=True)
+        with open(PIN_FILE, "w") as f:
+            json.dump(pins, f, indent=1, sort_keys=True)
+            f.write("\n")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -60,11 +60,18 @@ only at a cut depth.
     critical_cycles=50)``) whole, 5,900 rounds (``chip_smoke.py`` phase 12
     runs its first 160 quanta), pinned from the JAX package on the CPU.
 
+  * The limited directory schemes and the ``basic`` and ``m_g_1`` DRAM
+    queue models (``chip_smoke.py`` phase 15 runs their first quanta):
+    the paths of tests/record_card_pins.py, whole, every SimState leaf
+    the JAX package's on the CPU.
+
 Run on the card: ``python -m pytest -m gpu --noconftest
 tests/test_torch_card_paths.py -q`` (about ten minutes).
 """
 
 import gc
+import json
+import os
 import sys
 
 import pytest
@@ -622,3 +629,54 @@ def test_lock64_full_depth_on_card():
     assert int(s.counters["mutex_acquires"].sum()) == 1024
     assert int(s.counters["sync_stall_ps"].sum()) == 9_032_793_600
     assert dispatch.COUNTS["window_walk"] == want["ctr_window"]
+
+
+# The limited directory schemes and the basic and m_g_1 DRAM queue models
+# at full width (chip_smoke.py phase 15 runs the first quanta of each):
+# radix64 (keys_per_tile 64) under each scheme with four hardware
+# pointers, a migratory trace whose overflowed entries broadcast (on the
+# hop-by-hop mesh with and without its broadcast tree, and under
+# ackwise), and radix64 at miss_chain 12 under each queue model; whole
+# runs, every leaf the JAX package's on the CPU
+# (tests/record_card_pins.py).
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "card_pins_dir_queue.json")) as _f:
+    DIR_QUEUE_PINS = json.load(_f)
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(DIR_QUEUE_PINS))
+def test_dir_scheme_and_queue_paths_whole_on_card(name):
+    """Every SimState leaf (``dram_qacc`` by its bytes), the round
+    counters and the completion exactly; window_walk once per window
+    round, chain_classify P times per chain pass under the full map and
+    never under a limited scheme."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    from graphite_tpu_torch import convert
+    from torch_jax_ref import digest
+    pin = DIR_QUEUE_PINS[name]
+    gen, kw = pin["trace"]
+    cfg = load_config()
+    for k, v in pin["over"].items():
+        cfg.set(k, v)
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, getattr(synth, gen)(**kw), device="cuda")
+    dispatch.reset_counts()
+    s = sim.run()
+    assert bool(s.done.all())
+    want = pin["whole"]
+    ctrs = {k: int(getattr(sim.state, k).item()) for k in want["ctrs"]}
+    assert ctrs == want["ctrs"]
+    assert s.completion_time_ps == want["completion_ps"]
+    leaves = convert.state_to_numpy(sim.state)
+    assert {k: digest(v) for k, v in leaves.items()} == want["leaves"]
+    chain = params.miss_chain \
+        if params.directory.directory_type == "full_map" else 0
+    print(f"{name}: window_walk launches {dispatch.COUNTS['window_walk']}, "
+          f"chain_classify launches {dispatch.COUNTS['chain_classify']}",
+          file=sys.stderr)
+    assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
+    assert dispatch.COUNTS["chain_classify"] == chain * ctrs["ctr_resolve"]

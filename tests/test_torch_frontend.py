@@ -138,22 +138,24 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("over,trace_fn", [
     # The chain replay itself is admitted; its miss-type branch is not.
     ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True}, None),
-    # Every coherence protocol is admitted; the directory schemes other
-    # than full_map are not, under private or shared L2.
-    ({"dram_directory/directory_type": "ackwise"}, None),
+    # Every coherence protocol, directory scheme, DRAM queue model and
+    # network model runs (tests/test_torch_dir_schemes.py,
+    # tests/test_torch_queue_models.py); beside a key that stays refused
+    # each is refused by that key, under private or shared L2.
+    ({"dram_directory/directory_type": "ackwise",
+      "tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
     ({"tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
     ({"caching_protocol/type": "pr_l1_sh_l2_msi",
-      "l2_directory/directory_type": "limited_no_broadcast"}, None),
-    ({"dram/queue_model/type": "basic"}, None),
-    # Every network model is admitted; the hop-by-hop mesh's broadcast
-    # tree is read only under the broadcast directory schemes, which are
-    # not.
+      "l2_directory/directory_type": "limited_no_broadcast",
+      "l2_cache/T1/track_miss_types": True}, None),
+    ({"dram/queue_model/type": "basic", "trace/segment_events": 4096},
+     None),
     ({"network/memory": "emesh_hop_by_hop",
       "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
-      "dram_directory/directory_type": "limited_broadcast"}, None),
-    # The DRAM queue models other than the history tree are refused under
-    # a CAPI trace as under any other.
-    ({"dram/queue_model/type": "basic"},
+      "dram_directory/directory_type": "limited_broadcast",
+      "statistics_trace/enabled": True}, None),
+    # The same under a CAPI trace.
+    ({"dram/queue_model/type": "basic", "tpu/tile_shards": 2},
      lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
 ], ids=["miss_chain", "ackwise", "iocoom", "sh_l2_limited", "basic_queue",
         "hop_by_hop", "basic_queue_capi"])

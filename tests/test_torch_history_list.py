@@ -3,9 +3,10 @@ package on the CPU.  The JAX package prices ``history_list`` and
 ``history_tree`` through the same busy-interval ring (its
 ``queue_models.probe`` / ``occupy``), so the port admits both: whole
 runs at T = 8 under ``history_list``, at miss_chain 0 and 12, end with
-every SimState leaf equal to the JAX package's live run (tolerance 0).
-The other queue models stay refused at construction (``basic`` in
-tests/test_torch_frontend.py, ``m_g_1`` here).
+every SimState leaf equal to the JAX package's (tolerance 0): its live run
+at miss_chain 0, its recorded pin at 12 (tests/torch_jax_ref.py).
+The ``basic`` and ``m_g_1`` models are tests/test_torch_queue_models.py's;
+here ``m_g_1`` beside miss-type tracking is refused by the latter.
 """
 
 import pytest
@@ -65,12 +66,15 @@ def test_history_list_run_matches_jax(chain):
 
     ref.check("test_torch_history_list", f"radix8_chain{chain}",
               convert.state_to_numpy(tsim.state), jax_leaves,
-              ref.inputs(over, tsim.trace, steps=MAX_STEPS), live=True)
+              ref.inputs(over, tsim.trace, steps=MAX_STEPS),
+              live=chain == 0)
     # The queue priced DRAM waits: the ring holds busy intervals.
     assert bool((tsim.state.dram_ring_end > 0).any())
 
 
 def test_m_g_1_queue_refused_at_construction():
-    _, tp = _params(_over("m_g_1", 0))
-    with pytest.raises(NotImplementedError, match="'m_g_1' DRAM queue"):
+    _, tp = _params({**_over("m_g_1", 0),
+                     "l2_cache/T1/track_miss_types": True})
+    assert tp.dram.queue_model_type == "m_g_1"
+    with pytest.raises(NotImplementedError, match="miss-type"):
         Simulator(tp, synth.gen_radix(**RADIX8), device="cpu")

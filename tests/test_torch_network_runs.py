@@ -13,8 +13,9 @@ A carry-across test takes a contended JAX state into the port mid-run
 (``convert``), and the configurations the port still refuses are
 checked at construction.
 
-Every case runs the JAX package live (tests/torch_jax_ref.py, with
-``live=True``).
+The cheapest run (``LIVE``) and the carry-across compare with the JAX
+package's live run; the other cases with its recorded pins
+(tests/torch_jax_ref.py).
 """
 
 import numpy as np
@@ -59,6 +60,7 @@ RUNS = {
         CONTENDED, "simulator"),
 }
 SLOW = ("shared_readers16_contended",)
+LIVE = ("radix16_atac",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -132,7 +134,7 @@ def test_network_run_matches_jax(name, tmp_path):
         "test_torch_network_runs", name,
         with_completion(convert.state_to_numpy(tsim.state), tsum),
         jax_leaves, ref.inputs({"general/total_cores": T, **over},
-                               ttrace, steps=4096), live=True)
+                               ttrace, steps=4096), live=name in LIVE)
     completion_ps = int(jleaves["completion_ps"])
     if RUNS[name][2] != "simulator":
         ps, counters, text = _entry_point_summary(name, tp, over, ttrace,
@@ -178,19 +180,21 @@ def test_carry_across_contended_mid_run():
 
 
 @pytest.mark.parametrize("over,trace_fn", [
-    # The user network's contended SEND flight runs (test_torch_sync_runs);
-    # the directory schemes other than full_map stay refused under a sync
-    # trace as under any other.
+    # The user network's contended SEND flight, the directory schemes and
+    # the broadcast tree run (test_torch_sync_runs,
+    # test_torch_dir_schemes); beside a key that stays refused, each
+    # network configuration is refused by that key.
     ({"network/user": "emesh_hop_by_hop",
       "network/emesh_hop_by_hop/queue_model/enabled": True,
-      "dram_directory/directory_type": "limitless"},
+      "dram_directory/directory_type": "limitless",
+      "l2_cache/T1/track_miss_types": True},
      lambda: tsynth.gen_lock_contention(num_tiles=4, acquisitions=2)),
-    # The broadcast tree is read only under the broadcast directory
-    # schemes, which stay refused.
     ({**CONTENDED, "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
-      "dram_directory/directory_type": "limited_broadcast"}, None),
+      "dram_directory/directory_type": "limited_broadcast",
+      "trace/segment_events": 4096}, None),
     ({"network/memory": "atac",
-      "dram_directory/directory_type": "ackwise"}, None),
+      "dram_directory/directory_type": "ackwise",
+      "tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
 ], ids=["user_hbh_limitless_sync", "broadcast_tree_scheme", "atac_ackwise"])
 def test_network_configs_still_refused(over, trace_fn):
     cfg = load_config()

@@ -90,10 +90,12 @@ CASES = {
     # Shared-L2 MESI on 32-set slices (16 KB of L2 a tile): the conflict
     # round's scatter forms and the chain pass's plain step at T = 1024
     # on the slice directory, with MESI's E grants and silent upgrades.
+    # Two quanta: by then the slices hold E, M and S lines and four
+    # conflict rounds have run.
     "radix1024_shl2_mesi_chain12": (1024, RADIX1, {
         **K4, "tpu/miss_chain": 12,
         "caching_protocol/type": "pr_l1_sh_l2_mesi",
-        "l2_cache/T1/cache_size": 16}, 7),
+        "l2_cache/T1/cache_size": 16}, 2),
     "radix2048_chain12": (2048, RADIX1, {
         **K4, "tpu/miss_chain": 12, "dram_directory/total_entries": 4,
         "dram_directory/associativity": 1, "l2_cache/T1/cache_size": 16},

@@ -118,13 +118,17 @@ def _record(module: str, key: str, case_inputs: str,
 
 def assert_leaves_equal(jleaves, tleaves) -> None:
     """Every leaf of both flat dicts equal: names, dtypes, shapes,
-    values."""
+    values; a float leaf (the DRAM queue models' ``dram_qacc``) by its
+    bytes, as a pin holds it."""
     assert set(jleaves) == set(tleaves)
     for name in sorted(jleaves):
         a, b = np.asarray(jleaves[name]), np.asarray(tleaves[name])
         assert a.dtype == b.dtype and a.shape == b.shape, \
             (name, a.dtype, b.dtype, a.shape, b.shape)
         np.testing.assert_array_equal(a, b, err_msg=name)
+        if a.dtype.kind == "f":
+            assert np.ascontiguousarray(a).tobytes() \
+                == np.ascontiguousarray(b).tobytes(), name
 
 
 def check(module: str, key: str, tleaves: Dict[str, np.ndarray],
