@@ -61,7 +61,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          evicted, E grants, fan-outs), and its wide form at T = 1024
          under shared-L2 MESI; fast_forward_walk under shared-L2 MESI
          (the sticky E->M upgrade) — eight sets per protocol and kernel
-         at least.
+         at least;
+       * window_walk's iocoom branches: seeded sets
+         (operands.iocoom_window_arrays: register-annotated events, drain
+         points, queue completions above the clock) under a uniform
+         iocoom model list and under mixed ones with simple and iocoom
+         tiles first and last in both orders, speculative loads on and
+         off, at P = 0 and 12; windows captured from the port's own
+         scoreboard64 run (one-entry queues) whose queues complete after
+         the clock (timed: K = 16, P = 0, iocoom flags on, printed beside
+         the simple K = 16, P = 0 window's time).
      Each kernel's bound counts the bytes the function needs on the
      timed operands (chain_bytes, ff_bytes, window_bytes).  The chain
      wrapper must make one device allocation per call and the
@@ -297,7 +306,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          serves full-map directories only).  The whole runs are held on
          the card by tests/test_torch_card_paths.py.
 
-Before each path of phases 4 to 6 and 8 to 15 every kernel's launch count is
+  16. Miss-type tracking and the iocoom cores: cut runs at T = 64 held
+      as phase 15's are (tests/data/card_pins_ioc_mt.json, written by
+      tests/record_card_pins.py): radix64_iocoom (phase 5's trace under
+      ``<default,iocoom,T1,T1,T1>``), radix64_iocoom_chain12 (the same
+      at miss_chain 12: the chain replay stands down, chain_classify
+      launches 0), radix64_mixed (32 simple tiles, then 32 iocoom),
+      scoreboard64 (``synth.gen_scoreboard``: register-annotated loads
+      and computes, one-entry load and store queues), radix64_chain12_mt
+      (``track_miss_types`` at miss_chain 12: the chain pass classifies
+      beside chain_classify's launches) and migratory64_mt (tracking at
+      miss_chain 0: sharing misses).  Each prints its rounds, latest
+      clock, summed cold / capacity / sharing L2 misses and its
+      window_walk and chain_classify launches.  The whole runs are held
+      on the card by tests/test_torch_card_paths.py.
+
+Before each path of phases 4 to 6 and 8 to 16 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -589,6 +613,18 @@ SYNC_PINS = {
 }
 
 
+# Phase 3's iocoom operand sets: (label, config overrides) at T = 64,
+# each at miss_chain 0 and 12; the mixed lists put simple and iocoom
+# tiles first and last in both orders.
+_IOCOOM = {"tile/model_list": "<default,iocoom,T1,T1,T1>"}
+_NOSPEC = {"core/iocoom/speculative_loads_enabled": False}
+_MIXED = {"tile/model_list": "<32,simple,T1,T1,T1>, <32,iocoom,T1,T1,T1>"}
+_SWAPPED = {"tile/model_list": "<32,iocoom,T1,T1,T1>, <32,simple,T1,T1,T1>"}
+IOCOOM_WALK_SETS = (
+    ("uniform", _IOCOOM), ("uniform nospec", {**_IOCOOM, **_NOSPEC}),
+    ("mixed", _MIXED), ("mixed nospec", {**_MIXED, **_NOSPEC}),
+    ("swapped nospec", {**_SWAPPED, **_NOSPEC}))
+
 # Phase 14: radix1536_chain12, ``gen_radix(1536, keys_per_tile=16,
 # radix=64, seed=0)`` at block_events 4 and miss_chain 12 on the default
 # directory (24 sharer words, 4.83 GB of them; chain_classify's grid
@@ -822,8 +858,9 @@ def window_bytes(params, vp, wi, out) -> int:
     distinct word the retired prefix touches, each fill word (and its
     round-robin pointer, read and written, on a miss under round_robin),
     each predictor entry written, each banked element's three words.
-    The whole cache arrays are not counted: the function needs only the
-    rows it probes."""
+    Under iocoom cores every tile reads its load and store queue rings
+    and its iocoom mask entry.  The whole cache arrays are not counted:
+    the function needs only the rows it probes."""
     import torch
     from graphite_tpu_torch.engine import cache as cachemod
     from graphite_tpu_torch.engine.kernels import window as kwin
@@ -899,6 +936,9 @@ def window_bytes(params, vp, wi, out) -> int:
     if params.net_user.model == "atac":
         moved += T * (4 + 4)                                  # atac tables
     moved += T * (8 + 4 + 12 * 8) + T * K * (1 + 4 + 8)       # fresh
+    if params.core.model == "iocoom":                         # rings, mask
+        moved += T * (8 * (wi.lq_ready.shape[0] + wi.sq_ready.shape[0])
+                      + 1)
     r = ret & act[:, None]
     for hit_touch, fill, pr, cp in (
             (r & is_comp & pI.hit, r & comp_l2, pI, params.l1i),
@@ -1381,9 +1421,9 @@ def main() -> int:
     from graphite_tpu_torch.engine.kernels.dispatch import (COUNTS,
                                                             reset_counts)
     from graphite_tpu_torch.engine.kernels.operands import (
-        chain_step_in_from_numpy, ff_in_from_numpy, random_chain_step_arrays,
-        random_ff_arrays, random_window_arrays, seeded_window_arrays,
-        spawn_window_arrays, window_in_from_numpy)
+        chain_step_in_from_numpy, ff_in_from_numpy, iocoom_window_arrays,
+        random_chain_step_arrays, random_ff_arrays, random_window_arrays,
+        seeded_window_arrays, spawn_window_arrays, window_in_from_numpy)
     from graphite_tpu_torch.engine.kernels import window as kwin
     from graphite_tpu_torch.engine.quantum import megarun, next_boundary
     from graphite_tpu_torch.engine.sim import Simulator, SimSummary
@@ -1932,6 +1972,61 @@ def main() -> int:
 
     ff_seeded = (config(**{**SHL2_MESI_FF, "tpu/miss_chain": 0}), fi_best)
     del got, ref, si, wi, fi_best
+
+    # ---- window_walk's iocoom branches: seeded sets under a uniform
+    # model list and mixed ones in both orders (the first and last tiles
+    # differ), speculative loads on and off, P = 0 and 12, with
+    # register-annotated events and queue completions above the clock;
+    # then windows captured from the port's own scoreboard64 run (one-
+    # entry queues), one of them timed beside phase 3's simple K = 16,
+    # P = 0 window.
+    n_ioc = 0
+    for label, over in IOCOOM_WALK_SETS:
+        for P in (0, CHAIN):
+            p = config(**over, **{"tpu/miss_chain": P})
+            v = variant_params(p)
+            for seed in range(4):
+                wi = window_in_from_numpy(iocoom_window_arrays(p, K, seed),
+                                          dev)
+                got, ref = walk_pair(kwin, p, v, wi, T)
+                torch.cuda.synchronize()
+                err_w = max(err_w, compare(
+                    "window_walk", got, ref,
+                    f"iocoom {label} P={P} seed {seed}"))
+                n_ioc += 1
+    pins16 = json.load(open(os.path.join(HERE, "tests", "data",
+                                         "card_pins_ioc_mt.json")))
+    sb = pins16["scoreboard64"]
+    sb_params = config(**sb["over"])
+    sb_vp = variant_params(sb_params)
+    sb_sim = Simulator(sb_params, getattr(synth, sb["trace"][0])(
+        **sb["trace"][1]), device=dev)
+
+    def late_drain(wi):
+        late = torch.maximum(wi.lq_ready.amax(0), wi.sq_ready.amax(0)) \
+            > wi.clock
+        return bool((late & wi.tile_active).any())
+
+    with Recorder(kcore.kwindow, "run_window", late_drain, 4) as rw:
+        sb_sim.run(max_steps=2)
+    check(len(rw.seen) == 4, f"captured {len(rw.seen)} scoreboard64 "
+                             f"windows with queues completing late")
+    for i, wi in enumerate(rw.seen):
+        got, ref = walk_pair(kwin, sb_params, sb_vp, wi, T)
+        torch.cuda.synchronize()
+        err_w = max(err_w, compare("window_walk", got, ref,
+                                   f"captured scoreboard64 window {i}"))
+        n_ioc += 1
+    print(f"kernel window_walk iocoom: {n_ioc} operand sets, every output "
+          f"leaf equal to the plain form, the written leaves the operands' "
+          f"own (max abs err {err_w})")
+    ms_ioc, plain_ioc, _ = walk_line("K=16 P=0 iocoom flags on", sb_params,
+                                     sb_vp, rw.seen[-1])
+    print(f"kernel window_walk iocoom flags on {ms_ioc:.6f} ms/launch "
+          f"(wrapper) against flags off {ms0:.6f} ms (phase 3's K=16 P=0 "
+          f"window) on {card}")
+    del sb_sim, rw, got, ref, wi
+    stamp("phase 3: window_walk iocoom")
 
     stamp("phase 3: kernels held against their plain forms")
 
@@ -3045,57 +3140,85 @@ def main() -> int:
           f"({qbytes} B of outputs compared)")
     stamp("phase 15: queue models on the card")
     from graphite_tpu_torch import convert
-    pins15 = json.load(open(os.path.join(HERE, "tests", "data",
-                                         "card_pins_dir_queue.json")))
-    for name in sorted(pins15):
-        pin = pins15[name]
-        gen, kw = pin["trace"]
-        p = config(**pin["over"])
-        held = peak_reset()
-        sim = Simulator(p, getattr(synth, gen)(**kw), device=dev)
-        reset_counts()
-        s, wall = advance(sim, pin["quanta"])
-        lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
-        c = round_ctrs(sim.state)
-        want = pin["cut"]
-        check_end(name, sim, s, want["completion_ps"],
-                  dict(clock_sum=want["clock_sum"],
-                       cursor_sum=want["cursor_sum"]))
-        for k, v in want["ctrs"].items():
-            check(c[k] == v, f"{name}: {k} {c[k]} != {v}")
-        leaves = convert.state_to_numpy(sim.state)
-        check(set(leaves) == set(want["leaves"]),
-              f"{name}: leaves {sorted(set(leaves) ^ set(want['leaves']))}")
-        bad = sorted(k for k, v in leaves.items()
-                     if leaf_digest(v) != want["leaves"][k])
-        check(not bad, f"{name}: leaves differ from the JAX package's: "
-                       f"{bad}")
-        check(lw == c["ctr_window"] and lw > 0,
-              f"{name}: window_walk launches {lw} != ctr_window "
-              f"{c['ctr_window']}")
-        # The chain replay runs under the full map only.
-        passes = c["ctr_resolve"] if p.miss_chain and \
-            p.directory.directory_type == "full_map" else 0
-        check(lc == p.miss_chain * passes,
-              f"{name}: chain_classify launches {lc} != {p.miss_chain} x "
-              f"{passes} chain passes")
-        r = c["round_ctr"]
-        print(f"{name}: cut at {pin['quanta']} quanta, every leaf and round "
-              f"counter the JAX package's (dram_qacc "
-              f"{leaf_digest(leaves['dram_qacc'])}), round_ctr {r}, latest "
-              f"clock {s.completion_time_ps / 1000:.1f} ns, invalidations "
-              f"{int(s.counters['dir_invalidations'].sum())}, net_mem_pkts "
-              f"{int(s.counters['net_mem_pkts'].sum())}; window_walk "
-              f"launches {lw}, chain_classify launches {lc}")
-        print(f"{name}: wall {wall:.3f} s, {1e3 * wall / r:.4f} ms/round, "
-              f"{peak_line(held)} on {card}")
-        del sim
-        stamp(f"phase 15: {name}")
+
+    def pinned_paths(phase, pins):
+        """Cut runs at T = 64, each held leaf by leaf (by digest) and
+        round counter by round counter to the JAX package's on the CPU
+        (tests/record_card_pins.py), window_walk launched once per window
+        round and chain_classify P times per chain pass (the replay runs
+        under a full-map directory with simple cores only).  Returns the
+        window_walk launches."""
+        total = 0
+        for name in sorted(pins):
+            pin = pins[name]
+            gen, kw = pin["trace"]
+            p = config(**pin["over"])
+            held = peak_reset()
+            sim = Simulator(p, getattr(synth, gen)(**kw), device=dev)
+            reset_counts()
+            s, wall = advance(sim, pin["quanta"])
+            lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
+            total += lw
+            c = round_ctrs(sim.state)
+            want = pin["cut"]
+            check_end(name, sim, s, want["completion_ps"],
+                      dict(clock_sum=want["clock_sum"],
+                           cursor_sum=want["cursor_sum"]))
+            for k, v in want["ctrs"].items():
+                check(c[k] == v, f"{name}: {k} {c[k]} != {v}")
+            leaves = convert.state_to_numpy(sim.state)
+            check(set(leaves) == set(want["leaves"]),
+                  f"{name}: leaves "
+                  f"{sorted(set(leaves) ^ set(want['leaves']))}")
+            bad = sorted(k for k, v in leaves.items()
+                         if leaf_digest(v) != want["leaves"][k])
+            check(not bad, f"{name}: leaves differ from the JAX package's: "
+                           f"{bad}")
+            check(lw == c["ctr_window"] and lw > 0,
+                  f"{name}: window_walk launches {lw} != ctr_window "
+                  f"{c['ctr_window']}")
+            replay = p.miss_chain and p.core.model == "simple" \
+                and p.directory.directory_type == "full_map"
+            passes = c["ctr_resolve"] if replay else 0
+            check(lc == p.miss_chain * passes,
+                  f"{name}: chain_classify launches {lc} != "
+                  f"{p.miss_chain} x {passes} chain passes")
+            check(not replay or lc > 0,
+                  f"{name}: chain_classify never launched")
+            r = c["round_ctr"]
+            mt = {k: int(s.counters[f"l2_miss_{k}"].sum())
+                  for k in ("cold", "capacity", "sharing")}
+            print(f"{name}: cut at {pin['quanta']} quanta, every leaf and "
+                  f"round counter the JAX package's (dram_qacc "
+                  f"{leaf_digest(leaves['dram_qacc'])}), round_ctr {r}, "
+                  f"latest clock {s.completion_time_ps / 1000:.1f} ns, "
+                  f"invalidations "
+                  f"{int(s.counters['dir_invalidations'].sum())}, "
+                  f"net_mem_pkts {int(s.counters['net_mem_pkts'].sum())}, "
+                  f"l2 misses cold {mt['cold']} capacity {mt['capacity']} "
+                  f"sharing {mt['sharing']}; window_walk launches {lw}, "
+                  f"chain_classify launches {lc}")
+            print(f"{name}: wall {wall:.3f} s, {1e3 * wall / r:.4f} "
+                  f"ms/round, {peak_line(held)} on {card}")
+            del sim
+            stamp(f"phase {phase}: {name}")
+        return total
+
+    pinned_paths(15, json.load(open(os.path.join(
+        HERE, "tests", "data", "card_pins_dir_queue.json"))))
+
+    # ---- 16. miss-type tracking and the iocoom cores (uniform and mixed
+    # model lists)
+    lw16 = pinned_paths(16, pins16)
+    print(f"phase 16: window_walk launches {lw16} over its "
+          f"{len(pins16)} paths")
 
     kernels = [{
         "name": "window_walk",
         "route": "cuda",
         "source": "graphite_tpu_torch/engine/kernels/csrc/window_walk.cu",
+        "note": "carries the iocoom branches (drain floors, draining "
+                "branches on the absolute clock, annotated hits declined)",
         "replaces": "graphite_tpu/engine/kernels/window.py:163",
         "launches": lw12,
         "max_abs_err": err_w,

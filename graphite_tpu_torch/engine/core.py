@@ -1,8 +1,9 @@
 """Local (intra-tile) event processing — the per-quantum core phase.
 
 Counterpart of ``graphite_tpu/engine/core.py`` on the port's path
-(simple cores under the four coherence protocols, ``tpu/miss_chain`` 0
-to 256, ``tpu/fast_forward`` on or off):
+(simple and iocoom cores, uniform or mixed per tile, under the four
+coherence protocols, ``tpu/miss_chain`` 0 to 256, ``tpu/fast_forward``
+on or off):
 
   * ``_block_retire`` — every round takes the next ``block_events``
     events of every tile as one [T, K] window (from the resident window
@@ -24,12 +25,17 @@ to 256, ``tpu/fast_forward`` on or off):
     and the ROI markers retire in closed form, DONE retires the stream.
     With more trace streams than tiles each tile reads its seated
     stream's trace row, and a YIELD marks the seat for rotation
-    (engine/quantum.schedule_rotate).
+    (engine/quantum.schedule_rotate).  On an iocoom tile the drain
+    points wait for the load/store queues, a COMPUTE naming a source
+    register waits for its scoreboard entry, and register-writing
+    COMPUTEs and hitting loads land their completion there.
   * ``local_advance`` — the analytic rounds first (at
     ``tpu/fast_forward`` > 0); then at P = 0, window rounds until they
     stop retiring, then one general slot, repeated while anything moves;
     at P > 0 the chain cadence: a few window rounds to fill the bank,
-    then one guarded general slot.
+    then one guarded general slot.  Under iocoom cores both
+    fast-forward surfaces are off (register floors disqualify the
+    closed form), as in the JAX package.
 
 The JAX package's ``lax.while_loop``/``lax.cond`` become Python loops
 whose conditions read one device scalar each; their trip counts are part
@@ -202,6 +208,8 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
         stamp_base=_stamp_base(st),
         **({f: getattr(st, f) for f in kwindow.CHAIN_IN_FIELDS}
            if P > 0 else {}),
+        **(dict(lq_ready=st.lq_ready, sq_ready=st.sq_ready)
+           if params.core.model == "iocoom" else {}),
     )
     return st, wi
 
@@ -299,15 +307,16 @@ def _fast_forward_guarded(params: SimParams, vp: VariantParams,
                           state: SimState,
                           trace: TraceArrays) -> SimState:
     """The analytic leg's gate: skipped when the leg is off
-    (``_ff_width`` 0), with the ThreadScheduler seated (a seat rotation
+    (``_ff_width`` 0), under iocoom cores (register floors disqualify
+    the closed form), with the ThreadScheduler seated (a seat rotation
     is a thread switch no span may cross), when the run-ahead span is 0
     (the walk's engage rule, commits past the window bound, can then
     never fire), when no tile is a candidate, or when models are
     disabled.  Otherwise analytic rounds while the cursor sum grows, at
     most ``max(1, max_events_per_quantum)``.  At P > 0 tiles with
     pending chain heads are no candidates."""
-    if _ff_width(params) == 0 or state.sched_enabled \
-            or vp.fast_forward_span_ps <= 0:
+    if _ff_width(params) == 0 or params.core.model == "iocoom" \
+            or state.sched_enabled or vp.fast_forward_span_ps <= 0:
         return state
     N = trace.num_events
     P = params.miss_chain
@@ -381,7 +390,40 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
             & ~(op == EventOp.DISABLE_MODELS).any()
     else:
         models_enabled = st.models_enabled
-    clk = st.clock
+
+    iocoom = params.core.model == "iocoom"
+    iot = kwindow.iocoom_mask(params, dev) if params.core.mixed else None
+    if iocoom:
+        # Drain points wait for every outstanding load and store: atomics,
+        # the sync, thread and message kinds, SYNC, SPAWN, DVFS_SET,
+        # SYSCALL, DONE, and branches unless loads are speculative.
+        drain_t = torch.maximum(torch.amax(st.lq_ready, dim=0),
+                                torch.amax(st.sq_ready, dim=0))
+        drain_op = torch.zeros_like(active)
+        for k in (EventOp.ATOMIC, EventOp.BARRIER_WAIT, EventOp.MUTEX_LOCK,
+                  EventOp.MUTEX_UNLOCK, EventOp.COND_WAIT,
+                  EventOp.COND_SIGNAL, EventOp.COND_BROADCAST,
+                  EventOp.JOIN, EventOp.RECV, EventOp.SEND, EventOp.SYNC,
+                  EventOp.SPAWN, EventOp.DVFS_SET, EventOp.SYSCALL,
+                  EventOp.DONE):
+            drain_op = drain_op | (op == k)
+        if not params.core.speculative_loads:
+            drain_op = drain_op | (op == EventOp.BRANCH)
+        if iot is not None:
+            drain_op = drain_op & iot
+        clk = torch.where(drain_op, torch.maximum(st.clock, drain_t),
+                          st.clock)
+        # The scoreboard's read-after-write floor: a COMPUTE naming a
+        # source register waits for that register's ready time.
+        sreg = (arg2 >> 20) & 31          # source register + 1, 0 = none
+        has_sreg = (op == EventOp.COMPUTE) & (sreg > 0)
+        if iot is not None:
+            has_sreg = has_sreg & iot
+        rr = st.reg_ready[torch.clamp(sreg - 1, min=0).to(torch.int64),
+                          rows]
+        clk = torch.where(has_sreg, torch.maximum(clk, rr), clk)
+    else:
+        clk = st.clock
 
     p_core = _period(st, DVFSModule.CORE)
     p_l1i = _period(st, DVFSModule.L1_ICACHE)
@@ -744,6 +786,20 @@ def _complex_slot(params: SimParams, vp: VariantParams, state: SimState,
         st = st._replace(seat_yield=st.seat_yield | is_yield)
     else:
         done_at = torch.where(is_done, clk, st.done_at)
+    if iocoom:
+        # Scoreboard writes: a register-writing COMPUTE lands its
+        # completion, a hitting load its hit completion (a missing load's
+        # lands in resolve, from pend_aux bits 8-12).  One row per tile.
+        dregc = (arg2 >> 25) & 31
+        wreg = torch.where(is_comp & (dregc > 0), dregc,
+                           torch.where((mem_l1 | mem_l2) & is_rd
+                                       & (mdreg > 0), mdreg, 0))
+        sb_write = (wreg > 0) & active
+        if iot is not None:
+            sb_write = sb_write & iot
+        st = st._replace(reg_ready=scatter(
+            st.reg_ready, ((wreg - 1).to(torch.int64), rows), new_clock,
+            "max", mask=sb_write))
     return st._replace(
         clock=new_clock,
         cursor=st.cursor + torch.where(active & ~blocked, 1, 0).to(
@@ -789,8 +845,9 @@ def _complex_slot_guarded(params: SimParams, vp: VariantParams,
     eligible tile (empty chain, un-parked, inside the spanned bound)
     whose next event is one the window never takes (every kind but
     COMPUTE, BRANCH, MEM_READ, MEM_WRITE, STALL, SYNC and SPAWN), or any
-    eligible tile while models are off.  Skipping
-    is result-identical; at P == 0 the slot runs unconditionally."""
+    eligible tile while models are off or the cores are iocoom.
+    Skipping is result-identical; at P == 0 the slot runs
+    unconditionally."""
     if params.miss_chain <= 0:
         return _complex_slot(params, vp, state, trace)
     N = trace.num_events
@@ -798,7 +855,9 @@ def _complex_slot_guarded(params: SimParams, vp: VariantParams,
     eligible = (~state.done) & (state.pend_kind == PEND_NONE) \
         & (state.clock < gbound) & (state.cursor < N) \
         & (state.mq_count == 0)
-    if params.block_events > 0:
+    # Under iocoom annotated events decline the window, so the op class
+    # does not tell whether the slot is needed.
+    if params.core.model != "iocoom" and params.block_events > 0:
         cur = torch.clamp(state.cursor, max=N - 1).to(torch.int64)
         op = trace.meta[0, state.trace_rows(), cur]
         window_class = ((op == EventOp.COMPUTE) | (op == EventOp.BRANCH)
@@ -863,6 +922,7 @@ def local_advance(params: SimParams, state: SimState,
     if params.fast_forward > 0:
         state = _fast_forward_guarded(params, vp, state, trace)
         if _ff_width(params) > params.block_events \
+                and params.core.model != "iocoom" \
                 and not state.sched_enabled:
             wide = _ff_width(params)
     if params.miss_chain > 0:

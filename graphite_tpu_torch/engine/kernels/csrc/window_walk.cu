@@ -8,8 +8,8 @@
 // graphite_tpu_torch/engine/kernels/window.py `window_walk`; both must
 // agree on every output element.
 //
-// Scope: simple in-order cores under every coherence protocol of the
-// engine: private L1I / L1D / L2 (MSI, MOSI), or private L1s and no
+// Scope: simple in-order and iocoom cores (below) under every coherence
+// protocol of the engine: private L1I / L1D / L2 (MSI, MOSI), or private L1s and no
 // private L2 (shared-L2 MSI and MESI: `shared_l2`, the L2 pointer null),
 // miss chains off (P = 0) or on (P = tpu/miss_chain > 0, with or without
 // the fan-out replay's forwarding and boundary spanning), one-bit or no
@@ -18,7 +18,20 @@
 // mesh's XY hops, emesh_hop_counter or emesh_hop_by_hop, zero-load in
 // both packages here; atac's ENet or ONet by the two tiles' clusters,
 // from the per-tile `cluster_of` and `ap_hops` tables).  The wrapper
-// refuses iocoom cores and windows wider than 64.
+// refuses windows wider than 64.
+//
+// iocoom (`iocoom`; a per-tile `iocoom_mask`, all ones under a uniform
+// model list): the block first reduces its tile's load/store rings to
+// `drain_t`, their latest completion (the rings are read only: resolve
+// alone writes them).  On an iocoom tile a register-annotated hit (a
+// COMPUTE naming a source or destination register, a read naming a
+// destination) declines the window; SPAWN, SYNC and, without speculative
+// loads (`spec_loads`), BRANCH take `drain_t` as their clock floor, and
+// such a branch moves from the relative retire class to the absolute
+// one.  Under an iocoom model list every spawn lands from
+// max(clock before it, its floor).  The kernel is instantiated twice
+// (`kIocoom`): the simple cores' instance compiles none of this, so they
+// pay nothing for it.
 //
 // Shared L2: an L1 miss goes to the home slice (no L2 probe, fill,
 // touch or counter; the miss is issued after the L1 tag check alone),
@@ -94,6 +107,10 @@ constexpr int kCtrs = 12;
 // Event opcodes (graphite_tpu_torch/isa.py EventOp).
 constexpr int OP_NOP = 0, OP_COMPUTE = 1, OP_MEM_READ = 2, OP_MEM_WRITE = 3,
               OP_BRANCH = 4, OP_SYNC = 7, OP_SPAWN = 8, OP_STALL = 9;
+// Register annotations (events/schema.py): a COMPUTE's source and
+// destination registers + 1 above bit 20 of arg2, a read's destination
+// register + 1 in bits 8-12.
+constexpr int kCompRegShift = 20, kMemDstShift = 8;
 // Pending-request kinds (engine/state.py).
 constexpr int64_t PEND_SH_REQ = 1, PEND_EX_REQ = 2, PEND_IFETCH = 3;
 // Per-event flags, in shared memory for the other events' rules.
@@ -157,6 +174,11 @@ struct WalkArgs {
   // access point (null otherwise)
   const int32_t* cluster_of;      // [T]
   const int32_t* ap_hops;         // [T]
+  // iocoom cores (null otherwise): the load and store queues' completion
+  // times (read only) and the tiles that run the iocoom model
+  const int64_t* lq_ready;        // [LQE, T]
+  const int64_t* sq_ready;        // [SQE, T]
+  const uint8_t* iocoom_mask;     // [T]
   // geometry and timing
   int64_t T, K, NM;
   int64_t l1i_assoc, l1i_sets, l1i_round_robin;
@@ -178,6 +200,9 @@ struct WalkArgs {
   int64_t l2_tags_cycles;
   int64_t shared_l2;              // no private L2 (pr_l1_sh_l2_*)
   int64_t mesi;                   // E lines writable (pr_l1_sh_l2_mesi)
+  int64_t LQE, SQE;               // ring entries (iocoom)
+  int64_t iocoom;                 // an iocoom model list (uniform or mixed)
+  int64_t spec_loads;             // speculative loads: branches do not drain
 };
 
 namespace {
@@ -186,6 +211,10 @@ namespace {
 __device__ __forceinline__ int64_t fmod_pos(int64_t x, int64_t n) {
   int64_t r = x % n;
   return r < 0 ? r + n : r;
+}
+
+__device__ __forceinline__ int64_t max64(int64_t x, int64_t y) {
+  return x > y ? x : y;
 }
 
 __device__ __forceinline__ int32_t word_state(int64_t w) {
@@ -284,6 +313,7 @@ __device__ __forceinline__ void touch(int64_t* arr, int64_t T, int64_t S,
             static_cast<long long>(with_stamp(p.word, stamp)));
 }
 
+template <bool kIocoom>
 __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   const int64_t t = blockIdx.x;
   const int j = threadIdx.x;
@@ -304,7 +334,7 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   __shared__ int64_t s_pline[kMaxBank];
   __shared__ int32_t s_pset[kMaxBank];
   __shared__ uint8_t s_pif[kMaxBank];
-  __shared__ int64_t s_fin_clk;
+  __shared__ int64_t s_fin_clk, s_drain;
   __shared__ int s_n;
   __shared__ uint32_t s_ctr[kWarps][kCtrs];
 
@@ -318,6 +348,17 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   const int64_t nm0 = P > 0 ? a.mq_count[t] : 0;
   const int64_t rel0 = P > 0 ? a.chain_rel[t] : 0;
   const int64_t phead = P > 0 ? a.mq_head[t] : 0;
+  // iocoom: the latest completion in the tile's load and store queues
+  if (kIocoom) {
+    if (j == 0) {
+      int64_t d = kNegFloor;
+      for (int64_t q = 0; q < a.LQE; ++q) d = max64(d, a.lq_ready[q * T + t]);
+      for (int64_t q = 0; q < a.SQE; ++q) d = max64(d, a.sq_ready[q * T + t]);
+      s_drain = d;
+    }
+    __syncthreads();
+  }
+  const bool ioc_t = kIocoom && a.iocoom_mask[t] != 0;
 
   // ---- the event (every thread of the window) and its spawn landing
   const bool valid = live && a.valid_ev[e] != 0;
@@ -346,12 +387,22 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
     net = (cyc + a.nu_ser_cycles) * p_nu;
   }
 
+  // The event's clock floor: STALL and SYNC at their time, and on an
+  // iocoom tile a drain point at the queues' latest completion.
+  const bool is_stall = op == OP_STALL, is_sync = op == OP_SYNC;
+  const bool is_spawn = op == OP_SPAWN, is_br = op == OP_BRANCH;
+  const bool br_drain = ioc_t && !a.spec_loads && is_br;
+  int64_t floor_ev = (is_stall || is_sync) ? addr : kNegFloor;
+  if (ioc_t && (is_spawn || is_sync || br_drain))
+    floor_ev = max64(floor_ev, s_drain);
+
   // ---- a tile that retires nothing (inactive, or models disabled):
   // its clock, chain state and spawn landings pass through
   if (a.tile_active[t] == 0 || a.models_enabled[0] == 0) {
     if (live) {
       a.spawn_child[e] = child;
-      a.spawn_land[e] = clk0 + dt_spawn + net;
+      a.spawn_land[e] = (kIocoom ? max64(clk0, floor_ev) : clk0) + dt_spawn +
+                        net;
       a.spawn_mask[e] = 0;
     }
     if (j < kCtrs) a.ctr_inc[j * T + t] = 0;
@@ -373,12 +424,14 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   const bool shared = a.shared_l2 != 0;
 
   const int64_t line = addr >> a.line_bits;
-  const bool is_comp = op == OP_COMPUTE, is_br = op == OP_BRANCH;
+  const bool is_comp = op == OP_COMPUTE;
   const bool is_rd = op == OP_MEM_READ, is_wr = op == OP_MEM_WRITE;
   const bool is_mem = is_rd || is_wr;
-  const bool is_stall = op == OP_STALL, is_sync = op == OP_SYNC;
-  const bool is_spawn = op == OP_SPAWN;
   const bool taken = arg != 0;
+  // iocoom: a register-annotated hit declines the window
+  const bool annotated =
+      ioc_t && ((is_comp && (arg2 >> kCompRegShift) != 0) ||
+                (is_rd && ((arg2 >> kMemDstShift) & 31) != 0));
 
   // ---- phase A: probes against window-start state, classification
   Probe pI = probe_init(line, a.l1i_sets);
@@ -538,8 +591,10 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
     }
   }
   const bool correct = a.bp_size > 0 ? pred == taken : true;
-  const bool mem_simple = is_mem && (l1_ok || mem_l2 || mem_fwd);
-  const bool comp_simple = is_comp && (pI.hit || comp_l2 || comp_fwd);
+  const bool mem_simple =
+      is_mem && (((l1_ok || mem_l2) && !annotated) || mem_fwd);
+  const bool comp_simple =
+      is_comp && (((pI.hit || comp_l2) && !annotated) || comp_fwd);
   const int64_t icount_ev =
       static_cast<int64_t>(max(arg2 & ((1 << 20) - 1), 0));
   int64_t n_lines = (icount_ev * kIcacheBytesPerInstruction +
@@ -556,9 +611,12 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
     if (is_spawn) dt = dt_spawn;
     const bool base_ok = valid && !hazard;
     s_dt[j] = dt;
-    s_floor[j] = (is_stall || is_sync) ? addr : kNegFloor;
-    s_ok[j] = (base_ok && (comp_simple || mem_simple || is_br) ? OK_REL : 0) |
-              (base_ok && (is_stall || is_sync || is_spawn) ? OK_ABS : 0) |
+    s_floor[j] = floor_ev;
+    // a draining branch retires on the absolute clock
+    s_ok[j] = (base_ok && (comp_simple || mem_simple || (is_br && !br_drain))
+                   ? OK_REL : 0) |
+              (base_ok && (is_stall || is_sync || is_spawn || br_drain)
+                   ? OK_ABS : 0) |
               (base_ok && (mem_bank || comp_bank) ? OK_BANK : 0);
   }
   __syncthreads();
@@ -615,7 +673,9 @@ __global__ void __launch_bounds__(kMaxWindow) window_walk_kernel(WalkArgs a) {
   const bool ret = live && j < n;
   if (live) {
     a.spawn_child[e] = child;
-    a.spawn_land[e] = (ret ? s_clk[j] : s_fin_clk) + dt_spawn + net;
+    const int64_t before = ret ? s_clk[j] : s_fin_clk;
+    a.spawn_land[e] =
+        (kIocoom ? max64(before, floor_ev) : before) + dt_spawn + net;
     a.spawn_mask[e] = (is_spawn && ret) ? 1 : 0;
   }
   uint32_t c[kCtrs];
@@ -705,8 +765,12 @@ extern "C" int window_walk_launch(const WalkArgs* args, void* stream) {
   if (args->T == 0) return 0;
   const unsigned threads =
       static_cast<unsigned>((args->K + 31) / 32 * 32);
-  window_walk_kernel<<<static_cast<unsigned>(args->T), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(*args);
+  const unsigned blocks = static_cast<unsigned>(args->T);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (args->iocoom)
+    window_walk_kernel<true><<<blocks, threads, 0, s>>>(*args);
+  else
+    window_walk_kernel<false><<<blocks, threads, 0, s>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -336,6 +336,60 @@ def spawn_window_arrays(params: SimParams, K: int, seed: int) -> dict:
     return a
 
 
+def iocoom_window_arrays(params: SimParams, K: int, seed: int) -> dict:
+    """Walk operands for iocoom cores (``params.core.model`` "iocoom",
+    uniform or mixed): :func:`seeded_window_arrays`' tiles (odd seeds:
+    :func:`spawn_window_arrays`') with register annotations on about a
+    third of the COMPUTEs (a source and a destination register, or a
+    destination alone) and reads (a destination register), more
+    BRANCHes, SYNCs and SPAWNs, and the load and store queues'
+    completion rings, whose latest completion lies above the tile's
+    clock on about half the tiles (and above some SYNC floors)."""
+    a = seeded_window_arrays(params, K, seed) if seed % 2 == 0 \
+        else spawn_window_arrays(params, K, seed)
+    rng = np.random.default_rng(20_000 + seed)
+    T = params.num_tiles
+    COMP, RD = int(EventOp.COMPUTE), int(EventOp.MEM_READ)
+    op, arg, arg2 = (x.copy() for x in a["meta"])
+    addr = a["addr"].copy()
+    clock = a["clock"]
+    # More drain points: a few events become branches, SYNCs and SPAWNs.
+    r = rng.random((T, K))
+    br, sync, spawn = r < 0.06, (r >= 0.06) & (r < 0.1), \
+        (r >= 0.1) & (r < 0.13)
+    op = np.where(br, int(EventOp.BRANCH), op)
+    arg = np.where(br, rng.integers(0, 2, (T, K)), arg)
+    op = np.where(sync, int(EventOp.SYNC), op)
+    addr = np.where(sync, clock[:, None]
+                    + rng.integers(-20_000, 200_000, size=(T, K)), addr)
+    op = np.where(spawn, int(EventOp.SPAWN), op)
+    arg2 = np.where(spawn, rng.integers(0, T, (T, K)), arg2)
+    # Register annotations (events/schema.py): src + 1 << 20, dst + 1 <<
+    # 25 on a COMPUTE; dst + 1 << 8 on a read.
+    ann = rng.random((T, K)) < 0.35
+    src = np.where(rng.random((T, K)) < 0.5, rng.integers(1, 33, (T, K)), 0)
+    dst = rng.integers(1, 33, (T, K))
+    comp_ann = (arg2 & ((1 << 20) - 1)) | (src << 20) | (dst << 25)
+    arg2 = np.where((op == COMP) & ann, comp_ann, arg2)
+    arg2 = np.where((op == RD) & ann, (arg2 & 0xFF) | (dst << 8), arg2)
+    LQE = params.core.load_queue_entries
+    SQE = params.core.store_queue_entries
+
+    def ring(n):
+        late = rng.random(T) < 0.5
+        return np.where(
+            late[None, :] & (rng.random((n, T)) < 0.5),
+            clock[None, :] + rng.integers(1, 400_000, (n, T)),
+            np.maximum(clock[None, :] - rng.integers(0, 3_000_000, (n, T)),
+                       0)).astype(np.int64)
+
+    a["meta"] = np.stack([op, arg, arg2]).astype(np.int32)
+    a["addr"] = addr.astype(np.int64)
+    a["lq_ready"] = ring(LQE)
+    a["sq_ready"] = ring(SQE)
+    return a
+
+
 def window_in_from_numpy(arrays: dict, device) -> WindowIn:
     """A :class:`WindowIn` on ``device`` from numpy operands."""
     dev = torch.device(device)

@@ -7,12 +7,12 @@ max-plus clock prefix, chain banking into the [P, T] ``mq_*`` arrays at
 ``tpu/miss_chain = P > 0`` (with forwarding onto pending fills), LRU
 touches and fills, and counter accumulation.  It is the counterpart of
 ``graphite_tpu/engine/kernels/window.py:163``, transliterated for this
-slice's configuration: simple in-order cores under every coherence
-protocol (private L1/L2 under MSI or MOSI; private L1s and no private L2
-under shared-L2 MSI or MESI), miss chains off or on, narrow windows (K =
-``block_events``) and the wide windows of ``tpu/fast_forward`` (K =
-``core._ff_width``, at most 64).  iocoom cores are refused (a later
-slice).
+slice's configuration: simple in-order and iocoom cores (a uniform
+model list, or a mixed one with a per-tile iocoom mask) under every
+coherence protocol (private L1/L2 under MSI or MOSI; private L1s and no
+private L2 under shared-L2 MSI or MESI), miss chains off or on, narrow
+windows (K = ``block_events``) and the wide windows of
+``tpu/fast_forward`` (K = ``core._ff_width``, at most 64).
 
 The module also holds the fast-forward walk, ``fast_forward_walk``: the
 closed-form pricing of each candidate tile's longest hit/compute-only
@@ -43,6 +43,7 @@ count their launches in ``dispatch.COUNTS``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -75,9 +76,9 @@ def _lat(cycles, period_ps):
 
 
 class WindowIn(NamedTuple):
-    """Window-walk operands (the JAX WindowIn's fields that exist with
-    simple cores; the L2 fields None under the shared-L2 protocols, the
-    chain fields only at P > 0)."""
+    """Window-walk operands (the JAX WindowIn's fields; the L2 fields
+    None under the shared-L2 protocols, the chain fields only at P > 0,
+    the load/store rings only under iocoom cores)."""
 
     meta: torch.Tensor           # [3, T, K] int32 (op, arg, arg2)
     addr: torch.Tensor           # [T, K] int64
@@ -103,6 +104,9 @@ class WindowIn(NamedTuple):
     mq_req: Optional[torch.Tensor] = None     # [P, T] int64
     mq_delta: Optional[torch.Tensor] = None   # [P, T] int64
     mq_extra: Optional[torch.Tensor] = None   # [P, T] int64
+    # iocoom load/store completion rings (None for simple cores).
+    lq_ready: Optional[torch.Tensor] = None   # [LQE, T] int64
+    sq_ready: Optional[torch.Tensor] = None   # [SQE, T] int64
 
 
 CHAIN_IN_FIELDS = ("chain_rel", "mq_count", "mq_head", "mq_req",
@@ -173,23 +177,38 @@ def _ff_bound(params: SimParams, vp, boundary):
     return b
 
 
-def check_window_config(params: SimParams) -> None:
-    """The walk's scope in this slice; anything else is a later slice."""
-    if params.core.model != "simple":
-        raise NotImplementedError(
-            "the window walk for iocoom cores is ported in a later slice")
+@functools.lru_cache(maxsize=None)
+def _iocoom_mask(mask: Optional[tuple], T: int, device) -> torch.Tensor:
+    """[T] bool: the tiles that run the iocoom model (all of them under a
+    uniform model list), made once per model list and device."""
+    m = [True] * T if mask is None else list(mask)
+    return torch.tensor(m, dtype=torch.bool, device=device)
+
+
+def iocoom_mask(params: SimParams, device) -> Optional[torch.Tensor]:
+    """The per-tile iocoom mask of an iocoom model list, None for simple
+    cores."""
+    if params.core.model != "iocoom":
+        return None
+    return _iocoom_mask(params.core.iocoom_mask, params.num_tiles,
+                        torch.device(device))
 
 
 def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
                 s_ids: int) -> WindowOut:
     """Classify + retire one [T, K] window — the plain PyTorch form, a
-    transliteration of the JAX walk for simple cores, at any P (see graphite_tpu/engine/kernels/window.py and engine/core.py
-    for the semantics commentary).  Pure: reads only ``wi``, returns
-    every effect.  With shared L2 there is no private L2 (its operands
-    and outputs are None): an L1 miss goes to the home slice, and under
-    MESI an E line is writable, a write to it upgrading the line to M
-    in its touch."""
-    check_window_config(params)
+    transliteration of the JAX walk at any P (see
+    graphite_tpu/engine/kernels/window.py and engine/core.py for the
+    semantics commentary).  Pure: reads only ``wi``, returns every
+    effect.  With shared L2 there is no private L2 (its operands and
+    outputs are None): an L1 miss goes to the home slice, and under MESI
+    an E line is writable, a write to it upgrading the line to M in its
+    touch.  On an iocoom tile a register-annotated hit declines the
+    window (the complex slot applies the scoreboard), SPAWN, SYNC and,
+    without speculative loads, BRANCH wait for the tile's outstanding
+    loads and stores (``drain_t``, the rings' latest completion), which
+    makes such a branch retire on the absolute clock; a spawn lands from
+    the clock floored at its event's floor."""
     K = wi.addr.shape[1]
     TL = wi.clock.shape[0]
     P = params.miss_chain
@@ -199,6 +218,10 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     wbound = _spanned_bound(params, vp, wi.boundary)
     shared_l2 = params.shared_l2
     mesi_local = params.protocol_kind == "sh_l2_mesi"
+    iocoom = params.core.model == "iocoom"
+    # The iocoom tiles ([T, 1]; None under a uniform list, where every
+    # tile is one).
+    iot = iocoom_mask(params, dev)[:, None] if params.core.mixed else None
 
     l1i = cachemod.CacheArrays(word=wi.l1i_word, rr_ptr=wi.l1i_rr)
     l1d = cachemod.CacheArrays(word=wi.l1d_word, rr_ptr=wi.l1d_rr)
@@ -246,6 +269,15 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         comp_l2 = is_comp & ~pI.hit & pL2.hit
     mem_simple = is_mem & (l1_ok | mem_l2)
     comp_simple = is_comp & (pI.hit | comp_l2)
+    if iocoom:
+        # A register-annotated hit needs the complex slot's RAW floor and
+        # scoreboard write: it declines the window.
+        annotated = (is_comp & ((arg2 >> 20) != 0)) \
+            | (is_rd & (((arg2 >> 8) & 31) != 0))
+        if iot is not None:
+            annotated = annotated & iot
+        mem_simple = mem_simple & ~annotated
+        comp_simple = comp_simple & ~annotated
     fill_d = mem_l2                           # L1D fill from local L2 hit
     fill_i = comp_l2                          # L1I fill from local L2 hit
 
@@ -256,6 +288,16 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
         comp_bank0 = is_comp & ~pI.hit & ~comp_l2
     else:
         mem_bank0 = comp_bank0 = none
+
+    # iocoom drain points: SPAWN, SYNC and (without speculative loads)
+    # BRANCH wait for every outstanding load and store.
+    if iocoom:
+        drain_t = torch.maximum(torch.amax(wi.lq_ready, dim=0),
+                                torch.amax(wi.sq_ready, dim=0))[:, None]
+        drain_ev = is_spawn | is_sync \
+            | (none if params.core.speculative_loads else is_br)
+        if iot is not None:
+            drain_ev = drain_ev & iot
 
     ar = torch.arange(K, device=dev)
     earlier = ar[None, :, None] > ar[None, None, :]           # [1, Kj, Ki]
@@ -376,9 +418,15 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
                 & (pL2.set_idx[:, :, None] == p2_set[:, None, :]), dim=2))
         hazard = hazard | haz_pend
 
+    # Retire classes: a draining branch retires on the absolute clock.
+    if iocoom and not params.core.speculative_loads:
+        br_drain = is_br if iot is None else is_br & iot
+    else:
+        br_drain = none
+    br_rel = is_br & ~br_drain
     base_ok = valid_ev & ~hazard & en
-    ok_rel = (comp_simple | mem_simple | is_br) & base_ok
-    ok_abs = (is_stall | is_sync | is_spawn) & base_ok
+    ok_rel = (comp_simple | mem_simple | br_rel) & base_ok
+    ok_abs = (is_stall | is_sync | is_spawn | br_drain) & base_ok
     ok_bank = (mem_bank | comp_bank) & base_ok
     ok = ok_rel | ok_abs | ok_bank
 
@@ -420,6 +468,8 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     dt = torch.where(is_spawn, dt_spawn, dt)
     NEGF = -(2**62)
     floor = torch.where(is_stall | is_sync, addr, NEGF)
+    if iocoom:
+        floor = torch.where(drain_ev, torch.maximum(floor, drain_t), floor)
 
     # ---- max-plus prefix.  At P > 0 a banked miss records its issue
     # point (absolute for the chain's first element, else relative to the
@@ -468,7 +518,8 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
 
     # ---- SPAWN landing times (the cross-tile scatter is the caller's)
     child = torch.clip(arg2, 0, s_ids - 1)
-    spawn_land = clk_before + dt_spawn + noc.unicast_ps(
+    spawn_base = torch.maximum(clk_before, floor) if iocoom else clk_before
+    spawn_land = spawn_base + dt_spawn + noc.unicast_ps(
         params.net_user,
         torch.broadcast_to(wi.tile_ids[:, None], (TL, K)),
         child % params.num_tiles, 8,
@@ -615,7 +666,7 @@ class _WalkArgs(ctypes.Structure):
         "clock_out", "n_ret", "ctr_inc", "spawn_mask", "spawn_child",
         "spawn_land", "chain_rel", "mq_count", "mq_head", "mq_req",
         "mq_delta", "mq_extra", "chain_rel_out", "mq_count_out",
-        "cluster_of", "ap_hops")] + [
+        "cluster_of", "ap_hops", "lq_ready", "sq_ready", "iocoom_mask")] + [
         (n, ctypes.c_int64) for n in (
         "T", "K", "NM", "l1i_assoc", "l1i_sets", "l1i_round_robin",
         "l1d_assoc", "l1d_sets", "l1d_round_robin", "l2_assoc", "l2_sets",
@@ -624,7 +675,8 @@ class _WalkArgs(ctypes.Structure):
         "col_l2", "col_nu", "s_ids", "num_tiles", "mesh_width", "nu_kind",
         "nu_hop_cycles", "nu_ser_cycles", "nu_onet_cycles", "nu_atac_dist",
         "nu_atac_thresh", "P", "wfwd", "qps", "wbound_add",
-        "l2_tags_cycles", "shared_l2", "mesi")]
+        "l2_tags_cycles", "shared_l2", "mesi", "LQE", "SQE", "iocoom",
+        "spec_loads")]
 
 
 def _check(name, t, dtype, shape, dev):
@@ -689,6 +741,15 @@ def _check_inputs(params: SimParams, wi: WindowIn) -> None:
                 ("mq_head", i32, (T,)), ("mq_req", i64, (P, T)),
                 ("mq_delta", i64, (P, T)), ("mq_extra", i64, (P, T))):
             _check(name, getattr(wi, name), dt, shape, dev)
+    iocoom = params.core.model == "iocoom"
+    for name, n in (("lq_ready", params.core.load_queue_entries),
+                    ("sq_ready", params.core.store_queue_entries)):
+        t = getattr(wi, name)
+        if (t is None) == iocoom:
+            raise ValueError(f"window_walk: {name} is given iff the cores "
+                             f"are iocoom")
+        if t is not None:
+            _check(name, t, i64, (n, T), dev)
     dispatch.check_no_alias("window_walk", wi, INPLACE_FIELDS)
 
 
@@ -722,11 +783,18 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
     cluster_of, ap_hops = noc_atac.kernel_tables(nu, wi.clock.device)
     flits = noc.num_flits(8, vp.net_user.flit_width_bits)
     P = params.miss_chain
+    iot = iocoom_mask(params, wi.clock.device)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
     return _WalkArgs(
+        lq_ready=ptr(wi.lq_ready), sq_ready=ptr(wi.sq_ready),
+        iocoom_mask=ptr(iot),
+        LQE=0 if wi.lq_ready is None else wi.lq_ready.shape[0],
+        SQE=0 if wi.sq_ready is None else wi.sq_ready.shape[0],
+        iocoom=int(iot is not None),
+        spec_loads=int(params.core.speculative_loads),
         chain_rel=ptr(wi.chain_rel), mq_count=ptr(wi.mq_count),
         mq_head=ptr(wi.mq_head), mq_req=ptr(wi.mq_req),
         mq_delta=ptr(wi.mq_delta), mq_extra=ptr(wi.mq_extra),
@@ -780,8 +848,8 @@ def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
     (under round_robin), predictor table and, at P > 0, [P, T] chain bank,
     and the returned WindowOut holds those operand tensors
     (INPLACE_FIELDS); its other leaves are fresh.  A caller that needs
-    the operands unchanged clones them first."""
-    check_window_config(params)
+    the operands unchanged clones them first.  The load/store rings are
+    read only."""
     if wi.clock.device.type != "cuda":
         raise ValueError("window_walk_cuda takes CUDA tensors")
     _check_inputs(params, wi)

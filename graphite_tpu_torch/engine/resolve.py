@@ -16,8 +16,12 @@ transacts and later ones see the post-transaction directory.  The
 conflict-round ``while_loop``, the chain pass's ``fori_loop`` and the
 pass-level ``cond`` gates become Python loops and ``if``s, running
 exactly the JAX trip counts (``ctr_conflict``, ``ctr_resolve`` and
-``round_ctr`` are part of the state).  The miss-type branch of the chain
-pass (``track_miss_types``) is refused at construction.
+``round_ctr`` are part of the state).  With ``track_miss_types`` both
+the chain pass and the conflict rounds classify every served miss as
+cold, capacity or sharing (:func:`_classify_misses`).  Under iocoom
+cores (uniform or mixed) the chain pass stands down, and a plain load or
+store miss releases its tile at issue + 1 cycle, floored by its load or
+store queue slot, while the queue keeps its priced completion.
 
 Sharer bitmaps are int64 words with the ``uint64`` bits of the JAX
 package; the modular negations and delta adds wrap identically.
@@ -36,7 +40,9 @@ from graphite_tpu_torch.engine import queue_models
 from graphite_tpu_torch.engine.core import STAMP_STRIDE, _lat, _period, \
     mcp_tile
 from graphite_tpu_torch.engine.kernels import chain as kchain
-from graphite_tpu_torch.engine.ops import first_true, scatter, umod64
+from graphite_tpu_torch.engine.kernels import window as kwindow
+from graphite_tpu_torch.engine.ops import (first_true, scatter, scatter_last,
+                                           umod64)
 from graphite_tpu_torch.engine.state import (
     NUM_CONDS, PEND_BARRIER, PEND_CBC, PEND_COND, PEND_CSIG, PEND_EX_REQ,
     PEND_IFETCH, PEND_JOIN, PEND_MUTEX, PEND_NONE, PEND_RECV, PEND_SEND,
@@ -81,6 +87,45 @@ def _unblock(state: SimState, mask, completion, sync: bool) -> SimState:
 def _parked(st: SimState) -> torch.Tensor:
     k = st.pend_kind
     return (k == PEND_SH_REQ) | (k == PEND_EX_REQ) | (k == PEND_IFETCH)
+
+
+def _classify_misses(state: SimState, rows, line, served, dlv_lines,
+                     dlv_valid, dlv_down) -> SimState:
+    """Miss-type classification (``[cache]/track_miss_types``): each
+    served miss is sharing (its line was taken from this tile by
+    coherence), capacity (seen before, evicted since) or cold.  The
+    filters are direct-mapped per-tile line tables (keys line + 1, in
+    int32, wrapping as in the JAX package); a hash collision can
+    misclassify one miss, never mistime anything.  The fill marks the
+    line seen and consumes its inv mark; then each delivery down to I
+    marks the target tile's inv filter (two deliveries to one tile may
+    hash to one slot: the last in row order wins, as in the JAX
+    package's scatter)."""
+    T = rows.shape[0]
+    HF = state.seen_filter.shape[1]
+    fslot = umod64(dense.fmix64(line), HF)
+    key32 = (line + 1).to(torch.int32)
+    seen_hit = torch.gather(state.seen_filter, 1, fslot[:, None])[:, 0] \
+        == key32
+    inv_hit = torch.gather(state.inv_filter, 1, fslot[:, None])[:, 0] \
+        == key32
+    m_shar = served & inv_hit
+    c = state.counters
+    state = state._replace(counters=c._replace(
+        l2_miss_cold=c.l2_miss_cold
+        + (served & ~inv_hit & ~seen_hit).to(torch.int64),
+        l2_miss_capacity=c.l2_miss_capacity
+        + (served & ~inv_hit & seen_hit).to(torch.int64),
+        l2_miss_sharing=c.l2_miss_sharing + m_shar.to(torch.int64)))
+    state = state._replace(
+        seen_filter=scatter(state.seen_filter, (rows, fslot), key32, "set",
+                            mask=served),
+        inv_filter=scatter(state.inv_filter, (rows, fslot), 0, "set",
+                           mask=m_shar))
+    dslot = umod64(dense.fmix64(dlv_lines), HF)
+    return state._replace(inv_filter=scatter_last(
+        state.inv_filter, (rows[:, None].expand(T, dslot.shape[1]), dslot),
+        (dlv_lines + 1).to(torch.int32), mask=dlv_valid & (dlv_down == I)))
 
 
 # ===================================================================== memory
@@ -251,6 +296,9 @@ def chain_fast_pass(params: SimParams, vp: VariantParams, state: SimState,
             state, victim_dirty, victim_home = _private_fills(
                 params, state, rows, line, is_ex, is_if, serve_all, t_dir,
                 dram_service_ps, rstamp)
+        if params.track_miss_types:
+            state = _classify_misses(state, rows, line, serve_all,
+                                     dlv_lines, dlv_valid, dlv_down)
 
         # ---- counters (home-binned tallies via one stacked scatter)
         def b(m):
@@ -441,6 +489,7 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     p_l2 = _period(state, DVFSModule.L2_CACHE)
     p_l1 = _period(state, DVFSModule.L1_DCACHE)
     p_core = _period(state, DVFSModule.CORE)
+    cycle_ps = _lat(1, p_core)
     ack_ps = _lat(vp.inv_ack_cycles, p_core)
 
     dram_access_ps = vp.dram_latency_ps
@@ -470,18 +519,19 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
         cdelta = hsel(state.mq_delta)
         issue = torch.where(state.mq_head == 0, cdelta,
                             state.chain_base + cdelta)
-        # Bit 3 of the word is an atomic's flag: only the iocoom cores'
-        # early unpark reads it (an atomic waits its full round trip),
-        # and simple cores wait every request in full.
         kind = (req & 7).to(torch.int32)
         line = req >> 8
         extra = hsel(state.mq_extra)
+        # Bit 3 of the word is an atomic's flag, which the iocoom
+        # unpark reads (an atomic waits its full round trip).
+        aux = ((req >> 3) & 1).to(torch.int32)
         unres = state.mq_head < state.mq_count
     else:
         kind = state.pend_kind
         line = state.pend_addr >> line_bits
         issue = state.pend_issue
         extra = state.pend_extra
+        aux = state.pend_aux
         unres = _parked(state)
     is_ex = unres & (kind == PEND_EX_REQ)
     is_if = unres & (kind == PEND_IFETCH)
@@ -940,6 +990,9 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
             state.l2, dlv_lines, dlv_valid, dlv_tgt),
         l1d=cachemod.invalidate_by_value(
             state.l1d, dlv_lines, dlv_valid, dlv_tgt))
+    if params.track_miss_types:
+        state = _classify_misses(state, rows, line, win, dlv_lines,
+                                 dlv_valid, dlv_tgt)
 
     # ---- requester-side fills / victims (install at serve time)
     if shared_l2:
@@ -1025,11 +1078,17 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     )
     state = state._replace(counters=c)
 
-    if P == 0:
-        # ---- simple cores stall until the data arrives
-        state = _unblock(state, win, completion, sync=False)
+    if params.core.model == "iocoom":
+        state, unpark = _iocoom_unpark(params, state, win, kind, aux, issue,
+                                       cycle_ps, completion)
     else:
-        # ---- chain winners advance their chain: the completion becomes
+        unpark = completion
+    if P == 0:
+        # ---- parked winners unblock (a simple core stalls until the
+        # data arrives)
+        state = _unblock(state, win, unpark, sync=False)
+    else:
+        # ---- chain winners advance their chain: the unpark time becomes
         # the base of the next element's issue; a drained chain restores
         # the absolute clock (base + the local time accumulated past the
         # last bank) and frees the bank.
@@ -1040,13 +1099,13 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
             mq_head=torch.where(drained, 0, new_head).to(torch.int32),
             mq_count=torch.where(drained, 0, state.mq_count).to(
                 torch.int32),
-            chain_base=torch.where(win, completion, state.chain_base),
-            clock=torch.where(drained, completion + state.chain_rel,
+            chain_base=torch.where(win, unpark, state.chain_base),
+            clock=torch.where(drained, unpark + state.chain_rel,
                               state.clock),
             chain_rel=torch.where(drained, 0, state.chain_rel),
             counters=c4._replace(
                 mem_stall_ps=c4.mem_stall_ps
-                + torch.where(win, completion - issue, 0)))
+                + torch.where(win, unpark - issue, 0)))
 
     # ---- serialization floor for still-pending same-line requests
     t_free = t_data
@@ -1069,6 +1128,54 @@ def _memory_round(params: SimParams, vp: VariantParams, state: SimState,
     return state, ftbl
 
 
+def _iocoom_unpark(params: SimParams, state: SimState, win, kind, aux,
+                   issue, cycle_ps, completion):
+    """The iocoom core's unblock: a plain load or store miss holds the
+    core only until issue + 1 cycle, floored at the completion its ring
+    slot last held (a full queue back-pressures; with one outstanding
+    RFO a store also waits every earlier store), and its priced
+    completion takes the slot; atomics (``aux`` bit 0) and i-fetches,
+    and every request of a simple tile under a mixed model list, wait in
+    full.  A scoreboarded remote load lands its completion in its
+    destination register (``aux`` bits 8-12).  Returns (state, unpark
+    time)."""
+    T = params.num_tiles
+    rows = torch.arange(T, device=win.device)
+    is_atomic = (aux & 0xFF) != 0
+    is_load = win & (kind == PEND_SH_REQ) & ~is_atomic
+    is_store = win & (kind == PEND_EX_REQ) & ~is_atomic
+    if params.core.mixed:
+        iot = kwindow.iocoom_mask(params, win.device)
+        is_load = is_load & iot
+        is_store = is_store & iot
+    LQE = state.lq_ready.shape[0]
+    SQE = state.sq_ready.shape[0]
+    # [LQE, T] / [SQE, T] slot masks, contiguous: the rings they write
+    # are the window kernel's operands.
+    lq_oh = (dense.onehot(state.lq_next % LQE, LQE).T
+             & is_load[None, :]).contiguous()
+    sq_oh = (dense.onehot(state.sq_next % SQE, SQE).T
+             & is_store[None, :]).contiguous()
+    lq_floor = torch.sum(torch.where(lq_oh, state.lq_ready, 0), dim=0)
+    sq_floor = torch.sum(torch.where(sq_oh, state.sq_ready, 0), dim=0)
+    if not params.core.multiple_outstanding_rfos:
+        sq_floor = torch.maximum(sq_floor, torch.amax(state.sq_ready, dim=0))
+    unpark = torch.where(
+        is_load, torch.maximum(issue + cycle_ps, lq_floor),
+        torch.where(is_store, torch.maximum(issue + cycle_ps, sq_floor),
+                    completion))
+    dreg = (aux >> 8) & 31
+    state = state._replace(
+        lq_ready=torch.where(lq_oh, completion[None, :], state.lq_ready),
+        sq_ready=torch.where(sq_oh, completion[None, :], state.sq_ready),
+        lq_next=state.lq_next + is_load.to(torch.int32),
+        sq_next=state.sq_next + is_store.to(torch.int32),
+        reg_ready=scatter(state.reg_ready,
+                          ((dreg - 1).to(torch.int64), rows), completion,
+                          "max", mask=is_load & (dreg > 0)))
+    return state, unpark
+
+
 def resolve_memory(params: SimParams, vp: VariantParams,
                    state: SimState) -> SimState:
     """Serve all parked L2-miss requests through the home directories, in
@@ -1080,11 +1187,12 @@ def resolve_memory(params: SimParams, vp: VariantParams,
     dev = state.clock.device
     ftbl = torch.stack([torch.full((H,), -1, dtype=torch.int64, device=dev),
                         torch.zeros((H,), dtype=torch.int64, device=dev)])
-    # Chain replay first (P > 0 under a full-map directory, unless the
-    # hop-by-hop mesh's links contend; the port runs simple cores only):
-    # whole banked chains served in one pass, the floor table threaded
-    # through to the conflict rounds that serve the leftovers.
-    if P > 0 and not _contended(params) \
+    # Chain replay first (P > 0 under a full-map directory with simple
+    # cores, unless the hop-by-hop mesh's links contend; iocoom threads
+    # its load/store rings through the conflict rounds): whole banked
+    # chains served in one pass, the floor table threaded through to the
+    # conflict rounds that serve the leftovers.
+    if P > 0 and not _contended(params) and params.core.model == "simple" \
             and params.directory.directory_type == "full_map":
         state, ftbl = chain_fast_pass(params, vp, state, H, ftbl)
 

@@ -37,35 +37,36 @@ from graphite_tpu_torch.time_base import ps_to_ns
 
 def check_slice(params: SimParams, device=None) -> None:
     """Refuse, loudly, every configuration the port does not run yet —
-    nothing is mispriced silently.  Admitted: simple cores,
-    every coherence protocol (private L1/L2 under MSI or MOSI, shared L2
-    under MSI or MESI) with every directory scheme (full_map,
-    limited_broadcast, limited_no_broadcast, ackwise, limitless; at any
-    ``max_hw_sharers``), every network model on the memory and user
-    networks (magic, emesh_hop_counter, atac under either routing
-    strategy and receive network, emesh_hop_by_hop with its queue model
-    off or on: contended link flights on the memory network, and SEND's
-    flight on a hop-by-hop user network; with its broadcast tree on or
-    off), every DRAM queue model (``history_list``, ``history_tree``,
-    ``basic`` with its moving average on or off, ``m_g_1``; on or off),
-    ``tpu/miss_chain`` 0 to 256 with the fan-out replay on or off (the
-    chain replay serves full-map directories only, as in the JAX
-    package),
-    ``tpu/fast_forward`` at any width and run-ahead span, any tile count
-    the directory's owner field holds (state.py), every event kind (the
-    sync, CAPI, thread, ROI, DVFS and syscall kinds among them), and
-    more trace streams than tiles under the ThreadScheduler (its limits
-    are the JAX package's ``ValueError``s, raised by ``Simulator`` and
-    ``make_state``).  On a CUDA ``device`` the chain replay is also held
-    to the one limit of the classify kernel, its grid form's co-residency
-    on the card (kernels/chain.check_chain_config)."""
-    def later(what, where="a later slice (model breadth)"):
+    nothing is mispriced silently.  Admitted: simple and iocoom cores
+    (``tile/model_list`` uniform or mixed per tile, with every
+    ``[core/iocoom]`` knob), every coherence protocol (private L1/L2
+    under MSI or MOSI, shared L2 under MSI or MESI) with every directory
+    scheme (full_map, limited_broadcast, limited_no_broadcast, ackwise,
+    limitless; at any ``max_hw_sharers``), every network model on the
+    memory and user networks (magic, emesh_hop_counter, atac under
+    either routing strategy and receive network, emesh_hop_by_hop with
+    its queue model off or on: contended link flights on the memory
+    network, and SEND's flight on a hop-by-hop user network; with its
+    broadcast tree on or off), every DRAM queue model (``history_list``,
+    ``history_tree``, ``basic`` with its moving average on or off,
+    ``m_g_1``; on or off), ``tpu/miss_chain`` 0 to 256 with the fan-out
+    replay on or off (the chain replay serves full-map directories with
+    simple cores only, as in the JAX package), ``tpu/fast_forward`` at
+    any width and run-ahead span (off under iocoom, as in the JAX
+    package), miss-type classification (``[cache]/track_miss_types``),
+    any tile count the directory's owner field holds (state.py), every
+    event kind (the sync, CAPI, thread, ROI, DVFS and syscall kinds
+    among them), and more trace streams than tiles under the
+    ThreadScheduler (its limits are the JAX package's ``ValueError``s,
+    raised by ``Simulator`` and ``make_state``).  On a CUDA ``device``
+    the chain replay is also held to the one limit of the classify
+    kernel, its grid form's co-residency on the card
+    (kernels/chain.check_chain_config)."""
+    def later(what, where):
         raise NotImplementedError(
             f"{what} is not ported yet: it belongs to {where} of the "
             f"PyTorch port")
 
-    if params.core.model != "simple" or params.core.mixed:
-        later("the iocoom core model")
     if params.tile_shards > 1 or params.shard_state != "replicated":
         later("tile sharding (tpu/tile_shards > 1, resident shard state)",
               "the multi-device slice")
@@ -76,8 +77,6 @@ def check_slice(params: SimParams, device=None) -> None:
             or params.power_trace_enabled or params.telemetry_enabled):
         later("telemetry sampling and the statistics ring",
               "the run-lifecycle slice")
-    if params.track_miss_types:
-        later("miss-type classification ([cache]/track_miss_types)")
     if params.miss_chain > 0:
         check_chain_config(params, device)
 

@@ -9,10 +9,12 @@ here (torch's uint64 support on CUDA is thin).  The miss-chain bank
 at P = 0; the CAPI channel leaves are [T, T] and [D, T, T] when the
 trace sends or receives, zero-size otherwise.  With more trace streams
 than tiles the ThreadScheduler's seat leaves are [T] and its stream
-store [S]; at one stream per tile both are zero-size.  Leaves that
-belong to later slices of the port (iocoom rings, telemetry) keep the
-shapes ``make_state`` gives them at this config, which is zero-size or
-unused.
+store [S]; at one stream per tile both are zero-size.  The iocoom
+register scoreboard is [32, T] under iocoom cores (uniform or mixed)
+and [0, T] otherwise; the miss-type filters are [T, MISS_FILTER_SLOTS]
+with ``track_miss_types`` on and [1, 1] otherwise.  Leaves that belong
+to later slices of the port (telemetry) keep the shapes ``make_state``
+gives them at this config, which is zero-size or unused.
 """
 
 from __future__ import annotations
@@ -527,6 +529,9 @@ def init_periods(params: SimParams) -> np.ndarray:
 
 WIN_BASE_INVALID = -(1 << 30)   # win_base sentinel: forces a refresh
 DRAM_RING_SLOTS = 8  # busy-interval history per memory controller
+MISS_FILTER_SLOTS = 1 << 14   # per-tile miss-type filter entries (2x the
+#                               T1 L2's 8192 lines: "seen" memory must
+#                               outlast the cache for capacity vs cold)
 
 
 def _win_cache_width(params: SimParams) -> int:
@@ -640,7 +645,7 @@ def make_state(params: SimParams, device,
         sq_ready=z((params.core.store_queue_entries, T), i64),
         lq_next=z(T, i32),
         sq_next=z(T, i32),
-        reg_ready=z((0, T), i64),
+        reg_ready=z((32 if params.core.model == "iocoom" else 0, T), i64),
         dram_ring_start=z((DRAM_RING_SLOTS, T), i64),
         dram_ring_end=z((DRAM_RING_SLOTS, T), i64),
         dram_ring_ptr=z(T, i32),
@@ -691,8 +696,10 @@ def make_state(params: SimParams, device,
         vm_brk=scalar(0, i64),
         vm_mmap_bytes=scalar(0, i64),
         vm_munmap_bytes=scalar(0, i64),
-        seen_filter=z((1, 1), i32),
-        inv_filter=z((1, 1), i32),
+        seen_filter=z((T, MISS_FILTER_SLOTS) if params.track_miss_types
+                      else (1, 1), i32),
+        inv_filter=z((T, MISS_FILTER_SLOTS) if params.track_miss_types
+                     else (1, 1), i32),
         counters=make_counters(T, dev),
     )
 

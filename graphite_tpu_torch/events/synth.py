@@ -265,6 +265,51 @@ def gen_system_events(num_tiles: int, seed: int = 0,
     return tb.build()
 
 
+def gen_scoreboard(num_tiles: int, rounds: int = 6, seed: int = 0,
+                   builder=TraceBuilder) -> Trace:
+    """Register-annotated loads and computes for the iocoom core's
+    scoreboard and load/store queues: per tile and round, loads on shared
+    and private lines (most naming a destination register), computes
+    reading and writing registers in short chains, private and shared
+    writes, branches, a STALL and a SYNC floor, and an ATOMIC; a barrier
+    over every tile halfway.  ``builder`` is the TraceBuilder class that
+    emits the events (SYNC goes through ``_emit``), so that another
+    package's builder makes the same arrays."""
+    rng = np.random.default_rng(seed)
+    tb = builder(num_tiles)
+    nshared = 4 * num_tiles
+    for t in range(num_tiles):
+        base = PRIVATE_BASE + t * PRIVATE_SPAN
+        for r in range(rounds):
+            for i in range(6):
+                if rng.random() < 0.5:
+                    addr = SHARED_BASE + 64 * int(rng.integers(0, nshared))
+                else:
+                    addr = base + 64 * int(rng.integers(0, 48))
+                reg = int(rng.integers(0, 8))
+                tb.read(t, addr, 8,
+                        dest_reg=reg if rng.random() < 0.7 else None)
+                cost = int(rng.integers(2, 40))
+                tb.compute(t, cost, cost // 2 + 1,
+                           src_reg=reg if rng.random() < 0.6 else None,
+                           dst_reg=int(rng.integers(0, 8))
+                           if rng.random() < 0.5 else None)
+                if i % 3 == 2:
+                    wline = int(rng.integers(0, nshared)) \
+                        if rng.random() < 0.3 else None
+                    tb.write(t, SHARED_BASE + 64 * wline if wline is not None
+                             else base + 64 * int(rng.integers(0, 48)))
+                if i % 2:
+                    tb.branch(t, bool(rng.integers(0, 2)))
+            tb.stall_until(t, 2_000_000 * (r + 1) + 10_000 * t)
+            tb._emit(t, EventOp.SYNC, 2_000_000 * (r + 1) + 20_000 * t,
+                     int(rng.integers(1, 50)), 0)
+            tb.atomic(t, SHARED_BASE + 64 * int(rng.integers(0, 8)))
+            if r == rounds // 2:
+                tb.barrier(t, 0, num_tiles)
+    return tb.build()
+
+
 def gen_radix(num_tiles: int, keys_per_tile: int = 4096, radix: int = 256,
               seed: int = 0, line_size: int = 64,
               max_events_per_tile: int | None = None) -> Trace:

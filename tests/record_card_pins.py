@@ -1,8 +1,12 @@
-"""The full-width paths of the limited directory schemes and the ``basic``
-and ``m_g_1`` DRAM queue models that ``chip_smoke.py`` (phase 15, cut
-by quanta) and ``tests/test_torch_card_paths.py`` (whole runs) hold the
-port to on the card, and the JAX package's values for them, recorded on
-the CPU into ``tests/data/card_pins_dir_queue.json``:
+"""The full-width paths that ``chip_smoke.py`` (cut by quanta) and
+``tests/test_torch_card_paths.py`` (whole runs) hold the port to on the
+card, and the JAX package's values for them, recorded on the CPU:
+
+  * phase 15, the limited directory schemes and the ``basic`` and
+    ``m_g_1`` DRAM queue models, into
+    ``tests/data/card_pins_dir_queue.json``;
+  * phase 16, the iocoom cores (uniform and mixed model lists) and
+    miss-type tracking, into ``tests/data/card_pins_ioc_mt.json``.
 
     JAX_PLATFORMS=cpu python tests/record_card_pins.py [path ...]
 
@@ -26,6 +30,9 @@ import sys
 RADIX64 = ["gen_radix", dict(num_tiles=64, keys_per_tile=64, radix=256,
                              seed=0)]
 MIGRATORY64 = ["gen_migratory", dict(num_tiles=64, lines=8, rounds=1)]
+# graphite_tpu_torch.events.synth's generator, made with the JAX
+# package's TraceBuilder here (the JAX synth module has no such trace).
+SCOREBOARD64 = ["gen_scoreboard", dict(num_tiles=64, rounds=6, seed=0)]
 HBH = {"network/memory": "emesh_hop_by_hop"}
 TREE = "network/emesh_hop_by_hop/broadcast_tree_enabled"
 
@@ -36,7 +43,7 @@ def _scheme(scheme, k=4):
 
 
 # name: (trace, config overrides, quanta of the cut run)
-PATHS = {
+DIR_QUEUE = {
     **{f"radix64_{s}": (RADIX64, _scheme(s), 6) for s in (
         "limited_broadcast", "limited_no_broadcast", "ackwise",
         "limitless")},
@@ -54,10 +61,30 @@ PATHS = {
         RADIX64, {"tpu/miss_chain": 12, "dram/queue_model/type": "m_g_1"},
         4),
 }
+IOCOOM = {"tile/model_list": "<default,iocoom,T1,T1,T1>"}
+MIXED = {"tile/model_list":
+         "<32,simple,T1,T1,T1>, <32,iocoom,T1,T1,T1>"}
+TRACK = {"l2_cache/T1/track_miss_types": True}
+IOC_MT = {
+    "radix64_iocoom": (RADIX64, IOCOOM, 6),
+    "radix64_iocoom_chain12": (RADIX64, {**IOCOOM, "tpu/miss_chain": 12},
+                               2),
+    "radix64_mixed": (RADIX64, MIXED, 6),
+    "scoreboard64": (SCOREBOARD64, {
+        **IOCOOM, "core/iocoom/num_load_queue_entries": 1,
+        "core/iocoom/num_store_queue_entries": 1}, 8),
+    "radix64_chain12_mt": (RADIX64, {**TRACK, "tpu/miss_chain": 12}, 4),
+    "migratory64_mt": (MIGRATORY64, TRACK, 6),
+}
 CTRS = ("round_ctr", "ctr_window", "ctr_complex", "ctr_conflict",
         "ctr_resolve", "ctr_quantum")
 HERE = os.path.dirname(os.path.abspath(__file__))
-PIN_FILE = os.path.join(HERE, "data", "card_pins_dir_queue.json")
+# pin file -> its paths
+PIN_SETS = {
+    os.path.join(HERE, "data", "card_pins_dir_queue.json"): DIR_QUEUE,
+    os.path.join(HERE, "data", "card_pins_ioc_mt.json"): IOC_MT,
+}
+PATHS = {**DIR_QUEUE, **IOC_MT}
 
 
 def _values(leaves):
@@ -78,14 +105,18 @@ def record(name):
     from graphite_tpu.engine import quantum
     from graphite_tpu.engine.sim import Simulator
     from graphite_tpu.events import synth
+    from graphite_tpu.events.schema import TraceBuilder
     from graphite_tpu.params import SimParams
     from graphite_tpu_torch import convert
+    from graphite_tpu_torch.events import synth as tsynth
     (gen, kw), over, quanta = PATHS[name]
     cfg = load_config()
     for k, v in over.items():
         cfg.set(k, v)
     params = SimParams.from_config(cfg)
-    sim = Simulator(params, getattr(synth, gen)(**kw))
+    trace = getattr(synth, gen)(**kw) if hasattr(synth, gen) \
+        else getattr(tsynth, gen)(**kw, builder=TraceBuilder)
+    sim = Simulator(params, trace)
     cut = quantum.megarun(params, sim.state, sim.trace, quanta)
     cut = convert.leaves_to_numpy(jax.device_get(cut))
     sim.run()
@@ -96,17 +127,21 @@ def record(name):
 
 def main(names):
     sys.path.insert(0, os.path.dirname(HERE))
-    try:
-        with open(PIN_FILE) as f:
-            pins = json.load(f)
-    except FileNotFoundError:
-        pins = {}
     for name in names or sorted(PATHS):
-        pins[name] = record(name)
-        w = pins[name]["whole"]
-        print(f"{name}: cut {pins[name]['cut']['ctrs']}, whole "
+        path, = [p for p, paths in PIN_SETS.items() if name in paths]
+        rec = record(name)
+        # Read the file again just before writing it: several recorders
+        # may run at once, one path each.
+        try:
+            with open(path) as f:
+                pins = json.load(f)
+        except FileNotFoundError:
+            pins = {}
+        pins[name] = rec
+        w = rec["whole"]
+        print(f"{name}: cut {rec['cut']['ctrs']}, whole "
               f"{w['ctrs']}, {w['completion_ps']} ps", flush=True)
-        with open(PIN_FILE, "w") as f:
+        with open(path, "w") as f:
             json.dump(pins, f, indent=1, sort_keys=True)
             f.write("\n")
 

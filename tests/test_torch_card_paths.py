@@ -64,9 +64,12 @@ only at a cut depth.
     queue models (``chip_smoke.py`` phase 15 runs their first quanta):
     the paths of tests/record_card_pins.py, whole, every SimState leaf
     the JAX package's on the CPU.
+  * Miss-type tracking and the iocoom cores, uniform and mixed
+    (``chip_smoke.py`` phase 16 runs their first quanta): the paths of
+    tests/data/card_pins_ioc_mt.json, whole, the same way.
 
 Run on the card: ``python -m pytest -m gpu --noconftest
-tests/test_torch_card_paths.py -q`` (about ten minutes).
+tests/test_torch_card_paths.py -q`` (about fifteen minutes).
 """
 
 import gc
@@ -639,25 +642,25 @@ def test_lock64_full_depth_on_card():
 # ackwise), and radix64 at miss_chain 12 under each queue model; whole
 # runs, every leaf the JAX package's on the CPU
 # (tests/record_card_pins.py).
-with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                       "card_pins_dir_queue.json")) as _f:
-    DIR_QUEUE_PINS = json.load(_f)
+def _pins(name):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", name)) as f:
+        return json.load(f)
 
 
-@pytest.mark.gpu
-@pytest.mark.slow
-@pytest.mark.parametrize("name", sorted(DIR_QUEUE_PINS))
-def test_dir_scheme_and_queue_paths_whole_on_card(name):
+DIR_QUEUE_PINS = _pins("card_pins_dir_queue.json")
+
+
+def _pinned_path_whole(name, pin):
     """Every SimState leaf (``dram_qacc`` by its bytes), the round
     counters and the completion exactly; window_walk once per window
-    round, chain_classify P times per chain pass under the full map and
-    never under a limited scheme."""
+    round, chain_classify P times per chain pass where the chain replay
+    runs (a full-map directory and simple cores) and never elsewhere."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form and "
                     "the full-width run is sized for the card")
     from graphite_tpu_torch import convert
     from torch_jax_ref import digest
-    pin = DIR_QUEUE_PINS[name]
     gen, kw = pin["trace"]
     cfg = load_config()
     for k, v in pin["over"].items():
@@ -674,9 +677,38 @@ def test_dir_scheme_and_queue_paths_whole_on_card(name):
     leaves = convert.state_to_numpy(sim.state)
     assert {k: digest(v) for k, v in leaves.items()} == want["leaves"]
     chain = params.miss_chain \
-        if params.directory.directory_type == "full_map" else 0
+        if params.directory.directory_type == "full_map" \
+        and params.core.model == "simple" else 0
     print(f"{name}: window_walk launches {dispatch.COUNTS['window_walk']}, "
           f"chain_classify launches {dispatch.COUNTS['chain_classify']}",
           file=sys.stderr)
     assert dispatch.COUNTS["window_walk"] == ctrs["ctr_window"]
     assert dispatch.COUNTS["chain_classify"] == chain * ctrs["ctr_resolve"]
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(DIR_QUEUE_PINS))
+def test_dir_scheme_and_queue_paths_whole_on_card(name):
+    _pinned_path_whole(name, DIR_QUEUE_PINS[name])
+
+
+# Miss-type tracking and the iocoom cores at full width (chip_smoke.py
+# phase 16 runs the first quanta of each): radix64 (keys_per_tile 64)
+# under a uniform iocoom model list at miss_chain 0 and 12 and under
+# 32 simple then 32 iocoom tiles, the scoreboard trace with one-entry
+# queues, and tracking at miss_chain 12 (radix64) and 0 (a migratory
+# trace: sharing misses); whole runs, every leaf the JAX package's on the
+# CPU (tests/record_card_pins.py).
+IOC_MT_PINS = _pins("card_pins_ioc_mt.json")
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(IOC_MT_PINS))
+def test_iocoom_and_miss_type_paths_whole_on_card(name):
+    s = _pinned_path_whole(name, IOC_MT_PINS[name])
+    if IOC_MT_PINS[name]["over"].get("l2_cache/T1/track_miss_types"):
+        assert sum(int(s.counters[f"l2_miss_{k}"].sum()) for k in (
+            "cold", "capacity", "sharing")) > 0

@@ -136,18 +136,24 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("over,trace_fn", [
-    # The chain replay itself is admitted; its miss-type branch is not.
-    ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True}, None),
-    # Every coherence protocol, directory scheme, DRAM queue model and
-    # network model runs (tests/test_torch_dir_schemes.py,
-    # tests/test_torch_queue_models.py); beside a key that stays refused
-    # each is refused by that key, under private or shared L2.
+    # Every coherence protocol, directory scheme, DRAM queue model,
+    # network model and core model, the chain replay and miss-type
+    # tracking run (tests/test_torch_dir_schemes.py,
+    # tests/test_torch_queue_models.py, tests/test_torch_iocoom.py,
+    # tests/test_torch_miss_types.py); beside a key that stays refused
+    # (tile sharding, streaming ingest, the statistics ring) each is
+    # refused by that key, under private or shared L2.
+    ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True,
+      "trace/segment_events": 4096}, None),
     ({"dram_directory/directory_type": "ackwise",
-      "tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
-    ({"tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
+      "tile/model_list": "<default,iocoom,T1,T1,T1>",
+      "statistics_trace/enabled": True}, None),
+    ({"tile/model_list": "<default,iocoom,T1,T1,T1>",
+      "tpu/tile_shards": 2}, None),
     ({"caching_protocol/type": "pr_l1_sh_l2_msi",
       "l2_directory/directory_type": "limited_no_broadcast",
-      "l2_cache/T1/track_miss_types": True}, None),
+      "l2_cache/T1/track_miss_types": True,
+      "trace/segment_events": 4096}, None),
     ({"dram/queue_model/type": "basic", "trace/segment_events": 4096},
      None),
     ({"network/memory": "emesh_hop_by_hop",

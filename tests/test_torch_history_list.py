@@ -73,8 +73,13 @@ def test_history_list_run_matches_jax(chain):
 
 
 def test_m_g_1_queue_refused_at_construction():
+    # The m_g_1 queue and miss-type tracking run
+    # (tests/test_torch_queue_models.py, tests/test_torch_miss_types.py);
+    # beside streaming ingest, which stays refused, the configuration is
+    # refused by that key.
     _, tp = _params({**_over("m_g_1", 0),
-                     "l2_cache/T1/track_miss_types": True})
+                     "l2_cache/T1/track_miss_types": True,
+                     "trace/segment_events": 4096})
     assert tp.dram.queue_model_type == "m_g_1"
-    with pytest.raises(NotImplementedError, match="miss-type"):
+    with pytest.raises(NotImplementedError, match="streaming"):
         Simulator(tp, synth.gen_radix(**RADIX8), device="cpu")

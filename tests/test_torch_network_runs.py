@@ -180,21 +180,24 @@ def test_carry_across_contended_mid_run():
 
 
 @pytest.mark.parametrize("over,trace_fn", [
-    # The user network's contended SEND flight, the directory schemes and
-    # the broadcast tree run (test_torch_sync_runs,
-    # test_torch_dir_schemes); beside a key that stays refused, each
-    # network configuration is refused by that key.
+    # The user network's contended SEND flight, the directory schemes,
+    # the broadcast tree, miss-type tracking and iocoom cores run
+    # (test_torch_sync_runs, test_torch_dir_schemes,
+    # test_torch_miss_types, test_torch_iocoom); beside a key that stays
+    # refused, each network configuration is refused by that key.
     ({"network/user": "emesh_hop_by_hop",
       "network/emesh_hop_by_hop/queue_model/enabled": True,
       "dram_directory/directory_type": "limitless",
-      "l2_cache/T1/track_miss_types": True},
+      "l2_cache/T1/track_miss_types": True,
+      "statistics_trace/enabled": True},
      lambda: tsynth.gen_lock_contention(num_tiles=4, acquisitions=2)),
     ({**CONTENDED, "network/emesh_hop_by_hop/broadcast_tree_enabled": True,
       "dram_directory/directory_type": "limited_broadcast",
       "trace/segment_events": 4096}, None),
     ({"network/memory": "atac",
       "dram_directory/directory_type": "ackwise",
-      "tile/model_list": "<default,iocoom,T1,T1,T1>"}, None),
+      "tile/model_list": "<default,iocoom,T1,T1,T1>",
+      "tpu/tile_shards": 2}, None),
 ], ids=["user_hbh_limitless_sync", "broadcast_tree_scheme", "atac_ackwise"])
 def test_network_configs_still_refused(over, trace_fn):
     cfg = load_config()

@@ -507,6 +507,65 @@ def test_cuda_kernel_matches_plain_walk_under_protocols(T):
                             f"{gen.__name__} K={K} seed {seed}")
 
 
+def _iocoom_configs(T):
+    """(label, overrides): a uniform iocoom list and mixed ones with
+    simple and iocoom tiles first and last in both orders, speculative
+    loads on and off."""
+    half = T // 2
+    ioc = {"tile/model_list": "<default,iocoom,T1,T1,T1>"}
+    nospec = {"core/iocoom/speculative_loads_enabled": False}
+    mixed = {"tile/model_list": f"<{half},simple,T1,T1,T1>, "
+                                f"<{half},iocoom,T1,T1,T1>"}
+    swapped = {"tile/model_list": f"<{half},iocoom,T1,T1,T1>, "
+                                  f"<{half},simple,T1,T1,T1>"}
+    return (("uniform", ioc), ("uniform_nospec", {**ioc, **nospec}),
+            ("mixed_nospec", {**mixed, **nospec}),
+            ("swapped", swapped))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 64])
+def test_cuda_kernel_matches_plain_walk_iocoom(T):
+    """The CUDA kernel's iocoom branches against the plain form on the
+    card: operands.iocoom_window_arrays (annotated events, drain points,
+    queue completions above the clock) under uniform and mixed model
+    lists, speculative loads on and off, K = 16 and 64, P = 0 and 12."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    for label, over in _iocoom_configs(T):
+        for P in (0, 12):
+            tp = _torch_params(T, {**over, "tpu/miss_chain": P})
+            vp = variant_params(tp)
+            for K in (16, 64):
+                for seed in range(4):
+                    wi = toperands.window_in_from_numpy(
+                        toperands.iocoom_window_arrays(tp, K, seed), "cuda")
+                    _kernel_against_plain(tp, vp, wi, T,
+                                          f"{label} P={P} K={K} seed {seed}")
+
+
+@pytest.mark.parametrize("model", ["simple", "iocoom"])
+def test_kernel_takes_the_rings_iff_iocoom(model):
+    """The load/store rings are operands under iocoom cores, at the
+    [entries, T] shapes of the config, and absent for simple cores."""
+    tp = _torch_params(8, {
+        "tile/model_list": f"<default,{model},T1,T1,T1>",
+        "core/iocoom/num_load_queue_entries": 3})
+    a = toperands.iocoom_window_arrays(tp, tp.block_events, 0)
+    wi = toperands.window_in_from_numpy(a, "cpu")
+    if model == "simple":
+        with pytest.raises(ValueError, match="iocoom"):
+            twin._check_inputs(tp, wi)
+        twin._check_inputs(tp, wi._replace(lq_ready=None, sq_ready=None))
+        return
+    assert wi.lq_ready.shape == (3, 8)
+    twin._check_inputs(tp, wi)
+    with pytest.raises(ValueError, match="iocoom"):
+        twin._check_inputs(tp, wi._replace(sq_ready=None))
+    with pytest.raises(ValueError, match="shape"):
+        twin._check_inputs(tp, wi._replace(lq_ready=wi.sq_ready))
+
+
 def test_kernel_refuses_operands_that_share_storage():
     """A leaf the kernel writes in place may share storage with no other
     operand; operands it only reads may."""
