@@ -82,14 +82,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (86 engine rounds, completion 8,686.6 ns).
   5. The chain-off main path at full width and a cut depth:
      ``gen_radix(64, keys_per_tile=64, radix=256, seed=0)`` on the
-     default config — all_done, every round counter (round_ctr 3516),
-     completion 72,044.6 ns, window-kernel launches == ctr_window (the
-     full depth, keys_per_tile 2048, 13,838 rounds and 243,651.8 ns, is
-     held on the card by tests/test_torch_card_paths.py).
+     default config for its first 60 quanta (1,303 rounds) — every
+     SimState leaf, round counter and counter sum, the latest clock and
+     the clocks' and cursors' sums the JAX package's
+     (tests/data/card_pins_cuts.json), window-kernel launches ==
+     ctr_window (the whole keys-64 run, 3,516 rounds, and the full
+     depth, keys_per_tile 2048, 13,838 rounds and 243,651.8 ns, are held
+     on the card by tests/test_torch_card_paths.py).
   6. The chain-replay paths at full width, miss_chain 12: the radix64
-     trace at a cut depth, ``gen_radix(64, keys_per_tile=64, radix=256,
-     seed=0)`` (round_ctr 347, completion 72,082.6 ns; the full depth,
-     2,181 rounds and 245,006.6 ns, is held on the card by
+     trace of phase 5 for its first quanta, held as phase 5's is (the
+     whole keys-64 run, 347 rounds to 72,082.6 ns, and the full depth,
+     2,181 rounds and 245,006.6 ns, are held on the card by
      tests/test_torch_card_paths.py) and ``gen_fft(64,
      points_per_tile=64, writeback=True)`` (round_ctr 377, completion
      60,677.0 ns, 1,897 fan-outs served in-pass, 17 fallbacks).
@@ -163,11 +166,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       config), each exact against the JAX package's values on the CPU:
        * radix64_shl2_mesi_ff_span: phase 5's cut trace under
          ``pr_l1_sh_l2_mesi`` at miss_chain 12 and
-         ``tpu/fast_forward = 8``, span 1000 ns, for its first 12
-         quanta (round_ctr 176, latest clock 25,301.2 ns, the clocks'
-         and cursors' sums): all three kernels on their protocol
-         branches, each launched (the full depth, 1,633 rounds, is held
-         on the card by tests/test_torch_card_paths.py);
+         ``tpu/fast_forward = 8``, span 1000 ns, for its first 6
+         quanta (tests/data/card_pins_cuts.json: round counters, latest
+         clock, icount, the clocks' and cursors' sums): all three kernels
+         on their protocol branches, each launched (the whole keys-64
+         run and the full depth, 1,633 rounds, are held on the card by
+         tests/test_torch_card_paths.py);
        * fft64_mosi: ``gen_fft(64, points_per_tile=64, writeback=True)``
          under MOSI at miss_chain 12 for its first 14 quanta (round_ctr
          179, latest clock 29,192.6 ns, 534 fan-outs, 52 fallbacks; the
@@ -200,9 +204,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          every tile) under each user network, K = 16 and 64, P = 0 and
          12 (spawns across ATAC clusters); device time per launch;
        * fft64_atac_chain12: ``gen_fft(64, points_per_tile=64,
-         writeback=True)`` at miss_chain 12 with ATAC on both networks
-         (round_ctr 367, completion 59,469.0 ns, 1,909 fan-outs, 19
-         fallbacks);
+         writeback=True)`` at miss_chain 12 with ATAC on both networks,
+         its first 16 quanta (tests/data/card_pins_cuts.json: round
+         counters, latest clock, fan-outs and fallbacks, the clocks' and
+         cursors' sums; the whole run, 367 rounds to 59,469.0 ns with
+         1,909 fan-outs, on the card by tests/test_torch_card_paths.py);
        * fft64_hbh_contended: the same trace under emesh_hop_by_hop with
          its queue model on, for its first 40 quanta (round_ctr 710,
          latest clock 88,225.6 ns, 3,217,312,800 ps of link wait, the
@@ -215,16 +221,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      held against their plain forms once the launch counts are read.
 
   12. Synchronisation, CAPI messaging and system events at one stream
-      per tile, T = 64, each run (lock64 cut by quanta, the others
-      whole) exact against the JAX package's
+      per tile, T = 64, each run (lock64 and sysev64_ff cut by quanta,
+      tests/data/card_pins_cuts.json, their whole runs on the card by
+      tests/test_torch_card_paths.py; the others whole) exact against
+      the JAX package's
       values on the CPU (every round counter, the completion, the sums
       of the sync, thread, syscall, network and stall counters, the
       [vm] section):
        * lock64: ``gen_lock_contention(64, acquisitions=16,
-         critical_cycles=50)`` on the default config, for its first 160
-         quanta (2,540 rounds, 433 mutex acquires, the clocks' and
-         cursors' sums; the whole run, 5,900 rounds and 1,024 acquires,
-         on the card by tests/test_torch_card_paths.py);
+         critical_cycles=50)`` on the default config, for its first 80
+         quanta (1,150 rounds; the whole run, 5,900 rounds and 1,024
+         acquires);
        * pingpong64_hbh_user: ``gen_ping_pong(64, messages=32,
          size=64)`` under a hop-by-hop user network with its queue model
          on: every SEND flies over the user links (264 rounds);
@@ -234,23 +241,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        * sysev64_ff: ``synth.gen_system_events(64, seed=0)`` (ATOMICs,
          cond pairs, every SYSCALL class with the VM payloads, DVFS_SET,
          the ROI markers, STALL and SYNC) at ``tpu/fast_forward = 8``,
-         span 1000 ns, miss_chain 12: all three kernels (266 rounds).
+         span 1000 ns, miss_chain 12: all three kernels (its first 8
+         quanta; the whole run, 266 rounds).
      The last two record their first window walks with SPAWN rows (with
      STALL or SYNC rows), replay iterations (with a banked ATOMIC at a
      head) and analytic rounds, on which each kernel is held against its
      plain form once the launch counts are read.
 
   13. The ThreadScheduler at full width: T = 64 tiles, S = 128 trace
-      streams (``general/max_threads_per_core = 2``), each a whole run
-      exact against the JAX package's values on the CPU (the round
-      counters, the completion, the counter sums of phase 12, every
+      streams (``general/max_threads_per_core = 2``), each exact against
+      the JAX package's values on the CPU (the round counters, the
+      completion, the counter sums of phase 12; whole runs: every
       stream done):
        * threads128on64_chain12: ``gen_threads_oversubscribed(128,
          compute_blocks=64, yields=8)`` at miss_chain 12 (seat rotations
          on done, YIELD and the preemption quantum; SPAWNs of streams
-         64-127 from the window walk; the chain pass beside the seats);
+         64-127 from the window walk; the chain pass beside the seats),
+         its first 17 quanta (tests/data/card_pins_cuts.json; the whole
+         run, 243 rounds, on the card by tests/test_torch_card_paths.py);
        * lock128on64: ``gen_lock_contention(128, acquisitions=2,
-         critical_cycles=50)`` (mutex parks rotated out and back);
+         critical_cycles=50)`` (mutex parks rotated out and back), its
+         first 60 quanta (the whole run, 1,830 rounds, on the card);
        * barrier128on64: ``gen_barrier_compute(128)`` (barrier waiters
          woken in the stream store).
      The first records its first window walks with a SPAWN of a stream
@@ -321,7 +332,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       window_walk and chain_classify launches.  The whole runs are held
       on the card by tests/test_torch_card_paths.py.
 
-Before each path of phases 4 to 6 and 8 to 16 every kernel's launch count is
+  17. Tile sharding with replicated state (``tpu/tile_shards`` = S > 1):
+      one graphite_tpu_torch.parallel.mesh.launch per S of gloo ranks
+      sharing the card, each rank walking its T/S tiles with the CUDA
+      kernels (run_window_sharded, run_fast_forward_sharded) and
+      gathering the rest in one gloo collective a walk.  At S = 2 the cut
+      paths radix64 (16 quanta), radix64_chain12 (6 quanta; chain_classify
+      on every rank) and fft64_ff_span (10 quanta, the first analytic
+      rounds that engage), at S = 4 radix64; every leaf and round counter
+      of every rank the JAX package's unsharded run
+      (tests/data/card_pins_shard.json, tests/record_card_pins.py; its
+      sharded run equals it), run_window_sharded and window_walk
+      launched once per window round on every rank, chain_classify P
+      times per chain pass.  Then both sharded walks, on operands
+      recorded from those runs, against the whole-tile kernel and the
+      plain form at S = 2, 4 and 8; rank 0 times the sharded call, the
+      kernel's device time at T/S tiles and the plain form, and counts
+      the slice's bytes for the bound.  The whole runs are held on the
+      card by tests/test_torch_card_paths.py.
+
+Before each path of phases 4 to 6 and 8 to 17 every kernel's launch count is
 set to 0, and it is read just after; each full-width path prints its
 peak device memory and the part of it above what was held before the
 path started.  The last two lines of standard output are the
@@ -335,6 +365,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -355,21 +386,13 @@ FULL_KEYS = 2048
 # keys_per_tile=64, radix=256, seed=0) (since phase 11 was added; at
 # keys_per_tile 128, 4,115 rounds and 81,960.8 ns; at 256, 5,309 rounds
 # and 100,052.2 ns).
+# Since phase 17 was added, phase 5 runs this trace's first 60 quanta
+# and phase 6 its first 16 at miss_chain 12 (their pins in
+# tests/data/card_pins_cuts.json; the whole keys-64 runs, 3,516 rounds to
+# 72,044.6 ns and 347 rounds to 72,082.6 ns, are held on the card by
+# tests/test_torch_card_paths.py).
 CUT_KEYS = 64
-CUT_CTRS = dict(round_ctr=3516, ctr_window=1630, ctr_complex=1115,
-                ctr_conflict=771, ctr_resolve=569, ctr_quantum=165)
-CUT_COMPLETION_PS = 72_044_600
-CUT_ICOUNT = 66_560
 CHAIN = 12
-# Phase 6 runs radix64_chain12 at a cut depth, so that the script with
-# phases 8 and 9 ends well inside its time limit on a slow host (the full
-# depth took 163-251 s of host-bound wall on an NVIDIA H100 80GB HBM3 at
-# 700 W; tests/test_torch_card_paths.py holds it on the card).  The JAX
-# package on the CPU gives these values for the cut trace of phase 5
-# (keys_per_tile 64; at 128, 419 rounds and 82,581.2 ns) at miss_chain
-# 12.
-CHAIN_CUT_ROUND_CTR = 347
-CHAIN_CUT_COMPLETION_PS = 72_082_600
 FFT_ROUND_CTR = 377
 FFT_COMPLETION_PS = 60_677_000
 FFT_FANOUT_SERVED = 1897
@@ -467,15 +490,9 @@ SH_MESI = "pr_l1_sh_l2_mesi"
 PROTOCOLS = (MOSI, SH_MSI, SH_MESI)
 SHL2_MESI_FF = {"caching_protocol/type": SH_MESI, "tpu/miss_chain": CHAIN,
                 "tpu/fast_forward": FF, "tpu/fast_forward_span": FF_SPAN_NS}
-# radix64_shl2_mesi_ff_span on phase 5's cut trace for 12 quanta (a cut
-# run, in which all three kernels launch; the whole keys-64 run takes
-# 426 rounds to 65,174.8 ns; at keys 128, 480 rounds and 73,766.0 ns).
-SHL2_MESI_FF_QUANTA = 12
-SHL2_MESI_FF_CTRS = dict(round_ctr=176, ctr_window=79, ctr_complex=9,
-                         ctr_conflict=8, ctr_resolve=78, ctr_quantum=12,
-                         ctr_ff=26, ctr_ffq=12, ff_events=8263)
-SHL2_MESI_FF_COMPLETION_PS = 25_301_200   # the latest clock at the cut
-SHL2_MESI_FF_CUT = dict(clock_sum=903_868_400, cursor_sum=16_859)
+# radix64_shl2_mesi_ff_span runs phase 5's trace for 6 quanta (a cut run,
+# in which all three kernels launch; tests/data/card_pins_cuts.json; the
+# whole keys-64 run takes 426 rounds to 65,174.8 ns).
 # fft64_mosi for its first 14 quanta and fft64_shl2_msi for its first 12
 # (the whole runs, 354 rounds to 48,966.2 ns with 1,855
 # fan-outs and 94 fallbacks, and 371 rounds to 37,856.6 ns with 282 and
@@ -498,13 +515,12 @@ FFT_SHL2_ICOUNT = 286_650
 FFT_SHL2_FANOUT, FFT_SHL2_FALLBACK = 150, 16
 # The network models (phase 11): gen_fft(64, points_per_tile=
 # NET_FFT_POINTS, writeback=True) at miss_chain 12 under ATAC on both
-# networks (default AtacParams) and under the contended hop-by-hop mesh,
-# as the JAX package computes them on the CPU.
+# networks (default AtacParams; its first 16 quanta since phase 17 was
+# added, tests/data/card_pins_cuts.json; the whole run, 367 rounds to
+# 59,469.0 ns with 1,909 fan-outs and 19 fallbacks, is held on the card
+# by tests/test_torch_card_paths.py) and under the contended hop-by-hop
+# mesh, as the JAX package computes them on the CPU.
 NET_FFT_POINTS = 64
-FFT_ATAC_CTRS = dict(round_ctr=367, ctr_window=186, ctr_complex=27,
-                     ctr_conflict=86, ctr_resolve=68, ctr_quantum=30)
-FFT_ATAC_COMPLETION_PS = 59_469_000
-FFT_ATAC_FANOUT, FFT_ATAC_FALLBACK = 1909, 19
 # fft64_hbh_contended runs its first 40 quanta (a cut run: 710 of its
 # 1,759 rounds; the whole run, 209,377.8 ns and 8,595,738,800 ps of link
 # wait, is held on the card by tests/test_torch_card_paths.py).
@@ -525,22 +541,13 @@ SYNC_SUMS = ("icount", "mutex_acquires", "cond_waits", "cond_signals",
              "joins", "spawns", "syscalls", "syscall_ps", "net_link_wait_ps",
              "sends", "recvs", "net_user_flits", "sync_stall_ps",
              "mem_stall_ps")
+# lock64, sysev64_ff, threads128on64_chain12 and lock128on64 run cut since
+# phase 17 was added: main() adds their entries from
+# tests/data/card_pins_cuts.json (``quanta``, ``cut``: the latest clock,
+# the clocks' and cursors' sums at the cut); their whole runs (5,900
+# rounds to 147,411.2 ns; 266 to 52,823.2 ns; 243 to 48,968.6 ns; 1,830
+# to 46,035.2 ns) are held on the card by tests/test_torch_card_paths.py.
 SYNC_PINS = {
-    # lock64 for its first 160 quanta (``quanta``, ``cut``: the latest
-    # clock, the clocks' and cursors' sums at the cut; the whole run,
-    # 5,900 rounds to 147,411.2 ns with 1,024 mutex acquires, is held on
-    # the card by tests/test_torch_card_paths.py).
-    "lock64": dict(
-        ctrs=dict(round_ctr=2540, ctr_window=1422, ctr_complex=1054,
-                  ctr_conflict=64, ctr_resolve=64, ctr_quantum=160),
-        completion_ps=69_475_200,
-        sums=dict(icount=21600, mutex_acquires=433, cond_waits=0,
-                  cond_signals=0, joins=0, spawns=0, syscalls=0,
-                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
-                  net_user_flits=0, sync_stall_ps=4_118_432_600,
-                  mem_stall_ps=18_355_200),
-        vm=None, quanta=160,
-        cut=dict(clock_sum=4_188_292_800, cursor_sum=1297)),
     # The pairs are mesh neighbours, so no two packets share a link: the
     # flights run and wait 0 ps (the fan-in of test_torch_sync_runs.py
     # shows the waits on the CPU).
@@ -564,42 +571,8 @@ SYNC_PINS = {
                   net_user_flits=0, sync_stall_ps=31_836_400,
                   mem_stall_ps=115_703_200),
         vm=None),
-    "sysev64_ff": dict(
-        ctrs=dict(round_ctr=266, ctr_window=106, ctr_complex=92,
-                  ctr_conflict=0, ctr_resolve=55, ctr_quantum=15,
-                  ctr_ff=61, ctr_ffq=11, ff_events=861),
-        completion_ps=52_823_200,
-        sums=dict(icount=75396, mutex_acquires=96, cond_waits=32,
-                  cond_signals=32, joins=0, spawns=0, syscalls=126,
-                  syscall_ps=219_584_072, net_link_wait_ps=0, sends=0,
-                  recvs=0, net_user_flits=0, sync_stall_ps=1_246_284_816,
-                  mem_stall_ps=180_189_470),
-        vm=dict(data_segment_bytes=299008, stack_segment_bytes=134217728,
-                dynamic_segment_bytes=1597440, mmap_bytes=1597440,
-                munmap_bytes=45056, brk_overflow=False,
-                dynamic_overflow=False)),
     # Phase 13: 128 trace streams on 64 tiles under the ThreadScheduler
     # (``streams``: every one reported done).
-    "threads128on64_chain12": dict(
-        ctrs=dict(round_ctr=243, ctr_window=131, ctr_complex=46,
-                  ctr_conflict=17, ctr_resolve=49, ctr_quantum=34),
-        completion_ps=48_968_600,
-        sums=dict(icount=833792, mutex_acquires=0, cond_waits=0,
-                  cond_signals=0, joins=64, spawns=64, syscalls=0,
-                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
-                  net_user_flits=0, sync_stall_ps=1_122_986_800,
-                  mem_stall_ps=1_372_380_400),
-        vm=None, streams=128),
-    "lock128on64": dict(
-        ctrs=dict(round_ctr=1830, ctr_window=979, ctr_complex=787,
-                  ctr_conflict=64, ctr_resolve=64, ctr_quantum=121),
-        completion_ps=46_035_200,
-        sums=dict(icount=12800, mutex_acquires=256, cond_waits=0,
-                  cond_signals=0, joins=0, spawns=0, syscalls=0,
-                  syscall_ps=0, net_link_wait_ps=0, sends=0, recvs=0,
-                  net_user_flits=0, sync_stall_ps=4_386_963_600,
-                  mem_stall_ps=18_355_200),
-        vm=None, streams=128),
     "barrier128on64": dict(
         ctrs=dict(round_ctr=248, ctr_window=131, ctr_complex=116,
                   ctr_conflict=1, ctr_resolve=1, ctr_quantum=81),
@@ -1215,6 +1188,277 @@ def leaf_digest(a) -> str:
     a = np.ascontiguousarray(np.asarray(a))
     return (f"{a.dtype.str}|{'x'.join(map(str, a.shape))}|"
             f"{hashlib.sha256(a.tobytes()).hexdigest()[:32]}")
+
+
+SHARD_TIMEOUT_S = 600.0     # each phase-17 launch, its ranks' own limit
+# Phase 17's cut paths (tests/data/card_pins_shard.json): at 2 shards,
+# at 4.
+SHARD_PATHS_2 = ("radix64_shard", "radix64_chain12_shard",
+                 "fft64_ff_span_shard")
+SHARD_PATHS_4 = ("radix64_shard",)
+
+
+def _shard_params(over, shards):
+    from graphite_tpu_torch import load_config
+    from graphite_tpu_torch.params import SimParams
+    cfg = load_config()
+    for k, v in over.items():
+        cfg.set(k, v)
+    cfg.set("tpu/tile_shards", str(shards))
+    return SimParams.from_config(cfg)
+
+
+def _shard_walks(group, walks, ffs, s_ids):
+    """Each sharded walk on recorded operands (the same on every rank)
+    against the whole-tile kernel and the plain form; rank 0 then times
+    the sharded call, the kernel's device time per launch at its T/S
+    tiles, the plain form, and counts the bytes its slice must move.
+    Every rank makes the same collectives in the same order."""
+    import dataclasses
+    import torch
+    from graphite_tpu_torch.engine.kernels import window as kwin
+    from graphite_tpu_torch.engine.vparams import variant_params
+    res = {}
+    for kind, sets in (("run_window_sharded", walks),
+                       ("run_fast_forward_sharded", ffs)):
+        err, last = 0, None
+        for over, nt in sets:
+            p = _shard_params(over, 1)
+            ps = dataclasses.replace(p, tile_shards=group.size)
+            v = variant_params(p)
+            nt = type(nt)(*[t.to(group.device) if t is not None else None
+                            for t in nt])
+            if kind == "run_window_sharded":
+                got = kwin.run_window_sharded(ps, v, nt, s_ids, group)
+                refs = (kwin.window_walk_cuda(p, v, clone_operands(nt),
+                                              s_ids),
+                        kwin.window_walk(p, v, nt, s_ids))
+            else:
+                got = kwin.run_fast_forward_sharded(ps, v, nt, group)
+                refs = (kwin.fast_forward_walk_cuda(p, v,
+                                                    clone_operands(nt)),
+                        kwin.fast_forward_walk(p, v, nt))
+            for ref in refs:
+                for f in ref._fields:
+                    a, b = getattr(got, f), getattr(ref, f)
+                    check((a is None) == (b is None), f"{kind}: {f}")
+                    if b is not None:
+                        err = max(err, max_abs_err(a, b))
+            last = (p, ps, v, nt)
+        p, ps, v, nt = last
+        tl = p.num_tiles // group.size
+        if kind == "run_window_sharded":
+            call = lambda: kwin.run_window_sharded(  # noqa: E731
+                ps, v, nt, s_ids, group)
+            local = kwin.shard_local_window_in(nt, 0, tl)
+            plain = lambda: kwin.window_walk(p, v, nt, s_ids)  # noqa: E731
+        else:
+            call = lambda: kwin.run_fast_forward_sharded(  # noqa: E731
+                ps, v, nt, group)
+            local = kwin.shard_local_ff_in(nt, 0, tl)
+            plain = lambda: kwin.fast_forward_walk(p, v, nt)  # noqa: E731
+        ms = time_cuda(call, iters=20, warmup=3)
+        rec = dict(sets=len(sets), max_abs_err=err, ms=ms, tiles=tl)
+        if group.rank == 0:
+            if kind == "run_window_sharded":
+                rec["device_ms"] = walk_device_ms(kwin, p, v, local, s_ids)
+                moved = window_bytes(p, v, local,
+                                     kwin.window_walk(p, v, local, s_ids))
+            else:
+                work = clone_operands(local)
+
+                def restore_and_launch():
+                    for f in kwin.FF_INPLACE_FIELDS:
+                        getattr(work, f).copy_(getattr(local, f))
+                    kwin.fast_forward_walk_cuda(p, v, work)
+
+                rec["device_ms"] = device_ms(restore_and_launch,
+                                             "fast_forward_walk_kernel")
+                moved = ff_bytes(p, v, local)
+            rec["plain_ms"] = time_cuda(plain, iters=5, warmup=1)
+            rec["bytes"] = moved
+            rec["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        res[kind] = rec
+    torch.cuda.synchronize()
+    return res
+
+
+def phase17_rank(group, pins, names, walk_file, record):
+    """One rank of phase 17 (parallel.mesh.launch, gloo ranks sharing the
+    card): the pinned cut paths ``names`` under ``tpu/tile_shards`` = the
+    group's size, each held leaf by leaf to its JAX pin and its kernels'
+    launches to its round counters, then both sharded walks held against
+    the whole-tile kernels and the plain forms on recorded operands.
+    With ``record``, operands are recorded from the paths (radix64
+    windows and engaging fast-forward rounds) and rank 0 saves them to
+    ``walk_file``; without, they are loaded from it."""
+    import torch
+    from graphite_tpu_torch import convert
+    from graphite_tpu_torch.engine import core as kcore
+    from graphite_tpu_torch.engine.kernels.dispatch import (COUNTS,
+                                                            reset_counts)
+    from graphite_tpu_torch.engine.quantum import megarun
+    from graphite_tpu_torch.engine.sim import Simulator
+    from graphite_tpu_torch.events import synth
+    paths = {}
+    walks, ffs = [], []
+    for name in names:
+        pin = pins[name]
+        gen, kw = pin["trace"]
+        p = _shard_params(pin["over"], group.size)
+        sim = Simulator(p, getattr(synth, gen)(**kw), group=group)
+        rw = Recorder(kcore.kwindow, "run_window_sharded",
+                      lambda wi: bool(wi.tile_active.any()), 2)
+        rf = Recorder(kcore.kwindow, "run_fast_forward_sharded",
+                      lambda out: bool((out.n_ret > 0).any()), 2,
+                      after=True)
+        recording = contextlib.ExitStack()
+        if record and name.startswith("radix64_shard"):
+            recording.enter_context(rw)
+        if record and p.fast_forward > 0:
+            recording.enter_context(rf)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with recording:
+            sim.state = megarun(p, sim.state, sim.trace, pin["quanta"],
+                                vp=sim.vp, group=group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(COUNTS)
+        walks += [(pin["over"], w) for w in rw.seen]
+        ffs += [(pin["over"], f) for f in rf.seen]
+        leaves = convert.state_to_numpy(sim.state)
+        want = pin["cut"]["leaves"]
+        bad = sorted(k for k in set(leaves) | set(want)
+                     if k not in leaves or k not in want
+                     or leaf_digest(leaves[k]) != want[k])
+        ctrs = {k: int(leaves[k]) for k in pin["cut"]["ctrs"]}
+        paths[name] = dict(
+            bad=bad, ctrs=ctrs, wall=wall, counts=counts,
+            quanta=pin["quanta"], peak=torch.cuda.max_memory_allocated(),
+            completion_ps=int(leaves["clock"].max()),
+            fanout=int(leaves["counters.chain_fanout_served"].sum()),
+            ff_rounds=int(leaves["ctr_ff"]))
+        del sim
+    if record:
+        if group.rank == 0:
+            torch.save(dict(
+                walks=[(o, tuple(t.cpu() if t is not None else None
+                                 for t in w)) for o, w in walks],
+                ffs=[(o, tuple(t.cpu() for t in f)) for o, f in ffs]),
+                walk_file)
+    else:
+        from graphite_tpu_torch.engine.kernels import window as kwin
+        saved = torch.load(walk_file)
+        walks = [(o, kwin.WindowIn(*w)) for o, w in saved["walks"]]
+        ffs = [(o, kwin.FFIn(*f)) for o, f in saved["ffs"]]
+    check(walks and ffs, f"phase 17: {len(walks)} window and {len(ffs)} "
+                         f"fast-forward operand sets recorded")
+    reset_counts()
+    return dict(paths=paths, walks=_shard_walks(group, walks, ffs, 64))
+
+
+def check_shard_runs(shards, runs, pins, card):
+    """Phase 17's checks of one launch's ranks: every path's leaves and
+    round counters the JAX package's (every rank), the sharded walks
+    launched once per window round (and once per analytic round),
+    chain_classify P times per chain pass, both sharded walks equal
+    to the whole-tile kernel and the plain form on the recorded
+    operands.  Prints rank 0's numbers; returns rank 0's launches of
+    the two sharded walks over the paths."""
+    total = [0, 0]
+    for rank, res in enumerate(runs):
+        for name, r in res["paths"].items():
+            check(not r["bad"], f"{name} at {shards} shards, rank "
+                  f"{rank}: leaves differ from the JAX package's: "
+                  f"{r['bad']}")
+            c, n = r["ctrs"], r["counts"]
+            check(c == pins[name]["cut"]["ctrs"],
+                  f"{name}: round counters {c}")
+            check(n["run_window_sharded"] == c["ctr_window"]
+                  == n["window_walk"] and c["ctr_window"] > 0,
+                  f"{name} at {shards} shards, rank {rank}: "
+                  f"run_window_sharded launches "
+                  f"{n['run_window_sharded']}, window_walk "
+                  f"{n['window_walk']}, ctr_window {c['ctr_window']}")
+            check(n["run_fast_forward_sharded"]
+                  == n["fast_forward_walk"]
+                  >= n["ff_engaged"],
+                  f"{name}: fast-forward launches {n}")
+            p = _shard_params(pins[name]["over"], 1)
+            check((n["run_fast_forward_sharded"] > 0)
+                  == (p.fast_forward > 0),
+                  f"{name}: run_fast_forward_sharded launches "
+                  f"{n['run_fast_forward_sharded']}")
+            P = p.miss_chain
+            check(n["chain_classify"] == P * (c["ctr_resolve"] if P
+                                              else 0)
+                  and (P == 0 or n["chain_classify"] > 0),
+                  f"{name}: chain_classify launches "
+                  f"{n['chain_classify']} != {P} x chain passes")
+            if rank == 0:
+                total[0] += n["run_window_sharded"]
+                total[1] += n["run_fast_forward_sharded"]
+                rounds = c["round_ctr"]
+                print(f"{name} at {shards} shards: cut at "
+                      f"{r['quanta']} quanta, every leaf and round "
+                      f"counter the JAX package's on every rank, "
+                      f"round_ctr {rounds}, latest clock "
+                      f"{r['completion_ps'] / 1000:.1f} ns, "
+                      f"chain_fanout_served {r['fanout']}, ctr_ff "
+                      f"{r['ff_rounds']}; run_window_sharded launches "
+                      f"{n['run_window_sharded']} (T/S = "
+                      f"{64 // shards} blocks each), "
+                      f"run_fast_forward_sharded "
+                      f"{n['run_fast_forward_sharded']}, "
+                      f"chain_classify {n['chain_classify']}")
+                print(f"{name} at {shards} shards: wall "
+                      f"{r['wall']:.3f} s, "
+                      f"{1e3 * r['wall'] / rounds:.4f} ms/round, "
+                      f"rank 0's peak device memory {r['peak']} B on "
+                      f"{card}")
+        for kind, w in res["walks"].items():
+            check(w["sets"] > 0 and w["max_abs_err"] == 0,
+                  f"{kind} at {shards} shards, rank {rank}: {w}")
+    for kind, w in runs[0]["walks"].items():
+        print(f"kernel {kind} at {shards} shards ({w['tiles']} tiles a "
+              f"rank): {w['sets']} recorded operand sets, equal to the "
+              f"whole-tile kernel and the plain form on every rank; "
+              f"{w['ms']:.6f} ms/call (the sharded call, gather "
+              f"included), device {fmt_ms(w['device_ms'])} per launch, "
+              f"plain {w['plain_ms']:.6f} ms, bound "
+              f"{w['bound_ms']:.9f} ms ({w['bytes']} bytes the slice "
+              f"moves, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+    return total
+
+
+def phase17(card: str, count: int):
+    """Phase 17: one launch of gloo ranks sharing the card per shard count
+    (2: the three cut paths; 4: radix64; 8: the walks on the operands the
+    2-rank launch recorded), each rank's results checked.  Returns the
+    launches' results by shard count and rank 0's launches of the two
+    sharded walks in the 2-rank launch's paths."""
+    from graphite_tpu_torch.parallel.mesh import launch
+    pins17 = json.load(open(os.path.join(HERE, "tests", "data",
+                                         "card_pins_shard.json")))
+    runs17 = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        walk_file = os.path.join(tmp, "walks.pt")
+        for shards, names in ((2, SHARD_PATHS_2), (4, SHARD_PATHS_4),
+                              (8, ())):
+            t0 = time.perf_counter()
+            runs17[shards] = launch(phase17_rank, shards, device="cuda",
+                                    timeout_s=SHARD_TIMEOUT_S,
+                                    args=(pins17, list(names), walk_file,
+                                          shards == 2))
+            print(f"phase 17: {shards} ranks on {count} card(s), one "
+                  f"launch in {time.perf_counter() - t0:.3f} s")
+            lsw = check_shard_runs(shards, runs17[shards], pins17, card)
+            if shards == 2:
+                lw17 = lsw
+            stamp(f"phase 17: {shards} shards")
+    return runs17, lw17
 
 
 def phase15_queue_models(dev) -> int:
@@ -2069,6 +2313,35 @@ def main() -> int:
         for k, v in cut.items():
             check(got[k] == v, f"{label}: {k} {got[k]} != {v}")
 
+    # The depth cuts of phases 5, 6 and 10 to 13, each held to the JAX
+    # package leaf by leaf (tests/record_card_pins.py); their whole runs
+    # are held on the card by tests/test_torch_card_paths.py.
+    from graphite_tpu_torch import convert
+    cuts = json.load(open(os.path.join(HERE, "tests", "data",
+                                       "card_pins_cuts.json")))
+
+    def held_to_cut(label, sim, s, pin):
+        """A cut run at its pin: the latest clock, the clocks' and
+        cursors' sums, the round counters, every counter's sum and every
+        SimState leaf (by digest) the JAX package's after as many
+        quanta."""
+        want = pin["cut"]
+        check_end(label, sim, s, want["completion_ps"],
+                  dict(clock_sum=want["clock_sum"],
+                       cursor_sum=want["cursor_sum"]))
+        c = round_ctrs(sim.state)
+        for k, v in want["ctrs"].items():
+            check(c[k] == v, f"{label}: {k} {c[k]} != {v}")
+        for k, v in want["sums"].items():
+            got = int(s.counters[k].sum())
+            check(got == v, f"{label}: sum of {k} {got} != {v}")
+        leaves = convert.state_to_numpy(sim.state)
+        bad = sorted(k for k in set(leaves) | set(want["leaves"])
+                     if k not in leaves or k not in want["leaves"]
+                     or leaf_digest(leaves[k]) != want["leaves"][k])
+        check(not bad, f"{label}: leaves differ from the JAX package's: "
+                       f"{bad}")
+
     # ---- 4. golden shapes, exactly
     gold = json.load(open(os.path.join(HERE, "tests", "data",
                                        "chain_off_golden.json")))
@@ -2128,28 +2401,20 @@ def main() -> int:
     held = peak_reset()
     sim = Simulator(params, cut_trace, device=dev)
     reset_counts()
-    t0 = time.perf_counter()
-    s = sim.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    pin = cuts["radix64_cut"]
+    s, wall = advance(sim, pin["quanta"])
     launches0 = COUNTS["window_walk"]
     ctr = round_ctrs(sim.state)
     rounds = ctr["round_ctr"]
-    check(bool(s.done.all()), "radix64: not all done")
-    for k, v in CUT_CTRS.items():
-        check(ctr[k] == v, f"radix64: {k} {ctr[k]} != {v}")
-    check(s.completion_time_ps == CUT_COMPLETION_PS,
-          f"radix64: completion {s.completion_time_ps} != "
-          f"{CUT_COMPLETION_PS}")
-    check(s.total_instructions == CUT_ICOUNT,
-          f"radix64: icount {s.total_instructions} != {CUT_ICOUNT}")
+    held_to_cut("radix64", sim, s, pin)
     check(launches0 == ctr["ctr_window"] and launches0 > 0,
           f"radix64: kernel launches {launches0} != ctr_window "
           f"{ctr['ctr_window']}")
     check(COUNTS["chain_classify"] == 0, "radix64: chain kernel launched")
     mips = s.total_instructions / wall / 1e6
-    print(f"radix64 keys_per_tile={CUT_KEYS}: all_done, round_ctr "
-          f"{rounds}, completion {s.completion_time_ps / 1000:.1f} ns, "
+    print(f"radix64 keys_per_tile={CUT_KEYS}: cut at {pin['quanta']} "
+          f"quanta, every leaf the JAX package's, round_ctr "
+          f"{rounds}, latest clock {s.completion_time_ps / 1000:.1f} ns, "
           f"{s.total_instructions} instructions; counters {ctr}")
     print(f"radix64: wall {wall:.3f} s, {rounds / wall:.2f} rounds/s, "
           f"{1e3 * wall / rounds:.4f} ms/round, simulated MIPS {mips:.6f}, "
@@ -2162,23 +2427,27 @@ def main() -> int:
     stamp("phase 5: chain-off radix64")
 
     # ---- 6. the chain-replay paths at full width
-    def chain_run(label, ctrace, want_rounds, want_ps, rec=None):
+    def chain_run(label, ctrace, want_rounds, want_ps, rec=None, pin=None):
+        """A whole chain-12 run at its pinned rounds and completion, or
+        (``pin``) a cut run held to its pin."""
         held = peak_reset()
         sim = Simulator(cparams, ctrace, device=dev)
         reset_counts()
         with rec or contextlib.nullcontext():
-            t0 = time.perf_counter()
-            s = sim.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            s, wall = advance(sim, pin and pin["quanta"])
         lw, lc = COUNTS["window_walk"], COUNTS["chain_classify"]
         c = round_ctrs(sim.state)
         r = c["round_ctr"]
         passes = r - c["ctr_window"] - c["ctr_complex"] - c["ctr_conflict"]
-        check(bool(s.done.all()), f"{label}: not all done")
-        check(r == want_rounds, f"{label}: round_ctr {r} != {want_rounds}")
-        check(s.completion_time_ps == want_ps,
-              f"{label}: completion {s.completion_time_ps} != {want_ps}")
+        if pin is None:
+            check(bool(s.done.all()), f"{label}: not all done")
+            check(r == want_rounds,
+                  f"{label}: round_ctr {r} != {want_rounds}")
+            check(s.completion_time_ps == want_ps,
+                  f"{label}: completion {s.completion_time_ps} != "
+                  f"{want_ps}")
+        else:
+            held_to_cut(label, sim, s, pin)
         check(lw == c["ctr_window"] and lw > 0,
               f"{label}: window_walk launches {lw} != ctr_window "
               f"{c['ctr_window']}")
@@ -2188,10 +2457,11 @@ def main() -> int:
         fan = int(s.counters["chain_fanout_served"].sum())
         fb = int(s.counters["chain_fallback"].sum())
         mips = s.total_instructions / wall / 1e6
-        print(f"{label}: all_done, round_ctr {r}, completion "
-              f"{s.completion_time_ps / 1000:.1f} ns, {s.total_instructions} "
-              f"instructions, chain_fanout_served {fan}, chain_fallback "
-              f"{fb}; counters {c}, chain passes {passes}")
+        print(f"{label}: {end_word(pin and pin['quanta'])}, round_ctr {r}, "
+              f"completion {s.completion_time_ps / 1000:.1f} ns, "
+              f"{s.total_instructions} instructions, chain_fanout_served "
+              f"{fan}, chain_fallback {fb}; counters {c}, chain passes "
+              f"{passes}")
         print(f"{label}: wall {wall:.3f} s, {r / wall:.2f} rounds/s, "
               f"{1e3 * wall / r:.4f} ms/round, simulated MIPS {mips:.6f}, "
               f"{peak_line(held)}, "
@@ -2201,8 +2471,8 @@ def main() -> int:
         return lw, lc, fan, fb, 1e3 * wall / r
 
     lw12, lc12, _, _, wall_ms12 = chain_run(
-        f"radix64_chain12 keys_per_tile={CUT_KEYS}", cut_trace,
-        CHAIN_CUT_ROUND_CTR, CHAIN_CUT_COMPLETION_PS)
+        f"radix64_chain12 keys_per_tile={CUT_KEYS}", cut_trace, None, None,
+        pin=cuts["radix64_chain12_cut"])
     # The radix run serves no fan-out, so phase 3's captured iterations
     # leave the fan-out rank, the [KF, T] invalidation masks and the
     # max-hop legs to the seeded operands: the fft64 run records its
@@ -2542,11 +2812,13 @@ def main() -> int:
               f"equal to the plain forms (max abs err window {err_w}, "
               f"chain {err_c}, ff {err_f}) on {card}")
 
+    pin = cuts["radix64_shl2_mesi_ff_span_cut"]
     lw, lc, lf, _, _ = proto_run(
         f"radix64_shl2_mesi_ff_span keys_per_tile={CUT_KEYS}",
-        config(**SHL2_MESI_FF), cut_trace, SHL2_MESI_FF_CTRS,
-        SHL2_MESI_FF_COMPLETION_PS, None, quanta=SHL2_MESI_FF_QUANTA,
-        cut=SHL2_MESI_FF_CUT)
+        config(**SHL2_MESI_FF), cut_trace, pin["cut"]["ctrs"],
+        pin["cut"]["completion_ps"], pin["cut"]["sums"]["icount"],
+        quanta=pin["quanta"], cut=dict(clock_sum=pin["cut"]["clock_sum"],
+                                       cursor_sum=pin["cut"]["cursor_sum"]))
     check(lw > 0 and lc > 0 and lf > 0,
           f"radix64_shl2_mesi_ff_span: launches window_walk {lw}, "
           f"chain_classify {lc}, fast_forward_walk {lf}: each kernel must "
@@ -2802,14 +3074,20 @@ def main() -> int:
 
     fft_net = synth.gen_fft(64, points_per_tile=NET_FFT_POINTS,
                             writeback=True)
+    pin = cuts["fft64_atac_chain12_cut"]
+    want = pin["cut"]
     _, _, fan, fb = net_run(
         f"fft64_atac_chain12 points_per_tile={NET_FFT_POINTS}",
         config(**{"network/memory": "atac", "network/user": "atac",
                   "tpu/miss_chain": CHAIN}), fft_net,
-        FFT_ATAC_CTRS, FFT_ATAC_COMPLETION_PS, 0, contended=False)
-    check(fan == FFT_ATAC_FANOUT and fb == FFT_ATAC_FALLBACK,
+        want["ctrs"], want["completion_ps"], 0, contended=False,
+        quanta=pin["quanta"], cut=dict(clock_sum=want["clock_sum"],
+                                       cursor_sum=want["cursor_sum"]))
+    check(fan == want["sums"]["chain_fanout_served"] and fan > 0
+          and fb == want["sums"]["chain_fallback"],
           f"fft64_atac_chain12: chain_fanout_served {fan} / chain_fallback "
-          f"{fb} != {FFT_ATAC_FANOUT} / {FFT_ATAC_FALLBACK}")
+          f"{fb} != {want['sums']['chain_fanout_served']} / "
+          f"{want['sums']['chain_fallback']}")
     stamp("phase 11: fft64_atac_chain12")
     net_run(f"fft64_hbh_contended points_per_tile={NET_FFT_POINTS}",
             config(**{"network/memory": "emesh_hop_by_hop",
@@ -2820,7 +3098,20 @@ def main() -> int:
     stamp("phase 11: fft64_hbh_contended")
 
     # ---- 12. synchronisation, CAPI and system events at full width,
-    # one stream per tile, each a whole run exact against its JAX pins
+    # one stream per tile, each exact against its JAX pins (lock64 and
+    # sysev64_ff, and in phase 13 threads128on64_chain12 and lock128on64,
+    # cut: tests/data/card_pins_cuts.json)
+    for label, streams in (("lock64", T), ("sysev64_ff", T),
+                           ("threads128on64_chain12", 2 * T),
+                           ("lock128on64", 2 * T)):
+        pin = cuts[f"{label}_cut"]
+        want = pin["cut"]
+        SYNC_PINS[label] = dict(
+            ctrs=want["ctrs"], completion_ps=want["completion_ps"],
+            sums={k: want["sums"][k] for k in SYNC_SUMS}, vm=want["vm"],
+            quanta=pin["quanta"], streams=streams,
+            cut=dict(clock_sum=want["clock_sum"],
+                     cursor_sum=want["cursor_sum"]))
     def sync_run(label, p, strace, windows=None, iterations=None,
                  rounds=False):
         """One phase-12 or phase-13 path; with ``windows`` and
@@ -3139,7 +3430,6 @@ def main() -> int:
           f"CUDA tensors equal to the CPU's, byte for byte "
           f"({qbytes} B of outputs compared)")
     stamp("phase 15: queue models on the card")
-    from graphite_tpu_torch import convert
 
     def pinned_paths(phase, pins):
         """Cut runs at T = 64, each held leaf by leaf (by digest) and
@@ -3207,11 +3497,17 @@ def main() -> int:
     pinned_paths(15, json.load(open(os.path.join(
         HERE, "tests", "data", "card_pins_dir_queue.json"))))
 
+
     # ---- 16. miss-type tracking and the iocoom cores (uniform and mixed
     # model lists)
     lw16 = pinned_paths(16, pins16)
     print(f"phase 16: window_walk launches {lw16} over its "
           f"{len(pins16)} paths")
+
+    # ---- 17. tile sharding with replicated state: one launch of gloo ranks
+    # sharing the card per shard count
+    runs17, lw17 = phase17(card, count)
+    w17 = runs17[2][0]["walks"]
 
     kernels = [{
         "name": "window_walk",
@@ -3277,6 +3573,31 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }]
+    for name, source, replaces, launches in (
+            ("run_window_sharded", "window_walk.cu",
+             "graphite_tpu/engine/kernels/window.py:696", lw17[0]),
+            ("run_fast_forward_sharded", "fast_forward_walk.cu",
+             "graphite_tpu/engine/kernels/window.py:1006", lw17[1])):
+        rec = w17[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"graphite_tpu_torch/engine/kernels/csrc/{source}",
+            "note": f"the kernel on a shard's {rec['tiles']} tiles of 64 "
+                    f"(2 gloo ranks sharing the card), outputs gathered "
+                    f"by one gloo collective; ms is the sharded call, "
+                    f"device_ms the kernel's launch at those tiles",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["walks"][name]["max_abs_err"]
+                               for runs in runs17.values() for r in runs),
+            "ms": rec["ms"],
+            "device_ms": rec["device_ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

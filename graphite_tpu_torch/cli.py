@@ -6,7 +6,9 @@
 Mirrors the JAX package's ``graphite-tpu run`` / ``params``.  ``run``
 uses CUDA unless ``--device`` names another device; without a GPU the
 default raises rather than running on the CPU.  Config overrides use the
-same ``--section/key=value`` form.
+same ``--section/key=value`` form.  With ``--tpu/tile_shards=S`` (S > 1)
+``run`` starts S ranks (parallel.mesh.launch: gloo, on the card or, with
+``--device cpu``, on the host) and rank 0 prints the summary.
 """
 
 from __future__ import annotations
@@ -19,6 +21,22 @@ from typing import List, Optional
 
 from graphite_tpu_torch.config import load_config, parse_overrides
 from graphite_tpu_torch.params import SimParams
+
+# The wall-clock limit of a sharded run's ranks (parallel.mesh.launch).
+SHARD_TIMEOUT_S = 24 * 3600.0
+
+
+def _run_text(cfg, trace_path: str, device, group=None) -> str:
+    from graphite_tpu_torch.engine.sim import run_simulation_from_trace
+    return run_simulation_from_trace(cfg, trace_path, device=device,
+                                     group=group).render()
+
+
+def _rank_run(group, config, overrides, trace_path):
+    """One rank of ``run --tpu/tile_shards=S``: rank 0's summary text."""
+    text = _run_text(load_config(config, overrides=overrides), trace_path,
+                     None, group)
+    return text if group.rank == 0 else None
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -53,10 +71,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.command == "run":
-        from graphite_tpu_torch.engine.sim import run_simulation_from_trace
-        summary = run_simulation_from_trace(cfg, args.trace,
-                                           device=args.device)
-        text = summary.render()
+        from graphite_tpu_torch.events.schema import Trace
+        shards = SimParams.from_config(
+            cfg, num_tiles=Trace.load(args.trace).num_tiles).tile_shards
+        if shards > 1:
+            from graphite_tpu_torch.parallel.mesh import launch
+            text = launch(_rank_run, shards, device=args.device or "cuda",
+                          timeout_s=SHARD_TIMEOUT_S,
+                          args=(args.config, overrides, args.trace))[0]
+        else:
+            text = _run_text(cfg, args.trace, args.device)
         if args.output:
             with open(args.output, "w") as f:
                 f.write(text)

@@ -215,14 +215,22 @@ def window_operands(params: SimParams, st: SimState, trace: TraceArrays,
 
 
 def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
-                  trace: TraceArrays, width: int = None) -> SimState:
+                  trace: TraceArrays, width: int = None,
+                  group=None) -> SimState:
     """Retire the leading run of simple events in each tile's [K] window:
     assemble the walk's operands, run the walk, land its effects.
     ``width`` widens the window to ``_ff_width`` events (a wide
-    fast-forward round: the unchanged walk over a longer slice)."""
+    fast-forward round: the unchanged walk over a longer slice).  Under
+    ``tpu/tile_shards`` > 1 the walk is the sharded one: this rank's
+    tiles, gathered back through ``group`` (a parallel.mesh.ShardGroup)
+    into whole leaves, which replace the state's as the kernel's
+    in-place outputs do at one shard."""
     st, wi = window_operands(params, st, trace, vp, width)
     S_ids = st.spawned_at.shape[0]
-    out = kwindow.run_window(params, vp, wi, S_ids)
+    if params.tile_shards > 1:
+        out = kwindow.run_window_sharded(params, vp, wi, S_ids, group)
+    else:
+        out = kwindow.run_window(params, vp, wi, S_ids)
 
     # SPAWN: the walk's one cross-tile effect, a scatter-max over the
     # returned (mask, child, landing-time) triples.
@@ -264,14 +272,16 @@ def _block_retire(params: SimParams, vp: VariantParams, st: SimState,
 
 def _fast_forward_retire(params: SimParams, vp: VariantParams,
                          st: SimState, trace: TraceArrays,
-                         cand: torch.Tensor) -> SimState:
+                         cand: torch.Tensor, group=None) -> SimState:
     """One analytic round: gather each candidate tile's next
     ``_ff_width`` events straight from the trace (an engaged span sweeps
     about the window cache's whole width, so the cache rarely covers
     it), price the hit/compute-only prefix in closed form through the
     fast-forward walk, and land clock, cursor, cache, predictor and
     counter effects.  ``round_ctr`` and ``ctr_ff`` advance only when
-    some tile engages: a declined probe uses no stamps."""
+    some tile engages: a declined probe uses no stamps.  Under
+    ``tpu/tile_shards`` > 1 the walk is the sharded one (``group``), as in
+    :func:`_block_retire`."""
     F = _ff_width(params)
     N = trace.num_events
     meta, addr = _window_slice_gather(st, trace, F)
@@ -283,7 +293,10 @@ def _fast_forward_retire(params: SimParams, vp: VariantParams,
         bp_table=st.bp_table, l1i_word=st.l1i.word, l1d_word=st.l1d.word,
         boundary=st.boundary, models_enabled=st.models_enabled,
         stamp_base=_stamp_base(st))
-    out = kwindow.run_fast_forward(params, vp, fi)
+    if params.tile_shards > 1:
+        out = kwindow.run_fast_forward_sharded(params, vp, fi, group)
+    else:
+        out = kwindow.run_fast_forward(params, vp, fi)
 
     any_engage = (out.n_ret > 0).any()
     c = st.counters
@@ -304,8 +317,8 @@ def _fast_forward_retire(params: SimParams, vp: VariantParams,
 
 
 def _fast_forward_guarded(params: SimParams, vp: VariantParams,
-                          state: SimState,
-                          trace: TraceArrays) -> SimState:
+                          state: SimState, trace: TraceArrays,
+                          group=None) -> SimState:
     """The analytic leg's gate: skipped when the leg is off
     (``_ff_width`` 0), under iocoom cores (register floors disqualify
     the closed form), with the ThreadScheduler seated (a seat rotation
@@ -334,7 +347,7 @@ def _fast_forward_guarded(params: SimParams, vp: VariantParams,
     i, cv = 0, _progress(state)
     while True:
         state = _fast_forward_retire(params, vp, state, trace,
-                                     cand_of(state))
+                                     cand_of(state), group)
         i, pv, cv = i + 1, cv, _progress(state)
         dispatch.COUNTS["ff_engaged"] += int(cv > pv)
         if i >= cap or cv <= pv:
@@ -872,7 +885,8 @@ def _complex_slot_guarded(params: SimParams, vp: VariantParams,
 
 
 def _chain_cadence(params: SimParams, vp: VariantParams, state: SimState,
-                   trace: TraceArrays, wide: int = None) -> SimState:
+                   trace: TraceArrays, wide: int = None,
+                   group=None) -> SimState:
     """local_advance at P > 0: just enough window rounds to fill the bank
     (``cap_w``, from the round's width: ``wide`` for wide fast-forward
     rounds), skipped outright when no tile can retire, then one guarded
@@ -896,7 +910,7 @@ def _chain_cadence(params: SimParams, vp: VariantParams, state: SimState,
         if bool(can_retire(state).any().item()):
             j, cv = 0, _progress(state)
             while True:
-                state = _block_retire(params, vp, state, trace, wide)
+                state = _block_retire(params, vp, state, trace, wide, group)
                 j, pv, cv = j + 1, cv, _progress(state)
                 if j >= cap_w or cv <= pv:
                     break
@@ -907,26 +921,28 @@ def _chain_cadence(params: SimParams, vp: VariantParams, state: SimState,
 
 
 def local_advance(params: SimParams, state: SimState,
-                  trace: TraceArrays,
-                  vp: VariantParams = None) -> SimState:
+                  trace: TraceArrays, vp: VariantParams = None,
+                  group=None) -> SimState:
     """Advance every non-blocked tile through events until the quantum
     boundary, stream end, or its first remote-blocking event: window
     rounds until they stop retiring, then one general slot, repeated
     while the cursor sum moves (capped at max_events_per_quantum).  At
     ``tpu/fast_forward`` > 0 the analytic rounds run first and every
     window round is wide, except under the ThreadScheduler, where both
-    surfaces of the leg are off as in the JAX package."""
+    surfaces of the leg are off as in the JAX package.  ``group`` is the
+    rank's ShardGroup under ``tpu/tile_shards`` > 1 (the walks are
+    sharded), else None."""
     if vp is None:
         vp = variant_params(params)
     wide = None
     if params.fast_forward > 0:
-        state = _fast_forward_guarded(params, vp, state, trace)
+        state = _fast_forward_guarded(params, vp, state, trace, group)
         if _ff_width(params) > params.block_events \
                 and params.core.model != "iocoom" \
                 and not state.sched_enabled:
             wide = _ff_width(params)
     if params.miss_chain > 0:
-        return _chain_cadence(params, vp, state, trace, wide)
+        return _chain_cadence(params, vp, state, trace, wide, group)
     cap = params.max_events_per_quantum
     i = 0
     prev = -1
@@ -936,7 +952,7 @@ def local_advance(params: SimParams, state: SimState,
         if params.block_events > 0:
             j, pv, cv = 0, -1, cur
             while j < cap and (j == 0 or cv > pv):
-                st = _block_retire(params, vp, st, trace, wide)
+                st = _block_retire(params, vp, st, trace, wide, group)
                 j, pv, cv = j + 1, cv, _progress(st)
         st = _complex_slot(params, vp, st, trace)
         i, prev, cur = i + 1, cur, _progress(st)

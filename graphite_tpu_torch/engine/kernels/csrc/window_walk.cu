@@ -172,14 +172,15 @@ struct WalkArgs {
   int32_t* mq_count_out;          // [T]
   // atac user network: each tile's cluster and its hops to its optical
   // access point (null otherwise)
-  const int32_t* cluster_of;      // [T]
-  const int32_t* ap_hops;         // [T]
+  const int32_t* cluster_of;      // [num_tiles], by global tile id
+  const int32_t* ap_hops;         // [num_tiles], by global tile id
   // iocoom cores (null otherwise): the load and store queues' completion
   // times (read only) and the tiles that run the iocoom model
   const int64_t* lq_ready;        // [LQE, T]
   const int64_t* sq_ready;        // [SQE, T]
-  const uint8_t* iocoom_mask;     // [T]
-  // geometry and timing
+  const uint8_t* iocoom_mask;     // [T], this launch's tiles
+  // geometry and timing: T is this launch's tile count (a shard's T/S
+  // tiles under tile sharding), num_tiles the machine's
   int64_t T, K, NM;
   int64_t l1i_assoc, l1i_sets, l1i_round_robin;
   int64_t l1d_assoc, l1d_sets, l1d_round_robin;

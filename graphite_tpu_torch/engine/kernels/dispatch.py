@@ -18,7 +18,10 @@ import torch
 # one round kind the state's counters do not separate.  A run sets them
 # to 0 with :func:`reset_counts` and reads them after, to show that its
 # path went through the kernels.
+# The sharded walks (tile sharding) count their launches under their own
+# names as well as under the kernel's.
 COUNTS = {"window_walk": 0, "chain_classify": 0, "fast_forward_walk": 0,
+          "run_window_sharded": 0, "run_fast_forward_sharded": 0,
           "ff_engaged": 0}
 
 

@@ -37,7 +37,10 @@ Two forms compute each function:
 :func:`run_window` and :func:`run_fast_forward` pick between them by the
 tensors' device: CPU tensors take the plain form, CUDA tensors launch
 the kernel (or raise — there is no fallback on the card).  The wrappers
-count their launches in ``dispatch.COUNTS``.
+count their launches in ``dispatch.COUNTS``.  Under tile sharding
+(``tpu/tile_shards`` > 1), :func:`run_window_sharded` and
+:func:`run_fast_forward_sharded` run the same choice on one rank's T/S
+tiles and gather the outputs back over the rank's group.
 """
 
 from __future__ import annotations
@@ -195,7 +198,7 @@ def iocoom_mask(params: SimParams, device) -> Optional[torch.Tensor]:
 
 
 def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
-                s_ids: int) -> WindowOut:
+                s_ids: int, tile_lo: int = 0) -> WindowOut:
     """Classify + retire one [T, K] window — the plain PyTorch form, a
     transliteration of the JAX walk at any P (see
     graphite_tpu/engine/kernels/window.py and engine/core.py for the
@@ -208,7 +211,9 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     without speculative loads, BRANCH wait for the tile's outstanding
     loads and stores (``drain_t``, the rings' latest completion), which
     makes such a branch retire on the absolute clock; a spawn lands from
-    the clock floored at its event's floor."""
+    the clock floored at its event's floor.  ``wi`` may hold a shard's
+    tiles only (:func:`run_window_sharded`): ``tile_lo`` is the global id
+    of its first tile, where the per-tile iocoom mask is read from."""
     K = wi.addr.shape[1]
     TL = wi.clock.shape[0]
     P = params.miss_chain
@@ -221,7 +226,8 @@ def window_walk(params: SimParams, vp: VariantParams, wi: WindowIn,
     iocoom = params.core.model == "iocoom"
     # The iocoom tiles ([T, 1]; None under a uniform list, where every
     # tile is one).
-    iot = iocoom_mask(params, dev)[:, None] if params.core.mixed else None
+    iot = iocoom_mask(params, dev)[tile_lo:tile_lo + TL, None] \
+        if params.core.mixed else None
 
     l1i = cachemod.CacheArrays(word=wi.l1i_word, rr_ptr=wi.l1i_rr)
     l1d = cachemod.CacheArrays(word=wi.l1d_word, rr_ptr=wi.l1d_rr)
@@ -775,8 +781,11 @@ def _alloc_out(params: SimParams, wi: WindowIn) -> WindowOut:
 
 
 def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
-               s_ids: int, out: WindowOut) -> _WalkArgs:
-    """Pack pointers and scalars into the kernel's argument struct."""
+               s_ids: int, out: WindowOut, tile_lo: int) -> _WalkArgs:
+    """Pack pointers and scalars into the kernel's argument struct.  The
+    kernel reads the iocoom mask by the launch's own tile index (a view
+    from ``tile_lo``: the whole mask stays cached) and ATAC's two tables
+    by global tile id (whole)."""
     T, K = wi.addr.shape
     nu = params.net_user
     net = noc_atac.kernel_scalars(nu, vp.net_user)
@@ -784,6 +793,8 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
     flits = noc.num_flits(8, vp.net_user.flit_width_bits)
     P = params.miss_chain
     iot = iocoom_mask(params, wi.clock.device)
+    if iot is not None:
+        iot = iot[tile_lo:tile_lo + T]
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -842,7 +853,7 @@ def _walk_args(params: SimParams, vp: VariantParams, wi: WindowIn,
 
 
 def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
-                     s_ids: int) -> WindowOut:
+                     s_ids: int, tile_lo: int = 0) -> WindowOut:
     """Launch csrc/window_walk.cu on CUDA tensors.  In place: the kernel
     updates the operands' cache word arrays, L1 round-robin pointers
     (under round_robin), predictor table and, at P > 0, [P, T] chain bank,
@@ -856,7 +867,7 @@ def window_walk_cuda(params: SimParams, vp: VariantParams, wi: WindowIn,
     from graphite_tpu_torch.engine.kernels import build
     lib = build.load("window_walk")
     out = _alloc_out(params, wi)
-    a = _walk_args(params, vp, wi, s_ids, out)
+    a = _walk_args(params, vp, wi, s_ids, out, tile_lo)
     stream = torch.cuda.current_stream(wi.clock.device).cuda_stream
     err = lib.window_walk_launch(ctypes.addressof(a), stream)
     if err != 0:
@@ -873,6 +884,87 @@ def run_window(params: SimParams, vp: VariantParams, wi: WindowIn,
     if dispatch.use_kernel(wi.clock):
         return window_walk_cuda(params, vp, wi, s_ids)
     return window_walk(params, vp, wi, s_ids)
+
+
+# ----------------------------------------------------- the sharded walks
+#
+# Under ``tpu/tile_shards`` = S > 1 (replicated state) each rank holds the
+# whole state, walks only its own T/S tiles, and gathers the walk's
+# outputs back to whole [T] leaves in tile order: the JAX package's
+# run_window_sharded / run_fast_forward_sharded, whose walk runs under
+# shard_map with ``grid_tiles = T/S``.  The walks are per-tile
+# independent, so the sharded walk equals the whole one bit for bit.
+#
+# The tile axis of each operand and output (None: a replicated scalar),
+# the JAX package's tables.  The port's window walk also reads two tables
+# the JAX walk closes over, neither a WindowIn leaf: the iocoom mask,
+# read by the walk's own tile index (so the walk takes the slice's first
+# global tile, ``tile_lo``), and ATAC's ``cluster_of`` / ``ap_hops``,
+# read by global tile id (whole, from noc_atac's cache).
+WINDOW_IN_AXES = dict(
+    meta=1, addr=0, valid_ev=0, tile_active=0, tile_ids=0, clock=0,
+    period_ps=0, bp_table=0, l1i_word=1, l1i_rr=0, l1d_word=1, l1d_rr=0,
+    l2_word=1, l2_rr=0, boundary=None, models_enabled=None,
+    stamp_base=None, chain_rel=0, mq_count=0, mq_head=0, mq_req=1,
+    mq_delta=1, mq_extra=1, lq_ready=1, sq_ready=1,
+)
+WINDOW_OUT_AXES = dict(
+    clock=0, n_ret=0, bp_table=0, l1i_word=1, l1i_rr=0, l1d_word=1,
+    l1d_rr=0, l2_word=1, l2_rr=0, ctr_inc=1, spawn_mask=0, spawn_child=0,
+    spawn_land=0, chain_rel=0, mq_count=0, mq_req=1, mq_delta=1,
+    mq_extra=1,
+)
+
+
+def _shard_local(tup, axes, shard_idx: int, tiles_local: int):
+    """Each leaf of ``tup`` (a NamedTuple of tensors or None) cut to tiles
+    ``[shard_idx * tiles_local, (shard_idx + 1) * tiles_local)`` along its
+    axis in ``axes``; None-axis leaves pass whole.  The cuts are
+    contiguous copies: the CUDA walks update some of them in place."""
+    lo = shard_idx * tiles_local
+
+    def cut(name, t):
+        ax = axes[name]
+        if t is None or ax is None:
+            return t
+        return t.narrow(ax, lo, tiles_local).contiguous()
+
+    return type(tup)(**{f: cut(f, t) for f, t in zip(tup._fields, tup)})
+
+
+def _gather(group, cls, axes, out_l):
+    """The shard's outputs gathered back to whole leaves (one collective
+    for all of them), as a ``cls`` (None leaves stay None)."""
+    names = [f for f in cls._fields if getattr(out_l, f) is not None]
+    full = group.gather_tiles([(getattr(out_l, f), axes[f]) for f in names])
+    leaves = dict.fromkeys(cls._fields)
+    leaves.update(zip(names, full))
+    return cls(**leaves)
+
+
+def shard_local_window_in(wi: WindowIn, shard_idx: int,
+                          tiles_local: int) -> WindowIn:
+    """Slice every walk operand to one shard's ``tiles_local`` tiles along
+    its declared tile axis (``WINDOW_IN_AXES``; None-axis leaves — the
+    boundary, the model-enable flag, the stamp base — pass whole)."""
+    return _shard_local(wi, WINDOW_IN_AXES, shard_idx, tiles_local)
+
+
+def run_window_sharded(params: SimParams, vp: VariantParams, wi: WindowIn,
+                       s_ids: int, group) -> WindowOut:
+    """The window walk under ``tpu/tile_shards`` > 1: this rank's T/S
+    tiles of ``wi`` (whole operands), walked by the unchanged walk — on a
+    CUDA tensor the kernel, launched with T/S blocks — and gathered back
+    to whole [T] leaves through ``group`` (a parallel.mesh.ShardGroup).
+    The returned leaves are fresh tensors: ``wi``'s are not written."""
+    lo, tl = group.tiles(params.num_tiles)
+    wi_l = shard_local_window_in(wi, group.rank, tl)
+    if dispatch.use_kernel(wi.clock):
+        out_l = window_walk_cuda(params, vp, wi_l, s_ids, tile_lo=lo)
+        dispatch.COUNTS["run_window_sharded"] += 1
+    else:
+        out_l = window_walk(params, vp, wi_l, s_ids, tile_lo=lo)
+    return _gather(group, WindowOut, WINDOW_OUT_AXES, out_l)
 
 
 
@@ -908,8 +1000,8 @@ class FFOut(NamedTuple):
 
 
 # The tile axis of each operand and output (None: a replicated scalar),
-# as the JAX package declares them for its tile-sharded walk; the
-# multi-device slice slices by them.
+# as the JAX package declares them for its tile-sharded walk
+# (run_fast_forward_sharded slices by them).
 FF_IN_AXES = dict(
     meta=1, addr=0, valid_ev=0, tile_active=0, clock=0, period_ps=0,
     bp_table=0, l1i_word=1, l1d_word=1, boundary=None,
@@ -1241,3 +1333,25 @@ def run_fast_forward(params: SimParams, vp: VariantParams,
     if dispatch.use_kernel(fi.clock):
         return fast_forward_walk_cuda(params, vp, fi)
     return fast_forward_walk(params, vp, fi)
+
+
+def shard_local_ff_in(fi: FFIn, shard_idx: int, tiles_local: int) -> FFIn:
+    """Slice every fast-forward operand to one shard's tiles along its
+    declared axis (``FF_IN_AXES``; None-axis leaves pass whole)."""
+    return _shard_local(fi, FF_IN_AXES, shard_idx, tiles_local)
+
+
+def run_fast_forward_sharded(params: SimParams, vp: VariantParams,
+                             fi: FFIn, group) -> FFOut:
+    """The fast-forward walk under ``tpu/tile_shards`` > 1: this rank's
+    T/S tiles, walked by the unchanged walk (on a CUDA tensor the kernel,
+    T/S blocks), gathered back to whole leaves through ``group``, as
+    :func:`run_window_sharded`."""
+    _, tl = group.tiles(params.num_tiles)
+    fi_l = shard_local_ff_in(fi, group.rank, tl)
+    if dispatch.use_kernel(fi.clock):
+        out_l = fast_forward_walk_cuda(params, vp, fi_l)
+        dispatch.COUNTS["run_fast_forward_sharded"] += 1
+    else:
+        out_l = fast_forward_walk(params, vp, fi_l)
+    return _gather(group, FFOut, FF_OUT_AXES, out_l)

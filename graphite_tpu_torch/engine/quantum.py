@@ -10,7 +10,10 @@ rotates the ThreadScheduler's seats (``schedule_rotate``).
 ``megarun`` runs quantum steps until every stream is done or a quanta
 budget is spent.  The JAX package runs these loops on the device; here
 each loop condition is one host read of a device scalar, and the trip
-counts (``ctr_quantum`` and everything below it) match exactly.
+counts (``ctr_quantum`` and everything below it) match exactly.  Under
+``tpu/tile_shards`` = S > 1 the loops run on each of S ranks, which hold
+the whole state: every host read sees the same values on every rank, so
+the ranks take the same trips.
 """
 
 from __future__ import annotations
@@ -25,14 +28,19 @@ from graphite_tpu_torch.engine.state import (
     PEND_JOIN, PEND_MUTEX, PEND_RECV, PEND_SEND, PEND_SH_REQ, PEND_START,
     SimState, TraceArrays)
 from graphite_tpu_torch.engine.vparams import VariantParams, variant_params
+from graphite_tpu_torch.parallel.mesh import check_group
 from graphite_tpu_torch.params import SimParams
 from graphite_tpu_torch.time_base import TIME_MAX
 
 
 def next_boundary(params: SimParams, state: SimState,
-                  vp: VariantParams = None) -> torch.Tensor:
+                  vp: VariantParams = None, group=None) -> torch.Tensor:
     """Advance the barrier boundary past the slowest runnable tile,
-    skipping empty quanta."""
+    skipping empty quanta.  Under ``tpu/tile_shards`` > 1 each rank takes
+    the minimum of its own T/S tiles and ``group`` (the rank's
+    parallel.mesh.ShardGroup) the minimum over the ranks: the JAX
+    package's ``pmin`` barrier, equal to the whole minimum (the slices
+    partition the tiles; the clocks are integers)."""
     k = state.pend_kind
     sync_blocked = ((k == PEND_RECV) | (k == PEND_BARRIER)
                     | (k == PEND_MUTEX) | (k == PEND_SEND)
@@ -48,7 +56,11 @@ def next_boundary(params: SimParams, state: SimState,
         clk = torch.where(state.mq_head > 0,
                           torch.maximum(clk, state.chain_base), clk)
     masked = torch.where(runnable, clk, int(TIME_MAX))
-    min_clock = torch.amin(masked)
+    if params.tile_shards > 1:
+        lo, tl = group.tiles(params.num_tiles)
+        min_clock = group.all_min(torch.amin(masked[lo:lo + tl]))
+    else:
+        min_clock = torch.amin(masked)
     q = vp.quantum_ps if vp is not None else params.quantum_ps
     nb = (min_clock // q + 1) * q
     return torch.where(runnable.any(), nb, state.boundary + q).to(
@@ -162,15 +174,17 @@ def _progress(st: SimState, chain: bool) -> int:
 
 
 def quantum_step(params: SimParams, state: SimState,
-                 trace: TraceArrays,
-                 vp: VariantParams = None) -> SimState:
+                 trace: TraceArrays, vp: VariantParams = None,
+                 group=None) -> SimState:
     """One barrier quantum: sub-rounds of (local_advance ; resolve) while
     the progress witness moves, capped at ``rounds_per_quantum`` — at
     P > 0 at max(rounds_per_quantum, max_events_per_quantum), since the
-    sub-round loop then alternates banking with resolve passes."""
+    sub-round loop then alternates banking with resolve passes.
+    ``group``: the rank's ShardGroup under ``tpu/tile_shards`` > 1."""
     if vp is None:
         vp = variant_params(params)
-    state = state._replace(boundary=next_boundary(params, state, vp=vp),
+    state = state._replace(boundary=next_boundary(params, state, vp=vp,
+                                                  group=group),
                            ctr_quantum=state.ctr_quantum + 1)
     if state.sched_enabled:
         state = schedule_rotate(params, state, vp=vp)
@@ -180,7 +194,7 @@ def quantum_step(params: SimParams, state: SimState,
     ff0 = state.ctr_ff
     i, prev, cur = 0, -1, _progress(state, chain)
     while i < cap and (i == 0 or cur > prev):
-        state = local_advance(params, state, trace, vp=vp)
+        state = local_advance(params, state, trace, vp=vp, group=group)
         state = resolve(params, state, vp=vp)
         i, prev, cur = i + 1, cur, _progress(state, chain)
     if params.fast_forward > 0:
@@ -192,15 +206,25 @@ def quantum_step(params: SimParams, state: SimState,
 
 
 def megarun(params: SimParams, state: SimState, trace: TraceArrays,
-            max_quanta: int, vp: VariantParams = None) -> SimState:
+            max_quanta: int, vp: VariantParams = None,
+            group=None) -> SimState:
     """Run quantum steps until the simulation completes or ``max_quanta``
-    quanta elapse (the JAX ``megarun_loop`` with ``masked=False``)."""
+    quanta elapse (the JAX ``megarun_loop`` with ``masked=False``).  At
+    ``tpu/tile_shards`` = S > 1 each of S ranks runs this on the whole
+    state with ``group``, its parallel.mesh.ShardGroup of S ranks (the
+    JAX ``megarun`` under ``shard_wrap``).  Resident shard state is
+    refused, as the JAX ``megarun`` refuses it."""
+    if params.shard_state == "resident":
+        raise ValueError("tpu/shard_state=resident runs through the "
+                         "resident program, not the replicated quantum "
+                         "program")
+    check_group(params.tile_shards, group)
     if vp is None:
         vp = variant_params(params)
     done = bool(state.all_done().item())
     n = 0
     while not done and n < max_quanta:
-        state = quantum_step(params, state, trace, vp=vp)
+        state = quantum_step(params, state, trace, vp=vp, group=group)
         n += 1
         done = bool(state.all_done().item())
     return state

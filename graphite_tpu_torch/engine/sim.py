@@ -13,6 +13,13 @@ more streams than tiles runs under the ThreadScheduler, as in the JAX
 package, which refuses the same traces: fewer streams than tiles, more
 than ``general/max_threads_per_core`` a tile, or CAPI messaging with
 more streams than tiles (``ValueError``).
+
+Under ``tpu/tile_shards`` = S > 1 (replicated state) each of S ranks
+builds a ``Simulator`` with its ``group`` (a parallel.mesh.ShardGroup of
+S ranks, from ``parallel.mesh.launch``) and runs it: every rank holds the
+whole state, walks its own T/S tiles and gathers the rest, so every host
+poll reads the same values on every rank, and a ``DeadlockError`` is
+raised on all of them alike.  Only rank 0 reports (cli.py).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from graphite_tpu_torch.engine.state import SimState, TraceArrays, make_state
 from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.events.schema import Trace
 from graphite_tpu_torch.isa import EventOp
+from graphite_tpu_torch.parallel.mesh import ShardGroup, check_group
 from graphite_tpu_torch.params import SimParams
 from graphite_tpu_torch.time_base import ps_to_ns
 
@@ -56,9 +64,11 @@ def check_slice(params: SimParams, device=None) -> None:
     package), miss-type classification (``[cache]/track_miss_types``),
     any tile count the directory's owner field holds (state.py), every
     event kind (the sync, CAPI, thread, ROI, DVFS and syscall kinds
-    among them), and more trace streams than tiles under the
+    among them), more trace streams than tiles under the
     ThreadScheduler (its limits are the JAX package's ``ValueError``s,
-    raised by ``Simulator`` and ``make_state``).  On a CUDA ``device``
+    raised by ``Simulator`` and ``make_state``), and tile sharding with
+    replicated state (``tpu/tile_shards`` > 1; its group is checked by
+    ``Simulator``).  On a CUDA ``device``
     the chain replay is also held to the one limit of the classify
     kernel, its grid form's co-residency on the card
     (kernels/chain.check_chain_config)."""
@@ -67,9 +77,9 @@ def check_slice(params: SimParams, device=None) -> None:
             f"{what} is not ported yet: it belongs to {where} of the "
             f"PyTorch port")
 
-    if params.tile_shards > 1 or params.shard_state != "replicated":
-        later("tile sharding (tpu/tile_shards > 1, resident shard state)",
-              "the multi-device slice")
+    if params.shard_state != "replicated":
+        later("resident tile sharding (tpu/shard_state = resident)",
+              "the resident slice")
     if params.segment_events > 0:
         later("streaming trace ingest (trace/segment_events > 0)",
               "the run-lifecycle slice")
@@ -284,15 +294,27 @@ class DeadlockError(RuntimeError):
 
 
 class Simulator:
-    """Headless simulator-as-library.  ``device=None`` means CUDA."""
+    """Headless simulator-as-library.  ``device=None`` means CUDA (the
+    group's device when a ``group`` is given).  ``group``: this rank's
+    parallel.mesh.ShardGroup under ``tpu/tile_shards`` = S > 1, which
+    must have S ranks (``ValueError`` otherwise, the JAX
+    ``shard_wrap``'s), None at S = 1."""
 
-    def __init__(self, params: SimParams, trace: Trace, device=None):
+    def __init__(self, params: SimParams, trace: Trace, device=None,
+                 group: Optional[ShardGroup] = None):
         if trace.num_tiles < params.num_tiles:
             raise ValueError(
                 f"trace has {trace.num_tiles} streams, params expect "
                 f"at least {params.num_tiles}")
+        if group is not None and device is None:
+            device = group.device
         self.device = dispatch.resolve_device(device)
         check_slice(params, self.device)
+        check_group(params.tile_shards, group)
+        if group is not None and group.device.type != self.device.type:
+            raise ValueError(f"the ShardGroup computes on {group.device}, "
+                             f"the simulator on {self.device}")
+        self.group = group
         self.params = params
         self.vp = variant_params(params)
         ops = np.asarray(trace.ops)
@@ -321,11 +343,14 @@ class Simulator:
             if window == 0:
                 break
             self.state = megarun(self.params, self.state, self.trace,
-                                 window * qps, vp=self.vp)
-            done = bool(self.state.all_done().item())
-            cursor_sum = int(self.state.cursor.to(torch.int64).sum().item())
-            clock_sum = int(self.state.clock.sum().item())
-            quanta = int(self.state.ctr_quantum.item())
+                                 window * qps, vp=self.vp, group=self.group)
+            # One device-to-host copy a poll, as the JAX package's one
+            # device_get.
+            done, cursor_sum, clock_sum, quanta = torch.stack([
+                self.state.all_done().to(torch.int64),
+                self.state.cursor.to(torch.int64).sum(),
+                self.state.clock.sum(),
+                self.state.ctr_quantum.to(torch.int64)]).tolist()
             self.steps = -(-quanta // qps)
             if done:
                 break
@@ -348,14 +373,17 @@ class Simulator:
 
 
 def run_simulation(params: SimParams, trace: Trace,
-                   max_steps: Optional[int] = None,
-                   device=None) -> SimSummary:
-    return Simulator(params, trace, device=device).run(max_steps=max_steps)
+                   max_steps: Optional[int] = None, device=None,
+                   group: Optional[ShardGroup] = None) -> SimSummary:
+    return Simulator(params, trace, device=device,
+                     group=group).run(max_steps=max_steps)
 
 
-def run_simulation_from_trace(cfg: Config, trace_path: str,
-                              device=None) -> SimSummary:
-    """CLI entry (graphite_tpu_torch.cli 'run')."""
+def run_simulation_from_trace(cfg: Config, trace_path: str, device=None,
+                              group: Optional[ShardGroup] = None
+                              ) -> SimSummary:
+    """CLI entry (graphite_tpu_torch.cli 'run'; one rank of a sharded
+    run with ``group``)."""
     trace = Trace.load(trace_path)
     params = SimParams.from_config(cfg, num_tiles=trace.num_tiles)
-    return run_simulation(params, trace, device=device)
+    return run_simulation(params, trace, device=device, group=group)

@@ -6,7 +6,15 @@ card, and the JAX package's values for them, recorded on the CPU:
     ``m_g_1`` DRAM queue models, into
     ``tests/data/card_pins_dir_queue.json``;
   * phase 16, the iocoom cores (uniform and mixed model lists) and
-    miss-type tracking, into ``tests/data/card_pins_ioc_mt.json``.
+    miss-type tracking, into ``tests/data/card_pins_ioc_mt.json``;
+  * the depth cuts of phases 5, 6 and 10 to 13 (each path's whole run
+    is held on the card by tests/test_torch_card_paths.py), into
+    ``tests/data/card_pins_cuts.json``; these also keep every counter's
+    sum and the [vm] section at the cut;
+  * phase 17, tile sharding with replicated state, into
+    ``tests/data/card_pins_shard.json``: the paths run there under
+    ``tpu/tile_shards`` = 2 and 4, held to the JAX package's unsharded
+    run (its sharded run equals it bit for bit, tests/test_sharding.py).
 
     JAX_PLATFORMS=cpu python tests/record_card_pins.py [path ...]
 
@@ -76,6 +84,38 @@ IOC_MT = {
     "radix64_chain12_mt": (RADIX64, {**TRACK, "tpu/miss_chain": 12}, 4),
     "migratory64_mt": (MIGRATORY64, TRACK, 6),
 }
+FFT64 = ["gen_fft", dict(num_tiles=64, points_per_tile=64, writeback=True)]
+SHARD = {
+    "radix64_shard": (RADIX64, {}, 16),
+    "radix64_chain12_shard": (RADIX64, {"tpu/miss_chain": 12}, 6),
+    "fft64_ff_span_shard": (FFT64, {
+        "tpu/fast_forward": 8, "tpu/fast_forward_span": 1000,
+        "tpu/miss_chain": 12}, 10),
+}
+LOCK64 = ["gen_lock_contention", dict(num_tiles=64, acquisitions=16,
+                                     critical_cycles=50)]
+SYSEV64 = ["gen_system_events", dict(num_tiles=64, seed=0)]
+FF8 = {"tpu/fast_forward": 8, "tpu/fast_forward_span": 1000}
+SCHED = {"general/max_threads_per_core": 2}
+CUTS = {
+    "radix64_cut": (RADIX64, {}, 60),
+    "radix64_chain12_cut": (RADIX64, {"tpu/miss_chain": 12}, 10),
+    "radix64_shl2_mesi_ff_span_cut": (RADIX64, {
+        **FF8, "caching_protocol/type": "pr_l1_sh_l2_mesi",
+        "tpu/miss_chain": 12}, 6),
+    "fft64_atac_chain12_cut": (FFT64, {
+        "network/memory": "atac", "network/user": "atac",
+        "tpu/miss_chain": 12}, 16),
+    "lock64_cut": (LOCK64, {}, 80),
+    "sysev64_ff_cut": (SYSEV64, {**FF8, "tpu/miss_chain": 12}, 8),
+    "threads128on64_chain12_cut": (
+        ["gen_threads_oversubscribed", dict(num_streams=128,
+                                            compute_blocks=64, yields=8)],
+        {**SCHED, "tpu/miss_chain": 12}, 17),
+    "lock128on64_cut": (
+        ["gen_lock_contention", dict(num_tiles=128, acquisitions=2,
+                                     critical_cycles=50)], SCHED, 60),
+}
 CTRS = ("round_ctr", "ctr_window", "ctr_complex", "ctr_conflict",
         "ctr_resolve", "ctr_quantum")
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -83,19 +123,29 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PIN_SETS = {
     os.path.join(HERE, "data", "card_pins_dir_queue.json"): DIR_QUEUE,
     os.path.join(HERE, "data", "card_pins_ioc_mt.json"): IOC_MT,
+    os.path.join(HERE, "data", "card_pins_shard.json"): SHARD,
+    os.path.join(HERE, "data", "card_pins_cuts.json"): CUTS,
 }
-PATHS = {**DIR_QUEUE, **IOC_MT}
+PATHS = {**DIR_QUEUE, **IOC_MT, **SHARD, **CUTS}
 
 
-def _values(leaves):
+def _values(leaves, tparams):
     import numpy as np
     sys.path.insert(0, HERE)
+    from graphite_tpu_torch.engine import vm
     from torch_jax_ref import digest
     return dict(
         ctrs={k: int(leaves[k]) for k in CTRS},
         completion_ps=int(np.asarray(leaves["clock"]).max()),
         clock_sum=int(np.asarray(leaves["clock"]).sum()),
         cursor_sum=int(np.asarray(leaves["cursor"]).astype(np.int64).sum()),
+        sums={k.split(".", 1)[1]: int(np.asarray(v).sum())
+              for k, v in sorted(leaves.items())
+              if k.startswith("counters.")},
+        vm=vm.summarize(tparams.num_tiles, tparams.stack_base,
+                        tparams.stack_size_per_core,
+                        int(leaves["vm_brk"]), int(leaves["vm_mmap_bytes"]),
+                        int(leaves["vm_munmap_bytes"])),
         leaves={k: digest(v) for k, v in sorted(leaves.items())})
 
 
@@ -108,12 +158,16 @@ def record(name):
     from graphite_tpu.events.schema import TraceBuilder
     from graphite_tpu.params import SimParams
     from graphite_tpu_torch import convert
+    from graphite_tpu_torch import load_config as tload_config
     from graphite_tpu_torch.events import synth as tsynth
+    from graphite_tpu_torch.params import SimParams as TSimParams
     (gen, kw), over, quanta = PATHS[name]
-    cfg = load_config()
+    cfg, tcfg = load_config(), tload_config()
     for k, v in over.items():
         cfg.set(k, v)
+        tcfg.set(k, v)
     params = SimParams.from_config(cfg)
+    tparams = TSimParams.from_config(tcfg)
     trace = getattr(synth, gen)(**kw) if hasattr(synth, gen) \
         else getattr(tsynth, gen)(**kw, builder=TraceBuilder)
     sim = Simulator(params, trace)
@@ -122,7 +176,7 @@ def record(name):
     sim.run()
     whole = convert.leaves_to_numpy(jax.device_get(sim.state))
     return dict(trace=[gen, kw], over=over, quanta=quanta,
-                cut=_values(cut), whole=_values(whole))
+                cut=_values(cut, tparams), whole=_values(whole, tparams))
 
 
 def main(names):

@@ -712,3 +712,74 @@ def test_iocoom_and_miss_type_paths_whole_on_card(name):
     if IOC_MT_PINS[name]["over"].get("l2_cache/T1/track_miss_types"):
         assert sum(int(s.counters[f"l2_miss_{k}"].sum()) for k in (
             "cold", "capacity", "sharing")) > 0
+
+
+# The paths chip_smoke.py cuts to make room for phase 17 (phase 5's
+# radix64 and phase 6's radix64_chain12 at keys_per_tile 64, phase 10's
+# radix64_shl2_mesi_ff_span, phase 11's fft64_atac_chain12, phase 12's
+# lock64 and sysev64_ff, phase 13's threads128on64_chain12 and
+# lock128on64), whole, every leaf the JAX package's on the CPU
+# (tests/record_card_pins.py).
+CUT_PINS = _pins("card_pins_cuts.json")
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(CUT_PINS))
+def test_cut_paths_whole_on_card(name):
+    _pinned_path_whole(name, CUT_PINS[name])
+
+
+# Tile sharding with replicated state at full width (chip_smoke.py phase
+# 17 runs the first quanta of each at 2 and 4 shards): radix64 (keys_per_
+# tile 64) at miss_chain 0 and 12 and fft64 at fast_forward 8, span 1000,
+# miss_chain 12, whole runs on 2 gloo ranks sharing the card, every leaf
+# of every rank the JAX package's unsharded run on the CPU (its sharded
+# run equals it, tests/test_sharding.py; tests/record_card_pins.py).
+SHARD_PINS = _pins("card_pins_shard.json")
+
+
+def _sharded_whole_rank(group, pin):
+    """One rank's whole run of a phase-17 path: its leaves' digests, its
+    round counters, its completion and its launch counts."""
+    from graphite_tpu_torch import convert
+    from torch_jax_ref import digest
+    gen, kw = pin["trace"]
+    cfg = load_config()
+    for k, v in pin["over"].items():
+        cfg.set(k, v)
+    cfg.set("tpu/tile_shards", str(group.size))
+    params = SimParams.from_config(cfg)
+    sim = Simulator(params, getattr(synth, gen)(**kw), group=group)
+    dispatch.reset_counts()
+    s = sim.run()
+    return dict(done=bool(s.done.all()), completion_ps=s.completion_time_ps,
+                ctrs={k: int(getattr(sim.state, k).item())
+                      for k in pin["whole"]["ctrs"]},
+                leaves={k: digest(v) for k, v in
+                        convert.state_to_numpy(sim.state).items()},
+                counts=dict(dispatch.COUNTS))
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(SHARD_PINS))
+def test_sharded_paths_whole_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form and "
+                    "the full-width run is sized for the card")
+    from graphite_tpu_torch.parallel.mesh import launch
+    pin = SHARD_PINS[name]
+    want = pin["whole"]
+    for r in launch(_sharded_whole_rank, 2, device="cuda", timeout_s=3000,
+                    args=(pin,)):
+        assert r["done"] and r["completion_ps"] == want["completion_ps"]
+        assert r["ctrs"] == want["ctrs"] and r["leaves"] == want["leaves"]
+        n = r["counts"]
+        assert n["run_window_sharded"] == n["window_walk"] \
+            == want["ctrs"]["ctr_window"]
+        assert n["run_fast_forward_sharded"] == n["fast_forward_walk"]
+        print(f"{name}: run_window_sharded launches "
+              f"{n['run_window_sharded']}, run_fast_forward_sharded "
+              f"{n['run_fast_forward_sharded']}, chain_classify "
+              f"{n['chain_classify']}", file=sys.stderr)

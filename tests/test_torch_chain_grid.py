@@ -23,7 +23,9 @@ directory ways, which neither one-block form takes.
     for explicitly).
 
 Every output field equal, value and dtype (tolerance 0: the function is
-all-integer; uint64 sharer words compare as int64 bits).  The JAX package
+all-integer; uint64 sharer words compare as int64 bits); the plain
+step's against the JAX function's outputs as recorded for the same
+inputs (tests/torch_jax_ref.check_outputs).  The JAX package
 is imported inside the tests that use it, so the card's tests run on a
 machine without jax (``python -m pytest -m gpu --noconftest
 tests/test_torch_chain_grid.py``).
@@ -106,19 +108,22 @@ def test_plain_step_matches_jax_at_grid_sizes(name, colliding):
     """Every ChainHead field against the JAX pass's gathered head, every
     ChainOut field against the JAX chain_classify, on a set the grid form
     takes."""
-    J = _jax()
     T, over, _ = SETS[name]
     tp, H, arrays, head, out = _plain(name, colliding)
     A, W = tp.directory.associativity, (T + 63) // 64
     KF = min(tp.max_inv_fanout_per_round, T)
     assert tchain.step_form(T, A, W, H, KF)[0] == tchain.GRID
-    jp, _ = _params(T, over)
-    jin = _jax_step_in(jp, arrays, H)
-    jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
-    _assert_fields_equal(
-        tchain.ChainHead(**{f: jin[f] for f in tchain.ChainHead._fields}),
-        head, f"{name} H={H} head")
-    _assert_fields_equal(jout, out, f"{name} H={H}")
+
+    def jax_out():
+        J = _jax()
+        jp, _ = _params(T, over)
+        jin = _jax_step_in(jp, arrays, H)
+        jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
+        return dict(head={f: jin[f] for f in tchain.ChainHead._fields},
+                    out=ref.fields_of(out, jout))
+
+    ref.check_outputs("test_torch_chain_grid", dict(head=head, out=out),
+                      jax_out, {"params": repr(tp), "H": H}, arrays)
 
 
 def _cases(tp, H, arrays, head, out):

@@ -39,7 +39,7 @@ import torch_jax_ref as ref
 
 RADIX8 = ("gen_radix", dict(num_tiles=8, keys_per_tile=64, radix=16,
                             seed=3))
-FFT8 = ("gen_fft", dict(num_tiles=8, points_per_tile=64, writeback=True))
+FFT8 = ("gen_fft", dict(num_tiles=8, points_per_tile=32, writeback=True))
 QUEUE_OFF = {"dram/queue_model/enabled": False}
 CASES = {
     "radix8": (RADIX8, {}),

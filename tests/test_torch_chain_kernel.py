@@ -18,7 +18,10 @@
   * ``gpu``: both CUDA kernels against their plain forms on the card.
 
 Every output field must be equal, value and dtype (tolerance 0: the
-functions are all-integer; uint64 sharer words compare as int64 bits).
+functions are all-integer; uint64 sharer words compare as int64 bits):
+one classify case against the JAX function run live, the others against
+its outputs as recorded for the same inputs
+(tests/torch_jax_ref.check_outputs).
 """
 
 import functools
@@ -36,6 +39,8 @@ from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+MODULE = "test_torch_chain_kernel"
 
 # The JAX package is imported inside the tests that compare against it,
 # so the card's kernel tests run on a machine without jax
@@ -135,13 +140,22 @@ def _jax_chain_in(arrays):
     return J["jchain"].ChainIn(**conv)
 
 
-def _classify_both(jp, tp, arrays, H):
-    J = _jax()
-    jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(arrays), H)
+def _classify_checked(jp, tp, arrays, H, live=False):
+    """The plain chain_classify on ``arrays``, every output field held to
+    the JAX function's (run where ``live``, else its pin:
+    tests/torch_jax_ref.check_outputs)."""
     tout = tchain.chain_classify(tp, variant_params(tp),
                                  toperands.chain_in_from_numpy(arrays, "cpu"),
                                  H)
-    return jout, tout
+
+    def jax_out():
+        J = _jax()
+        return ref.fields_of(tout, _jax_classify()(
+            jp, J["jax_vp"](jp), _jax_chain_in(arrays), H))
+
+    ref.check_outputs(MODULE, tout, jax_out, {"params": repr(tp), "H": H},
+                      arrays, live)
+    return tout
 
 
 def _rep_collisions(tp, arrays, tout):
@@ -165,8 +179,8 @@ def test_plain_classify_matches_jax_on_random_operands(config, seed):
     jp, tp = _params(64, CONFIGS[config])
     H = max(1024, 16 * tp.num_tiles)
     arrays = toperands.random_chain_arrays(tp, H, seed)
-    jout, tout = _classify_both(jp, tp, arrays, H)
-    _assert_fields_equal(jout, tout, f"{config} seed {seed}")
+    tout = _classify_checked(jp, tp, arrays, H,
+                             live=(config, seed) == ("fanout_queue", 0))
     assert bool(tout.serve.any())
 
 
@@ -179,8 +193,7 @@ def test_plain_classify_matches_jax_with_forced_collisions(config):
     collided = 0
     for seed in range(12):
         arrays = toperands.random_chain_arrays(tp, 4, 100 + seed)
-        jout, tout = _classify_both(jp, tp, arrays, 4)
-        _assert_fields_equal(jout, tout, f"{config} H=4 seed {seed}")
+        tout = _classify_checked(jp, tp, arrays, 4)
         collided += _rep_collisions(tp, arrays, tout)
     assert collided > 0, "no representative collision was exercised"
 
@@ -235,8 +248,7 @@ def test_plain_classify_matches_jax_on_captured_operands(captured_chain_ins):
     served = 0
     for i, ci in enumerate(recs):
         arrays = {f: getattr(ci, f) for f in ci._fields}
-        jout, tout = _classify_both(jp, tp, arrays, H)
-        _assert_fields_equal(jout, tout, f"iteration {i}")
+        tout = _classify_checked(jp, tp, arrays, H)
         served += int(tout.serve_all.sum())
     assert served > 0
 
@@ -257,14 +269,21 @@ def _jax_window_in(arrays):
         for f in J["jwin"].WindowIn._fields})
 
 
-def _walk_both(jp, tp, arrays):
-    J = _jax()
+def _walk_checked(jp, tp, arrays):
+    """The plain window_walk on ``arrays``, every output field held to the
+    JAX walk's (its pin: tests/torch_jax_ref.check_outputs)."""
     s_ids = tp.num_tiles
-    jout = _jax_walk()(jp, J["jax_vp"](jp), _jax_window_in(arrays), s_ids)
     tout = twin.window_walk(tp, variant_params(tp),
                             toperands.window_in_from_numpy(arrays, "cpu"),
                             s_ids)
-    return jout, tout
+
+    def jax_out():
+        J = _jax()
+        return ref.fields_of(tout, _jax_walk()(
+            jp, J["jax_vp"](jp), _jax_window_in(arrays), s_ids))
+
+    ref.check_outputs(MODULE, tout, jax_out, {"params": repr(tp)}, arrays)
+    return tout
 
 
 WINDOW_CONFIGS = {
@@ -280,8 +299,7 @@ def test_plain_walk_matches_jax_with_pending_bank(config, seed):
     jp, tp = _params(8, WINDOW_CONFIGS[config])
     arrays = toperands.random_window_arrays(tp, tp.block_events, seed)
     assert (arrays["mq_count"] > arrays["mq_head"]).any()
-    jout, tout = _walk_both(jp, tp, arrays)
-    _assert_fields_equal(jout, tout, f"{config} seed {seed}")
+    _walk_checked(jp, tp, arrays)
 
 
 @pytest.fixture(scope="module")
@@ -296,8 +314,7 @@ def test_plain_walk_matches_jax_on_captured_banking_windows(
     banked = pending = 0
     for i, wi in enumerate(recs):
         arrays = {f: getattr(wi, f) for f in wi._fields}
-        jout, tout = _walk_both(jp, tp, arrays)
-        _assert_fields_equal(jout, tout, f"window {i}")
+        tout = _walk_checked(jp, tp, arrays)
         banked += int((tout.mq_count.numpy() - arrays["mq_count"]).sum())
         pending += int((arrays["mq_count"] > arrays["mq_head"]).sum())
     assert banked > 0 and pending > 0
@@ -363,6 +380,26 @@ def _jax_step_in(jp, arrays, H):
 STEP_CONFIGS = ("fanout_queue", "fanout_noqueue", "nofanout_queue")
 
 
+def _step_checked(jp, tp, arrays, H):
+    """The plain run_chain_step from the state-level ``arrays``, every
+    ChainHead field held to the head the JAX pass gathers and every
+    ChainOut field to the JAX chain_classify's on its ChainIn (their
+    pin: tests/torch_jax_ref.check_outputs)."""
+    head, out = tchain.run_chain_step(
+        tp, variant_params(tp), toperands.chain_step_in_from_numpy(
+            arrays, "cpu"), H)
+
+    def jax_out():
+        J = _jax()
+        jin = _jax_step_in(jp, arrays, H)
+        jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
+        return dict(head={f: jin[f] for f in tchain.ChainHead._fields},
+                    out=ref.fields_of(out, jout))
+
+    ref.check_outputs(MODULE, dict(head=head, out=out), jax_out,
+                      {"params": repr(tp), "H": H}, arrays)
+
+
 @pytest.mark.parametrize("config", STEP_CONFIGS)
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_plain_chain_step_matches_jax(config, seed):
@@ -370,19 +407,9 @@ def test_plain_chain_step_matches_jax(config, seed):
     JAX chain_classify on the ChainIn the JAX pass gathers from them:
     every ChainHead field against the gathered head, every ChainOut
     field against the JAX function's."""
-    J = _jax()
     jp, tp = _params(8, CONFIGS[config])
     H = max(1024, 16 * tp.num_tiles)
-    arrays = toperands.random_chain_step_arrays(tp, H, seed)
-    jin = _jax_step_in(jp, arrays, H)
-    jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
-    head, out = tchain.run_chain_step(
-        tp, variant_params(tp), toperands.chain_step_in_from_numpy(
-            arrays, "cpu"), H)
-    _assert_fields_equal(
-        tchain.ChainHead(**{f: jin[f] for f in tchain.ChainHead._fields}),
-        head, f"{config} seed {seed} head")
-    _assert_fields_equal(jout, out, f"{config} seed {seed}")
+    _step_checked(jp, tp, toperands.random_chain_step_arrays(tp, H, seed), H)
 
 
 def _step_cases(tp, si, H, seen):
@@ -453,20 +480,10 @@ def test_plain_chain_step_matches_jax_at_1024(config):
     """The plain step against the JAX chain_classify at T = 1024, where
     the way-slot election runs its scatter-min table (T * H above the
     dense cap): every ChainHead and ChainOut field."""
-    J = _jax()
     jp, tp = _params(1024, {**CONFIGS[config], **WIDE})
     H = max(1024, 16 * tp.num_tiles)
     assert tp.num_tiles * H > 1 << 22
-    arrays = toperands.random_chain_step_arrays(tp, H, 0)
-    jin = _jax_step_in(jp, arrays, H)
-    jout = _jax_classify()(jp, J["jax_vp"](jp), _jax_chain_in(jin), H)
-    head, out = tchain.run_chain_step(
-        tp, variant_params(tp), toperands.chain_step_in_from_numpy(
-            arrays, "cpu"), H)
-    _assert_fields_equal(
-        tchain.ChainHead(**{f: jin[f] for f in tchain.ChainHead._fields}),
-        head, f"{config} head")
-    _assert_fields_equal(jout, out, config)
+    _step_checked(jp, tp, toperands.random_chain_step_arrays(tp, H, 0), H)
 
 
 def test_chain_step_operands_cover_the_cases_at_1024():

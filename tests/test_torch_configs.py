@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -30,6 +31,17 @@ from graphite_tpu_torch.events.schema import TraceBuilder
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The engine's CPU path is thousands of tiny ops: one intra-op
+    thread per test worker is faster than contending for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 T = 4
 

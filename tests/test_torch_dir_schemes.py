@@ -16,8 +16,8 @@ CPU, every SimState leaf equal (tolerance 0):
     contended hop-by-hop mesh, through ``cli run``; and miss_chain 12,
     where the chain replay stands down under a limited scheme.
 
-The cheapest whole run compares with the JAX package live; the others
-hold to its pins (tests/torch_jax_ref.py).
+The cheapest whole run compares with the JAX package live; the others,
+and the scheme legs, hold to its pins (tests/torch_jax_ref.py).
 """
 
 import numpy as np
@@ -172,18 +172,22 @@ def _seeded_leaves(jp, tp, seed):
     ("limited_broadcast", 0), ("limited_no_broadcast", 1), ("ackwise", 2),
     ("limitless", 3)])
 def test_scheme_legs_match_jax(scheme, seed):
-    """``resolve_memory`` on a seeded parked state, op by op in the JAX
-    package, every leaf equal; against the port's full map on the same
-    state, the scheme's leg moves the counters it exists for."""
+    """``resolve_memory`` on a seeded parked state, every leaf equal to
+    the JAX package's (op by op; its leaves as recorded for the same
+    inputs unless ``GRAPHITE_TORCH_JAX`` asks for a live run); against
+    the port's full map on the same state, the scheme's leg moves the
+    counters it exists for."""
     T = 8
     jp, tp = _params(T, _scheme(scheme, 2))
     lv = _seeded_leaves(jp, tp, seed)
-    jout = ref.eager(jresolve.resolve_memory)(jp, jax_vp(jp),
-                                              _jax_state(jp, lv))
     tout = tresolve.resolve_memory(
         tp, variant_params(tp), convert.state_from_numpy(tp, lv, "cpu"))
-    ref.assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jout)),
-                            convert.state_to_numpy(tout))
+    ref.check_outputs(
+        MODULE, convert.state_to_numpy(tout),
+        lambda: convert.leaves_to_numpy(jax.device_get(
+            ref.eager(jresolve.resolve_memory)(jp, jax_vp(jp),
+                                               _jax_state(jp, lv)))),
+        {"params": repr(tp)}, lv)
     _, tpf = _params(T, {})
     full = tresolve.resolve_memory(
         tpf, variant_params(tpf), convert.state_from_numpy(tpf, lv, "cpu"))

@@ -16,7 +16,10 @@
     clones taken first.
 
 Every output field must be equal, value and dtype (tolerance 0: the
-functions are all-integer).
+functions are all-integer): one fast-forward case against the JAX
+walk run live (and its interpreted Pallas kernel), the others against
+its outputs as recorded for the same inputs
+(tests/torch_jax_ref.check_outputs).
 """
 
 import functools
@@ -34,6 +37,8 @@ from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+MODULE = "test_torch_ff_kernel"
 
 # The JAX package is imported inside the tests that compare against it,
 # so the card's kernel tests run on a machine without jax
@@ -125,20 +130,27 @@ def _jax_ff():
     return ref.eager(J["jwin"].fast_forward_walk)
 
 
-def _ff_both(jp, tp, arrays, interpret=False):
-    """The JAX walk (lax, and optionally the interpreted Pallas kernel)
-    and the port's plain form on the same operands; returns the port's
-    output."""
-    J = _jax()
-    jfi = J["jwin"].FFIn(**{f: J["jnp"].asarray(arrays[f])
-                            for f in J["jwin"].FFIn._fields})
+def _ff_both(jp, tp, arrays, interpret=False, live=False):
+    """The port's plain form on ``arrays``, every output field held to
+    the JAX walk's (lax, and with ``interpret`` the interpreted Pallas
+    kernel too): run where ``live``, else its pin
+    (tests/torch_jax_ref.check_outputs); returns the port's output."""
     tout = twin.fast_forward_walk(tp, variant_params(tp),
                                   toperands.ff_in_from_numpy(arrays, "cpu"))
-    _assert_fields_equal(_jax_ff()(jp, J["jax_vp"](jp), jfi), tout, "lax")
-    if interpret:
-        _assert_fields_equal(
-            J["jwin"].run_fast_forward(jp, J["jax_vp"](jp), jfi,
-                                       "interpret"), tout, "interpret")
+
+    def jax_out():
+        J = _jax()
+        jfi = J["jwin"].FFIn(**{f: J["jnp"].asarray(arrays[f])
+                                for f in J["jwin"].FFIn._fields})
+        if interpret:
+            _assert_fields_equal(
+                J["jwin"].run_fast_forward(jp, J["jax_vp"](jp), jfi,
+                                           "interpret"), tout, "interpret")
+        return ref.fields_of(tout, _jax_ff()(jp, J["jax_vp"](jp), jfi))
+
+    ref.check_outputs(MODULE, tout, jax_out,
+                      {"params": repr(tp), "interpret": interpret}, arrays,
+                      live)
     return tout
 
 
@@ -166,7 +178,8 @@ def test_ff_width_matches_jax():
 def test_plain_ff_walk_matches_jax_on_seeded_operands(config, seed):
     jp, tp = _params(8, FF_CONFIGS[config])
     arrays = toperands.random_ff_arrays(tp, tcore._ff_width(tp), seed)
-    _ff_both(jp, tp, arrays, interpret=(config == "f64" and seed == 0))
+    _ff_both(jp, tp, arrays, interpret=(config == "f64" and seed == 0),
+             live=(config == "f64" and seed == 0))
 
 
 def test_seeded_ff_operands_cover_the_cases():
@@ -283,15 +296,22 @@ def _jax_walk():
 
 
 def _walk_both(jp, tp, arrays):
-    J = _jax()
-    jwi = J["jwin"].WindowIn(**{
-        f: (J["jnp"].asarray(arrays[f]) if arrays.get(f) is not None
-            else None) for f in J["jwin"].WindowIn._fields})
+    """The port's plain window walk on ``arrays``, held to the JAX walk's
+    outputs (their pin: tests/torch_jax_ref.check_outputs)."""
     s_ids = tp.num_tiles
     tout = twin.window_walk(tp, variant_params(tp),
                             toperands.window_in_from_numpy(arrays, "cpu"),
                             s_ids)
-    _assert_fields_equal(_jax_walk()(jp, J["jax_vp"](jp), jwi, s_ids), tout)
+
+    def jax_out():
+        J = _jax()
+        jwi = J["jwin"].WindowIn(**{
+            f: (J["jnp"].asarray(arrays[f]) if arrays.get(f) is not None
+                else None) for f in J["jwin"].WindowIn._fields})
+        return ref.fields_of(tout, _jax_walk()(jp, J["jax_vp"](jp), jwi,
+                                               s_ids))
+
+    ref.check_outputs(MODULE, tout, jax_out, {"params": repr(tp)}, arrays)
     return tout
 
 

@@ -135,20 +135,30 @@ def _with_summary(leaves, s):
             "ff_block": np.frombuffer(block.encode(), np.uint8)}
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_ff_run_ends_with_equal_state(name):
+@functools.lru_cache(maxsize=None)
+def _port_run(name):
+    """The port's whole run of a case on the CPU, shared by the tests that
+    read it: the simulator, its summary and the analytic rounds in which
+    some tile engaged (its end state equals the JAX package's:
+    test_ff_run_ends_with_equal_state)."""
     (fn, kw), over = CASES[name]
     _, tp = _params(kw["num_tiles"], over)
     tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
     tdispatch.reset_counts()
     tsum = tsim.run(max_steps=4096)
+    return tsim, tsum, tdispatch.COUNTS["ff_engaged"]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ff_run_ends_with_equal_state(name):
+    (fn, kw), over = CASES[name]
+    tsim, tsum, engaged = _port_run(name)
     assert bool(tsim.state.done.all())
     # The host's count of analytic rounds in which some tile engaged:
     # none at span 0.  Every engine round is a window round, a complex
     # slot, a conflict round, a chain pass (one per resolve pass at
     # P > 0) or an engaged analytic round.
     c = _ctrs(tsim.state)
-    engaged = tdispatch.COUNTS["ff_engaged"]
     assert (engaged > 0) == ("tpu/fast_forward_span" in over)
     passes = c["ctr_resolve"] if "tpu/miss_chain" in over else 0
     assert c["round_ctr"] == c["ctr_window"] + c["ctr_complex"] \
@@ -167,15 +177,6 @@ def test_ff_run_ends_with_equal_state(name):
     assert tsum.ff_rounds > 0 and tsum.ff_quanta > 0
 
 
-@functools.lru_cache(maxsize=None)
-def _port_run(name):
-    """The port's whole run of a case on the CPU (its end state equals the
-    JAX package's: test_ff_run_ends_with_equal_state)."""
-    (fn, kw), over = CASES[name]
-    _, tp = _params(kw["num_tiles"], over)
-    tsim = Simulator(tp, getattr(synth, fn)(**kw), device="cpu")
-    tsim.run(max_steps=4096)
-    return tsim.state
 
 
 def test_span_engages_the_analytic_leg():
@@ -183,14 +184,14 @@ def test_span_engages_the_analytic_leg():
     closed form at span 1000 than at span 0 (where only the wide window
     rounds count), on radix8 and on the fft8 chain-12 trace; the values
     are the JAX package's (the runs' end states equal its own)."""
-    r0 = _ctrs(_port_run("radix8_span0"))
-    r1 = _ctrs(_port_run("radix8_span1000"))
+    r0 = _ctrs(_port_run("radix8_span0")[0].state)
+    r1 = _ctrs(_port_run("radix8_span1000")[0].state)
     assert r1["ff_events"] > r0["ff_events"] and r1["ctr_ff"] > r0["ctr_ff"]
     assert (r0["round_ctr"], r0["ctr_ff"], r0["ctr_ffq"],
             r0["ff_events"]) == (467, 11, 6, 386)
     assert (r1["round_ctr"], r1["ctr_ff"], r1["ctr_ffq"],
             r1["ff_events"]) == (469, 13, 6, 638)
-    f1 = _ctrs(_port_run("fft8_chain12_span1000"))
+    f1 = _ctrs(_port_run("fft8_chain12_span1000")[0].state)
     assert (f1["round_ctr"], f1["ctr_ff"], f1["ctr_ffq"],
             f1["ff_events"]) == (84, 32, 12, 5901)
     # fft8 chain 12 at span 0 prices 5,245 events in wide rounds alone.

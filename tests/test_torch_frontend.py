@@ -23,6 +23,17 @@ from graphite_tpu_torch.events import synth
 from graphite_tpu_torch.events.schema import Trace
 from graphite_tpu_torch.params import SimParams
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The engine's CPU path is thousands of tiny ops: one intra-op
+    thread per test worker is faster than contending for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OVERRIDES = [
     {},
     {"general/total_cores": 8},
@@ -141,7 +152,8 @@ def test_default_device_is_cuda():
     # tracking run (tests/test_torch_dir_schemes.py,
     # tests/test_torch_queue_models.py, tests/test_torch_iocoom.py,
     # tests/test_torch_miss_types.py); beside a key that stays refused
-    # (tile sharding, streaming ingest, the statistics ring) each is
+    # (resident tile sharding, streaming ingest, the statistics ring)
+    # each is
     # refused by that key, under private or shared L2.
     ({"tpu/miss_chain": 12, "l2_cache/T1/track_miss_types": True,
       "trace/segment_events": 4096}, None),
@@ -149,7 +161,7 @@ def test_default_device_is_cuda():
       "tile/model_list": "<default,iocoom,T1,T1,T1>",
       "statistics_trace/enabled": True}, None),
     ({"tile/model_list": "<default,iocoom,T1,T1,T1>",
-      "tpu/tile_shards": 2}, None),
+      "tpu/tile_shards": 2, "tpu/shard_state": "resident"}, None),
     ({"caching_protocol/type": "pr_l1_sh_l2_msi",
       "l2_directory/directory_type": "limited_no_broadcast",
       "l2_cache/T1/track_miss_types": True,
@@ -161,7 +173,8 @@ def test_default_device_is_cuda():
       "dram_directory/directory_type": "limited_broadcast",
       "statistics_trace/enabled": True}, None),
     # The same under a CAPI trace.
-    ({"dram/queue_model/type": "basic", "tpu/tile_shards": 2},
+    ({"dram/queue_model/type": "basic", "tpu/tile_shards": 2,
+      "tpu/shard_state": "resident"},
      lambda: synth.gen_ping_pong(num_tiles=4, messages=2)),
 ], ids=["miss_chain", "ackwise", "iocoom", "sh_l2_limited", "basic_queue",
         "hop_by_hop", "basic_queue_capi"])

@@ -19,8 +19,8 @@ counter equal (tolerance 0):
     ThreadScheduler at 16 streams on 8 tiles (the scoreboard clears at a
     rotation).
 
-The cheapest whole run compares with the JAX package live; the others
-hold to its pins (tests/torch_jax_ref.py).  The card's kernel-vs-plain
+The cheapest whole run compares with the JAX package live; the others,
+and the walk's outputs, hold to its pins (tests/torch_jax_ref.py).  The card's kernel-vs-plain
 check of the iocoom operand sets is tests/test_torch_window.py's.
 """
 
@@ -95,19 +95,17 @@ def test_plain_iocoom_walk_matches_jax(config, seed):
     from graphite_tpu.engine.vparams import variant_params as jax_vp
     jp, tp = _params(8, WALK_CONFIGS[config])
     a = toperands.iocoom_window_arrays(tp, tp.block_events, seed)
-    jwi = jwin.WindowIn(**{
-        f: (jnp.asarray(a[f]) if a.get(f) is not None else None)
-        for f in jwin.WindowIn._fields})
-    jout = ref.eager(jwin.window_walk)(jp, jax_vp(jp), jwi, 8)
     tout = twin.window_walk(tp, variant_params(tp),
                             toperands.window_in_from_numpy(a, "cpu"), 8)
-    for f in twin.WindowOut._fields:
-        if getattr(tout, f) is None:
-            assert getattr(jout, f) is None, f
-            continue
-        x, y = np.asarray(getattr(jout, f)), getattr(tout, f).numpy()
-        assert x.dtype == y.dtype and x.shape == y.shape, f
-        np.testing.assert_array_equal(x, y, err_msg=f)
+
+    def jax_out():
+        jwi = jwin.WindowIn(**{
+            f: (jnp.asarray(a[f]) if a.get(f) is not None else None)
+            for f in jwin.WindowIn._fields})
+        return ref.fields_of(tout, ref.eager(jwin.window_walk)(
+            jp, jax_vp(jp), jwi, 8))
+
+    ref.check_outputs(MODULE, tout, jax_out, {"params": repr(tp)}, a)
 
 
 def test_iocoom_operands_reach_the_branches():

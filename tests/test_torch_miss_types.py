@@ -9,7 +9,8 @@ them:
     two deliveries to one tile hash to one slot and line + 1 wraps in
     int32;
   * whole runs of the four shapes of tests/test_miss_types.py (T = 2
-    and 4; the capacity case at its 32 KB L2) through
+    and 4; the capacity case on an 8 KB L2 under a 4 KB L1D, a quarter
+    of the reference test's 32 KB L2 and its misses) through
     ``Simulator.run``, with their assertions;
   * radix8 at miss_chain 0 and 12 (at 12 the chain replay classifies
     beside the chain_classify step), and migratory8 at 0 and 12 (sharing
@@ -170,7 +171,9 @@ def _sharing(T):
     return tb.build()
 
 
-CAPACITY_L2 = {"l2_cache/T1/cache_size": 32}
+# An 8 KB L2 (128 lines) under a 4 KB L1D: the second pass over 192
+# lines misses both.
+CAPACITY_L2 = {"l2_cache/T1/cache_size": 8, "l1_dcache/T1/cache_size": 4}
 
 
 def _capacity_lines():

@@ -13,8 +13,8 @@ A carry-across test takes a contended JAX state into the port mid-run
 (``convert``), and the configurations the port still refuses are
 checked at construction.
 
-The cheapest run (``LIVE``) and the carry-across compare with the JAX
-package's live run; the other cases with its recorded pins
+The cheapest run (``LIVE``) compares with the JAX package's live run;
+the other cases and the carry-across with its recorded pins
 (tests/torch_jax_ref.py).
 """
 
@@ -171,7 +171,7 @@ def test_carry_across_contended_mid_run():
     jp, tp = _params(T, over)
     leaves, tnext = ref.megarun_carry(
         "test_torch_network_runs", "carry", jp, jtrace, tp, ttrace, 2, 1,
-        {"general/total_cores": T, **over}, live=True)
+        {"general/total_cores": T, **over})
     assert (leaves["link_free_mem"] > 0).any()
     assert leaves["link_free_user"].shape == (4, T)
     assert int(tnext.ctr_quantum) == 3
@@ -197,7 +197,7 @@ def test_carry_across_contended_mid_run():
     ({"network/memory": "atac",
       "dram_directory/directory_type": "ackwise",
       "tile/model_list": "<default,iocoom,T1,T1,T1>",
-      "tpu/tile_shards": 2}, None),
+      "tpu/tile_shards": 2, "tpu/shard_state": "resident"}, None),
 ], ids=["user_hbh_limitless_sync", "broadcast_tree_scheme", "atac_ackwise"])
 def test_network_configs_still_refused(over, trace_fn):
     cfg = load_config()

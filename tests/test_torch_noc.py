@@ -3,7 +3,10 @@ ATAC's geometry and pricing (``engine/noc_atac.py``), the exact FCFS
 link queue (``queue_models.fcfs_start``), the contended hop-by-hop flight
 (``engine/noc_flight.py``), and the plain chain step and window walk
 under ATAC and the hop-by-hop mesh (the kernels' network branches).
-Every comparison is exact (tolerance 0) on seeded numpy inputs.
+Every comparison is exact (tolerance 0) on seeded numpy inputs; the
+chain step's and the walk's against the JAX functions' outputs as
+recorded for the same inputs, one walk case live
+(tests/torch_jax_ref.check_outputs).
 
 The ``gpu`` tests hold the CUDA kernels' network branches against the
 plain forms on the card and skip here (they run there with
@@ -28,6 +31,8 @@ from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+MODULE = "test_torch_noc"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -384,18 +389,22 @@ def _fanout_clusters(tp, head, out):
 def test_plain_chain_step_matches_jax_under_networks(name):
     """One replay iteration from state-level operands under each network:
     every ChainOut field against the JAX chain_classify."""
-    J = _jax()
     jp, tp = _params(16, _step_params(name))
     H = max(1024, 16 * tp.num_tiles)
     seen = dict(fan_same=0, fan_other=0, owner_leg=0, site=0)
     for seed in range(3):
         arrays = toperands.random_chain_step_arrays(tp, H, seed)
-        jout = _jax_classify()(jp, J["jax_vp"](jp),
-                               _jax_step_in(J, jp, arrays, H), H)
         head, out = tchain.run_chain_step(
             tp, variant_params(tp),
             toperands.chain_step_in_from_numpy(arrays, "cpu"), H)
-        _assert_fields_equal(jout, out, f"{name} seed {seed}")
+
+        def jax_out():
+            J = _jax()
+            return ref.fields_of(out, _jax_classify()(
+                jp, J["jax_vp"](jp), _jax_step_in(J, jp, arrays, H), H))
+
+        ref.check_outputs(MODULE, out, jax_out, {"params": repr(tp), "H": H},
+                          arrays)
         s, o = _fanout_clusters(tp, head, out)
         seen["fan_same"] += s
         seen["fan_other"] += o
@@ -422,21 +431,26 @@ def test_plain_walk_spawn_leg_matches_jax(name, P):
     """The SPAWN landing leg over the user network: windows in which a
     quarter of the events spawn children on every tile, every WindowOut
     field against the JAX walk."""
-    J = _jax()
-    jnp = J["jnp"]
     jp, tp = _params(16, {**WALK_NETS[name], "tpu/miss_chain": P})
     spawned = 0
     for seed in range(2):
         arrays = toperands.spawn_window_arrays(tp, 16, seed)
-        jwi = J["jwin"].WindowIn(**{
-            f: (jnp.asarray(arrays[f]) if arrays.get(f) is not None
-                else None) for f in J["jwin"].WindowIn._fields})
-        jout = _jax_walk()(jp, J["jax_vp"](jp), jwi, tp.num_tiles)
         tout = twin.window_walk(tp, variant_params(tp),
                                 toperands.window_in_from_numpy(arrays,
                                                                "cpu"),
                                 tp.num_tiles)
-        _assert_fields_equal(jout, tout, f"{name} seed {seed}")
+
+        def jax_out():
+            J = _jax()
+            jnp = J["jnp"]
+            jwi = J["jwin"].WindowIn(**{
+                f: (jnp.asarray(arrays[f]) if arrays.get(f) is not None
+                    else None) for f in J["jwin"].WindowIn._fields})
+            return ref.fields_of(tout, _jax_walk()(jp, J["jax_vp"](jp), jwi,
+                                                   tp.num_tiles))
+
+        ref.check_outputs(MODULE, tout, jax_out, {"params": repr(tp)},
+                          arrays, live=(name, P, seed) == ("hbh", 0, 0))
         spawned += int(tout.spawn_mask.sum())
     assert spawned > 0
 

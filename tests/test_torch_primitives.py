@@ -36,6 +36,16 @@ from graphite_tpu_torch.engine import resolve as tresolve
 from graphite_tpu_torch.params import SimParams
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The engine's CPU path is thousands of tiny ops: one intra-op
+    thread per test worker is faster than contending for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         return x.numpy()

@@ -29,7 +29,8 @@ exact (tolerance 0: the engine is all-integer; uint64 sharer words
 compare as int64 bits).
 
 The JAX package's end states come through tests/torch_jax_ref.py:
-its live run on the cases in ``LIVE``, its recorded pins on the others.
+its live run on the cases in ``LIVE``, its recorded pins on the others;
+so do the walk's and the chain step's outputs.
 """
 
 import functools
@@ -68,6 +69,8 @@ from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+MODULE = "test_torch_protocols"
 
 PROTOCOLS = {"mosi": "pr_l1_pr_l2_dram_directory_mosi",
              "sh_l2_msi": "pr_l1_sh_l2_msi",
@@ -313,15 +316,24 @@ def _jax_walk():
     return ref.eager(jwin.window_walk)
 
 
-def _walk_both(jp, tp, arrays):
-    jwi = jwin.WindowIn(**{
-        f: (jnp.asarray(arrays[f]) if arrays.get(f) is not None else None)
-        for f in jwin.WindowIn._fields})
-    jout = _jax_walk()(jp, jax_vp(jp), jwi, tp.num_tiles)
+def _walk_checked(jp, tp, arrays, live=False):
+    """The plain walk on ``arrays``, every WindowOut leaf held to the JAX
+    walk's (run where ``live``, else its pin:
+    tests/torch_jax_ref.check_outputs)."""
     tout = twin.window_walk(tp, variant_params(tp),
                             toperands.window_in_from_numpy(arrays, "cpu"),
                             tp.num_tiles)
-    return jout, tout
+
+    def jax_out():
+        jwi = jwin.WindowIn(**{
+            f: (jnp.asarray(arrays[f]) if arrays.get(f) is not None
+                else None) for f in jwin.WindowIn._fields})
+        return ref.fields_of(tout, _jax_walk()(jp, jax_vp(jp), jwi,
+                                               tp.num_tiles))
+
+    ref.check_outputs(MODULE, tout, jax_out, {"params": repr(tp)}, arrays,
+                      live)
+    return tout
 
 
 @pytest.mark.parametrize("P", [0, 12])
@@ -338,8 +350,7 @@ def test_plain_walk_matches_jax(proto, K, P):
         for seed in range(2):
             arrays = gen(tp, K, seed)
             assert (arrays["l2_word"] is None) == tp.shared_l2
-            jout, tout = _walk_both(jp, tp, arrays)
-            _assert_fields_equal(jout, tout, f"{gen.__name__} {seed}")
+            tout = _walk_checked(jp, tp, arrays)
             if P:
                 banked += int((tout.mq_count.numpy()
                                - arrays["mq_count"]).sum())
@@ -420,16 +431,18 @@ def test_plain_chain_step_matches_jax(proto, config):
     seen = dict(owner_leg=0, fan_go=0, evicting=0, e_grant=0, site=0)
     for seed in range(3):
         arrays = toperands.random_chain_step_arrays(tp, H, seed)
-        fields, jin = _jax_step_in(jp, arrays, H)
-        jout = _jax_classify()(jp, jax_vp(jp), jin, H)
         head, out = tchain.run_chain_step(
             tp, variant_params(tp),
             toperands.chain_step_in_from_numpy(arrays, "cpu"), H)
-        _assert_fields_equal(
-            tchain.ChainHead(**{f: fields[f]
-                                for f in tchain.ChainHead._fields}),
-            head, f"seed {seed} head")
-        _assert_fields_equal(jout, out, f"seed {seed}")
+
+        def jax_out():
+            fields, jin = _jax_step_in(jp, arrays, H)
+            return dict(head={f: fields[f] for f in tchain.ChainHead._fields},
+                        out=ref.fields_of(out, _jax_classify()(
+                            jp, jax_vp(jp), jin, H)))
+
+        ref.check_outputs(MODULE, dict(head=head, out=out), jax_out,
+                          {"params": repr(tp), "H": H}, arrays)
         seen["owner_leg"] += int(out.owner_leg.sum())
         seen["fan_go"] += int(out.fan_go.sum())
         seen["evicting"] += int(out.evicting.sum())

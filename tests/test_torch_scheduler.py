@@ -32,10 +32,12 @@ against the JAX package on the CPU, every SimState leaf equal (tolerance
     ``general/max_threads_per_core`` streams a tile, CAPI messaging with
     more streams than tiles.
 
-The cases in ``LIVE`` run the JAX package live (the cheapest that reach
-the barrier and cond store wakes, the THREAD_START rotation, the chain
-replay beside the seats and SPAWN children >= T); the others hold the
-JAX package's recorded pins (tests/torch_jax_ref.py).
+The case in ``LIVE`` runs the JAX package live (the cheapest, which
+reaches the barrier store wakes); the others, the cond store wakes, the
+THREAD_START rotation, the chain replay beside the seats and SPAWN
+children >= T among them, hold the JAX package's recorded pins
+(tests/torch_jax_ref.py); so do the rotation's and the store resolvers'
+outputs, one rotation case live (tests/torch_jax_ref.check_outputs).
 """
 
 import numpy as np
@@ -124,6 +126,18 @@ def _fresh_leaves(jp):
 def _compare(jout, tout):
     ref.assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jout)),
                             convert.state_to_numpy(tout))
+
+
+def _leaves(jst):
+    return convert.leaves_to_numpy(jax.device_get(jst))
+
+
+def _pinned(tleaves, jax_leaves, tp, arrays, live=False):
+    """The port's flat leaves ``tleaves`` held to the JAX function's
+    (``jax_leaves()``, run op by op where ``live``, else their pin:
+    tests/torch_jax_ref.check_outputs) on the same inputs ``arrays``."""
+    ref.check_outputs(MODULE, tleaves, jax_leaves, {"params": repr(tp)},
+                      arrays, live)
 
 
 def _own_streams(t):
@@ -220,18 +234,28 @@ def test_schedule_rotate_matches_jax(chain, seed):
     later orders the outgoing streams behind the rest."""
     jp, tp = _params({"tpu/miss_chain": chain})
     lv, roles = _rotate_leaves(jp, 31 * seed + chain)
-    jst = _jax_state(jp, lv)
     tst = convert.state_from_numpy(tp, lv, "cpu")
+    tleaves = {}
     for k in range(2):
-        jst = ref.eager(jquantum.schedule_rotate)(jp, jst, jax_vp(jp))
         tst = tquantum.schedule_rotate(tp, tst, variant_params(tp))
-        _compare(jst, tst)
+        tleaves[k] = convert.state_to_numpy(tst)
         if k == 0:
             moved = tst.seat_stream.numpy() != lv["seat_stream"]
             np.testing.assert_array_equal(
                 moved, [r in GIVES_UP for r in roles])
             tst = tst._replace(boundary=tst.boundary + Q)
+
+    def jax_leaves():
+        jst = _jax_state(jp, lv)
+        out = {}
+        for k in range(2):
+            jst = ref.eager(jquantum.schedule_rotate)(jp, jst, jax_vp(jp))
+            out[k] = _leaves(jst)
             jst = jst._replace(boundary=jst.boundary + Q)
+        return out
+
+    _pinned(tleaves, jax_leaves, tp, {**lv, "fn": np.array("rotate")},
+            live=(chain, seed) == (0, 0))
 
 
 def _sched_parked_leaves(jp, seed, kinds):
@@ -313,11 +337,12 @@ def test_store_resolver_matches_jax(name, seed, replay):
         lv["strm_pend_kind"][r] = PEND_NONE
         lv["strm_clock"][r] = 250_000 * (seed + 1)
         lv["strm_done"][r] = False
-    jout = ref.eager(getattr(jresolve, fn))(jp, jax_vp(jp),
-                                            _jax_state(jp, lv))
     tout = getattr(tresolve, fn)(tp, variant_params(tp),
                                  convert.state_from_numpy(tp, lv, "cpu"))
-    _compare(jout, tout)
+    _pinned(convert.state_to_numpy(tout), lambda: _leaves(
+        ref.eager(getattr(jresolve, fn))(jp, jax_vp(jp),
+                                         _jax_state(jp, lv))),
+        tp, {**lv, "fn": np.array(fn)})
     if name == "barrier":
         assert int(tout.strm_pend_kind[0]) == PEND_NONE
         assert int(tout.strm_pend_kind[1]) == PEND_BARRIER
@@ -331,10 +356,11 @@ def test_resolve_pass_with_store_matches_jax(seed):
     lv = _sched_parked_leaves(
         jp, 300 + seed, [PEND_NONE, PEND_BARRIER, PEND_MUTEX, PEND_COND,
                          PEND_CSIG, PEND_CBC, PEND_JOIN, PEND_START])
-    jout = ref.eager(jresolve.resolve)(jp, _jax_state(jp, lv), jax_vp(jp))
     tout = tresolve.resolve(tp, convert.state_from_numpy(tp, lv, "cpu"),
                             variant_params(tp))
-    _compare(jout, tout)
+    _pinned(convert.state_to_numpy(tout), lambda: _leaves(
+        ref.eager(jresolve.resolve)(jp, _jax_state(jp, lv), jax_vp(jp))),
+        tp, {**lv, "fn": np.array("resolve")})
 
 
 # ----------------------------------- the window round and slot on seats
@@ -520,8 +546,7 @@ RUNS = {
         lambda TB: tsynth.gen_system_events(16, seed=0, builder=TB), 8,
         {**MT2, "tpu/miss_chain": 12}, "simulator"),
 }
-LIVE = ("barrier_across_streams", "cond_pairs", "children_seated_first",
-        "threads16on8_chain12")
+LIVE = ("barrier_across_streams",)
 
 
 def _run_params(tiles, over):

@@ -20,6 +20,9 @@ tests/torch_jax_ref.eager), every SimState leaf equal:
     hop-by-hop user network, whose SEND flies over the link horizons;
   * the chain replay (the plain chain pass and a conflict round) on a
     state whose banks hold atomics.
+
+One resolver case runs the JAX function live; the others hold its
+leaves as recorded for the same inputs (tests/torch_jax_ref.py).
 """
 
 import functools
@@ -38,7 +41,6 @@ from graphite_tpu.engine import state as jstate
 from graphite_tpu.engine.state import TraceArrays as JTraceArrays
 from graphite_tpu.engine.vparams import variant_params as jax_vp
 from graphite_tpu.events.schema import Trace as JTrace
-from graphite_tpu.events.schema import TraceBuilder as JTB
 from graphite_tpu.params import SimParams as JaxSimParams
 from graphite_tpu_torch import convert, load_config
 from graphite_tpu_torch.engine import core as tcore
@@ -49,10 +51,13 @@ from graphite_tpu_torch.engine.state import (
     PEND_NONE, PEND_RECV, PEND_SEND, PEND_START)
 from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.events.schema import Trace
+from graphite_tpu_torch.events.schema import TraceBuilder as TB
 from graphite_tpu_torch.isa import EventOp, SyscallClass
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+MODULE = "test_torch_sync"
 
 T = 8
 DEPTH = 2          # channel ring depth: rings fill within a few sends
@@ -142,18 +147,24 @@ def _parked_leaves(jp, seed, kinds):
     return lv
 
 
-def _compare(jout, tout):
-    ref.assert_leaves_equal(convert.leaves_to_numpy(jax.device_get(jout)),
-                            convert.state_to_numpy(tout))
+def _compare(jout_fn, tout, tp, arrays, live=False):
+    """Every leaf of the port's state ``tout`` held to the JAX function's
+    (``jout_fn()``, run op by op where ``live``, else its pin:
+    tests/torch_jax_ref.check_outputs) on the same inputs ``arrays``."""
+    ref.check_outputs(
+        MODULE, convert.state_to_numpy(tout),
+        lambda: convert.leaves_to_numpy(jax.device_get(jout_fn())),
+        {"params": repr(tp)}, arrays, live)
 
 
-def _both(jfn, tfn, jp, tp, leaves):
-    """Run the JAX function (op by op) and the port's on the state
-    ``leaves``; every leaf equal.  Returns the port's state."""
-    jout = ref.eager(jfn)(jp, jax_vp(jp), _jax_state(jp, leaves))
+def _both(jfn, tfn, jp, tp, leaves, live=False):
+    """Run the port's function and the JAX function (op by op, or its
+    pin) on the state ``leaves``; every leaf equal.  Returns the port's
+    state."""
     tout = tfn(tp, variant_params(tp),
                convert.state_from_numpy(tp, leaves, "cpu"))
-    _compare(jout, tout)
+    _compare(lambda: ref.eager(jfn)(jp, jax_vp(jp), _jax_state(jp, leaves)),
+             tout, tp, {**leaves, "fn": np.array(jfn.__name__)}, live)
     return tout
 
 
@@ -177,7 +188,7 @@ def test_resolver_matches_jax(name, seed):
     jp, tp = _params()
     leaves = _parked_leaves(jp, 10 * seed + len(name), kinds)
     tout = _both(getattr(jresolve, fn), getattr(tresolve, fn), jp, tp,
-                 leaves)
+                 leaves, live=(name, seed) == ("recv", 0))
     moved = tout.pend_kind.numpy() != leaves["pend_kind"]
     if name != "cond":
         # Some seeds release nothing; across them every resolver does.
@@ -203,11 +214,11 @@ def test_resolve_pass_matches_jax(seed):
     same pass."""
     jp, tp = _params()
     leaves = _parked_leaves(jp, 200 + seed, SYNC_KINDS)
-    jout = ref.eager(jresolve.resolve)(jp, _jax_state(jp, leaves),
-                                       jax_vp(jp))
     tout = tresolve.resolve(tp, convert.state_from_numpy(tp, leaves, "cpu"),
                             variant_params(tp))
-    _compare(jout, tout)
+    _compare(lambda: ref.eager(jresolve.resolve)(
+        jp, _jax_state(jp, leaves), jax_vp(jp)), tout, tp,
+        {**leaves, "fn": np.array("resolve")})
 
 
 def _cond_case(kinds, issue, aux=None, addr=None, clock=None, holder=None):
@@ -242,6 +253,14 @@ def test_cond_token_expires_with_no_waiter():
     assert int(tout.cursor[0]) == 1
 
 
+def _jax_resolves(jp, lv, passes):
+    """The JAX state after ``passes`` resolve passes from ``lv``."""
+    jst = _jax_state(jp, lv)
+    for _ in range(passes):
+        jst = ref.eager(jresolve.resolve)(jp, jst, jax_vp(jp))
+    return jst
+
+
 def test_broadcast_while_poster_holds_mutex():
     """lock; broadcast; unlock: the broadcaster holds the mutex its
     woken waiters re-park on.  The first pass wakes the waiters parked
@@ -253,12 +272,11 @@ def test_broadcast_while_poster_holds_mutex():
     issue = [8_000_000, 1_000_000, 2_000_000, 9_000_000] + [0] * (T - 4)
     clock = [0] * 4 + [20_000_000] * (T - 4)
     jp, tp, lv = _cond_case(kinds, issue, clock=clock, holder=1)
-    jst = _jax_state(jp, lv)
     tst = convert.state_from_numpy(tp, lv, "cpu")
-    for _ in range(2):
-        jst = ref.eager(jresolve.resolve)(jp, jst, jax_vp(jp))
+    for i in range(2):
         tst = tresolve.resolve(tp, tst, variant_params(tp))
-        _compare(jst, tst)
+        _compare(lambda: _jax_resolves(jp, lv, i + 1), tst, tp,
+                 {**lv, "fn": np.array("resolve"), "passes": np.array(i + 1)})
         pk = tst.pend_kind.numpy()
         assert pk[1] == PEND_MUTEX and pk[2] == PEND_MUTEX
         assert pk[3] == PEND_COND                  # parked after it
@@ -365,14 +383,21 @@ def _slot_case(seed, over):
 
 
 def _slot_both(jp, tp, lv, trace):
-    jtr = JTraceArrays.from_trace(JTrace(ops=trace.ops, addr=trace.addr,
-                                         arg=trace.arg, arg2=trace.arg2))
     ttr = tstate.TraceArrays.from_trace(trace, "cpu")
-    jout = ref.eager(jcore._complex_slot)(jp, jax_vp(jp),
-                                          _jax_state(jp, lv), jtr)
     tout = tcore._complex_slot(tp, variant_params(tp),
                                convert.state_from_numpy(tp, lv, "cpu"), ttr)
-    _compare(jout, tout)
+
+    def jout():
+        jtr = JTraceArrays.from_trace(JTrace(
+            ops=trace.ops, addr=trace.addr, arg=trace.arg, arg2=trace.arg2))
+        return ref.eager(jcore._complex_slot)(jp, jax_vp(jp),
+                                              _jax_state(jp, lv), jtr)
+
+    _compare(jout, tout, tp, {**lv, "fn": np.array("_complex_slot"),
+                              "trace_ops": trace.ops,
+                              "trace_addr": trace.addr,
+                              "trace_arg": trace.arg,
+                              "trace_arg2": trace.arg2})
     return tout
 
 
@@ -417,18 +442,20 @@ def test_slot_send_flies_over_the_user_links():
 
 @functools.lru_cache(maxsize=None)
 def _atomic_bank_state():
-    """A state four complex slots into a trace of contended ATOMICs on
-    two shared lines at miss_chain 12 (every miss banks as element 0)."""
+    """A state one complex slot into a trace of contended ATOMICs on two
+    shared lines at miss_chain 12 (every miss banks as element 0): the
+    port's slot, which test_complex_slot_every_kind_matches_jax holds to
+    the JAX package's."""
     jp, tp = _params({"tpu/miss_chain": 12})
-    tb = JTB(T)
+    tb = TB(T)
     for t in range(T):
         tb.atomic(t, 0x8000_0000 + 64 * (t % 2))
         tb.read(t, 0x8000_0000 + 64 * ((t + 1) % 2))
     trace = tb.build()
-    st = jstate.make_state(jp, has_capi=False)
-    jtr = JTraceArrays.from_trace(trace)
-    st = ref.eager(jcore._complex_slot)(jp, jax_vp(jp), st, jtr)
-    return jp, tp, convert.leaves_to_numpy(jax.device_get(st))
+    st = tstate.make_state(tp, "cpu", has_capi=False)
+    st = tcore._complex_slot(tp, variant_params(tp), st,
+                             tstate.TraceArrays.from_trace(trace, "cpu"))
+    return jp, tp, convert.state_to_numpy(st)
 
 
 def test_atomic_in_chain_bank_replays_like_jax():
@@ -436,9 +463,9 @@ def test_atomic_in_chain_bank_replays_like_jax():
     chain pass and a conflict round: the kind is ``req & 7``."""
     jp, tp, lv = _atomic_bank_state()
     assert ((lv["mq_req"][0] >> 3) & 1).sum() == T
-    jst = _jax_state(jp, lv)
     tst = convert.state_from_numpy(tp, lv, "cpu")
-    jout = ref.eager(jresolve.resolve_memory)(jp, jax_vp(jp), jst)
     tout = tresolve.resolve_memory(tp, variant_params(tp), tst)
-    _compare(jout, tout)
+    _compare(lambda: ref.eager(jresolve.resolve_memory)(
+        jp, jax_vp(jp), _jax_state(jp, lv)), tout, tp,
+        {**lv, "fn": np.array("resolve_memory")})
     assert int(tout.counters.dir_ex_req.sum()) > 0

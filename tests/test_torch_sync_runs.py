@@ -335,7 +335,7 @@ RUNS = {
     "sysev8": (system_events(8), {}, "run_simulation", False),
     "sysev8_ff_chain12": (system_events(8), FF_CHAIN, "simulator", False),
 }
-LIVE = ("producer_consumer", "vm_accounts_syscalls", "ping4_hbh_user")
+LIVE = ("producer_consumer",)
 
 
 @pytest.fixture(autouse=True, scope="module")

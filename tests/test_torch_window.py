@@ -5,9 +5,12 @@ the plain form on the card.
 
 Inputs are (a) random operands from a numpy seed (valid packed cache
 words, every event kind the walk classifies) and (b) a ``WindowIn``
-captured from a JAX radix8 run after two megasteps, so the caches hold
-real lines.  Every ``WindowOut`` leaf must be equal, value and dtype
-(tolerance 0: the walk is all-integer).
+captured from the port's radix8 run after two megasteps (the JAX
+package's state there, leaf for leaf), so the caches hold real lines.
+Every ``WindowOut`` leaf must be equal, value and dtype (tolerance 0:
+the walk is all-integer): one case against the JAX walk run live, the
+others against its outputs as recorded for the same inputs
+(tests/torch_jax_ref.check_outputs).
 """
 
 import functools
@@ -24,6 +27,19 @@ from graphite_tpu_torch.engine.vparams import variant_params
 from graphite_tpu_torch.params import SimParams
 
 import torch_jax_ref as ref
+
+MODULE = "test_torch_window"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The engine's CPU path is thousands of tiny ops: one intra-op
+    thread per test worker is faster than contending for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # The JAX package is imported inside the tests that compare against it,
 # so the card's kernel test runs on a machine without jax
@@ -110,18 +126,31 @@ def _assert_out_equal(jout, tout):
         np.testing.assert_array_equal(a, b, err_msg=f)
 
 
-def _check_against_jax(jp, tp, arrays, interpret=False):
-    J = _jax_modules()
-    jwin, jax_vp = J["jwin"], J["jax_vp"]
+def _check_against_jax(jp, tp, arrays, interpret=False, live=False):
+    """The plain walk on ``arrays``, every WindowOut leaf held to the JAX
+    walk's (run where ``live``, else its pin:
+    tests/torch_jax_ref.check_outputs); with ``interpret`` the JAX run
+    also holds the Pallas kernel path in interpret mode to its lax
+    walk."""
     s_ids = tp.num_tiles
-    jwi = _jax_window_in(arrays)
     tout = twin.window_walk(tp, variant_params(tp),
                             toperands.window_in_from_numpy(arrays, "cpu"),
                             s_ids)
-    _assert_out_equal(_jax_walk()(jp, jax_vp(jp), jwi, s_ids), tout)
-    if interpret:
-        _assert_out_equal(
-            jwin.run_window(jp, jax_vp(jp), jwi, s_ids, "interpret"), tout)
+
+    def jax_out():
+        J = _jax_modules()
+        jwin, jax_vp = J["jwin"], J["jax_vp"]
+        jwi = _jax_window_in(arrays)
+        jout = _jax_walk()(jp, jax_vp(jp), jwi, s_ids)
+        if interpret:
+            _assert_out_equal(
+                jwin.run_window(jp, jax_vp(jp), jwi, s_ids, "interpret"),
+                tout)
+        return ref.fields_of(tout, jout)
+
+    ref.check_outputs(MODULE, tout, jax_out,
+                      {"params": repr(tp), "interpret": interpret}, arrays,
+                      live)
     return tout
 
 
@@ -130,39 +159,41 @@ def _check_against_jax(jp, tp, arrays, interpret=False):
 def test_plain_walk_matches_jax_on_random_operands(config, seed):
     jp, tp = _params(8, CONFIGS[config])
     arrays = toperands.random_window_arrays(tp, tp.block_events, seed)
-    _check_against_jax(jp, tp, arrays, interpret=(seed == 0))
+    _check_against_jax(jp, tp, arrays, interpret=(seed == 0),
+                       live=(config, seed) == ("default", 0))
 
 
 def _captured_arrays(all_live: bool):
     """A radix8 window operand set as the first window round of the next
-    quantum sees it, after two JAX megasteps.  ``all_live`` also admits
-    parked tiles, to walk more windows."""
-    J = _jax_modules()
-    jnp, jcore = J["jnp"], J["jcore"]
+    quantum sees it, after two megasteps of the port's run
+    (tests/test_torch_sim.py holds that state to the JAX package's leaf
+    by leaf).  ``all_live`` also admits parked tiles, to walk more
+    windows."""
+    from graphite_tpu_torch.engine import core as tcore
+    from graphite_tpu_torch.engine.quantum import next_boundary
+    from graphite_tpu_torch.engine.sim import Simulator
+    from graphite_tpu_torch.events import synth
     jp, tp = _params(8, {})
-    trace = J["jax_synth"].gen_radix(num_tiles=8, keys_per_tile=64,
-                                     radix=16, seed=3)
-    sim = J["JaxSimulator"](jp, trace)
+    sim = Simulator(tp, synth.gen_radix(num_tiles=8, keys_per_tile=64,
+                                        radix=16, seed=3), device="cpu")
     sim.run(max_steps=2)
-    st = sim.state
-    st = st._replace(boundary=J["jquantum"].next_boundary(jp, st))
-    T, K = jp.num_tiles, jp.block_events
+    st = sim.state._replace(boundary=next_boundary(tp, sim.state))
+    T, K = tp.num_tiles, tp.block_events
     N = sim.trace.num_events
     active = (~st.done) & (st.cursor < N)
     if not all_live:
         active = active & (st.pend_kind == 0) & (st.clock < st.boundary)
-    meta, addr = jcore._window_slice_gather(st, sim.trace, K)
-    pos = st.cursor[:, None] + jnp.arange(K, dtype=jnp.int32)[None, :]
+    meta, addr = tcore._window_slice_gather(st, sim.trace, K)
+    pos = st.cursor[:, None] + torch.arange(K, dtype=torch.int32)[None, :]
     arrays = dict(
         meta=meta, addr=addr, valid_ev=(pos < N) & active[:, None],
-        tile_active=active, tile_ids=jnp.arange(T, dtype=jnp.int32),
+        tile_active=active, tile_ids=torch.arange(T, dtype=torch.int32),
         clock=st.clock, period_ps=st.period_ps, bp_table=st.bp_table,
         l1i_word=st.l1i.word, l1i_rr=st.l1i.rr_ptr,
         l1d_word=st.l1d.word, l1d_rr=st.l1d.rr_ptr,
         l2_word=st.l2.word, l2_rr=st.l2.rr_ptr, boundary=st.boundary,
-        models_enabled=st.models_enabled,
-        stamp_base=st.round_ctr * jcore.STAMP_STRIDE)
-    return jp, tp, {k: np.asarray(v) for k, v in arrays.items()}
+        models_enabled=st.models_enabled, stamp_base=tcore._stamp_base(st))
+    return jp, tp, {k: v.numpy() for k, v in arrays.items()}
 
 
 @pytest.mark.parametrize("all_live", [False, True])
@@ -586,3 +617,70 @@ def test_kernel_refuses_operands_that_share_storage():
             l2_word=wi.l2_word.clone(), clock=wi.mq_extra[0]))
     # Operands the kernel only reads may share storage.
     twin._check_inputs(tp, wi._replace(tile_ids=wi.mq_head))
+
+
+# ------------------------------------------------ the sharded walks
+
+def _sharded_walks_rank(group, T):
+    """On one rank of a card's group: each sharded walk on seeded operands
+    (the same on every rank) against the whole-tile kernel and the plain
+    form; the labels of the sets that differ."""
+    import dataclasses
+    bad = []
+    configs = {"default": {}, "p12": {"tpu/miss_chain": 12},
+               "mixed": {"tile/model_list":
+                         f"<{T // 2 - 1},simple,T1,T1,T1>, "
+                         f"<{T // 2 + 1},iocoom,T1,T1,T1>"},
+               "sh_l2_mesi": {"caching_protocol/type": PROTOCOLS["sh_l2_mesi"],
+                              "tpu/miss_chain": 12}}
+    for config, over in configs.items():
+        tp = _torch_params(T, over)
+        ts = dataclasses.replace(tp, tile_shards=group.size)
+        vp = variant_params(tp)
+        gen = (toperands.iocoom_window_arrays if config == "mixed"
+               else toperands.seeded_window_arrays)
+        for K in (tp.block_events, 64):
+            for seed in range(2):
+                wi = toperands.window_in_from_numpy(gen(tp, K, seed),
+                                                    group.device)
+                got = twin.run_window_sharded(ts, vp, _clone(wi), T, group)
+                whole = twin.window_walk_cuda(tp, vp, _clone(wi), T)
+                plain = twin.window_walk(tp, vp, _clone(wi), T)
+                for name, ref_out in (("kernel", whole), ("plain", plain)):
+                    f = _leaves_equal(got, ref_out)
+                    if f is not None:
+                        bad.append(f"window {config} K={K} seed {seed} "
+                                   f"{name}: {f}")
+    tp = _torch_params(T, {"tpu/fast_forward": 4,
+                           "tpu/fast_forward_span": 1000})
+    ts = dataclasses.replace(tp, tile_shards=group.size)
+    vp = variant_params(tp)
+    for seed in range(4):
+        fi = toperands.ff_in_from_numpy(
+            toperands.random_ff_arrays(tp, 64, seed), group.device)
+        clone = lambda x: type(x)(*[t.clone() for t in x])  # noqa: E731
+        got = twin.run_fast_forward_sharded(ts, vp, clone(fi), group)
+        for name, ref_out in (
+                ("kernel", twin.fast_forward_walk_cuda(tp, vp, clone(fi))),
+                ("plain", twin.fast_forward_walk(tp, vp, clone(fi)))):
+            for f in twin.FFOut._fields:
+                if not torch.equal(getattr(got, f), getattr(ref_out, f)):
+                    bad.append(f"ff seed {seed} {name}: {f}")
+    torch.cuda.synchronize()
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_walks_match_kernel_and_plain_on_card(shards):
+    """run_window_sharded and run_fast_forward_sharded on the card (gloo
+    ranks sharing it, each walking T/S tiles with the CUDA kernels)
+    against the whole-tile kernels and the plain forms, on seeded
+    operands at T = 64: simple, chain-12, a mixed model list split
+    unevenly across the shards, shared-L2 MESI; K = 16 and 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    from graphite_tpu_torch.parallel import mesh
+    bad = mesh.launch(_sharded_walks_rank, shards, device="cuda",
+                      timeout_s=900, args=(64,))
+    assert bad == [[]] * shards

@@ -42,7 +42,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "chain_off_golden.json")
 RADIX8 = ("gen_radix", dict(num_tiles=8, keys_per_tile=64, radix=16,
                             seed=3))
-FFT8 = ("gen_fft", dict(num_tiles=8, points_per_tile=64, writeback=True))
+FFT8 = ("gen_fft", dict(num_tiles=8, points_per_tile=32, writeback=True))
 CASES = {
     "radix8_chain0": (RADIX8, {"tpu/miss_chain": 0}),
     "fft8_chain12": (FFT8, {"tpu/miss_chain": 12}),

@@ -24,6 +24,12 @@ run after the port's leaves were held equal to it.  A pin is read only
 for the inputs it was recorded from: a case whose inputs changed fails
 until its pin is recorded again.  The comparison is exact, leaf by leaf.
 
+A function-parity test (a walk, a classify step, a resolver) holds the
+port's outputs the same way (:func:`check_outputs`): the JAX function
+runs on the module's live cases, and the others read the JAX outputs
+recorded for the same inputs (the config and the operand arrays, whose
+digest is the case's key).
+
 ``GRAPHITE_TORCH_JAX`` chooses where the other cases' leaves come from:
 
   * unset — the pins; a case without a pin runs the JAX package;
@@ -83,16 +89,26 @@ def _load(module: str) -> Dict[str, Dict[str, str]]:
         return {}
 
 
-def inputs(over: Dict[str, object], trace=None, **extra) -> str:
+def inputs(over: Dict[str, object], trace=None, arrays=None,
+           **extra) -> str:
     """SHA-256 of a case's inputs: the config overrides ``over`` (the
     tile count among them), the port's ``trace`` (the engine's
     TraceArrays, addr and meta, or a Trace's ops, addr, arg and arg2:
-    each array's dtype, shape and bytes) and any ``extra`` values (the
-    steps or quanta run).  The JAX package is fixed, so these decide its
-    leaves."""
+    each array's dtype, shape and bytes), a function's operand
+    ``arrays`` (name -> numpy array or None, each by dtype, shape and
+    bytes) and any ``extra`` values (the steps or quanta run).  The JAX
+    package is fixed, so these decide its leaves."""
     h = hashlib.sha256(json.dumps(
         [sorted((str(k), str(v)) for k, v in over.items()),
          sorted((str(k), str(v)) for k, v in extra.items())]).encode())
+    for name in sorted(arrays or {}):
+        a = arrays[name]
+        if a is None:
+            h.update(f"{name}|None".encode())
+            continue
+        a = np.ascontiguousarray(np.asarray(a))
+        h.update(f"{name}|{a.dtype.str}|{a.shape}".encode())
+        h.update(a.tobytes())
     if trace is not None:
         # The engine's TraceArrays (addr, meta) or a Trace's arrays.
         fields = ("addr", "meta") if hasattr(trace, "meta") else (
@@ -102,6 +118,44 @@ def inputs(over: Dict[str, object], trace=None, **extra) -> str:
             h.update(f"{f}|{a.dtype.str}|{a.shape}".encode())
             h.update(a.tobytes())
     return h.hexdigest()[:32]
+
+
+def outputs(out, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A function's outputs as flat numpy leaves: a NamedTuple (nested
+    ones under ``field.`` names) or a dict of torch tensors or JAX
+    arrays, None fields left out, uint64 (the sharer words) as their
+    int64 bits, as the port holds them."""
+    items = out.items() if isinstance(out, dict) else zip(out._fields, out)
+    leaves = {}
+    for f, v in items:
+        if v is None:
+            continue
+        if hasattr(v, "_fields") or isinstance(v, dict):
+            leaves.update(outputs(v, f"{prefix}{f}."))
+            continue
+        a = np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+        leaves[prefix + f] = a.view(np.int64) if a.dtype == np.uint64 else a
+    return leaves
+
+
+def fields_of(like, out) -> Dict[str, object]:
+    """``out``'s fields that ``like`` (a NamedTuple) has, as a dict: the
+    JAX function's outputs limited to the port's."""
+    return {f: getattr(out, f) for f in like._fields}
+
+
+def check_outputs(module: str, tout, jax_out: Callable[[], object],
+                  over: Dict[str, object], arrays,
+                  live: bool = False) -> None:
+    """Hold a port function's outputs ``tout`` to the JAX function's on the
+    same operands, as :func:`check` holds end states: ``jax_out()`` (the
+    JAX function run) where ``live``, :data:`ENV` asks for it or the case
+    has no pin, else the pin recorded for these inputs (the config
+    overrides ``over`` and the operand ``arrays``; the inputs' digest is
+    the case's key)."""
+    key = inputs(over, arrays=arrays)
+    check(module, key, outputs(tout), lambda: outputs(jax_out()), key,
+          live)
 
 
 def _record(module: str, key: str, case_inputs: str,
