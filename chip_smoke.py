@@ -1228,16 +1228,21 @@ def _shard_walks(group, walks, ffs, s_ids):
             v = variant_params(p)
             nt = type(nt)(*[t.to(group.device) if t is not None else None
                             for t in nt])
+            arg = clone_operands(nt)
             if kind == "run_window_sharded":
-                got = kwin.run_window_sharded(ps, v, nt, s_ids, group)
+                got = kwin.run_window_sharded(ps, v, arg, s_ids, group)
                 refs = (kwin.window_walk_cuda(p, v, clone_operands(nt),
                                               s_ids),
                         kwin.window_walk(p, v, nt, s_ids))
             else:
-                got = kwin.run_fast_forward_sharded(ps, v, nt, group)
+                got = kwin.run_fast_forward_sharded(ps, v, arg, group)
                 refs = (kwin.fast_forward_walk_cuda(p, v,
                                                     clone_operands(nt)),
                         kwin.fast_forward_walk(p, v, nt))
+            # The sharded walk writes its own cuts, never its operands.
+            for f, a, b in zip(nt._fields, arg, nt):
+                check(a is None or torch.equal(a, b),
+                      f"{kind} wrote its operand {f}")
             for ref in refs:
                 for f in ref._fields:
                     a, b = getattr(got, f), getattr(ref, f)

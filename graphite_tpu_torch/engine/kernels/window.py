@@ -916,18 +916,23 @@ WINDOW_OUT_AXES = dict(
 )
 
 
-def _shard_local(tup, axes, shard_idx: int, tiles_local: int):
+def _shard_local(tup, axes, shard_idx: int, tiles_local: int, written):
     """Each leaf of ``tup`` (a NamedTuple of tensors or None) cut to tiles
     ``[shard_idx * tiles_local, (shard_idx + 1) * tiles_local)`` along its
-    axis in ``axes``; None-axis leaves pass whole.  The cuts are
-    contiguous copies: the CUDA walks update some of them in place."""
+    axis in ``axes``; None-axis leaves pass whole.  Every cut is
+    contiguous, and the leaves named in ``written`` (those the CUDA walk
+    updates in place) are always copies: a cut along axis 0 would
+    otherwise be a view of the caller's tensor."""
     lo = shard_idx * tiles_local
 
     def cut(name, t):
         ax = axes[name]
         if t is None or ax is None:
             return t
-        return t.narrow(ax, lo, tiles_local).contiguous()
+        t = t.narrow(ax, lo, tiles_local)
+        if name in written:
+            return t.clone(memory_format=torch.contiguous_format)
+        return t.contiguous()
 
     return type(tup)(**{f: cut(f, t) for f, t in zip(tup._fields, tup)})
 
@@ -946,8 +951,10 @@ def shard_local_window_in(wi: WindowIn, shard_idx: int,
                           tiles_local: int) -> WindowIn:
     """Slice every walk operand to one shard's ``tiles_local`` tiles along
     its declared tile axis (``WINDOW_IN_AXES``; None-axis leaves — the
-    boundary, the model-enable flag, the stamp base — pass whole)."""
-    return _shard_local(wi, WINDOW_IN_AXES, shard_idx, tiles_local)
+    boundary, the model-enable flag, the stamp base — pass whole).  The
+    leaves the kernel writes (``INPLACE_FIELDS``) are fresh copies."""
+    return _shard_local(wi, WINDOW_IN_AXES, shard_idx, tiles_local,
+                        INPLACE_FIELDS)
 
 
 def run_window_sharded(params: SimParams, vp: VariantParams, wi: WindowIn,
@@ -1337,8 +1344,10 @@ def run_fast_forward(params: SimParams, vp: VariantParams,
 
 def shard_local_ff_in(fi: FFIn, shard_idx: int, tiles_local: int) -> FFIn:
     """Slice every fast-forward operand to one shard's tiles along its
-    declared axis (``FF_IN_AXES``; None-axis leaves pass whole)."""
-    return _shard_local(fi, FF_IN_AXES, shard_idx, tiles_local)
+    declared axis (``FF_IN_AXES``; None-axis leaves pass whole).  The
+    leaves the kernel writes (``FF_INPLACE_FIELDS``) are fresh copies."""
+    return _shard_local(fi, FF_IN_AXES, shard_idx, tiles_local,
+                        FF_INPLACE_FIELDS)
 
 
 def run_fast_forward_sharded(params: SimParams, vp: VariantParams,
@@ -1346,7 +1355,7 @@ def run_fast_forward_sharded(params: SimParams, vp: VariantParams,
     """The fast-forward walk under ``tpu/tile_shards`` > 1: this rank's
     T/S tiles, walked by the unchanged walk (on a CUDA tensor the kernel,
     T/S blocks), gathered back to whole leaves through ``group``, as
-    :func:`run_window_sharded`."""
+    :func:`run_window_sharded`; ``fi``'s leaves are not written."""
     _, tl = group.tiles(params.num_tiles)
     fi_l = shard_local_ff_in(fi, group.rank, tl)
     if dispatch.use_kernel(fi.clock):

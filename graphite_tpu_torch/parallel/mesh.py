@@ -78,11 +78,7 @@ class ShardGroup:
         buf = torch.cat(cols, dim=1)
         out = torch.empty((self.size * tl, buf.shape[1]), dtype=torch.uint8,
                           device=buf.device)
-        # all_gather_into_tensor is deprecated from torch 2.13 on, which
-        # names all_gather_single in its place; older torch lacks it.
-        gather = getattr(dist, "all_gather_single",
-                         dist.all_gather_into_tensor)
-        gather(out, buf, group=self.pg)
+        dist.all_gather_into_tensor(out, buf, group=self.pg)
         res = []
         for (_, ax), m, r, part in zip(leaves, moved, rows,
                                        torch.split(out, widths, dim=1)):

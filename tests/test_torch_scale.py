@@ -19,7 +19,9 @@ instead of the default 2 GB, whose every drop-scatter copy makes a CPU
 round take seconds):
 
   * ``gen_radix(1024, keys_per_tile=1, radix=64)`` at
-    ``tpu/block_events = 4``, miss_chain 0 and 12;
+    ``tpu/block_events = 4``, miss_chain 0 and, on a directory of 4
+    one-way sets a tile under 16 KB L2s (``dir_sharers`` is 2 MB), whose
+    evictions reach the conflict rounds in the first quantum, 12;
   * ``gen_shared_readers(1024, lines=64, passes=2)``, whose conflict
     rounds write floor-table slots from two or more rows with different
     availability times, so the dense group-max form gives another table
@@ -74,14 +76,19 @@ import torch_jax_ref as ref
 
 SMALL_DIR = {"dram_directory/total_entries": 1024}
 K4 = {"tpu/block_events": 4}
+# 4 one-way directory sets a tile under 16 KB L2s.
+TINY_DIR = {"dram_directory/total_entries": 4,
+            "dram_directory/associativity": 1, "l2_cache/T1/cache_size": 16}
 RADIX1 = ("gen_radix", dict(keys_per_tile=1, radix=64, seed=0))
 # name: (T, (generator, kwargs), config overrides, quanta)
 CASES = {
     "radix1024_chain0": (1024, RADIX1, {**SMALL_DIR, **K4}, 4),
-    # Seven quanta: the first six serve every chain in the replay pass,
-    # the seventh has conflict rounds at miss_chain 12.
-    "radix1024_chain12": (1024, RADIX1, {**SMALL_DIR, **K4,
-                                         "tpu/miss_chain": 12}, 7),
+    # On TINY_DIR the directory evictions reach the conflict rounds in
+    # the first quantum; two quanta serve chains in the replay pass and
+    # run conflict rounds in each.  (On SMALL_DIR the first conflict
+    # round comes in the seventh quantum, nine times the CPU time.)
+    "radix1024_chain12": (1024, RADIX1, {**TINY_DIR, **K4,
+                                         "tpu/miss_chain": 12}, 2),
     "shared_readers1024": (1024, ("gen_shared_readers",
                                   dict(lines=64, passes=2)),
                            SMALL_DIR, 2),
@@ -90,16 +97,14 @@ CASES = {
     # Shared-L2 MESI on 32-set slices (16 KB of L2 a tile): the conflict
     # round's scatter forms and the chain pass's plain step at T = 1024
     # on the slice directory, with MESI's E grants and silent upgrades.
-    # Two quanta: by then the slices hold E, M and S lines and four
+    # One quantum: by then the slices hold E, M and S lines and two
     # conflict rounds have run.
     "radix1024_shl2_mesi_chain12": (1024, RADIX1, {
         **K4, "tpu/miss_chain": 12,
         "caching_protocol/type": "pr_l1_sh_l2_mesi",
-        "l2_cache/T1/cache_size": 16}, 2),
+        "l2_cache/T1/cache_size": 16}, 1),
     "radix2048_chain12": (2048, RADIX1, {
-        **K4, "tpu/miss_chain": 12, "dram_directory/total_entries": 4,
-        "dram_directory/associativity": 1, "l2_cache/T1/cache_size": 16},
-        1),
+        **K4, "tpu/miss_chain": 12, **TINY_DIR}, 1),
 }
 # The cases compared with the JAX package's live run in tier-1 (the
 # others with its recorded pins: tests/torch_jax_ref.py).

@@ -87,14 +87,24 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+# What else a shard count's launch runs on its group after its cases
+# (torch_shard_ranks.run_cases): (key, function, args).
+UNSPAWNED2 = (2, ("gen_unspawned", dict(num_tiles=2)), {})
+EXTRAS = {
+    2: (("deadlock", "deadlocks", (UNSPAWNED2, 64)),),
+    4: (("summary", "summary", (CASES["radix8_s4"][1], MAX_STEPS)),),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _sharded(shards):
     """Every case of ``shards`` shards, one launch: per rank, per case,
-    the end leaves (rank 0) or their digests (the others)."""
+    the end leaves (rank 0) or their digests (the others), and the
+    results of that count's ``EXTRAS``."""
     cases = {n: c for n, (s, c) in CASES.items() if s == shards}
     return mesh.launch(ranks.run_cases, shards, device="cpu",
                        timeout_s=LAUNCH_TIMEOUT_S, threads=1,
-                       args=(cases, MAX_STEPS))
+                       args=(cases, MAX_STEPS, EXTRAS.get(shards, ())))
 
 
 def _solo(name):
@@ -175,12 +185,22 @@ SLICE_CONFIGS = {
 }
 
 
+def _assert_fresh(cut, whole, name):
+    """A cut the CUDA walk writes in place shares no memory with the
+    caller's tensor (a cut along axis 0 of a contiguous tensor would
+    otherwise be a view of it)."""
+    if whole is None:
+        return
+    assert cut.untyped_storage().data_ptr() != \
+        whole.untyped_storage().data_ptr(), name
+
+
 @pytest.mark.parametrize("config", sorted(SLICE_CONFIGS))
 @pytest.mark.parametrize("shards", [2, 8])
 def test_shard_local_window_in_matches_jax(config, shards):
     """Every walk operand cut to each shard's tiles along its axis, as the
     JAX ``shard_local_window_in`` cuts it at that concrete shard index;
-    the cuts are contiguous copies."""
+    the cuts are contiguous, and those the kernel writes are copies."""
     tp = ranks.params(8, 1, SLICE_CONFIGS[config])
     gen = (toperands.iocoom_window_arrays if config == "iocoom_mixed"
            else toperands.seeded_window_arrays)
@@ -195,6 +215,8 @@ def test_shard_local_window_in_matches_jax(config, shards):
                 assert b is None, f
                 continue
             assert b.is_contiguous(), f
+            if f in twin.INPLACE_FIELDS:
+                _assert_fresh(b, getattr(wi, f), f)
             np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                           err_msg=f"{f} shard {i}")
 
@@ -210,6 +232,8 @@ def test_shard_local_ff_in_matches_jax(shards):
     for i, jl in enumerate(_jax_slices("ff", arrays, shards)):
         tl = twin.shard_local_ff_in(fi, i, 8 // shards)
         for f in twin.FFIn._fields:
+            if f in twin.FF_INPLACE_FIELDS:
+                _assert_fresh(getattr(tl, f), getattr(fi, f), f)
             np.testing.assert_array_equal(
                 np.asarray(getattr(jl, f)), getattr(tl, f).numpy(),
                 err_msg=f"{f} shard {i}")
@@ -275,27 +299,22 @@ def test_launch_reports_the_failing_rank():
 
 def test_launch_times_out():
     with pytest.raises(TimeoutError, match="did not report"):
-        mesh.launch(ranks.hang, 2, device="cpu", timeout_s=3, threads=1)
+        mesh.launch(ranks.hang, 2, device="cpu", timeout_s=1, threads=1)
 
 
 def test_deadlock_raises_on_every_rank():
     """Every rank polls the same replicated state: the no-progress check
-    fires on all of them alike."""
-    got = mesh.launch(ranks.deadlocks, 2, device="cpu",
-                      timeout_s=LAUNCH_TIMEOUT_S, threads=1,
-                      args=((2, ("gen_unspawned", dict(num_tiles=2)), {}),
-                            64))
+    fires on all of them alike (run by the 2-rank launch)."""
+    got = [r["deadlock"] for r in _sharded(2)]
     assert got[0].startswith("DeadlockError") and got[0] == got[1]
 
 
 def test_run_simulation_takes_the_group():
-    """``run_simulation(..., group=...)`` on 4 ranks: every rank's summary
-    is the unsharded run's (host time and rate aside)."""
-    case = CASES["radix8_s4"][1]
-    got = mesh.launch(ranks.summary, 4, device="cpu",
-                      timeout_s=LAUNCH_TIMEOUT_S, threads=1,
-                      args=(case, MAX_STEPS))
-    want = ranks.summary(None, case, MAX_STEPS)
+    """``run_simulation(..., group=...)`` on 4 ranks (run by the 4-rank
+    launch): every rank's summary is the unsharded run's (host time and
+    rate aside)."""
+    got = [r["summary"] for r in _sharded(4)]
+    want = ranks.summary(None, CASES["radix8_s4"][1], MAX_STEPS)
     assert want["all_done"] and all(g == want for g in got)
 
 

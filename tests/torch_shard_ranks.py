@@ -58,12 +58,14 @@ def run_case(group, shards: int, case, max_steps: int) -> dict:
     return convert.state_to_numpy(sim.state)
 
 
-def run_cases(group, cases: dict, max_steps: int) -> dict:
+def run_cases(group, cases: dict, max_steps: int, extras=()) -> dict:
     """Every case of ``cases`` (name -> case) on this rank, sharded: rank 0
     returns each case's leaves and its seconds, the other ranks each
     leaf's digest (the state is replicated: every rank must end equal).
-    Then each rank runs its share of the cases unsharded (rank r the
-    r-th, (r + S)-th, ... by name), returned under ``"solo"``."""
+    Then each ``(key, function name, args)`` of ``extras`` runs on the
+    same group, ``out[key] = function(group, *args)``, in order.  Last,
+    each rank runs its share of the cases unsharded (rank r the r-th,
+    (r + S)-th, ... by name), returned under ``"solo"``."""
     out = {}
     for name, case in cases.items():
         t0 = time.perf_counter()
@@ -71,6 +73,8 @@ def run_cases(group, cases: dict, max_steps: int) -> dict:
         out[name] = (leaves if group.rank == 0
                      else {k: ref.digest(v) for k, v in leaves.items()},
                      time.perf_counter() - t0)
+    for key, fn, args in extras:
+        out[key] = globals()[fn](group, *args)
     out["solo"] = {name: run_case(None, 1, cases[name], max_steps)
                    for name in sorted(cases)[group.rank::group.size]}
     return out
